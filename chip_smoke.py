@@ -6,9 +6,19 @@
 Runs every phase, in this order:
   device  require CUDA; print the card (nvidia-smi name, power limit),
           torch/CUDA versions and the TF32 flags
-  build   build both kernels from gnss_dsp_tpu_torch/csrc with nvcc
-  k1      acquisition-surface kernel vs its plain version at the sky-search
-          shape (32 PRN x 70 doppler x 80 blocks x 4096), with timings
+  build   build every kernel from gnss_dsp_tpu_torch/csrc with nvcc (one
+          process per source, all at once)
+  k1      acquisition-surface kernel vs its plain version at the GPS L1
+          sky-search shape (32 PRN x 70 doppler x 80 blocks x 4096) and the
+          non-coherent BeiDou B1I shape (63 PRN x 70 doppler x 40 blocks x
+          16384), with timings
+  k5      spectral-combine coherent kernel vs its plain version at the
+          BeiDou B1I --coherent 20 shape (63 PRN x 51 doppler x 2 groups x
+          20 alignments x 16384), with timings
+  k6      per-block coherent kernel vs its plain version at the GPS L1
+          --coherent 8 shape (32 PRN x 102 doppler x 80 blocks in groups
+          of 8 x 4096) and the Xona X1P shape (1 PRN x 70 doppler x 200
+          blocks x 100 alignments x 4096), with timings
   k2      fused tracking kernel vs its plain version at the tracking bench
           shape (32 channels x 900 blocks, 4.096 MHz), with timings; then
           at the main path's shape (the e2e capture's 8 channels at
@@ -18,8 +28,18 @@ Runs every phase, in this order:
           capture (8.184 MHz, 8 satellites, 45 dB-Hz), acquire it, track
           the hits for 2150 blocks (past the 2000 ms chunk refill and the
           FLL -> PLL switch at block 1000), estimate C/N0 with
-          gnss_dsp_tpu.cli.cn0; the launch counters must show both
-          kernels on that path
+          gnss_dsp_tpu.cli.cn0; the launch counters must show K1 and K2
+          on that path
+  e2e_coherent
+          the extended-coherent path through the acquire CLI: a 50 ms
+          BeiDou B1I capture (16.368 MHz, 6 satellites with NH20 at
+          32 dB-Hz) searched with --coherent 20 --time 40 over all 63
+          PRNs on a 25 Hz grid, then --coherent 8 --time 80 on the e2e
+          GPS L1 capture; the launch counters must show K5 and K6 there
+
+In e2e and e2e_coherent every surface-kernel call is recorded with its
+shape, and each must have been held against its plain version at that
+shape in k1, k5 or k6 (a launch's doppler count may be smaller).
 
 Prints a JSON line of per-kernel results, then the nvidia-smi line, then a
 last line {"ok": true, "device": {...}}.  Exits non-zero, without that
@@ -29,6 +49,8 @@ line, when any phase fails or no GPU is present.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -43,6 +65,12 @@ KERNELS = {
     "track_fused": dict(route="cuda",
                         source="gnss_dsp_tpu_torch/csrc/track_fused.cu",
                         replaces="gnss_dsp_tpu/ops/pallas_track_fused.py:536"),
+    "acquire_coh_spec": dict(
+        route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire_coh.cu",
+        replaces="gnss_dsp_tpu/ops/pallas_acquire_coh.py:273"),
+    "acquire_coh": dict(
+        route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire_coh.cu",
+        replaces="gnss_dsp_tpu/ops/pallas_acquire_coh.py:467"),
 }
 
 
@@ -82,21 +110,83 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# --------------------------------------------- shapes checked vs main path
+
+# the surface kernels' wrappers, by kernel: (module under ops, function)
+SURFACE_WRAPPERS = {
+    "acquire2": ("acquire2", "corr_surface2"),
+    "acquire_coh_spec": ("acquire_coh", "corr_surface_coh_spec"),
+    "acquire_coh": ("acquire_coh", "corr_surface_coh"),
+}
+# shape_key of every case the k phases held against its plain version
+CHECKED = {name: [] for name in SURFACE_WRAPPERS}
+
+
+def shape_key(name, F, code_f, *rest):
+    """(doppler count, the rest of the shape) of a wrapper call: P, the
+    spectra's rows and W, then K5's A and n_valid or K6's A, m_coh and
+    n_valid (n_valid defaults to 0)."""
+    key = (code_f.shape[0], *F.shape[1:])
+    if name == "acquire_coh_spec":       # A, n_valid
+        key += (rest[0], rest[1] if len(rest) > 1 else 0)
+    elif name == "acquire_coh":          # cos, sin, sec_mat, m_coh, n_valid
+        key += (rest[2].shape[0], rest[3], rest[4] if len(rest) > 4 else 0)
+    return F.shape[0], key
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list that collects (kernel, shape_key) for every surface
+    wrapper call made inside.  The engines call the wrappers through
+    their ops module, so wrapping the module attribute sees every call;
+    the launch counters are the wrappers' own and count as before."""
+    calls, saved = [], []
+    for name, (mod, fn) in SURFACE_WRAPPERS.items():
+        m = importlib.import_module(f"gnss_dsp_tpu_torch.ops.{mod}")
+        orig = getattr(m, fn)
+
+        def spy(*a, _name=name, _orig=orig, **kw):
+            check(not kw, (_name, "called with keywords", sorted(kw)))
+            calls.append((_name, shape_key(_name, *a)))
+            return _orig(*a)
+
+        saved.append((m, fn, orig))
+        setattr(m, fn, spy)
+    try:
+        yield calls
+    finally:
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
+
+
+def check_covered(tag, calls):
+    """Every surface-kernel call of the main path was held against its
+    plain version at its shape.  A launch may cover fewer dopplers than
+    the checked case (the grid's last chunk): the doppler count only
+    sizes the launch grid, one CTA per (PRN, doppler, alignment)."""
+    for name, (dc, key) in sorted(set(calls)):
+        check(any(key == k and dc <= d for d, k in CHECKED[name]),
+              (tag, name, "main-path shape not checked", dc, key,
+               CHECKED[name]))
+        log(f"[{tag}] {name} launched at DC={dc} {key}: "
+            f"{sum(c == (name, (dc, key)) for c in calls)} call(s), shape "
+            f"checked against the plain version")
+
+
 # ---------------------------------------------------------------- phase k1
 
-def phase_k1(dev, card, results):
+def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed):
     import torch
 
     from gnss_dsp_tpu_torch.ops import acquire2
 
-    P, DC, B, W = 32, 70, 80, 4096
-    g = torch.Generator(device=dev).manual_seed(1234)
+    g = torch.Generator(device=dev).manual_seed(seed)
     code_f = torch.exp(1j * 2 * np.pi * torch.rand(
         (P, W), generator=g, device=dev)).to(torch.complex64)
     F = torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
                       torch.randn((DC, B, W), generator=g, device=dev))
     # one planted correlation peak per PRN: F[d, b] += code_f[p] e^{-2pi i k j/W}
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(plant_seed)
     dops = rng.permutation(DC)[:P]
     lags = rng.integers(0, W, P)
     k = torch.arange(W, device=dev, dtype=torch.float64)
@@ -104,6 +194,7 @@ def phase_k1(dev, card, results):
         ramp = torch.exp(-2j * np.pi * k * float(lags[p]) / W)
         F[int(dops[p])] += 0.5 * (code_f[p].to(torch.complex128)
                                   * ramp).to(torch.complex64)[None, :]
+    CHECKED["acquire2"].append(shape_key("acquire2", F, code_f))
     peak_k, idx_k, sum_k = acquire2.corr_surface2(F, code_f)
     peak_p, idx_p, sum_p = acquire2.corr_surface2_plain(F, code_f)
     torch.cuda.synchronize()
@@ -113,7 +204,7 @@ def phase_k1(dev, card, results):
     # code_f * conj(F) = e^{+2 pi i k j/W}: its inverse DFT peaks at -j
     want = (-lags) % W
     planted_k = idx_k[np.arange(P), dops]
-    check((planted_k == want).all(), ("planted lag", planted_k, want))
+    check((planted_k == want).all(), (tag, "planted lag", planted_k, want))
     check((idx_p[np.arange(P), dops] == want).all())
     np.testing.assert_allclose(peak_k, peak_p, rtol=1e-4)
     np.testing.assert_allclose(sum_k, sum_p, rtol=1e-4)
@@ -124,17 +215,163 @@ def phase_k1(dev, card, results):
     for p, d in diff:
         q = torch.fft.ifft(code_f[p] * torch.conj(F[d]), dim=-1).abs().sum(0)
         a, b = float(q[idx_k[p, d]]), float(q[idx_p[p, d]])
-        check(abs(a - b) <= 1e-5 * b, ("argmax differs", p, d, a, b))
+        check(abs(a - b) <= 1e-5 * b, (tag, "argmax differs", p, d, a, b))
     err = float(max(np.abs(peak_k - peak_p).max(), np.abs(sum_k - sum_p).max()))
     ms = cuda_ms(lambda: acquire2.corr_surface2(F, code_f), 5)
     plain_ms = cuda_ms(lambda: acquire2.corr_surface2_plain(F, code_f), 2)
     cells = P * DC * B * W
-    log(f"[k1] P={P} DC={DC} B={B} W={W}: idx exact on planted cells, "
-        f"{len(diff)} near-tie argmax differences elsewhere, "
+    log(f"[k1] {tag}: P={P} DC={DC} B={B} W={W}: idx exact on planted "
+        f"cells, {len(diff)} near-tie argmax differences elsewhere, "
         f"max|dpeak|,|dsum| = {err:.3g}")
-    log(f"[k1] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
+    log(f"[k1] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
+        f"Gcells/s), plain {plain_ms:.3f} ms  [{card}]")
+    return err, ms, plain_ms
+
+
+def phase_k1(dev, card, results):
+    e1, ms, plain_ms = _k1_case(dev, card, "gps-l1", 32, 70, 80, 4096,
+                                1234, 5)
+    e2, _, _ = _k1_case(dev, card, "beidou-b1i", 63, 70, 40, 16384, 4321, 8)
+    # the kernels line keeps the GPS L1 case's times (the e2e shape)
+    results["acquire2"].update(max_abs_err=max(e1, e2), ms=ms,
+                               plain_ms=plain_ms)
+
+
+# ----------------------------------------------------------- phases k5, k6
+
+def _planted_code(dev, g, P, W):
+    import torch
+
+    return torch.exp(1j * 2 * np.pi * torch.rand(
+        (P, W), generator=g, device=dev)).to(torch.complex64)
+
+
+def _ramp(code_p, lag, W):
+    """code_p e^{+2 pi i k lag/W}: against code_p its surface peaks at
+    lag."""
+    import torch
+
+    k = torch.arange(W, device=code_p.device, dtype=torch.float64)
+    return code_p.to(torch.complex128) * torch.exp(2j * np.pi * k * lag / W)
+
+
+def _check_coh(tag, got, plain, plants, surface):
+    """idx and align exact on the planted cells; elsewhere a differing
+    (idx, align) only where the plain surface ties at both cells to
+    float32 rounding; peak rtol 1e-4.  Returns (max |dpeak|, number of
+    near-tie differences)."""
+    pk_k, ix_k, al_k = (v.cpu().numpy() for v in got)
+    pk_p, ix_p, al_p = (v.cpu().numpy() for v in plain)
+    for p, d, a, j in plants:
+        check((ix_k[p, d], al_k[p, d]) == (j, a),
+              (tag, "planted", p, d, ix_k[p, d], al_k[p, d], j, a))
+        check((ix_p[p, d], al_p[p, d]) == (j, a), (tag, "plain planted"))
+    np.testing.assert_allclose(pk_k, pk_p, rtol=1e-4)
+    diff = np.argwhere((ix_k != ix_p) | (al_k != al_p))
+    for p, d in diff:
+        q = surface(p, d)                                  # [A, W]
+        a = float(q[al_k[p, d], ix_k[p, d]])
+        b = float(q[al_p[p, d], ix_p[p, d]])
+        check(abs(a - b) <= 1e-5 * b, (tag, "differs", p, d, a, b))
+    return float(np.abs(pk_k - pk_p).max()), len(diff)
+
+
+def phase_k5(dev, card, results):
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    # beidou-b1i --coherent 20 --time 40 over 63 PRNs: 40 blocks in G=2
+    # groups, A=20 alignments, linear 2n windows, 51 dopplers a launch
+    P, DC, G, A, W = 63, 51, 2, 20, 16384
+    g = torch.Generator(device=dev).manual_seed(2345)
+    code_f = _planted_code(dev, g, P, W)
+    f2 = torch.complex(torch.randn((DC, G * A, W), generator=g, device=dev),
+                       torch.randn((DC, G * A, W), generator=g, device=dev))
+    rng = np.random.default_rng(6)
+    dops = rng.integers(0, DC, P)          # P > DC: dopplers are shared
+    plants = [(p, int(dops[p]), int(rng.integers(A)), int(rng.integers(W)))
+              for p in range(P)]
+    for p, d, a, j in plants:
+        f2[d, a::A] += (0.5 * _ramp(code_f[p], j, W)).to(torch.complex64)
+    CHECKED["acquire_coh_spec"].append(
+        shape_key("acquire_coh_spec", f2, code_f, A))
+    got = acquire_coh.corr_surface_coh_spec(f2, code_f, A)
+    plain = acquire_coh.corr_surface_coh_spec_plain(f2, code_f, A)
+    torch.cuda.synchronize()
+    err, nd = _check_coh("k5", got, plain, plants, lambda p, d: (
+        acquire_coh.surface_spec_plain(f2[d:d + 1], code_f[p:p + 1], A)[0, 0]))
+    ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(f2, code_f, A), 3)
+    plain_ms = cuda_ms(
+        lambda: acquire_coh.corr_surface_coh_spec_plain(f2, code_f, A), 1)
+    cells = P * DC * G * A * W
+    log(f"[k5] P={P} DC={DC} G={G} A={A} W={W}: idx and align exact on "
+        f"planted cells, {nd} near-tie differences elsewhere, max|dpeak| = "
+        f"{err:.3g}")
+    log(f"[k5] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
         f"plain {plain_ms:.3f} ms  [{card}]")
-    results["acquire2"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["acquire_coh_spec"].update(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms)
+
+
+def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    A = len(sec)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    code_f = _planted_code(dev, g, P, W)
+    F = torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
+                      torch.randn((DC, B, W), generator=g, device=dev))
+    ang = 2 * np.pi * torch.rand((DC, B), generator=g, device=dev)
+    cosang, sinang = torch.cos(ang), torch.sin(ang)
+    sec_mat = torch.from_numpy(np.asarray(sec, np.float32)[
+        (np.arange(A)[:, None] + np.arange(B)[None, :]) % A]).to(dev)
+    rng = np.random.default_rng(seed)
+    dops = rng.permutation(DC)[:P]
+    plants = [(p, int(dops[p]), int(rng.integers(A)), int(rng.integers(W)))
+              for p in range(P)]
+    # block m carries sec[a, m] rot[d, m] code: the rotated, overlay-wiped
+    # per-block surfaces add coherently at alignment a
+    for p, d, a, j in plants:
+        rot = torch.exp(1j * ang[d].to(torch.float64))
+        F[d] += (0.5 * sec_mat[a].to(torch.float64)[:, None] * rot[:, None]
+                 * _ramp(code_f[p], j, W)[None]).to(torch.complex64)
+    args = (F, code_f, cosang, sinang, sec_mat, m_coh)
+    CHECKED["acquire_coh"].append(shape_key("acquire_coh", *args))
+    got = acquire_coh.corr_surface_coh(*args)
+    plain = acquire_coh.corr_surface_coh_plain(*args)
+    torch.cuda.synchronize()
+    err, nd = _check_coh(tag, got, plain, plants, lambda p, d: (
+        acquire_coh.surface_blk_plain(
+            F[d:d + 1], code_f[p:p + 1], cosang[d:d + 1], sinang[d:d + 1],
+            sec_mat, m_coh)[0, 0]))
+    ms = cuda_ms(lambda: acquire_coh.corr_surface_coh(*args), 3)
+    plain_ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_plain(*args), 1)
+    cells = P * DC * B * A * W
+    log(f"[k6] {tag}: P={P} DC={DC} B={B} m_coh={m_coh} A={A} W={W}: idx "
+        f"and align exact on planted cells, {nd} near-tie differences "
+        f"elsewhere, max|dpeak| = {err:.3g}")
+    log(f"[k6] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
+        f"Gcells/s as block x alignment cells), plain {plain_ms:.3f} ms  "
+        f"[{card}]")
+    return err, ms, plain_ms
+
+
+def phase_k6(dev, card, results):
+    from gnss_dsp_tpu.models import get_signal
+
+    x1p = get_signal("xona-x1p")
+    # gps-l1 --coherent 8 --time 80 on a 62.5 Hz grid: 80 blocks in
+    # groups of 8, one alignment, 102 dopplers a launch
+    e1, ms1, pms1 = _k6_case(dev, card, "gps-l1 --coherent 8", 32, 102, 80,
+                             8, [1.0], 4096, 77)
+    e2, ms2, pms2 = _k6_case(dev, card, "xona-x1p", 1, 70, 200, 100,
+                             x1p.secondary(x1p.prns()[0]), 4096, 78)
+    # the kernels line keeps the GPS L1 case's times (the e2e shape)
+    results["acquire_coh"].update(max_abs_err=max(e1, e2), ms=ms1,
+                                  plain_ms=pms1)
 
 
 # ---------------------------------------------------------------- phase k2
@@ -331,10 +568,12 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
     acquire2.LAUNCHES = 0
     track_fused.LAUNCHES = 0
     t0 = time.perf_counter()
-    out = run_cli(acq_cli.main, "gps-l1",
-                  [path, str(fs), "0", "--device", str(dev)])
+    with recording() as calls:
+        out = run_cli(acq_cli.main, "gps-l1",
+                      [path, str(fs), "0", "--device", str(dev)])
     torch.cuda.synchronize()
     t_acq = time.perf_counter() - t0
+    check_covered("e2e", calls)
     hits = parse_hits(out)
     check(sorted(hits) == list(range(1, 33)), out)
     absent = max(h["metric"] for p, h in hits.items()
@@ -396,6 +635,102 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
     os.remove(path)
 
 
+# ------------------------------------------------------ phase e2e_coherent
+
+def check_hits(tag, hits, truth, dop_tol, code_tol=1.0):
+    """Every planted PRN within dop_tol Hz and code_tol chips of truth,
+    and above every absent PRN's metric."""
+    absent = max(h["metric"] for p, h in hits.items()
+                 if p not in truth["prns"])
+    L = truth["code_length"]
+    for prn, dop, cp in zip(truth["prns"], truth["dops"], truth["phases"]):
+        h = hits[prn]
+        dc = abs(h["code"] - cp)
+        dc = min(dc, L - dc)
+        check(abs(h["doppler"] - dop) <= dop_tol, (tag, prn, h, dop))
+        check(dc <= code_tol, (tag, prn, h, cp))
+        check(h["metric"] > absent, (tag, prn, h, absent))
+        log(f"[e2e_coherent] {tag} prn {prn:2d}: doppler "
+            f"{h['doppler']:7.1f} (truth {dop:7.1f}) code {h['code']:7.2f} "
+            f"(truth {cp:7.2f}) metric {h['metric']:.2f}")
+    log(f"[e2e_coherent] {tag}: best absent-PRN metric {absent:.2f}")
+
+
+def phase_e2e_coherent(dev, card, results, work):
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        B1I_COHERENT, B1I_FS, parse_hits, run_cli, synth_b1i, synth_capture)
+
+    fs = B1I_FS
+    b1i = os.path.join(work, "e2e_beidou_b1i.iq")
+    t0 = time.perf_counter()
+    truth = synth_b1i(b1i, fs, 0.050)
+    t_synth = time.perf_counter() - t0
+    l1 = os.path.join(work, "e2e_gps_l1.iq")
+    l1_truth = synth_capture(l1, 8.184e6, 0.2)
+    l1_truth["code_length"] = 1023
+
+    acquire_coh.LAUNCHES_SPEC = 0
+    acquire_coh.LAUNCHES_BLK = 0
+    calls = []
+    t0 = time.perf_counter()
+    with recording() as c:
+        out = run_cli(acq_cli.main, "beidou-b1i",
+                      B1I_COHERENT + [b1i, str(fs), "0", "--device",
+                                      str(dev)])
+    calls += c
+    torch.cuda.synchronize()
+    t_b1i = time.perf_counter() - t0
+    hits = parse_hits(out)
+    check(sorted(hits) == list(range(1, 64)), out)
+    check_hits("beidou-b1i --coherent 20", hits, truth, 25.0)
+    t0 = time.perf_counter()
+    with recording() as c:
+        out = run_cli(acq_cli.main, "gps-l1",
+                      ["--coherent", "8", "--time", "80", "--doppler-search",
+                       "-6000,6000,62.5", l1, "8184000", "0", "--device",
+                       str(dev)])
+    calls += c
+    torch.cuda.synchronize()
+    t_l1 = time.perf_counter() - t0
+    hits = parse_hits(out)
+    check(sorted(hits) == list(range(1, 33)), out)
+    check_hits("gps-l1 --coherent 8", hits, l1_truth, 62.5)
+    l5, l6 = acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK
+    log(f"[e2e_coherent] launches: acquire_coh_spec {l5}, acquire_coh {l6}")
+    check(l5 > 0 and l6 > 0, (l5, l6))
+    results["acquire_coh_spec"]["launches"] = l5
+    results["acquire_coh"]["launches"] = l6
+    check_covered("e2e_coherent", calls)
+    log(f"[e2e_coherent] wall: synth {t_synth:.2f} s, beidou-b1i "
+        f"--coherent 20 {t_b1i:.2f} s, gps-l1 --coherent 8 {t_l1:.2f} s  "
+        f"[{card}]")
+
+    # the non-coherent search of the same B1I capture, for comparison only
+    t0 = time.perf_counter()
+    with recording() as calls:
+        out = run_cli(acq_cli.main, "beidou-b1i",
+                      ["--time", "40", b1i, str(fs), "0", "--device",
+                       str(dev)])
+    torch.cuda.synchronize()
+    check_covered("e2e_coherent", calls)
+    hits = parse_hits(out)
+    absent = max(h["metric"] for p, h in hits.items()
+                 if p not in truth["prns"])
+    for prn, dop, cp in zip(truth["prns"], truth["dops"], truth["phases"]):
+        h = hits[prn]
+        log(f"[e2e_coherent] non-coherent beidou-b1i prn {prn:2d}: doppler "
+            f"{h['doppler']:7.1f} (truth {dop:7.1f}) code {h['code']:7.2f} "
+            f"(truth {cp:7.2f}) metric {h['metric']:.2f}")
+    log(f"[e2e_coherent] non-coherent beidou-b1i: best absent-PRN metric "
+        f"{absent:.2f}, {time.perf_counter() - t0:.2f} s (not checked)")
+    os.remove(b1i)
+    os.remove(l1)
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -431,9 +766,12 @@ def main(argv=None) -> int:
             log(f"[build] {line.strip()}")
     os.makedirs(args.out, exist_ok=True)
     phase_k1(dev, card, results)
+    phase_k5(dev, card, results)
+    phase_k6(dev, card, results)
     phase_k2(dev, card, results)
     phase_k2_main_path(dev, results, args.out)
     phase_e2e(dev, card, results, args.out)
+    phase_e2e_coherent(dev, card, results, args.out)
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": list(results.values())}))
     print(card)

@@ -13,7 +13,8 @@ keeps the earliest best doppler, and inside a chunk argmax takes the
 first maximum, so the winning cell does not depend on the chunking.
 
 Not ported here: the v1/v2p kernel plans, FDMA (acquire_signal_fdma)
-and per-chunk results.
+and per-chunk results.  The extended-coherent search is in coherent.py
+and shares block_windows, mix_fft and the code-spectra LRU.
 """
 
 from __future__ import annotations
@@ -50,15 +51,30 @@ def build_code_ffts(sig, prns, n: int, window: int) -> np.ndarray:
     return np.fft.fft(c, axis=1)
 
 
-def block_windows(x: torch.Tensor, n: int, window: int, blocks: int):
+def block_windows(x: torch.Tensor, n: int, window: int, blocks: int,
+                  pad_to: int = 0):
     """The non-coherent block windows [B, W] (stride n; W = n for the
-    circular search, 2n for the sliding zero-padded templates)."""
+    circular search, 2n for the sliding zero-padded templates), followed
+    by zeros up to `pad_to` columns when that is larger (the padded-lag
+    route of the coherent search)."""
     m = window // n
     rows = blocks + m - 1
     xs = x[: rows * n].reshape(rows, n)
-    if m == 1:
-        return xs
-    return torch.cat([xs[i:i + blocks] for i in range(m)], dim=-1)
+    xb = xs if m == 1 else torch.cat([xs[i:i + blocks] for i in range(m)],
+                                     dim=-1)
+    if pad_to > window:
+        xb = torch.nn.functional.pad(xb, (0, pad_to - window))
+    return xb
+
+
+def mix_fft(xb: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """Doppler-mix the [B, W] block windows with each increment of df
+    (int64 [dc]) and forward-FFT them: complex64 [dc, B, W] spectra."""
+    w = nco.nco_wave(df, torch.zeros_like(df), xb.shape[-1])   # [dc, W]
+    xr, xi = xb.real[None], xb.imag[None]
+    wr, wi = w.real[:, None], w.imag[:, None]
+    xw = torch.complex(xr * wr - xi * wi, xr * wi + xi * wr)  # [dc, B, W]
+    return torch.fft.fft(xw, dim=-1)
 
 
 def _block_count(sig, ms: int) -> int:
@@ -108,11 +124,7 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
     cells = torch.full((1, 1), float(window), dtype=torch.float32, device=dev)
     for d0 in range(0, D, dop_chunk):
         df = dopp_fixed[d0:d0 + dop_chunk].to(dev, torch.int64)
-        w = nco.nco_wave(df, torch.zeros_like(df), window)    # [dc, W]
-        xr, xi = xb.real[None], xb.imag[None]
-        wr, wi = w.real[:, None], w.imag[:, None]
-        xw = torch.complex(xr * wr - xi * wi, xr * wi + xi * wr)  # [dc, B, W]
-        F = torch.fft.fft(xw, dim=-1)
+        F = mix_fft(xb, df)
         peak, code_idx, sm = acquire2.corr_surface2(F, code_ffts)  # [P, dc]
         metric = peak / (sm / cells) if peak_mean else peak
         ch_best = torch.argmax(metric, dim=-1)                # first max
@@ -131,6 +143,19 @@ _CODE_FFTS_DEV: dict = {}
 _CODE_FFTS_CAP = 4
 
 
+def device_code_ffts(sig, prns, n: int, window: int, device) -> torch.Tensor:
+    """build_code_ffts as complex64 on `device`, through the LRU."""
+    key = (sig.name, tuple(prns), n, window, torch.device(device))
+    code_ffts = _CODE_FFTS_DEV.pop(key, None)
+    if code_ffts is None:
+        cf_host = build_code_ffts(sig, prns, n, window).astype(np.complex64)
+        code_ffts = torch.from_numpy(cf_host).to(device)
+    _CODE_FFTS_DEV[key] = code_ffts            # re-insert = most recent
+    while len(_CODE_FFTS_DEV) > _CODE_FFTS_CAP:
+        _CODE_FFTS_DEV.pop(next(iter(_CODE_FFTS_DEV)))
+    return code_ffts
+
+
 def acquire_signal(sig, x_int: torch.Tensor, prns, doppler_search=None,
                    ms: int = 80) -> list:
     """Run acquisition for one signal over `prns`.
@@ -145,17 +170,7 @@ def acquire_signal(sig, x_int: torch.Tensor, prns, doppler_search=None,
     window = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
     blocks = _block_count(sig, ms)
     dops, fixed = doppler_grid(sig, doppler_search)
-    dev = x_int.device
-
-    key = (sig.name, tuple(prns), n, window, dev)
-    code_ffts = _CODE_FFTS_DEV.pop(key, None)
-    if code_ffts is None:
-        cf_host = build_code_ffts(sig, prns, n, window).astype(np.complex64)
-        code_ffts = torch.from_numpy(cf_host).to(dev)
-    _CODE_FFTS_DEV[key] = code_ffts            # re-insert = most recent
-    while len(_CODE_FFTS_DEV) > _CODE_FFTS_CAP:
-        _CODE_FFTS_DEV.pop(next(iter(_CODE_FFTS_DEV)))
-
+    code_ffts = device_code_ffts(sig, prns, n, window, x_int.device)
     metric, code_idx, dop_idx = grid_search(
         x_int, code_ffts, torch.from_numpy(fixed.astype(np.int64)),
         n=n, window=window, blocks=blocks,

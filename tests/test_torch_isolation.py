@@ -3,7 +3,7 @@
   * every module of gnss_dsp_tpu_torch (and chip_smoke.py) imports
     without loading jax, in a fresh interpreter;
   * asking for CUDA where there is none raises, and never runs on the CPU;
-  * a CPU run launches no kernel (both launch counters stay 0);
+  * a CPU run launches no kernel (every launch counter stays 0);
   * a kernel wrapper given CPU tensors raises instead of running its
     plain version (the choice is the engine's, by the tensor's device);
   * a kernel build that cannot run raises (no fallback);
@@ -37,6 +37,8 @@ def test_port_imports_no_jax():
     names = _port_modules()
     assert "gnss_dsp_tpu_torch.ops.acquire2" in names
     assert "gnss_dsp_tpu_torch.ops.track_fused" in names
+    for m in ("ops.acquire_coh", "acquire.coherent", "acquire.plan"):
+        assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
             "    importlib.import_module(n)\n"
@@ -70,16 +72,26 @@ def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):
 
 def test_cpu_run_launches_no_kernel():
     from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu_torch.ops import acquire2, track_fused
+    from gnss_dsp_tpu_torch.ops import acquire2, acquire_coh, track_fused
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import init_state, track_scan
 
-    la, lt = acquire2.LAUNCHES, track_fused.LAUNCHES
+    def counters():
+        return (acquire2.LAUNCHES, track_fused.LAUNCHES,
+                acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK)
+
+    before = counters()
     g = torch.Generator().manual_seed(0)
-    F = torch.randn((2, 3, 64), generator=g, dtype=torch.complex64)
+    F = torch.randn((2, 4, 64), generator=g, dtype=torch.complex64)
     code = torch.randn((2, 64), generator=g, dtype=torch.complex64)
     peak, idx, sm = acquire2.corr_surface2(F, code)
     assert peak.shape == (2, 2) and idx.dtype == torch.int32
+    peak, idx, al = acquire_coh.corr_surface_coh_spec(F, code, 2)
+    assert peak.shape == (2, 2) and al.dtype == torch.int32
+    peak, idx, al = acquire_coh.corr_surface_coh(
+        F, code, torch.ones((2, 4)), torch.zeros((2, 4)), torch.ones((1, 4)),
+        2)
+    assert peak.shape == (2, 2) and int(al.max()) == 0
     sig = get_signal("gps-l1")
     p = make_params(sig, 2.048e6, 0.0)
     x = torch.zeros(40_000, dtype=torch.complex64)
@@ -87,7 +99,7 @@ def test_cpu_run_launches_no_kernel():
     tab = torch.from_numpy(sig.code_table((5,)).astype(np.int8))
     _, rf, ri = track_scan(x, 30_000, tab, st, p, 3)
     assert ri.shape == (3, 1, 3) and (ri[:, 0, 0] > 0).all()
-    assert (acquire2.LAUNCHES, track_fused.LAUNCHES) == (la, lt) == (0, 0)
+    assert counters() == before == (0, 0, 0, 0)
 
 
 def test_track_kernel_wrapper_refuses_cpu_tensors():
@@ -127,7 +139,8 @@ def test_build_hash_follows_the_sources():
     from gnss_dsp_tpu_torch.ops import _build
 
     srcs = [os.path.basename(p) for p in _build._sources()]
-    assert srcs == ["acquire2.cu", "track_fused.cu"]
+    assert srcs == ["acq_surface.cuh", "acquire2.cu", "acquire_coh.cu",
+                    "track_fused.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
     assert path == _build.lib_path()
