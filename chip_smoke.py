@@ -9,9 +9,13 @@ Runs every phase, in this order:
   build   build every kernel from gnss_dsp_tpu_torch/csrc with nvcc (one
           process per source, all at once)
   k1      acquisition-surface kernel vs its plain version at the GPS L1
-          sky-search shape (32 PRN x 70 doppler x 80 blocks x 4096) and the
+          sky-search shape (32 PRN x 70 doppler x 80 blocks x 4096), the
           non-coherent BeiDou B1I shape (63 PRN x 70 doppler x 40 blocks x
-          16384), with timings
+          16384) and the launch shapes of the wide e2e searches below (GPS
+          L5I and Galileo E6B padded with n_valid, Galileo E1B, GPS L1CP,
+          GPS L2CM at 65536 to 163840), with timings
+  k7      full-surface kernel vs its plain version at the Xona X5 launch
+          shape (1 PRN x 54 doppler x 80 blocks x 30690), with timings
   k5      spectral-combine coherent kernel vs its plain version at the
           BeiDou B1I --coherent 20 shape (63 PRN x 51 doppler x 2 groups x
           20 alignments x 16384), with timings
@@ -27,8 +31,8 @@ Runs every phase, in this order:
   e2e     the main path through the CLIs: synthesize a 2.2 s GPS L1
           capture (8.184 MHz, 8 satellites, 45 dB-Hz), acquire it, track
           the hits for 2150 blocks (past the 2000 ms chunk refill and the
-          FLL -> PLL switch at block 1000), estimate C/N0 with
-          gnss_dsp_tpu.cli.cn0; the launch counters must show K1 and K2
+          FLL -> PLL switch at block 1000), estimate C/N0 with the
+          port's cli.cn0; the launch counters must show K1 and K2
           on that path
   e2e_coherent
           the extended-coherent path through the acquire CLI: a 50 ms
@@ -36,14 +40,24 @@ Runs every phase, in this order:
           32 dB-Hz) searched with --coherent 20 --time 40 over all 63
           PRNs on a 25 Hz grid, then --coherent 8 --time 80 on the e2e
           GPS L1 capture; the launch counters must show K5 and K6 there
+  e2e_wide
+          the wide-window and odd-length searches through the acquire CLI,
+          one 85 ms capture per route at the signal's internal rate (four
+          satellites at 45 dB-Hz, Xona X5 its one), default PRNs and
+          doppler grid, --time 80: xona-x5d (K7), gps-l5i and galileo-e6b
+          (K1 padded, n_valid), galileo-e1b, gps-l1cp and gps-l2cm (K1 at
+          65536, 81920, 163840); the launch counters must show K7 on
+          xona-x5d and K1 on the others
 
-In e2e and e2e_coherent every surface-kernel call is recorded with its
-shape, and each must have been held against its plain version at that
-shape in k1, k5 or k6 (a launch's doppler count may be smaller).
+In the e2e phases every surface-kernel call is recorded with its shape,
+and each must have been held against its plain version at that shape in
+k1, k5, k6 or k7 (a launch's doppler count may be smaller).
 
-Prints a JSON line of per-kernel results, then the nvidia-smi line, then a
-last line {"ok": true, "device": {...}}.  Exits non-zero, without that
-line, when any phase fails or no GPU is present.  Imports nothing of JAX.
+Prints a JSON line of per-kernel results (times, the bound the card's
+peaks put on each kernel's work, the time of one torch.fft.ifft over the
+same product), then the nvidia-smi line, then a last line {"ok": true,
+"device": {...}}.  Exits non-zero, without that line, when any phase fails
+or no GPU is present.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ import argparse
 import contextlib
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -71,7 +86,18 @@ KERNELS = {
     "acquire_coh": dict(
         route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire_coh.cu",
         replaces="gnss_dsp_tpu/ops/pallas_acquire_coh.py:467"),
+    "acquire": dict(route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire.cu",
+                    replaces="gnss_dsp_tpu/ops/pallas_acquire.py:183"),
 }
+
+# the wide-window and odd-length searches of e2e_wide, one per route
+E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
+            "gps-l2cm")
+
+# published peaks of one H100 SXM (NVIDIA data sheet): device memory and
+# float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def log(msg):
@@ -91,6 +117,60 @@ def card_line() -> str:
     if r.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    the float32 rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def row_flops(W):
+    """Operations per transformed row value: 6 for code x conj(F), the
+    usual 5 log2 W of an FFT, 4 for |.|, 1 for the sum over rows."""
+    return 6 + 5 * math.log2(W) + 4 + 1
+
+
+def surface_bound(P, DC, rows, W, out_bytes):
+    """bound() of a surface over [P, DC, rows, W]: F and the code read
+    once, the outputs written once."""
+    return bound(DC * rows * W * 8 + P * W * 8 + out_bytes,
+                 P * DC * rows * W * row_flops(W))
+
+
+def library_ms(code_f, F, reps=2):
+    """(ms, dopplers): milliseconds of one torch.fft.ifft over the
+    [P, d, rows, W] product code_f[p] * conj(F[d, r]) (formed outside the
+    timing), over all DC dopplers of F where the product, its transform
+    and cuFFT's workspace (about three products) fit in four fifths of
+    free memory, else over the most that do."""
+    import torch
+
+    per_d = code_f.shape[0] * F[0].numel() * 8
+    d = min(F.shape[0], int(0.8 * torch.cuda.mem_get_info()[0] / 3 // per_d))
+    if d < 1:
+        return None, 0
+    prod = code_f[:, None, None, :] * torch.conj(F[:d])[None]
+    ms = cuda_ms(lambda: torch.fft.ifft(prod, dim=-1), reps)
+    del prod
+    torch.cuda.empty_cache()
+    return ms, d
+
+
+def library_text(lib, DC):
+    ms, d = lib
+    if d == DC:
+        return f"{ms:.3f} ms"
+    return (f"{ms:.3f} ms over {d} of the {DC} dopplers (the whole product "
+            f"does not fit)" if d else "not run (no doppler fits)")
+
+
+def library_full(lib, DC):
+    """library_ms's time where it covered all DC dopplers, else None."""
+    return lib[0] if lib[1] == DC else None
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -115,6 +195,7 @@ def cuda_ms(fn, reps: int) -> float:
 # the surface kernels' wrappers, by kernel: (module under ops, function)
 SURFACE_WRAPPERS = {
     "acquire2": ("acquire2", "corr_surface2"),
+    "acquire": ("acquire", "corr_surface"),
     "acquire_coh_spec": ("acquire_coh", "corr_surface_coh_spec"),
     "acquire_coh": ("acquire_coh", "corr_surface_coh"),
 }
@@ -124,10 +205,12 @@ CHECKED = {name: [] for name in SURFACE_WRAPPERS}
 
 def shape_key(name, F, code_f, *rest):
     """(doppler count, the rest of the shape) of a wrapper call: P, the
-    spectra's rows and W, then K5's A and n_valid or K6's A, m_coh and
-    n_valid (n_valid defaults to 0)."""
+    spectra's rows and W, then K1's n_valid, K5's A and n_valid or K6's
+    A, m_coh and n_valid (n_valid defaults to 0)."""
     key = (code_f.shape[0], *F.shape[1:])
-    if name == "acquire_coh_spec":       # A, n_valid
+    if name == "acquire2":               # n_valid
+        key += (rest[0] if rest else 0,)
+    elif name == "acquire_coh_spec":     # A, n_valid
         key += (rest[0], rest[1] if len(rest) > 1 else 0)
     elif name == "acquire_coh":          # cos, sin, sec_mat, m_coh, n_valid
         key += (rest[2].shape[0], rest[3], rest[4] if len(rest) > 4 else 0)
@@ -175,7 +258,8 @@ def check_covered(tag, calls):
 
 # ---------------------------------------------------------------- phase k1
 
-def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed):
+def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed, n_valid=0,
+             reps=5, plain_reps=2):
     import torch
 
     from gnss_dsp_tpu_torch.ops import acquire2
@@ -186,26 +270,38 @@ def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed):
     F = torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
                       torch.randn((DC, B, W), generator=g, device=dev))
     # one planted correlation peak per PRN: F[d, b] += code_f[p] e^{-2pi i k j/W}
+    # (code_f * conj(F) = e^{+2 pi i k j/W}: its inverse DFT peaks at -j),
+    # among the searched lags >= lo = W - n_valid
     rng = np.random.default_rng(plant_seed)
-    dops = rng.permutation(DC)[:P]
-    lags = rng.integers(0, W, P)
+    dops = rng.permutation(DC)[:P] if P <= DC else rng.integers(0, DC, P)
+    lo = W - n_valid if n_valid else 0
+    if n_valid:
+        want = lo + rng.integers(0, n_valid, P)
+        lags = (-want) % W
+    else:
+        lags = rng.integers(0, W, P)
+        want = (-lags) % W
     k = torch.arange(W, device=dev, dtype=torch.float64)
     for p in range(P):
         ramp = torch.exp(-2j * np.pi * k * float(lags[p]) / W)
         F[int(dops[p])] += 0.5 * (code_f[p].to(torch.complex128)
                                   * ramp).to(torch.complex64)[None, :]
-    CHECKED["acquire2"].append(shape_key("acquire2", F, code_f))
-    peak_k, idx_k, sum_k = acquire2.corr_surface2(F, code_f)
-    peak_p, idx_p, sum_p = acquire2.corr_surface2_plain(F, code_f)
+    args = (F, code_f, n_valid)
+    CHECKED["acquire2"].append(shape_key("acquire2", *args))
+    peak_k, idx_k, sum_k = acquire2.corr_surface2(*args)
+    peak_p, idx_p, sum_p = acquire2.corr_surface2_plain(*args)
+    again = acquire2.corr_surface2(*args)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((peak_k, idx_k, sum_k),
+                                                 again)),
+          (tag, "two launches differ"))
     idx_k, idx_p = idx_k.cpu().numpy(), idx_p.cpu().numpy()
     peak_k, peak_p = peak_k.cpu().numpy(), peak_p.cpu().numpy()
     sum_k, sum_p = sum_k.cpu().numpy(), sum_p.cpu().numpy()
-    # code_f * conj(F) = e^{+2 pi i k j/W}: its inverse DFT peaks at -j
-    want = (-lags) % W
     planted_k = idx_k[np.arange(P), dops]
-    check((planted_k == want).all(), (tag, "planted lag", planted_k, want))
-    check((idx_p[np.arange(P), dops] == want).all())
+    check((planted_k == want - lo).all(), (tag, "planted lag", planted_k,
+                                           want - lo))
+    check((idx_p[np.arange(P), dops] == want - lo).all())
     np.testing.assert_allclose(peak_k, peak_p, rtol=1e-4)
     np.testing.assert_allclose(sum_k, sum_p, rtol=1e-4)
     # away from the planted cells the surface is noise: a differing argmax
@@ -214,27 +310,103 @@ def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed):
     diff = np.argwhere(idx_k != idx_p)
     for p, d in diff:
         q = torch.fft.ifft(code_f[p] * torch.conj(F[d]), dim=-1).abs().sum(0)
-        a, b = float(q[idx_k[p, d]]), float(q[idx_p[p, d]])
+        a, b = float(q[lo + idx_k[p, d]]), float(q[lo + idx_p[p, d]])
         check(abs(a - b) <= 1e-5 * b, (tag, "argmax differs", p, d, a, b))
     err = float(max(np.abs(peak_k - peak_p).max(), np.abs(sum_k - sum_p).max()))
-    ms = cuda_ms(lambda: acquire2.corr_surface2(F, code_f), 5)
-    plain_ms = cuda_ms(lambda: acquire2.corr_surface2_plain(F, code_f), 2)
+    ms = cuda_ms(lambda: acquire2.corr_surface2(*args), reps)
+    plain_ms = cuda_ms(lambda: acquire2.corr_surface2_plain(*args), plain_reps)
+    lib = library_ms(code_f, F)
+    bms, by = surface_bound(P, DC, B, W, P * DC * 12)
     cells = P * DC * B * W
-    log(f"[k1] {tag}: P={P} DC={DC} B={B} W={W}: idx exact on planted "
-        f"cells, {len(diff)} near-tie argmax differences elsewhere, "
-        f"max|dpeak|,|dsum| = {err:.3g}")
+    log(f"[k1] {tag}: P={P} DC={DC} B={B} W={W} n_valid={n_valid}: idx "
+        f"exact on planted cells, {len(diff)} near-tie argmax differences "
+        f"elsewhere, max|dpeak|,|dsum| = {err:.3g}, two launches bit-equal")
     log(f"[k1] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
-        f"Gcells/s), plain {plain_ms:.3f} ms  [{card}]")
-    return err, ms, plain_ms
+        f"Gcells/s), plain {plain_ms:.3f} ms, library ifft "
+        f"{library_text(lib, DC)}, bound {bms:.3f} ms by {by}  [{card}]")
+    del F, args
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
+
+
+def wide_launch(name, ms=80):
+    """(route, P, DC, B, W, n_valid) of the first (largest) surface-kernel
+    launch of the acquire CLI on `name` at its default PRNs and doppler
+    grid, as the engine plans it."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.acquire.plan import acq_plan
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    sig = get_signal(name)
+    route, W, _, n_valid = acq_plan(sig)
+    P = len(sig.prns())
+    B = engine._block_count(sig, ms)
+    D = len(engine.doppler_grid(sig, sig.doppler_default)[0])
+    return route, P, engine.dop_chunk_for(route, P, B, W, D), B, W, n_valid
 
 
 def phase_k1(dev, card, results):
-    e1, ms, plain_ms = _k1_case(dev, card, "gps-l1", 32, 70, 80, 4096,
-                                1234, 5)
-    e2, _, _ = _k1_case(dev, card, "beidou-b1i", 63, 70, 40, 16384, 4321, 8)
-    # the kernels line keeps the GPS L1 case's times (the e2e shape)
-    results["acquire2"].update(max_abs_err=max(e1, e2), ms=ms,
-                               plain_ms=plain_ms)
+    r = _k1_case(dev, card, "gps-l1", 32, 70, 80, 4096, 1234, 5)
+    _k1_case(dev, card, "beidou-b1i", 63, 70, 40, 16384, 4321, 8)
+    # the kernels line keeps the GPS L1 case's numbers (the e2e shape)
+    results["acquire2"].update(r)
+    errs = [r["max_abs_err"]]
+    for i, name in enumerate(E2E_WIDE):
+        route, P, DC, B, W, n_valid = wide_launch(name)
+        if route != "v1":
+            errs.append(_k1_case(dev, card, name, P, DC, B, W, 50 + i, 60 + i,
+                                 n_valid, reps=2, plain_reps=1)["max_abs_err"])
+    results["acquire2"]["max_abs_err"] = max(errs)
+
+
+# ---------------------------------------------------------------- phase k7
+
+def phase_k7(dev, card, results):
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire
+
+    route, P, DC, B, W, _ = wide_launch("xona-x5d")
+    check(route == "v1", ("xona-x5d route", route))
+    g = torch.Generator(device=dev).manual_seed(3069)
+    code_f = torch.exp(1j * 2 * np.pi * torch.rand(
+        (P, W), generator=g, device=dev)).to(torch.complex64)
+    F = torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
+                      torch.randn((DC, B, W), generator=g, device=dev))
+    rng = np.random.default_rng(9)
+    dops = rng.integers(0, DC, P)
+    want = rng.integers(0, W, P)           # where each PRN's surface peaks
+    k = torch.arange(W, device=dev, dtype=torch.float64)
+    for p in range(P):
+        ramp = torch.exp(2j * np.pi * k * float(want[p]) / W)
+        F[int(dops[p])] += 0.5 * (code_f[p].to(torch.complex128)
+                                  * ramp).to(torch.complex64)[None, :]
+    CHECKED["acquire"].append(shape_key("acquire", F, code_f))
+    q_k = acquire.corr_surface(F, code_f)
+    q_p = acquire.corr_surface_plain(F, code_f)
+    same = torch.equal(q_k, acquire.corr_surface(F, code_f))
+    torch.cuda.synchronize()
+    check(same, "k7: two launches differ")
+    got = q_k.argmax(dim=-1).cpu().numpy()[np.arange(P), dops]
+    check((got == want).all(), ("k7 planted lag", got, want))
+    scale = float(q_p.max())
+    err = float((q_k - q_p).abs().max())
+    torch.testing.assert_close(q_k, q_p, rtol=1e-4, atol=2e-5 * scale)
+    ms = cuda_ms(lambda: acquire.corr_surface(F, code_f), 3)
+    plain_ms = cuda_ms(lambda: acquire.corr_surface_plain(F, code_f), 1)
+    lib = library_ms(code_f, F)
+    bms, by = surface_bound(P, DC, B, W, P * DC * W * 4)
+    cells = P * DC * B * W
+    log(f"[k7] xona-x5d: P={P} DC={DC} B={B} W={W}: planted lags exact, "
+        f"surface within rtol 1e-4 + 2e-5 of its max ({scale:.4g}), "
+        f"max|dq| = {err:.3g}, two launches bit-equal")
+    log(f"[k7] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), plain "
+        f"{plain_ms:.3f} ms, library ifft {library_text(lib, DC)}, bound "
+        f"{bms:.3f} ms by {by}  [{card}]")
+    results["acquire"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_full(lib, DC), bound_ms=bms,
+                              bound_by=by)
 
 
 # ----------------------------------------------------------- phases k5, k6
@@ -304,14 +476,18 @@ def phase_k5(dev, card, results):
     ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(f2, code_f, A), 3)
     plain_ms = cuda_ms(
         lambda: acquire_coh.corr_surface_coh_spec_plain(f2, code_f, A), 1)
+    lib = library_ms(code_f, f2)
+    bms, by = surface_bound(P, DC, G * A, W, P * DC * 12)
     cells = P * DC * G * A * W
     log(f"[k5] P={P} DC={DC} G={G} A={A} W={W}: idx and align exact on "
         f"planted cells, {nd} near-tie differences elsewhere, max|dpeak| = "
         f"{err:.3g}")
     log(f"[k5] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
-        f"plain {plain_ms:.3f} ms  [{card}]")
-    results["acquire_coh_spec"].update(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms)
+        f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, DC)}, "
+        f"bound {bms:.3f} ms by {by}  [{card}]")
+    results["acquire_coh_spec"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
 
 
 def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
@@ -349,29 +525,38 @@ def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
             sec_mat, m_coh)[0, 0]))
     ms = cuda_ms(lambda: acquire_coh.corr_surface_coh(*args), 3)
     plain_ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_plain(*args), 1)
+    lib = library_ms(code_f, F)
+    # the overlay/rotation combine does not depend on the PRN: 8 operations
+    # per block value and alignment, then one surface row per group
+    G = B // m_coh
+    bms, by = bound(DC * B * W * 8 + P * W * 8 + DC * B * 8 + A * B * 4
+                    + P * DC * 12,
+                    DC * A * B * W * 8 + P * DC * A * G * W * row_flops(W))
     cells = P * DC * B * A * W
     log(f"[k6] {tag}: P={P} DC={DC} B={B} m_coh={m_coh} A={A} W={W}: idx "
         f"and align exact on planted cells, {nd} near-tie differences "
         f"elsewhere, max|dpeak| = {err:.3g}")
     log(f"[k6] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
-        f"Gcells/s as block x alignment cells), plain {plain_ms:.3f} ms  "
+        f"Gcells/s as block x alignment cells), plain {plain_ms:.3f} ms, "
+        f"library ifft {library_text(lib, DC)}, bound {bms:.3f} ms by {by}  "
         f"[{card}]")
-    return err, ms, plain_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
 
 
 def phase_k6(dev, card, results):
-    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu_torch.models import get_signal
 
     x1p = get_signal("xona-x1p")
     # gps-l1 --coherent 8 --time 80 on a 62.5 Hz grid: 80 blocks in
     # groups of 8, one alignment, 102 dopplers a launch
-    e1, ms1, pms1 = _k6_case(dev, card, "gps-l1 --coherent 8", 32, 102, 80,
-                             8, [1.0], 4096, 77)
-    e2, ms2, pms2 = _k6_case(dev, card, "xona-x1p", 1, 70, 200, 100,
-                             x1p.secondary(x1p.prns()[0]), 4096, 78)
-    # the kernels line keeps the GPS L1 case's times (the e2e shape)
-    results["acquire_coh"].update(max_abs_err=max(e1, e2), ms=ms1,
-                                  plain_ms=pms1)
+    r = _k6_case(dev, card, "gps-l1 --coherent 8", 32, 102, 80, 8, [1.0],
+                 4096, 77)
+    r2 = _k6_case(dev, card, "xona-x1p", 1, 70, 200, 100,
+                  x1p.secondary(x1p.prns()[0]), 4096, 78)
+    # the kernels line keeps the GPS L1 case's numbers (the e2e shape)
+    results["acquire_coh"].update(r, max_abs_err=max(r["max_abs_err"],
+                                                     r2["max_abs_err"]))
 
 
 # ---------------------------------------------------------------- phase k2
@@ -379,8 +564,8 @@ def phase_k6(dev, card, results):
 def phase_k2(dev, card, results):
     import torch
 
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import (
         init_state, sigp_from_params, track_scan, track_scan_plain)
@@ -443,13 +628,19 @@ def phase_k2(dev, card, results):
     ms = cuda_ms(run_kernel, 3)
     plain_ms = cuda_ms(run_plain, 1)
     samples = float(ri_k[..., 0].sum())
+    # the chunk, the code table and the rows each cross device memory
+    # once; about 20 operations per sample and channel (carrier wipe 6,
+    # E/P/L chip phases 6, E/P/L sums 6, the DDS index 2)
+    bms, by = bound(xd.numel() * 8 + tab.numel() + NB * C * 14 * 4,
+                    samples * 20)
     log(f"[k2] C={C} NB={NB} fs={fs:g}: first {H} blocks rows_i exact, "
         f"rows_f max|d| = {err:.3g}; {same_rows}/{NB * C} rows bit-equal; "
         f"after: max|dcarrier_f| {np.nanmax(dcf):.3g} Hz, "
         f"max|dcode_p| {np.nanmax(dcp):.3g} chip")
     log(f"[k2] kernel {ms:.3f} ms ({samples / ms / 1e3:.4g} Msamples/s), "
-        f"plain {plain_ms:.3f} ms  [{card}]")
-    results["track_fused"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms by {by}  [{card}]")
+    results["track_fused"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------- phase k2, main
@@ -465,7 +656,7 @@ def phase_k2_main_path(dev, results, work, seconds=0.8, chunk_s=0.35,
     FLL -> PLL switch inside the first launch."""
     import torch
 
-    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.ops import cplx
     from gnss_dsp_tpu_torch.tools.main_path import synth_capture
     from gnss_dsp_tpu_torch.track.driver import make_params
@@ -550,7 +741,7 @@ def phase_k2_main_path(dev, results, work, seconds=0.8, chunk_s=0.35,
 def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
     import torch
 
-    import gnss_dsp_tpu.cli.cn0 as cn0
+    import gnss_dsp_tpu_torch.cli.cn0 as cn0
     from gnss_dsp_tpu_torch.cli import acquire as acq_cli
     from gnss_dsp_tpu_torch.cli import track as trk_cli
     from gnss_dsp_tpu_torch.ops import acquire2, track_fused
@@ -637,23 +828,25 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
 
 # ------------------------------------------------------ phase e2e_coherent
 
-def check_hits(tag, hits, truth, dop_tol, code_tol=1.0):
+def check_hits(tag, hits, truth, dop_tol, code_tol=1.0,
+               phase="e2e_coherent"):
     """Every planted PRN within dop_tol Hz and code_tol chips of truth,
-    and above every absent PRN's metric."""
-    absent = max(h["metric"] for p, h in hits.items()
-                 if p not in truth["prns"])
+    and above every absent PRN's metric (where any PRN is absent)."""
+    absent = max((h["metric"] for p, h in hits.items()
+                  if p not in truth["prns"]), default=None)
     L = truth["code_length"]
     for prn, dop, cp in zip(truth["prns"], truth["dops"], truth["phases"]):
         h = hits[prn]
-        dc = abs(h["code"] - cp)
+        dc = abs(h["code"] - cp) % L
         dc = min(dc, L - dc)
         check(abs(h["doppler"] - dop) <= dop_tol, (tag, prn, h, dop))
         check(dc <= code_tol, (tag, prn, h, cp))
-        check(h["metric"] > absent, (tag, prn, h, absent))
-        log(f"[e2e_coherent] {tag} prn {prn:2d}: doppler "
-            f"{h['doppler']:7.1f} (truth {dop:7.1f}) code {h['code']:7.2f} "
-            f"(truth {cp:7.2f}) metric {h['metric']:.2f}")
-    log(f"[e2e_coherent] {tag}: best absent-PRN metric {absent:.2f}")
+        check(absent is None or h["metric"] > absent, (tag, prn, h, absent))
+        log(f"[{phase}] {tag} prn {prn:2d}: doppler "
+            f"{h['doppler']:7.1f} (truth {dop:7.1f}) code {h['code']:8.2f} "
+            f"(truth {cp:8.2f}) metric {h['metric']:.2f}")
+    log(f"[{phase}] {tag}: best absent-PRN metric "
+        f"{'none (no PRN absent)' if absent is None else f'{absent:.2f}'}")
 
 
 def phase_e2e_coherent(dev, card, results, work):
@@ -731,6 +924,59 @@ def phase_e2e_coherent(dev, card, results, work):
     os.remove(l1)
 
 
+# ---------------------------------------------------------- phase e2e_wide
+
+def phase_e2e_wide(dev, card, results, work):
+    """The acquire CLI on one capture per wide route; returns K1's
+    launches over the phase."""
+    import torch
+
+    from gnss_dsp_tpu_torch.acquire.plan import acq_plan
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire, acquire2
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        parse_hits, run_cli, synth_at_acq_fs)
+
+    k1 = 0
+    for i, name in enumerate(E2E_WIDE):
+        sig = get_signal(name)
+        route = acq_plan(sig)[0]
+        path = os.path.join(work, f"e2e_{name}.iq")
+        t0 = time.perf_counter()
+        truth = synth_at_acq_fs(path, name, 0.085, seed=20 + i)
+        t_synth = time.perf_counter() - t0
+        acquire.LAUNCHES = 0
+        acquire2.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with recording() as calls:
+            out = run_cli(acq_cli.main, name,
+                          ["--time", "80", path, str(truth["fs"]), "0",
+                           "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        l7, l1 = acquire.LAUNCHES, acquire2.LAUNCHES
+        log(f"[e2e_wide] {name}: route {route}, launches acquire {l7}, "
+            f"acquire2 {l1}")
+        if route == "v1":
+            check(l7 > 0 and l1 == 0, (name, "K7 not on the path", l7, l1))
+            results["acquire"]["launches"] += l7
+        else:
+            check(l1 > 0 and l7 == 0, (name, "K1 not on the path", l7, l1))
+            k1 += l1
+        check_covered("e2e_wide", calls)
+        hits = parse_hits(out)
+        check(sorted(hits) == sorted(sig.prns()), (name, sorted(hits)))
+        check_hits(name, hits, truth, sig.doppler_default[2],
+                   phase="e2e_wide")
+        log(f"[e2e_wide] {name}: {len(sig.prns())} PRNs, "
+            f"{len(np.arange(*sig.doppler_default))} dopplers, capture "
+            f"{truth['fs']:g} Hz; synth {t_synth:.2f} s, acquire CLI "
+            f"{wall:.2f} s  [{card}]")
+        os.remove(path)
+    return k1
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -748,10 +994,12 @@ def main(argv=None) -> int:
     from gnss_dsp_tpu_torch.device import resolve_device
     from gnss_dsp_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     results = {k: dict(name=k, **v, launches=0, max_abs_err=None, ms=None,
-                       plain_ms=None) for k, v in KERNELS.items()}
+                       plain_ms=None, bound_ms=None, bound_by=None,
+                       library_ms=None) for k, v in KERNELS.items()}
     log(f"[device] {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; allow_tf32 matmul="
@@ -766,13 +1014,27 @@ def main(argv=None) -> int:
             log(f"[build] {line.strip()}")
     os.makedirs(args.out, exist_ok=True)
     phase_k1(dev, card, results)
+    phase_k7(dev, card, results)
     phase_k5(dev, card, results)
     phase_k6(dev, card, results)
     phase_k2(dev, card, results)
     phase_k2_main_path(dev, results, args.out)
     phase_e2e(dev, card, results, args.out)
     phase_e2e_coherent(dev, card, results, args.out)
-    check("jax" not in sys.modules, "jax was imported")
+    k1_wide = phase_e2e_wide(dev, card, results, args.out)
+    log(f"[e2e_wide] acquire2 launches: e2e {results['acquire2']['launches']}"
+        f", e2e_wide {k1_wide}")
+    results["acquire2"]["launches"] += k1_wide
+    for r in results.values():
+        need = ["launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by"] + (["library_ms"] if r["name"] != "track_fused"
+                               else [])
+        check(all(r[k] is not None for k in need) and r["launches"] > 0,
+              ("kernel line incomplete", r))
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(not [m for m in sys.modules if m in ("jax", "gnss_dsp_tpu")
+               or m.startswith(("jax.", "gnss_dsp_tpu."))],
+          "jax or the JAX package was imported")
     print(json.dumps({"kernels": list(results.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,19 +2,31 @@
 
 Counterpart: gnss_dsp_tpu/acquire/engine.py (`AcqResult`,
 `build_code_ffts` :42-54, `block_windows` :57-77, `grid_search` :176-266
-on its v2 branch, `_block_count` :269-279, `doppler_grid` :282-290,
-`acquire_signal` :367-445).
+on its v2, v2p and v1 branches, `_block_count` :269-279, `doppler_grid`
+:282-290, `acquire_signal` :367-445).
 
-Per doppler chunk: mix the [B, W] block windows with each doppler's
-oscillator, forward FFT (torch.fft, outside the kernel as in the JAX
-package), then the correlation surface and its per-(PRN, doppler)
-reduction in kernel K1 (ops/acquire2).  Across chunks a strict `>`
-keeps the earliest best doppler, and inside a chunk argmax takes the
-first maximum, so the winning cell does not depend on the chunking.
+The route (acquire/plan.acq_plan, the reference's _fused_plan) sets the
+search, on every device:
 
-Not ported here: the v1/v2p kernel plans, FDMA (acquire_signal_fdma)
-and per-chunk results.  The extended-coherent search is in coherent.py
-and shares block_windows, mix_fft and the code-spectra LRU.
+  v2   circular search at the window (n, or 2n for the pad2 and sliding
+       templates): kernel K1 (ops/acquire2) with its in-kernel
+       (max, argmax, sum)
+  v2p  the pad2 windows without an aligned split (30690, 61380): the 2n
+       block windows zero-padded to the route's FFT length, and K1's
+       reduction masked to the n exact linear lags (n_valid = n)
+  v1   circular search at a window with no aligned split (Xona X5,
+       30690): the full surface from kernel K7 (ops/acquire), then max,
+       first argmax and mean over the lags in torch
+
+Per doppler chunk: mix the block windows with each doppler's
+oscillator, forward FFT (torch.fft, outside the kernels as in the JAX
+package), then the surface kernel.  Across chunks a strict `>` keeps
+the earliest best doppler, and inside a chunk argmax takes the first
+maximum, so the winning cell does not depend on the chunking.
+
+Not ported here: FDMA (acquire_signal_fdma), serial searches and
+per-chunk results.  The extended-coherent search is in coherent.py and
+shares block_windows, mix_fft and the code-spectra LRU.
 """
 
 from __future__ import annotations
@@ -24,8 +36,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gnss_dsp_tpu.models.codes import resample_host
-from gnss_dsp_tpu_torch.ops import acquire2, nco
+from gnss_dsp_tpu_torch.acquire.plan import acq_plan
+from gnss_dsp_tpu_torch.models.codes import resample_host
+from gnss_dsp_tpu_torch.ops import acquire, acquire2, nco
 
 
 @dataclass
@@ -100,33 +113,63 @@ def doppler_grid(sig, doppler_search):
     return dops, fixed
 
 
+def dop_chunk_for(route: str, P: int, blocks: int, window: int,
+                  D: int) -> int:
+    """Dopplers per kernel call: as many as keep the [dc, B, W] spectra,
+    and on v1 also K7's [P, dc, W] surface, under ~1 GB."""
+    per_dc = blocks * window * 8 + (P * window * 4 if route == "v1" else 0)
+    return int(np.clip((1 << 30) // per_dc, 1, D))
+
+
+def surface_v1(F: torch.Tensor, code_ffts: torch.Tensor) -> torch.Tensor:
+    """K7's surface on a CUDA tensor, its plain version on a CPU one."""
+    if F.device.type == "cpu":
+        return acquire.corr_surface_plain(F, code_ffts)
+    return acquire.corr_surface(F, code_ffts)
+
+
 def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
                 dopp_fixed: torch.Tensor, n: int, window: int, blocks: int,
-                peak_mean: bool, dop_chunk: int | None = None):
+                peak_mean: bool, dop_chunk: int | None = None,
+                route: str = "v2", n_valid: int = 0, data_window: int = 0):
     """Search the full grid; returns per-PRN (metric f32 [P], code_idx
     i32 [P], dop_idx i64 [P]) tensors.
 
-    x          : complex64 [>= (blocks-1)*n + window] internal-rate samples
+    x          : complex64 [>= (blocks-1)*n + data_window] internal-rate
+                 samples
     code_ffts  : complex64 [P, window] natural-order code spectra
     dopp_fixed : int [D] per-sample NCO increments
-    dop_chunk  : dopplers per kernel call (default: as many as keep the
-                 [dc, B, W] spectra under ~1 GB)"""
+    route      : "v2", "v2p" or "v1" (acquire/plan.acq_plan)
+    n_valid    : v2p: the exact linear lags K1's reduction is masked to;
+                 code_idx then counts from window - n_valid
+    data_window: samples of data per block window (default: window);
+                 zeros follow up to window
+    dop_chunk  : dopplers per kernel call (default: dop_chunk_for)"""
     P = code_ffts.shape[0]
     D = int(dopp_fixed.shape[0])
     dev = x.device
-    xb = block_windows(x, n, window, blocks)                  # [B, W]
+    xb = block_windows(x, n, data_window or window, blocks, pad_to=window)
     if dop_chunk is None:
-        dop_chunk = int(np.clip((1 << 30) // (blocks * window * 8), 1, D))
+        dop_chunk = dop_chunk_for(route, P, blocks, window, D)
     best_metric = torch.full((P,), -float("inf"), dtype=torch.float32,
                              device=dev)
     best_code = torch.zeros((P,), dtype=torch.int32, device=dev)
     best_dop = torch.zeros((P,), dtype=torch.int64, device=dev)
-    cells = torch.full((1, 1), float(window), dtype=torch.float32, device=dev)
+    cells = torch.full((1, 1), float(n_valid or window),
+                       dtype=torch.float32, device=dev)
     for d0 in range(0, D, dop_chunk):
         df = dopp_fixed[d0:d0 + dop_chunk].to(dev, torch.int64)
         F = mix_fft(xb, df)
-        peak, code_idx, sm = acquire2.corr_surface2(F, code_ffts)  # [P, dc]
-        metric = peak / (sm / cells) if peak_mean else peak
+        if route == "v1":
+            q = surface_v1(F, code_ffts)                        # [P, dc, W]
+            code_idx = torch.argmax(q, dim=-1)                  # first max
+            peak = torch.gather(q, -1, code_idx[..., None])[..., 0]
+            code_idx = code_idx.to(torch.int32)
+            metric = peak / q.mean(dim=-1) if peak_mean else peak
+        else:
+            peak, code_idx, sm = acquire2.corr_surface2(F, code_ffts,
+                                                        n_valid)  # [P, dc]
+            metric = peak / (sm / cells) if peak_mean else peak
         ch_best = torch.argmax(metric, dim=-1)                # first max
         ch_metric = torch.gather(metric, 1, ch_best[:, None])[:, 0]
         ch_code = torch.gather(code_idx, 1, ch_best[:, None])[:, 0]
@@ -138,14 +181,16 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
 
 
 # device-resident code-FFT LRU: repeated acquire calls on the same
-# (signal, prns, window, device) skip the host FFT build and the upload
+# (signal, prns, route, window, device) skip the host FFT build and the
+# upload
 _CODE_FFTS_DEV: dict = {}
 _CODE_FFTS_CAP = 4
 
 
-def device_code_ffts(sig, prns, n: int, window: int, device) -> torch.Tensor:
+def device_code_ffts(sig, prns, n: int, window: int, device,
+                     route: str = "v2") -> torch.Tensor:
     """build_code_ffts as complex64 on `device`, through the LRU."""
-    key = (sig.name, tuple(prns), n, window, torch.device(device))
+    key = (sig.name, tuple(prns), n, route, window, torch.device(device))
     code_ffts = _CODE_FFTS_DEV.pop(key, None)
     if code_ffts is None:
         cf_host = build_code_ffts(sig, prns, n, window).astype(np.complex64)
@@ -164,17 +209,19 @@ def acquire_signal(sig, x_int: torch.Tensor, prns, doppler_search=None,
     device the search runs on.  Returns list[AcqResult] in PRN order."""
     if sig.fdma_hz or sig.acq_serial:
         raise NotImplementedError(
-            f"{sig.name}: FDMA and serial searches are not ported yet")
+            f"{sig.name}: FDMA (acquire_signal_fdma) and serial searches "
+            "(acquire/serial.py) are not ported yet")
     doppler_search = doppler_search or sig.doppler_default
     n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
-    window = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
+    route, window, data_window, n_valid = acq_plan(sig)
     blocks = _block_count(sig, ms)
     dops, fixed = doppler_grid(sig, doppler_search)
-    code_ffts = device_code_ffts(sig, prns, n, window, x_int.device)
+    code_ffts = device_code_ffts(sig, prns, n, window, x_int.device, route)
     metric, code_idx, dop_idx = grid_search(
         x_int, code_ffts, torch.from_numpy(fixed.astype(np.int64)),
         n=n, window=window, blocks=blocks,
-        peak_mean=(sig.acq_metric == "peak_mean"))
+        peak_mean=(sig.acq_metric == "peak_mean"), route=route,
+        n_valid=n_valid, data_window=data_window)
     metric = metric.cpu().numpy()
     code_idx = code_idx.cpu().numpy()
     dop_idx = dop_idx.cpu().numpy()

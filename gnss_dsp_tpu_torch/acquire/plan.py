@@ -1,10 +1,40 @@
-"""Route of an extended-coherent search: which surface kernel, at which
-window.
+"""Routes of the acquisition searches: which surface kernel, at which
+window.  Host Python only.
 
-Counterpart: gnss_dsp_tpu/acquire/coherent.py::_coh_fast_plan (:346-385)
-and the integer planning it calls, pallas_acquire2.plan_aligned /
-plan_padded / pick_g (:61-111) and pallas_acquire_coh.plan_coh /
-plan_coh_spec (:60-155).  Host Python only.
+acq_plan, the non-coherent search.  Counterpart:
+gnss_dsp_tpu/acquire/engine.py::_fused_plan (:293-332) and the integer
+planning it calls, pallas_acquire2.plan_aligned / plan_padded (:55-107).
+It returns (route, window, data_window, n_valid):
+
+  route        "v2": circular search at the window, kernel K1 with its
+               in-kernel reduction; "v2p": the pad2 windows without an
+               aligned split, searched at a padded FFT length with K1's
+               reduction masked to the n exact linear lags; "v1": the
+               circular search at a window with neither (Xona X5,
+               W = 30690), the full surface from kernel K7, reduced in
+               torch
+  window       FFT length of the search
+  data_window  samples of data in each block window (2n for pad2 and
+               sliding signals, else n); zeros follow up to window
+  n_valid      on v2p the n lags that are exact linear correlations,
+               reported from 0 (lag - (window - n)), else 0
+
+The route is a property of the signal, not of the device: the CPU takes
+it too (the JAX package takes its XLA engine on a CPU, :309), so the
+plain versions check the same search the kernels run.  On v2p the port
+searches at the reference's own padded length (plan_padded: 65536 for
+the 61380 windows, 32768 for 30690), powers of two both; any length of
+at least 2n would give the same valid cells.  The reference's last test,
+pallas_acquire.plan2 (a balanced split, else its XLA engine), chooses
+between two computations of the same circular surface, so the port
+does not carry it: every window left over is "v1" (the kernels' own
+split is ops/acquire2.wide_split).
+
+coh_plan, the extended-coherent search.  Counterpart:
+gnss_dsp_tpu/acquire/coherent.py::_coh_fast_plan (:346-385) and the
+integer planning it calls, pallas_acquire2.plan_aligned / plan_padded /
+pick_g (:61-111) and pallas_acquire_coh.plan_coh / plan_coh_spec
+(:60-155).
 
 coh_plan returns (mode, window, data_window, n_valid), or None where the
 JAX package takes its XLA einsum engine:
@@ -66,6 +96,25 @@ def plan_padded(window: int, max_pad: int = 16384) -> int:
         except ValueError:
             wf += 128
     raise ValueError(f"no aligned split within {max_pad} of {window}")
+
+
+def acq_plan(sig):
+    """(route, window, data_window, n_valid) of the non-coherent search
+    of `sig`, as _fused_plan(window, pad2_n) with the Pallas kernels
+    enabled."""
+    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
+    dw = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
+    try:
+        plan_aligned(dw)
+        return ("v2", dw, dw, 0)
+    except ValueError:
+        pass
+    if sig.acq_pad2:
+        try:
+            return ("v2p", plan_padded(dw), dw, n)
+        except ValueError:
+            pass
+    return ("v1", dw, dw, 0)
 
 
 def pick_g(n1: int) -> int:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import optparse
 import sys
 
-from gnss_dsp_tpu.models import get_signal
+from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
 from gnss_dsp_tpu_torch.acquire.engine import acquire_signal
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device

@@ -18,7 +18,7 @@ from __future__ import annotations
 import optparse
 import sys
 
-from gnss_dsp_tpu.models import get_signal
+from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
 from gnss_dsp_tpu_torch.track.driver import (
     TrackChannel, format_row_9, format_row_14, track_file,

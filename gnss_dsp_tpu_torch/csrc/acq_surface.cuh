@@ -7,8 +7,9 @@
 //
 //     s[j] = (1/W) * sum_rows | IDFT_W( spectrum_row ) [j] |
 //
-// then reduces s to (max, lowest lag j >= lo reaching it, sum over all j)
-// and writes them at (p, d, a).  What a row is depends on the kernel:
+// then reduces s to (max, lowest lag j >= lo reaching it, sum over the
+// lags j >= lo) and writes them at (p, d, a).  What a row is depends on
+// the kernel:
 //
 //   kRows     row r is code_f[p] * conj(F[d, r*A + a]): K1 (A = 1, the
 //             blocks) and K5 (rows of pre-combined spectra, group-major,
@@ -170,7 +171,7 @@ struct SurfaceArgs {
   int rows_per_d;        // kRows: rows of F per doppler; kCombine: B
   int nrows;             // rows summed per CTA (kRows) or groups (kCombine)
   int m_coh;             // kCombine: blocks per group
-  int lo;                // lowest lag searched (W - n_valid, or 0)
+  int lo;                // lowest lag searched and summed (W - n_valid, or 0)
   int tw_in_smem;
 };
 
@@ -252,15 +253,15 @@ __global__ void __launch_bounds__(T) surface_kernel(SurfaceArgs s) {
     __syncthreads();
   }
 
-  // (max, lowest lag >= lo reaching it, sum over all lags)
+  // (max, lowest lag >= lo reaching it, sum over the lags >= lo)
   float bv = -INFINITY;
   int bi = W;
   float sm = 0.f;
 #pragma unroll
   for (int t = 0; t < PER; ++t) {
     const int e = tid + t * T;
-    if (e < W) {
-      if (e >= s.lo && acc[t] > bv) { bv = acc[t]; bi = e; }
+    if (e < W && e >= s.lo) {
+      if (acc[t] > bv) { bv = acc[t]; bi = e; }
       sm += acc[t];
     }
   }

@@ -46,7 +46,11 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would pass a bare python int as a 32-bit int)
 SIGNATURES = {
-    "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "acq2_reduce_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "acq_surface_full": [_P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "track_fused": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P],
     "acq_coh_spec": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -7,13 +7,18 @@ synth_capture writes a synthetic GPS L1 capture (eight satellites at
 returns what it printed.  chip_smoke.py uses both.
 
 synth_b1i writes the BeiDou B1I capture of the extended-coherent path
-(six satellites with their NH20 overlay at 32 dB-Hz, 16.368 MHz).
+(six satellites with their NH20 overlay at 32 dB-Hz, 16.368 MHz), and
+synth_at_acq_fs the captures of the wide-window acquisition path (four
+satellites, or Xona X5's one, at 45 dB-Hz and the signal's own internal
+rate and subcarrier).
 
 Run as a program on a CUDA card, this module drives the coherent acquire
 CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
 then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
-(2.2 s at 8.184 MHz, 2150 tracked blocks), each once cold and once warm
-under torch.profiler with CUDA activity.  It prints one JSON object: per stage
+(2.2 s at 8.184 MHz, 2150 tracked blocks), then the acquire CLI on the
+wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
+--time 80), each once cold and once warm under torch.profiler with CUDA
+activity.  It prints one JSON object: per stage
 the cold and warm host walls, the device busy time (the union of the
 trace's device events: kernels and copies), the idle share
 1 - busy / warm wall, and the costliest device events; then the
@@ -34,6 +39,10 @@ import time
 
 import numpy as np
 
+# wide-window acquisitions profiled: K1 padded (n_valid), K1 at 65536,
+# K7 at 30690
+WIDE_STAGES = ("gps-l5i", "galileo-e1b", "xona-x5d")
+
 E2E_PRNS = (3, 8, 12, 17, 21, 24, 28, 31)
 E2E_DOPS = (-5437.0, -3811.0, -2206.0, -577.0, 1049.0, 2633.0, 4188.0, 5794.0)
 
@@ -42,8 +51,8 @@ def synth_capture(path, fs, seconds, seed=7):
     """Eight GPS L1 satellites summed noiselessly plus ONE noise array at
     45 dB-Hz per satellite, written to `path` as int8 I/Q.  Returns the
     truth: prns, dops, phases (chips), the clip fraction and the scale."""
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq, to_int8_iq
 
     sig = get_signal("gps-l1")
     n = int(fs * seconds)
@@ -78,8 +87,8 @@ def synth_b1i(path, fs, seconds, cn0=32.0, seed=11):
     """Six BeiDou B1I satellites, each with its NH20 overlay from a
     random phase, plus one noise array at `cn0` dB-Hz per satellite,
     written to `path` as int8 I/Q.  Returns the truth."""
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq, to_int8_iq
 
     sig = get_signal("beidou-b1i")
     n = int(fs * seconds)
@@ -101,6 +110,46 @@ def synth_b1i(path, fs, seconds, cn0=32.0, seed=11):
     with open(path, "wb") as f:
         f.write(to_int8_iq(x, scale=scale))
     return dict(prns=B1I_PRNS, dops=dops, phases=phases,
+                code_length=sig.code_length)
+
+
+def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4):
+    """`count` satellites of signal `name` (its default PRN list; all of
+    it when shorter) at random dopplers and random code phases, with its
+    subcarrier, plus one noise array at `cn0` dB-Hz per satellite,
+    sampled at the signal's acq_fs and written to `path` as int8 I/Q.
+    The dopplers lie inside the default grid and are small enough that
+    the code drifts at most half a chip over the capture (doppler /
+    carrier_ratio chips per second): the non-coherent search does not
+    follow code doppler, so a larger drift smears the peak over chips.
+    Returns the truth."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq, to_int8_iq
+
+    sig = get_signal(name)
+    fs = sig.acq_fs
+    n = int(fs * seconds)
+    rng = np.random.default_rng(seed)
+    prns = sorted(rng.permutation(sig.prns())[:count].tolist())
+    dmin, dmax, _ = sig.doppler_default
+    drift = 0.5 * sig.carrier_ratio / seconds
+    dops = rng.uniform(max(0.8 * dmin, -drift), min(0.8 * dmax, drift),
+                       len(prns)).round(1)
+    phases = rng.uniform(0.0, sig.code_length, len(prns)).round(2)
+    x = np.zeros(n, np.complex64)
+    for prn, dop, cp in zip(prns, dops, phases):
+        x += synth_iq(sig.code_table((prn,))[0].astype(np.float64),
+                      sig.chip_rate, fs, n, doppler_hz=float(dop),
+                      code_phase=float(cp), cn0_dbhz=None,
+                      subcarrier=sig.subcarrier,
+                      carrier_ratio=sig.carrier_ratio)
+    sigma = np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0)))
+    x += (sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+          ).astype(np.complex64)
+    scale = 127.0 / (4.0 * float(np.std(x.real)))
+    with open(path, "wb") as f:
+        f.write(to_int8_iq(x, scale=scale))
+    return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs,
                 code_length=sig.code_length)
 
 
@@ -180,6 +229,7 @@ def main(argv=None) -> int:
     from gnss_dsp_tpu_torch.cli import acquire as acq_cli
     from gnss_dsp_tpu_torch.cli import track as trk_cli
     from gnss_dsp_tpu_torch.device import resolve_device
+    from gnss_dsp_tpu_torch.models import get_signal
 
     resolve_device("cuda")
     os.makedirs(args.out, exist_ok=True)
@@ -207,6 +257,22 @@ def main(argv=None) -> int:
                            ("gps-l1", ["--blocks", str(blocks),
                                        "--device", "cuda", path, str(fs),
                                        "0", spec]), args.out)
+        wide = {}
+        for name in WIDE_STAGES:
+            wpath = os.path.join(args.out, f"main_path_{name}.iq")
+            wt = synth_at_acq_fs(wpath, name, 0.085)
+            try:
+                text, wide[name] = _profiled(
+                    f"acquire_{name}", acq_cli.main,
+                    (name, ["--time", "80", wpath, str(wt["fs"]), "0",
+                            "--device", "cuda"]), args.out)
+            finally:
+                os.remove(wpath)
+            hits = parse_hits(text)
+            step = get_signal(name).doppler_default[2]
+            for prn, dop in zip(wt["prns"], wt["dops"]):
+                if abs(hits[prn]["doppler"] - dop) > step:
+                    raise RuntimeError(f"{name} prn {prn} missed: {hits[prn]}")
     finally:
         os.remove(path)
         os.remove(b1i)
@@ -215,7 +281,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps(dict(acquire=acq, track=trk, acquire_coherent=coh,
-                          seconds=seconds,
+                          acquire_wide=wide, seconds=seconds,
                           blocks=blocks, channels=len(truth["prns"]),
                           card=card), indent=1))
     return 0

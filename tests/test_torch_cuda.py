@@ -5,7 +5,9 @@ of JAX, so on a machine without it run:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 
 Tolerances: K1 argmax exact on planted cells, peak/sum rtol 1e-4 (float32
-FFTs in another order); K2 bit-exact (the kernel and the plain version
+FFTs in another order, and at a W that is not a power of two one division
+by W of the block sum against a 1/W scale per transform); K7 planted lags
+exact, the surface to rtol 1e-4 plus 2e-5 of its maximum; K2 bit-exact (the kernel and the plain version
 pin the same roundings, and sum the correlators in float64); K5 and K6
 idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
 sums each group's blocks before the IDFT, its plain version after).
@@ -56,9 +58,79 @@ def test_k1_matches_plain(dev, W, P, DC, B):
 def test_k1_rejects_unsupported_w(dev):
     from gnss_dsp_tpu_torch.ops import acquire2
 
-    F = torch.zeros((1, 1, 3000), dtype=torch.complex64, device=dev)
+    F = torch.zeros((1, 1, 7 * 13 * 64), dtype=torch.complex64, device=dev)
     with pytest.raises(NotImplementedError):
         acquire2.corr_surface2(F, F[0])
+
+
+def _planted(dev, P, DC, B, W, lo, seed):
+    """Unit-modulus code spectra and noise spectra F [DC, B, W]; PRN p
+    planted at doppler p % DC and lag j = lo + (997p + 13) % (W - lo):
+    code_f[p] * conj(F[d, b]) carries e^{-2 pi i k j/W}."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    code = torch.exp(2j * np.pi * torch.rand((P, W), generator=g, device=dev)
+                     ).to(torch.complex64)
+    F = torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
+                      torch.randn((DC, B, W), generator=g, device=dev))
+    k = torch.arange(W, device=dev, dtype=torch.float64)
+    lags = [lo + (p * 997 + 13) % (W - lo) for p in range(P)]
+    for p in range(P):
+        F[p % DC] += (code[p].to(torch.complex128)
+                      * torch.exp(2j * np.pi * k * lags[p] / W)
+                      ).to(torch.complex64)
+    return code, F, lags
+
+
+@pytest.mark.parametrize("W,n_valid,P,DC,B", [
+    (32768, 15345, 3, 2, 3), (65536, 30690, 2, 2, 3), (65536, 0, 3, 2, 2),
+    (81920, 0, 2, 3, 2), (163840, 0, 2, 2, 2), (1280, 640, 5, 3, 4),
+    (30690, 0, 3, 2, 3), (4608, 2000, 40, 10, 3)])
+def test_k1_wide_matches_plain(dev, W, n_valid, P, DC, B):
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    lo = W - n_valid if n_valid else 0
+    code, F, lags = _planted(dev, P, DC, B, W, lo, W + n_valid)
+    n0 = acquire2.LAUNCHES
+    pk, ik, sk = acquire2.corr_surface2(F, code, n_valid)
+    assert acquire2.LAUNCHES == n0 + 1
+    pp, ip, sp = acquire2.corr_surface2_plain(F, code, n_valid)
+    for p in range(P):
+        assert int(ik[p, p % DC]) == int(ip[p, p % DC]) == lags[p] - lo
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(sk, sp, rtol=1e-4, atol=0)
+    again = acquire2.corr_surface2(F, code, n_valid)   # same bits each run
+    for a, b in zip((pk, ik, sk), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W,P,DC,B", [(30690, 2, 3, 4), (1280, 3, 2, 5),
+                                      (65536, 1, 2, 2), (960, 30, 12, 2)])
+def test_k7_matches_plain(dev, W, P, DC, B):
+    from gnss_dsp_tpu_torch.ops import acquire
+
+    code, F, lags = _planted(dev, P, DC, B, W, 0, W + 7)
+    n0 = acquire.LAUNCHES
+    qk = acquire.corr_surface(F, code)
+    assert acquire.LAUNCHES == n0 + 1 and qk.shape == (P, DC, W)
+    qp = acquire.corr_surface_plain(F, code)
+    for p in range(P):
+        assert int(qk[p, p % DC].argmax()) == lags[p]
+    torch.testing.assert_close(qk, qp, rtol=1e-4,
+                               atol=2e-5 * float(qp.max()))
+    assert torch.equal(qk, acquire.corr_surface(F, code))
+
+
+def test_k7_refuses_cpu_tensors_and_unsupported_w(dev):
+    from gnss_dsp_tpu_torch.ops import acquire
+
+    n0 = acquire.LAUNCHES
+    F = torch.zeros((1, 2, 30690), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="CUDA"):
+        acquire.corr_surface(F, F[0])
+    F = torch.zeros((1, 2, 7 * 13 * 64), dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError):
+        acquire.corr_surface(F, F[0])
+    assert acquire.LAUNCHES == n0
 
 
 def _coh_inputs(dev, P, DC, B, W, A, n_valid, seed):
@@ -147,8 +219,8 @@ def test_coh_kernels_reject_unsupported_w(dev):
 
 
 def test_k2_matches_plain_bit_for_bit(dev):
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq
     from gnss_dsp_tpu_torch.ops import track_fused
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import (

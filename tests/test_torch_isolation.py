@@ -1,7 +1,8 @@
 """The port stands alone and hides nothing:
 
   * every module of gnss_dsp_tpu_torch (and chip_smoke.py) imports
-    without loading jax, in a fresh interpreter;
+    without loading jax or any module of the JAX package gnss_dsp_tpu, in
+    a fresh interpreter;
   * asking for CUDA where there is none raises, and never runs on the CPU;
   * a CPU run launches no kernel (every launch counter stays 0);
   * a kernel wrapper given CPU tensors raises instead of running its
@@ -37,13 +38,18 @@ def test_port_imports_no_jax():
     names = _port_modules()
     assert "gnss_dsp_tpu_torch.ops.acquire2" in names
     assert "gnss_dsp_tpu_torch.ops.track_fused" in names
-    for m in ("ops.acquire_coh", "acquire.coherent", "acquire.plan"):
+    for m in ("ops.acquire_coh", "acquire.coherent", "acquire.plan",
+              "ops.acquire", "models.catalog", "models.codes.selftest",
+              "utils.synth", "utils.ranges", "cli.cn0"):
         assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
             "    importlib.import_module(n)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'jaxlib')\n"
+            "import gnss_dsp_tpu_torch.models as m\n"
+            "m.get_signal('gps-l1').code_table((1,))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+            "'gnss_dsp_tpu') or m.startswith(('jax.', 'jaxlib.', "
+            "'gnss_dsp_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,14 +77,17 @@ def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):
 
 
 def test_cpu_run_launches_no_kernel():
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu_torch.ops import acquire2, acquire_coh, track_fused
+    from gnss_dsp_tpu_torch.acquire.engine import surface_v1
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire, acquire2, acquire_coh
+    from gnss_dsp_tpu_torch.ops import track_fused
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import init_state, track_scan
 
     def counters():
         return (acquire2.LAUNCHES, track_fused.LAUNCHES,
-                acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK)
+                acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK,
+                acquire.LAUNCHES)
 
     before = counters()
     g = torch.Generator().manual_seed(0)
@@ -86,6 +95,9 @@ def test_cpu_run_launches_no_kernel():
     code = torch.randn((2, 64), generator=g, dtype=torch.complex64)
     peak, idx, sm = acquire2.corr_surface2(F, code)
     assert peak.shape == (2, 2) and idx.dtype == torch.int32
+    peak, idx, sm = acquire2.corr_surface2(F, code, 32)
+    assert int(idx.max()) < 32
+    assert surface_v1(F, code).shape == (2, 2, 64)
     peak, idx, al = acquire_coh.corr_surface_coh_spec(F, code, 2)
     assert peak.shape == (2, 2) and al.dtype == torch.int32
     peak, idx, al = acquire_coh.corr_surface_coh(
@@ -99,11 +111,11 @@ def test_cpu_run_launches_no_kernel():
     tab = torch.from_numpy(sig.code_table((5,)).astype(np.int8))
     _, rf, ri = track_scan(x, 30_000, tab, st, p, 3)
     assert ri.shape == (3, 1, 3) and (ri[:, 0, 0] > 0).all()
-    assert counters() == before == (0, 0, 0, 0)
+    assert counters() == before == (0, 0, 0, 0, 0)
 
 
 def test_track_kernel_wrapper_refuses_cpu_tensors():
-    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.ops import track_fused
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import init_state, sigp_from_params
@@ -139,8 +151,8 @@ def test_build_hash_follows_the_sources():
     from gnss_dsp_tpu_torch.ops import _build
 
     srcs = [os.path.basename(p) for p in _build._sources()]
-    assert srcs == ["acq_surface.cuh", "acquire2.cu", "acquire_coh.cu",
-                    "track_fused.cu"]
+    assert srcs == ["acq_surface.cuh", "acq_wide.cuh", "acquire.cu",
+                    "acquire2.cu", "acquire_coh.cu", "track_fused.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
     assert path == _build.lib_path()
