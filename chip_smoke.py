@@ -28,12 +28,31 @@ Runs every phase, in this order:
           at the main path's shape (the e2e capture's 8 channels at
           8.184 MHz, int8 ingest on the card) across a chunk that ends
           mid-run, the stall, and the driver's refill with pointer rebase
+  k3      per-step correlator K3 vs its plain version, every launch of a
+          per-step scan on a 45 dB-Hz capture: the tracking bench shape
+          (32 GPS L1 channels x 900 blocks at 4.096 MHz, the scan's rows
+          against the plain loop too), the GPS L1 e2e shape and every
+          e2e_track shape (subc, tmboc, L2CL's and GLONASS P's long codes)
+  k4      per-step correlator K4 vs its plain version for all six static
+          families (none, boc11, cboc, tmboc, rz_even, rz_odd)
   e2e     the main path through the CLIs: synthesize a 2.2 s GPS L1
           capture (8.184 MHz, 8 satellites, 45 dB-Hz), acquire it, track
           the hits for 2150 blocks (past the 2000 ms chunk refill and the
           FLL -> PLL switch at block 1000), estimate C/N0 with the
           port's cli.cn0; the launch counters must show K1 and K2
           on that path
+  gps_l1_routes
+          the same capture tracked again on the per-step route, K3
+          (GNSS_DSP_NO_FUSED=1) and K4 (and GNSS_DSP_PALLAS_V1=1): int
+          columns identical to K2's and floats within rtol 2e-5 over the
+          first 200 blocks, all channels in lock
+  e2e_track
+          the subcarrier, sub-block and long-code families through the
+          track CLI on K3: 2.2 s captures at acq_fs, 8 channels each of
+          galileo-e1b, gps-l1cp, gps-l2cm, gps-l2cl and 4 FDMA channels of
+          glonass-l1-p at 45 dB-Hz; every channel within 5 Hz of its
+          doppler over the last 200 rows, C/N0 41-47 dB-Hz (38-44 for the
+          RZ codes)
   e2e_coherent
           the extended-coherent path through the acquire CLI: a 50 ms
           BeiDou B1I capture (16.368 MHz, 6 satellites with NH20 at
@@ -49,13 +68,14 @@ Runs every phase, in this order:
           65536, 81920, 163840); the launch counters must show K7 on
           xona-x5d and K1 on the others
 
-In the e2e phases every surface-kernel call is recorded with its shape,
-and each must have been held against its plain version at that shape in
-k1, k5, k6 or k7 (a launch's doppler count may be smaller).
+In the e2e phases every surface-kernel and per-step correlator call is
+recorded with its shape, and each must have been held against its plain
+version at that shape in k1, k3, k4, k5, k6 or k7 (a surface launch's
+doppler count may be smaller).
 
 Prints a JSON line of per-kernel results (times, the bound the card's
 peaks put on each kernel's work, the time of one torch.fft.ifft over the
-same product), then the nvidia-smi line, then a last line {"ok": true,
+same product where one exists), then the nvidia-smi line, then a last line {"ok": true,
 "device": {...}}.  Exits non-zero, without that line, when any phase fails
 or no GPU is present.  Imports nothing of JAX or of the JAX package.
 """
@@ -88,7 +108,24 @@ KERNELS = {
         replaces="gnss_dsp_tpu/ops/pallas_acquire_coh.py:467"),
     "acquire": dict(route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire.cu",
                     replaces="gnss_dsp_tpu/ops/pallas_acquire.py:183"),
+    "track_step_v2": dict(route="cuda",
+                          source="gnss_dsp_tpu_torch/csrc/track_step.cu",
+                          replaces="gnss_dsp_tpu/ops/pallas_track2.py:386"),
+    "track_step_v1": dict(route="cuda",
+                          source="gnss_dsp_tpu_torch/csrc/track_step.cu",
+                          replaces="gnss_dsp_tpu/ops/pallas_track.py:274"),
 }
+# kernels no single PyTorch call computes (no library time)
+NO_LIBRARY = ("track_fused", "track_step_v2", "track_step_v1")
+
+# the subcarrier, sub-block and long-code families of e2e_track: (signal,
+# channels), each at its acq_fs
+E2E_TRACK = (("galileo-e1b", 8), ("gps-l1cp", 8), ("gps-l2cm", 8),
+             ("gps-l2cl", 8), ("glonass-l1-p", 4))
+# K4's static families, each at the e2e shape of a signal that carries it
+K4_FAMILIES = (("none", "gps-l1"), ("boc11", "gps-l1cd"),
+               ("cboc", "galileo-e1b"), ("tmboc", "gps-l1cp"),
+               ("rz_even", "gps-l2cm"), ("rz_odd", "gps-l2cl"))
 
 # the wide-window and odd-length searches of e2e_wide, one per route
 E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
@@ -190,6 +227,28 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps runs: the summed time of
+    the kernels and copies it launches, from torch.profiler with CUDA
+    activity, after one warm-up run.  For calls whose host side is longer
+    than their device work, where CUDA events time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / reps / 1e3
+
+
 # --------------------------------------------- shapes checked vs main path
 
 # the surface kernels' wrappers, by kernel: (module under ops, function)
@@ -199,8 +258,11 @@ SURFACE_WRAPPERS = {
     "acquire_coh_spec": ("acquire_coh", "corr_surface_coh_spec"),
     "acquire_coh": ("acquire_coh", "corr_surface_coh"),
 }
+# the per-step correlators' wrappers (ops.track_step), by kernel
+STEP_WRAPPERS = {"track_step_v2": "epl_correlate2",
+                 "track_step_v1": "epl_correlate"}
 # shape_key of every case the k phases held against its plain version
-CHECKED = {name: [] for name in SURFACE_WRAPPERS}
+CHECKED = {name: [] for name in (*SURFACE_WRAPPERS, *STEP_WRAPPERS)}
 
 
 def shape_key(name, F, code_f, *rest):
@@ -217,20 +279,31 @@ def shape_key(name, F, code_f, *rest):
     return F.shape[0], key
 
 
+def step_key(name, si, sf, x, code, nmax, sub):
+    """(0, (subcarrier, channels, nmax, code length)) of a per-step
+    correlator call: its launch grid and the kernel's template."""
+    return 0, (sub, si.shape[0], int(nmax), code.shape[1])
+
+
 @contextlib.contextmanager
 def recording():
     """Yields a list that collects (kernel, shape_key) for every surface
-    wrapper call made inside.  The engines call the wrappers through
-    their ops module, so wrapping the module attribute sees every call;
-    the launch counters are the wrappers' own and count as before."""
+    and per-step correlator wrapper call made inside.  The engines call
+    the wrappers through their ops module, so wrapping the module
+    attribute sees every call; the launch counters are the wrappers' own
+    and count as before."""
     calls, saved = [], []
-    for name, (mod, fn) in SURFACE_WRAPPERS.items():
+    spies = [(name, mod, fn, shape_key)
+             for name, (mod, fn) in SURFACE_WRAPPERS.items()]
+    spies += [(name, "track_step", fn, step_key)
+              for name, fn in STEP_WRAPPERS.items()]
+    for name, mod, fn, key in spies:
         m = importlib.import_module(f"gnss_dsp_tpu_torch.ops.{mod}")
         orig = getattr(m, fn)
 
-        def spy(*a, _name=name, _orig=orig, **kw):
+        def spy(*a, _name=name, _orig=orig, _key=key, **kw):
             check(not kw, (_name, "called with keywords", sorted(kw)))
-            calls.append((_name, shape_key(_name, *a)))
+            calls.append((_name, _key(_name, *a)))
             return _orig(*a)
 
         saved.append((m, fn, orig))
@@ -243,8 +316,8 @@ def recording():
 
 
 def check_covered(tag, calls):
-    """Every surface-kernel call of the main path was held against its
-    plain version at its shape.  A launch may cover fewer dopplers than
+    """Every surface-kernel and per-step correlator call of the main path
+    was held against its plain version at its shape.  A launch may cover fewer dopplers than
     the checked case (the grid's last chunk): the doppler count only
     sizes the launch grid, one CTA per (PRN, doppler, alignment)."""
     for name, (dc, key) in sorted(set(calls)):
@@ -736,6 +809,164 @@ def phase_k2_main_path(dev, results, work, seconds=0.8, chunk_s=0.35,
     r["max_abs_err"] = max(r["max_abs_err"], err)
 
 
+# ------------------------------------------------------------ phases k3, k4
+
+def step_bound(sig, ns, L, kind):
+    """bound() of one per-step correlator launch over blocks of ns
+    samples (one per channel): each sample read once (8 bytes), the chips
+    the three lags touch, the lanes in and the sums out; about 20
+    operations a sample and channel as K2 counts them, plus the
+    subcarrier factor's per lag (6 affine, 10 with the TMBOC gate)."""
+    chips = sum(min(L, int(n * sig.chip_rate / sig.acq_fs) + 3) for n in ns)
+    extra = {"none": 0, "subc": 6, "tmboc": 10}.get(kind, 6)
+    return bound(sum(ns) * 8 + chips + len(ns) * (36 + 32 + 24) + 8192,
+                 sum(ns) * (20 + 3 * extra))
+
+
+def _step_case(dev, card, tag, name, C, fs, nb, v1, seed, sub=None,
+               dwells=(10, 10), check_rows=False):
+    """nb steps of the per-step route on a capture of C channels of `name`
+    at fs (45 dB-Hz each), every launch of K3 (or K4 with v1) held against
+    the plain version on the same lanes: equal to one float32 ulp of the
+    channel's largest sum.  With check_rows the whole scan is held against
+    the plain loop too.  Returns the case's numbers."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import nco, track_step
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+    from gnss_dsp_tpu_torch.track import engine
+    from gnss_dsp_tpu_torch.track.driver import make_params
+
+    sig = get_signal(name)
+    params = make_params(sig, fs, 0.0, loop_dwells=dwells)._replace(
+        fused_scan=False, pallas_v2=not v1)
+    sub = sub or (sig.subcarrier if v1 else engine.subc_kind(sig.subcarrier))
+    if v1:
+        params = params._replace(subcarrier=sub)
+    rng = np.random.default_rng(seed)
+    cands = [p for p in sig.prns() if abs(sig.fdma_hz * p) < 0.45 * fs]
+    prns = [int(cands[k % len(cands)]) for k in range(C)]
+    dops = rng.uniform(-4000, 4000, C).round(1)
+    phases = rng.uniform(0, sig.code_length, C).round(2)
+    # the first code period's blocks may be 1.5 times the nominal length
+    n = int(fs * 0.001 * sig.code_period_ms / sig.sub_blocks * 1.6 * (nb + 2))
+    x = torch.zeros(n, dtype=torch.complex64, device=dev)
+    for p, d, cp in zip(prns, dops, phases):
+        x += synth_iq_t(sig.code_table((p,))[0], sig.chip_rate, fs, n,
+                        float(d) + sig.fdma_hz * p, float(cp), sig.subcarrier,
+                        sig.track_carrier_ratio(p),
+                        code_doppler_hz=float(d), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sigma = float(np.sqrt(fs / (2.0 * 10 ** 4.5)))
+    x += sigma * torch.complex(torch.randn(n, generator=g, device=dev),
+                               torch.randn(n, generator=g, device=dev))
+    xd = torch.cat([x, torch.zeros(params.nmax + 1024, dtype=x.dtype,
+                                   device=dev)])
+    tab = torch.from_numpy(sig.code_table(tuple(prns)).astype(np.int8)
+                           ).to(dev)
+    ratios = torch.tensor([sig.track_carrier_ratio(p) for p in prns],
+                          dtype=torch.float32, device=dev)
+    cdf = torch.tensor([nco.freq_to_fixed(-sig.fdma_hz * p / fs)
+                        for p in prns], dtype=torch.int32, device=dev)
+    sigp = engine.sigp_from_params(params, C, dev)
+    st0 = engine.init_state(phases, np.zeros(C), np.zeros(C), dops,
+                            device=dev)
+    cl = torch.full((C,), n, dtype=torch.int32, device=dev)
+    kern = engine.kernel_correlate(params)
+    stats = dict(n=0, same=0, err=0.0, ns=[])
+
+    def plain(si, sf, x, code):
+        return track_step.epl_correlate_plain(si, sf, x, code, params.nmax,
+                                              sub, v1=v1)
+
+    def both(si, sf, x, code):
+        got = kern(si, sf, x, code)
+        want = plain(si, sf, x, code)
+        env = want.abs().amax(dim=1, keepdim=True)
+        ulp = torch.nextafter(env, torch.full_like(env, np.inf)) - env
+        d = (got - want).abs()
+        check(bool((d <= ulp).all()), (tag, "kernel vs plain",
+                                       float(d.max()), float(ulp.min())))
+        stats["n"] += 1
+        stats["same"] += int(torch.equal(got, want))
+        stats["err"] = max(stats["err"], float(d.max()))
+        stats.update(si=si, sf=sf)
+        return got
+
+    st, rf, ri = engine._scan(xd, cl, tab, st0, params, nb, ratios, cdf,
+                              sigp, both)
+    torch.cuda.synchronize()
+    ri = ri.cpu().numpy()
+    check((ri[:, :, 0] > 0).all(), (tag, "a block did not run"))
+    if check_rows:
+        _, rf_p, ri_p = engine.track_scan_plain(xd, cl, tab, st0, params,
+                                                nb, ratios, cdf, sigp)
+        H = min(200, nb)
+        rf, rf_p = rf.cpu().numpy(), rf_p.cpu().numpy()
+        np.testing.assert_array_equal(ri[:H], ri_p.cpu().numpy()[:H])
+        np.testing.assert_allclose(rf[:H], rf_p[:H], rtol=2e-5, atol=2e-4)
+        stats["rows_same"] = int((rf == rf_p).all(axis=2).sum())
+    kernel = "track_step_v1" if v1 else "track_step_v2"
+    key = step_key(kernel, stats["si"], stats["sf"], xd, tab, params.nmax,
+                   sub)
+    CHECKED[kernel].append(key)
+    si, sf = stats["si"], stats["sf"]
+    # device time of the launches (the call is host-bound: CUDA events
+    # over back-to-back calls time the wrapper, logged as the call time)
+    ms = device_ms(lambda: kern(si, sf, xd, tab), 50)
+    plain_ms = device_ms(lambda: plain(si, sf, xd, tab), 5)
+    call_ms = cuda_ms(lambda: kern(si, sf, xd, tab), 50)
+    ns = si[:, 4].cpu().numpy().tolist()
+    bms, by = step_bound(sig, ns, sig.code_length, sub)
+    log(f"[{tag}] {name} {sub} C={C} fs={fs:g} nmax={params.nmax} "
+        f"L={sig.code_length}: {stats['n']} launches within one ulp of the "
+        f"plain version, {stats['same']} bit-equal, max|d| = "
+        f"{stats['err']:.3g}"
+        + (f"; {stats['rows_same']}/{nb * C} scan rows bit-equal"
+           if check_rows else ""))
+    log(f"[{tag}] {name}: kernel {ms * 1e3:.2f} us of device time a launch "
+        f"({sum(ns) / ms / 1e3:.4g} Msamples/s; {call_ms * 1e3:.1f} us a "
+        f"call from Python), plain {plain_ms * 1e3:.1f} us of device time, "
+        f"bound {bms * 1e3:.3f} us by {by}  [{card}]")
+    return dict(max_abs_err=stats["err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def phase_k3(dev, card, results):
+    """K3 at the tracking bench shape (32 GPS L1 channels, 900 blocks at
+    4.096 MHz, the whole scan against the plain loop as in k2), at the
+    GPS L1 e2e shape and at every e2e_track shape."""
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    r = _step_case(dev, card, "k3", "gps-l1", 32, 4.096e6, 900, False, 31,
+                   dwells=(200, 200), check_rows=True)
+    errs = [r["max_abs_err"]]
+    errs.append(_step_case(dev, card, "k3", "gps-l1", 8, 8.184e6, 40, False,
+                           32)["max_abs_err"])
+    for i, (name, C) in enumerate(E2E_TRACK):
+        errs.append(_step_case(dev, card, "k3", name, C,
+                               get_signal(name).acq_fs, 40, False,
+                               33 + i)["max_abs_err"])
+    results["track_step_v2"].update(r, max_abs_err=max(errs))
+
+
+def phase_k4(dev, card, results):
+    """K4 for all six families, each at the e2e shape of a signal that
+    carries it (GPS L1 at 8.184 MHz, the others 8 channels at acq_fs), and
+    at the tracking bench shape for the kernels line."""
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    r = _step_case(dev, card, "k4", "gps-l1", 32, 4.096e6, 100, True, 41,
+                   dwells=(200, 200))
+    errs = [r["max_abs_err"]]
+    for i, (family, name) in enumerate(K4_FAMILIES):
+        fs = 8.184e6 if name == "gps-l1" else get_signal(name).acq_fs
+        errs.append(_step_case(dev, card, "k4", name, 8, fs, 40, True, 42 + i,
+                               sub=family)["max_abs_err"])
+    results["track_step_v1"].update(r, max_abs_err=max(errs))
+
+
 # --------------------------------------------------------------- phase e2e
 
 def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
@@ -823,7 +1054,125 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
     log(f"[e2e] wall: synth {t_synth:.2f} s, acquire {t_acq:.2f} s, "
         f"track {nblocks} blocks x 8 ch {t_trk:.2f} s, cn0 {t_cn0:.2f} s  "
         f"[{card}]")
-    os.remove(path)
+    return path, fs, ",".join(specs), out, truth
+
+
+# ---------------------------------------------------------- phase e2e_track
+
+def phase_e2e_track(dev, card, results, work):
+    """The track CLI on one 2.2 s capture per family of E2E_TRACK
+    (tools/track_all.synth_track: 45 dB-Hz, acq_fs), default loop dwells:
+    every channel within 5 Hz of its doppler over the last 200 rows, and
+    C/N0 of the last 500 rows 41-47 dB-Hz (3 dB less for the RZ codes,
+    whose chips are zero half the time).  Returns K3's launches."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.track_all import run_signal
+
+    v2 = 0
+    for i, (name, C) in enumerate(E2E_TRACK):
+        sig = get_signal(name)
+        track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
+        track_fused.LAUNCHES = 0
+        with recording() as calls:
+            r = run_signal(name, str(dev), work, seconds=2.2, count=C,
+                           seed=40 + i, tail=200, cn0_rows=500)
+        torch.cuda.synchronize()
+        launches = (track_step.LAUNCHES_V2, track_step.LAUNCHES_V1,
+                    track_fused.LAUNCHES)
+        check(launches[0] > 0 and launches[1:] == (0, 0),
+              (name, "K3 not the route", launches))
+        v2 += launches[0]
+        check_covered("e2e_track", calls)
+        check(not r["bad"], (name, "out of lock", r["bad"]))
+        lo = 41.0 - (3.0 if sig.subcarrier.startswith("rz") else 0.0)
+        for prn, df, c in zip(r["truth"]["prns"], r["max_df"], r["cn0"]):
+            check(lo <= c <= lo + 6.0, (name, prn, "C/N0", c))
+            log(f"[e2e_track] {name} {'chan' if sig.fdma_hz else 'prn'} "
+                f"{prn:3d}: {len(r['rows'][prn])} rows, last-200 "
+                f"|carrier_f - truth| <= {df:.3f} Hz, C/N0 {c:.2f} dB-Hz")
+        log(f"[e2e_track] {name} ({sig.subcarrier}, sub {sig.sub_blocks}, L "
+            f"{sig.code_length}) {C} ch at {r['truth']['fs']:g} Hz: track CLI "
+            f"{r['wall_s']:.2f} s, K3 launches {launches[0]}  [{card}]")
+    return v2
+
+
+# ------------------------------------------------------- phase gps_l1_routes
+
+def _rows_by_prn(text):
+    rows = {}
+    for line in text.splitlines():
+        tag, rest = line.split(" ", 1)
+        rows.setdefault(int(tag[2:]), []).append(rest)
+    return rows
+
+
+def phase_gps_l1_routes(dev, card, results, e2e):
+    """The e2e GPS L1 capture tracked again through the track CLI on the
+    per-step route, K3 (GNSS_DSP_NO_FUSED=1) and K4 (and
+    GNSS_DSP_PALLAS_V1=1), against the K2 rows of phase e2e: int columns
+    identical and floats within rtol 2e-5 / atol 2e-4 over the first 200
+    blocks, every channel within 5 Hz of its doppler over the last 200."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+
+    path, fs, specs, k2_out, truth = e2e
+    want = _rows_by_prn(k2_out)
+    for label, env, kernel in (
+            ("K3", {"GNSS_DSP_NO_FUSED": "1"}, "track_step_v2"),
+            ("K4", {"GNSS_DSP_NO_FUSED": "1", "GNSS_DSP_PALLAS_V1": "1"},
+             "track_step_v1")):
+        track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
+        track_fused.LAUNCHES = 0
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            with recording() as calls:
+                out = run_cli(trk_cli.main, "gps-l1",
+                              ["--blocks", "2150", "--device", str(dev), path,
+                               str(fs), "0", specs])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        n_v2, n_v1 = track_step.LAUNCHES_V2, track_step.LAUNCHES_V1
+        launches = n_v2 if label == "K3" else n_v1
+        check(launches > 0 and track_fused.LAUNCHES == 0
+              and (n_v1 if label == "K3" else n_v2) == 0,
+              (label, "not the route", n_v2, n_v1, track_fused.LAUNCHES))
+        results[kernel]["launches"] += launches
+        check_covered("gps_l1_routes", calls)
+        got = _rows_by_prn(out)
+        check(sorted(got) == sorted(want), (label, sorted(got)))
+        same = total = 0
+        ints = [0, 9, 11, 13]          # block, code_cyc, carrier_cyc, samp
+        for prn, dop in zip(truth["prns"], truth["dops"]):
+            a = np.array([[float(v) for v in r.split()] for r in want[prn]])
+            b = np.array([[float(v) for v in r.split()] for r in got[prn]])
+            check(a.shape == b.shape, (label, prn, a.shape, b.shape))
+            H = 200
+            np.testing.assert_array_equal(b[:H, ints], a[:H, ints])
+            fl = [c for c in range(14) if c not in ints]
+            np.testing.assert_allclose(b[:H, fl], a[:H, fl], rtol=2e-5,
+                                       atol=2e-4 + 1e-6)
+            same += sum(x == y for x, y in zip(want[prn], got[prn]))
+            total += len(got[prn])
+            df = np.abs(b[-200:, 3] - dop).max()
+            check(df <= 5.0, (label, prn, "out of lock", df))
+        log(f"[gps_l1_routes] {label}: {launches} launches, first 200 blocks "
+            f"int columns identical and floats within rtol 2e-5 of K2; "
+            f"{same}/{total} text rows identical to K2's; every channel in "
+            f"lock; track CLI {wall:.2f} s  [{card}]")
 
 
 # ------------------------------------------------------ phase e2e_coherent
@@ -1019,7 +1368,13 @@ def main(argv=None) -> int:
     phase_k6(dev, card, results)
     phase_k2(dev, card, results)
     phase_k2_main_path(dev, results, args.out)
-    phase_e2e(dev, card, results, args.out)
+    phase_k3(dev, card, results)
+    phase_k4(dev, card, results)
+    e2e = phase_e2e(dev, card, results, args.out)
+    phase_gps_l1_routes(dev, card, results, e2e)
+    os.remove(e2e[0])
+    results["track_step_v2"]["launches"] += phase_e2e_track(
+        dev, card, results, args.out)
     phase_e2e_coherent(dev, card, results, args.out)
     k1_wide = phase_e2e_wide(dev, card, results, args.out)
     log(f"[e2e_wide] acquire2 launches: e2e {results['acquire2']['launches']}"
@@ -1027,7 +1382,7 @@ def main(argv=None) -> int:
     results["acquire2"]["launches"] += k1_wide
     for r in results.values():
         need = ["launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by"] + (["library_ms"] if r["name"] != "track_fused"
+                "bound_by"] + (["library_ms"] if r["name"] not in NO_LIBRARY
                                else [])
         check(all(r[k] is not None for k in need) and r["launches"] > 0,
               ("kernel line incomplete", r))

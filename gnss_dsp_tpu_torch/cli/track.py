@@ -9,8 +9,14 @@ Counterpart: gnss_dsp_tpu/cli/track.py:148-298 (`main`, single signal).
 
 Prints one row per tracked block in the reference's 9- or 14-column text
 format (track-gps-l1.py:176-177); with several channels each row starts
-"ch<prn> ".  Adds --device (default cuda).  Not ported here: unknown-code
-recovery, extended-coherent tracking, checkpoint/resume and mesh.
+"ch<prn> ".  Adds --device (default cuda).  Every signal with a code
+table tracks, with its subcarrier, sub-blocks and long code: on the card
+BPSK signals with one sub-block per code period run kernel K2, the others
+(and every signal under GNSS_DSP_NO_FUSED) one launch of K3 a block, or
+of K4 under GNSS_DSP_PALLAS_V1; --device cpu runs the plain versions.
+Not ported here: unknown-code recovery (beidou-b2bi/b2bq raise
+NotImplementedError), extended-coherent tracking (--coherent),
+checkpoint/resume, mesh and the mixed-signal `multi` mode.
 """
 
 from __future__ import annotations

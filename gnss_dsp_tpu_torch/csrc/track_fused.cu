@@ -16,6 +16,8 @@
 //      carrier wipe, three direct reads of the code table in shared
 //      memory, and six partial sums (float64: the chips are +-1, so the
 //      products are exact and the rounded sum does not depend on order);
+//      this body is track_corr.cuh's epl_samples, shared with K3 and K4,
+//      here with the subcarrier factor fixed to BPSK;
 //   3. warp shuffles and shared memory reduce the sums;
 //   4. thread 0 runs the loop filter and bookkeeping (_post_block), writes
 //      the block's rows and keeps the state in registers.
@@ -34,15 +36,14 @@
 // Scope: BPSK, one sub-block per code period, codes of <= 10230 chips
 // (checked by the wrapper).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "track_corr.cuh"
 
 namespace {
 
+using gnss_track::kLut;
+
 constexpr int kThreads = 256;
 constexpr int kMaxCode = 10230;
-constexpr int kLut = 1024;
 
 // int32 state lanes (ops/track_fused.py I_*)
 enum { I_PTR, I_BLOCK, I_COFF_P, I_COFF_DF, I_STALLED, I_CHUNKLEN, I_NFULL,
@@ -137,12 +138,6 @@ __device__ __forceinline__ float pll_costas(float re, float im) {
   return atan2f(flip * im, flip * re);
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __global__ void __launch_bounds__(kThreads)
 track_fused_kernel(const float2* __restrict__ x,
                    const int8_t* __restrict__ code, int code_stride,
@@ -231,42 +226,15 @@ track_fused_kernel(const float2* __restrict__ x,
 
     double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
     if (g_ok) {
-      const int nb = g_n;
-      const float2* xb = x + g_ptr;
-      const uint32_t cp0 = g_coff_p, cdf = g_coff_df;
-      const uint32_t kp0 = g_carr_p0, kdf = g_carr_df;
-      const float cf = g_cf;
-      const int v0 = g_vint[0], v1 = g_vint[1], v2 = g_vint[2];
-      const float f0 = g_fr[0], f1 = g_fr[1], f2 = g_fr[2];
-      for (int i = tid; i < nb; i += blockDim.x) {
-        const uint32_t ui = (uint32_t)i;
-        const uint32_t ph1 = cp0 + ui * cdf;
-        const uint32_t ph2 = kp0 + ui * kdf;
-        const float2 w = lut[((ph1 >> 22) + (ph2 >> 22)) & (kLut - 1)];
-        const float2 s = xb[i];
-        const double m_re = (double)(s.x * w.x - s.y * w.y);
-        const double m_im = (double)(s.x * w.y + s.y * w.x);
-        const float fi = (float)i;
-        int k0 = v0 + (int)floorf(__fmaf_rn(fi, cf, f0));
-        int k1 = v1 + (int)floorf(__fmaf_rn(fi, cf, f1));
-        int k2 = v2 + (int)floorf(__fmaf_rn(fi, cf, f2));
-        // floor-mod: the early lag at phase ~0 gives -1 -> L-1
-        k0 = ((k0 % L) + L) % L;
-        k1 = ((k1 % L) + L) % L;
-        k2 = ((k2 % L) + L) % L;
-        const double c0 = (double)chips[k0];
-        const double c1 = (double)chips[k1];
-        const double c2 = (double)chips[k2];
-        acc[0] += m_re * c0;
-        acc[1] += m_im * c0;
-        acc[2] += m_re * c1;
-        acc[3] += m_im * c1;
-        acc[4] += m_re * c2;
-        acc[5] += m_im * c2;
-      }
+      const gnss_track::Block g{g_coff_p, g_coff_df, g_carr_p0, g_carr_df,
+                                g_cf, {g_vint[0], g_vint[1], g_vint[2]},
+                                {g_fr[0], g_fr[1], g_fr[2]}};
+      gnss_track::epl_samples<gnss_track::SUB_BPSK>(
+          x + g_ptr, lut, g, L, gnss_track::Coef{},
+          [&](int k) { return (float)chips[k]; }, tid, g_n, blockDim.x, acc);
     }
 #pragma unroll
-    for (int j = 0; j < 6; ++j) acc[j] = warp_sum(acc[j]);
+    for (int j = 0; j < 6; ++j) acc[j] = gnss_track::warp_sum(acc[j]);
     if ((tid & 31) == 0) {
 #pragma unroll
       for (int j = 0; j < 6; ++j) red[tid >> 5][j] = acc[j];

@@ -2,7 +2,8 @@
 
 The tests use these so that both packages start from identical inputs:
 
-  params_from_jax(p)           JAX TrackParams -> port TrackParams
+  params_from_jax(p)           JAX TrackParams -> port TrackParams, with
+                               the route (fused_scan, pallas_v2)
   state_from_numpy(d, device)  {field: array} (JAX TrackState leaves) ->
                                port TrackState; coffset_p uint32 -> int64
   state_to_numpy(state)        port TrackState -> {field: array};
@@ -30,8 +31,10 @@ _DTYPES = {"ptr": np.int32, "block": np.int32, "n_full": np.int32,
 
 
 def params_from_jax(p) -> TrackParams:
-    """A JAX TrackParams (any NamedTuple with those fields) -> the port's,
-    dropping the TPU kernel fields (use_pallas, pallas_*, fused_scan)."""
+    """A JAX TrackParams (any NamedTuple with those fields) -> the port's.
+    The route fields fused_scan (K2) and pallas_v2 (K3, else K4) carry
+    across; the TPU layout fields (use_pallas, pallas_tiles, pallas_w,
+    pallas_stream) are dropped."""
     src = p._asdict()
     return TrackParams(**{k: src[k] for k in TrackParams._fields})
 

@@ -57,6 +57,10 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _I, _P],
     "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "track_step_v2": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                      _I, _I, _I, _P],
+    "track_step_v1": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                      _I, _I, _I, _P],
 }
 
 

@@ -9,7 +9,8 @@ closes over each block's correlators), so the kernel runs all blocks of
 one channel inside one CTA and the parallelism comes from the channels.
 Its plain version is track/engine.track_scan_plain, a Python loop over
 blocks vectorised over channels; track/engine.track_scan picks between
-the two by the chunk's device.
+the two by the chunk's device, and takes K2 where params.fused_scan holds
+(track/driver.make_params sets it where `covers` does).
 
 This module holds the ctypes wrapper and the state packing only.  The
 wrapper takes CUDA tensors and nothing else.  LAUNCHES counts kernel
@@ -35,6 +36,12 @@ NI = 8
  F_DE1, F_RATIO) = range(10)
 F_SIGP = 10
 NF = 22
+
+
+def covers(subcarrier: str, sub: int, code_length: int) -> bool:
+    """Whether K2 runs a signal: BPSK, one sub-block per code period, a
+    code in shared memory."""
+    return subcarrier == "none" and sub == 1 and code_length <= MAX_CODE
 
 
 def _pack_state(state, chunk_len, ratios, coffset_df, sigp):

@@ -17,8 +17,9 @@ CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
 then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
 (2.2 s at 8.184 MHz, 2150 tracked blocks), then the acquire CLI on the
 wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
---time 80), each once cold and once warm under torch.profiler with CUDA
-activity.  It prints one JSON object: per stage
+--time 80), then the track CLI on the per-step route (K3) on a 2.2 s
+galileo-e1b capture of 8 satellites (tools/track_all.synth_track), each
+once cold and once warm under torch.profiler with CUDA activity.  It prints one JSON object: per stage
 the cold and warm host walls, the device busy time (the union of the
 trace's device events: kernels and copies), the idle share
 1 - busy / warm wall, and the costliest device events; then the
@@ -230,6 +231,7 @@ def main(argv=None) -> int:
     from gnss_dsp_tpu_torch.cli import track as trk_cli
     from gnss_dsp_tpu_torch.device import resolve_device
     from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.track_all import synth_track
 
     resolve_device("cuda")
     os.makedirs(args.out, exist_ok=True)
@@ -273,6 +275,18 @@ def main(argv=None) -> int:
             for prn, dop in zip(wt["prns"], wt["dops"]):
                 if abs(hits[prn]["doppler"] - dop) > step:
                     raise RuntimeError(f"{name} prn {prn} missed: {hits[prn]}")
+        tpath = os.path.join(args.out, "main_path_galileo_e1b.iq")
+        tt = synth_track(tpath, "galileo-e1b", seconds, count=8, seed=40)
+        try:
+            spec = ",".join(f"{p}:{d}:{c}" for p, d, c in zip(
+                tt["prns"], tt["dops"], tt["phases"]))
+            text, step = _profiled("track_galileo_e1b", trk_cli.main,
+                                   ("galileo-e1b", [tpath, str(tt["fs"]),
+                                                    "0", spec, "--device",
+                                                    "cuda"]), args.out)
+        finally:
+            os.remove(tpath)
+        step["rows"] = len(text.splitlines())
     finally:
         os.remove(path)
         os.remove(b1i)
@@ -281,7 +295,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps(dict(acquire=acq, track=trk, acquire_coherent=coh,
-                          acquire_wide=wide, seconds=seconds,
+                          acquire_wide=wide, track_step_galileo_e1b=step,
+                          seconds=seconds,
                           blocks=blocks, channels=len(truth["prns"]),
                           card=card), indent=1))
     return 0

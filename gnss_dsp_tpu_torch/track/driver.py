@@ -8,14 +8,24 @@ chunk loop with refill and pointer rebase :580-701, `format_row_14`
 pointer; the unbounded counters (samp, code_cyc, carrier_cyc) accumulate
 on the host in python ints from per-block deltas.
 
+make_params records the route on the card as the reference's switches
+choose it: the whole-loop kernel K2 (fused_scan) where it covers the
+signal and GNSS_DSP_NO_FUSED is unset, else the per-step route on K3, or
+on K4 when GNSS_DSP_PALLAS_V1 is set (pallas_v2).  The reference runs its
+K2 on every family; the port's K2 covers BPSK with one sub-block per code
+period, so the subcarrier, sub-block and long-code signals take K3.
+
 Not ported here: mesh sharding, checkpoint/resume, mixed-signal (`multi`)
 and preloaded chunks, the int4 front end, unknown-code recovery and
-extended-coherent tracking.  The kernel reads the plain [C, L] int8 code
-table, so the JAX package's extended code rows have no counterpart.
+extended-coherent tracking.  The kernels read the plain [C, L] int8 code
+table (long codes too: L2CL's 767,250 and GLONASS P's 5,110,000 chips
+stay in device memory), so the JAX package's extended code rows have no
+counterpart.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from dataclasses import dataclass, field
@@ -23,7 +33,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gnss_dsp_tpu_torch.ops import cplx, nco
+from gnss_dsp_tpu_torch.device import resolve_device
+from gnss_dsp_tpu_torch.ops import cplx, nco, track_fused
 from gnss_dsp_tpu_torch.track.engine import (
     TrackParams, init_state, sigp_from_params, track_scan,
 )
@@ -121,26 +132,35 @@ def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
         code_period_ms=float(period_ms),
         sub=int(sub),
         subcarrier=str(sig.subcarrier),
+        pallas_v2=not os.environ.get("GNSS_DSP_PALLAS_V1"),
+        fused_scan=track_fused.covers(str(sig.subcarrier), int(sub),
+                                      int(sig.code_length))
+        and not os.environ.get("GNSS_DSP_NO_FUSED"),
     )
 
 
 def track_file(sig, fp, fs: float, coffset: float, channels,
                loop_dwells=(500, 500), chunk_ms: float = 2000.0,
-               max_blocks: int | None = None, emit=None, device="cpu"):
+               max_blocks: int | None = None, emit=None, device="cuda"):
     """Track `channels` (list[TrackChannel]) through the int8 I/Q stream
-    `fp` on `device`.
+    `fp` on `device` (the card unless the caller asks for the CPU).
 
     emit(channel_index, row_dict) is called once per completed block, in
     block order per chunk.  Returns the channels (rows accumulated when
     emit is None)."""
+    if sig.code_table is None:
+        raise NotImplementedError(
+            f"{sig.name}: no code table (code windows only), as in the "
+            f"reference")
     if sig.recover_default:
         raise NotImplementedError(
             f"{sig.name}: unknown-code recovery is not ported")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     params = make_params(sig, fs, coffset, loop_dwells,
                          pll_from_start=all(c.pll_from_start
                                             for c in channels))
     C = len(channels)
+    # the signal's constants and subcarrier lanes, one row per channel
     sigp = sigp_from_params(params, C, dev)
 
     # alignment to the first code boundary (:141-143), per channel: the

@@ -1,20 +1,27 @@
 """DLL/FLL/PLL tracking over code-period blocks.
 
 Counterpart: gnss_dsp_tpu/track/engine.py (`TrackParams`, `TrackState`,
-`init_state`, `sigp_row`, `_sub_block_len`, `_mode_of`, `_track_block`
-:259-376, `_post_block` :379-505, `track_scan` :614-681).  Behavioral
-contract track-gps-l1.py:13-94: per block a carrier wipeoff with the
-running LUT-NCO phase, the doppler-aided code rate, early/prompt/late
-correlations, an FLL_WIDE -> FLL_NARROW -> PLL schedule, a
-normalized-envelope EML DLL, and phase/cycle bookkeeping.
+`init_state`, `sigp_row` :102-177, `_sub_block_len`, `_mode_of`,
+`_track_block` :259-376, `_post_block` :379-505, `_step_pallas` :508-610,
+`track_scan` :614-681).  Behavioral contract track-gps-l1.py:13-94: per
+block a carrier wipeoff with the running LUT-NCO phase, the doppler-aided
+code rate, early/prompt/late correlations with the signal's subcarrier,
+an FLL_WIDE -> FLL_NARROW -> PLL schedule, a normalized-envelope EML DLL,
+and phase/cycle bookkeeping; long code periods run in `sub` sub-blocks.
 
-track_scan runs kernel K2 (ops/track_fused) for a chunk on the card, and
-its plain version, track_scan_plain (the gather form of _track_block
-plus _post_block, vectorised over channels), for a chunk on the CPU.
+Every block is _geometry (block length, lag chip phases, DDS phases, in
+the JAX kernels' si/sf lane layout), one E/P/L correlation, then
+_post_block (loop filters and bookkeeping).  track_scan routes a chunk by
+its device and the route recorded in TrackParams, as the reference does:
 
-Scope: BPSK (subcarrier "none"), one sub-block per code period, no
-extended-coherent integration (coh_blocks == 1), no unknown-code
-recovery.  Anything else raises NotImplementedError.
+  * CUDA, fused_scan: kernel K2 (ops/track_fused) runs the whole loop;
+  * CUDA otherwise: the per-step loop (_scan), one launch of K3
+    (pallas_v2) or K4 (ops/track_step) per block;
+  * CPU: the same loop on the correlators' plain version
+    (track_scan_plain), which is K2's plain version too.
+
+Scope: no extended-coherent integration (coh_blocks == 1), no unknown-code
+recovery; those raise NotImplementedError.
 
 Arithmetic follows the JAX engine op for op in float32, and where the
 rounding of one operation decides a later integer (a chip index, a DDS
@@ -26,14 +33,15 @@ float32 XLA program computes it:
   * the chip-phase recurrence fr + i*cf and the loop-state updates
     (carrier phase, carrier and code frequency) are fused multiply-adds,
     rounded once (XLA contracts them); `fma` below computes them exactly
-    in float64 and rounds to float32 once, the CUDA kernel with
-    __fmaf_rn.  No other line may be contracted (the kernel is built with
-    --fmad=false; never use addcmul or lerp here).
+    in float64 and rounds to float32 once, the CUDA kernels with
+    __fmaf_rn.  No other line may be contracted (the kernels are built
+    with --fmad=false; never use addcmul or lerp here).
 
 The correlator sums accumulate in float64 and round to float32 once, so
-their value does not depend on the order of summation: the kernel and
+their value does not depend on the order of summation: the kernels and
 the plain version give the same bits, and the reference's float32 sums
-agree with them to float32 rounding.  The uint32 carrier-offset phase
+agree with them to float32 rounding.  The subcarrier factor is float32
+arithmetic as the reference writes it.  The uint32 carrier-offset phase
 `coffset_p` is an int64 tensor in [0, 2^32).
 """
 
@@ -46,7 +54,7 @@ import numpy as np
 import torch
 
 from gnss_dsp_tpu_torch.ops import discriminators as disc
-from gnss_dsp_tpu_torch.ops import nco, track_fused
+from gnss_dsp_tpu_torch.ops import nco, track_fused, track_step
 from gnss_dsp_tpu_torch.utils import twofloat as tf
 
 ROW_FIELDS = (
@@ -77,28 +85,58 @@ class TrackParams(NamedTuple):
     dll_k2: float = 0.2
     code_period_ms: float = 1.0
     sub: int = 1               # sub-blocks per code period
-    subcarrier: str = "none"
+    subcarrier: str = "none"   # none|boc11|cboc|tmboc|rz_even|rz_odd
     recover_after: int = -1    # unknown-code recovery (not ported)
     coh_blocks: int = 1        # extended-coherent periods (not ported)
+    pallas_v2: bool = False    # per-step route: K3 (True) or K4 (False)
+    fused_scan: bool = False   # whole-loop kernel K2 (BPSK, sub == 1)
 
 
 # Per-channel runtime signal constants ("sigp" lanes, f32 [C, 12]), the
-# JAX engine's layout.  The subcarrier lanes (A0, A1, A6, TM) and the
-# coherent lanes (COH, NOV) carry the BPSK, non-coherent values: the port
-# tracks nothing else yet.
+# JAX engine's layout.  The coherent lanes (COH, NOV) carry the
+# non-coherent values: the port tracks nothing else yet.
 SIGP_CF_HI, SIGP_CF_LO, SIGP_EL, SIGP_L, SIGP_SPP, SIGP_SUB, \
     SIGP_A0, SIGP_A1, SIGP_A6, SIGP_COH, SIGP_NOV, SIGP_TM = range(12)
 SIGP_LANES = 12
 
+# every non-TMBOC subcarrier factor is affine in the two square waves,
+# factor = a0 + a1*boc1 + a6*boc6; TMBOC rides the gate lane TM
+SUBC_COEF = {
+    "boc11": (0.0, 1.0, 0.0),
+    "cboc": (0.0, float(track_step.CBOC_W1), float(track_step.CBOC_W6)),
+    "rz_even": (0.5, 0.5, 0.0),
+    "rz_odd": (0.5, -0.5, 0.0),
+}
 
-def sigp_row(cf_hi, cf_lo, el, L, spp, sub) -> np.ndarray:
-    return np.array([cf_hi, cf_lo, el, L, spp, sub, 1.0, 0.0, 0.0,
-                     1.0, 0.0, 0.0], np.float32)
+
+def subc_kind(subcarrier: str) -> str:
+    """K3's kind of a subcarrier: "none", "tmboc", or "subc" (every
+    affine family, its coefficients in the sigp lanes)."""
+    return subcarrier if subcarrier in ("none", "tmboc", "subc") \
+        else "subc"
+
+
+def sigp_row(cf_hi, cf_lo, el, L, spp, sub, subcarrier: str = "none"
+             ) -> np.ndarray:
+    """"none" carries the identity coefficients (1, 0, 0), TMBOC zero
+    coefficients and the gate tm = 1."""
+    if subcarrier == "none":
+        a0, a1, a6 = 1.0, 0.0, 0.0
+    elif subcarrier == "tmboc":
+        a0, a1, a6 = 0.0, 0.0, 0.0
+    elif subcarrier in SUBC_COEF:
+        a0, a1, a6 = SUBC_COEF[subcarrier]
+    else:
+        raise ValueError(f"no sigp coefficients for subcarrier "
+                         f"{subcarrier!r}: pass explicit sigp rows")
+    tm = 1.0 if subcarrier == "tmboc" else 0.0
+    return np.array([cf_hi, cf_lo, el, L, spp, sub, a0, a1, a6,
+                     1.0, 0.0, tm], np.float32)
 
 
 def sigp_from_params(p: TrackParams, C: int, device="cpu") -> torch.Tensor:
     row = sigp_row(p.cf_hi, p.cf_lo, p.el_spacing, p.code_length,
-                   p.fs * 0.001 * p.code_period_ms, p.sub)
+                   p.fs * 0.001 * p.code_period_ms, p.sub, p.subcarrier)
     return torch.from_numpy(np.tile(row, (C, 1))).to(device)
 
 
@@ -181,19 +219,26 @@ def fma(a, b, c):
     return (a * b + c).to(torch.float32)
 
 
-def _track_block(x, chunk_len, code_tab, ratio, st: TrackState,
-                 p: TrackParams, coffset_df, sp):
-    """One block for all C channels (gather form).  Returns the three
-    correlator sums and the block geometry for _post_block."""
-    dev = x.device
+def _as_i32(v):
+    """int64 values in [0, 2^32) -> the int32 with the same bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def _geometry(x_len: int, chunk_len, ratio, st: TrackState, p: TrackParams,
+              coffset_df, sp):
+    """One block's geometry for all C channels: the adaptive block length,
+    the three lags' integer and fractional chip phases, the two DDS phases
+    and increments, as the correlators' si/sf lanes (ops/track_step).
+    Returns (si, sf, n, sub_j_next, n_full, ok, cf_dyn)."""
     ifs = nco.inv_fs(p.fs)
     Lf = sp[:, SIGP_L]
-    Li = Lf.to(torch.int64)
     spp = sp[:, SIGP_SPP]
     sub_i = sp[:, SIGP_SUB].to(torch.int32)
     el = sp[:, SIGP_EL]
 
-    # adaptive block length targeting the next code boundary (:160-163)
+    # adaptive block length targeting the next code boundary (:160-163),
+    # once per period, cut into sub-blocks at the reference's int(j*n/sub)
+    # boundaries (track-galileo-e1b.py:164-166)
     code_p = st.code_p_hi + st.code_p_lo
     n_f = torch.where(code_p < Lf / 2, spp * (Lf - code_p) / Lf,
                       spp * (2 * Lf - code_p) / Lf)
@@ -206,48 +251,27 @@ def _track_block(x, chunk_len, code_tab, ratio, st: TrackState,
 
     # the reference's dynamic_slice clamps its window into the chunk; the
     # tail pad of track_file keeps that from ever moving it (see track_scan)
-    i = torch.arange(p.nmax, dtype=torch.int64, device=dev)
-    mask = i[None, :] < n[:, None]
-    start = torch.clamp(st.ptr.to(torch.int64), 0, x.shape[0] - p.nmax)
-    xb = x[start[:, None] + i[None, :]]                      # [C, nmax]
+    start = torch.clamp(st.ptr, 0, x_len - p.nmax)
 
-    # fused double LUT mix: offset NCO x carrier NCO == one table angle
-    ph1 = (st.coffset_p[:, None] + i * coffset_df.to(torch.int64)[:, None]
-           ) & nco.MASK32
-    carr_df = nco.freq_to_fixed_t(-st.carrier_f * ifs)
-    carr_p0 = nco.fixed_u32(torch.remainder(st.carrier_p, 1.0))
-    ph2 = (carr_p0[:, None] + i * carr_df[:, None]) & nco.MASK32
-    idx = ((ph1 >> nco.LUT_SHIFT) + (ph2 >> nco.LUT_SHIFT)) & (nco.NT - 1)
-    wc, ws = nco.cos_sin_of_idx(idx)
-    xr, xi = xb.real, xb.imag
-    xm_re = xr * wc - xi * ws
-    xm_im = xr * ws + xi * wc
-
-    # doppler-aided code rate and E/P/L correlations (:44-48)
+    # doppler-aided code rate (:44-48) and the lags' int/frac chip phases
     cf_dyn = (st.code_f_off + st.carrier_f / ratio) * ifs
     cf = sp[:, SIGP_CF_HI] + cf_dyn
-    i_f = i.to(torch.float32)
 
-    def corr(lag):
+    def split(lag):
         v = tf.tf_add_f((st.code_p_hi, st.code_p_lo), lag)
         vint = torch.floor(v[0] + v[1])
-        fr = tf.tf_value(tf.tf_add_f(v, -vint))
-        cp_i = fma(i_f, cf[:, None], fr[:, None])        # fr + i*cf
-        # floor-mod: the early lag at phase ~0 gives vint = -1 -> L-1
-        cidx = torch.remainder(
-            vint.to(torch.int64)[:, None] + torch.floor(cp_i).to(torch.int64),
-            Li[:, None])
-        chips = torch.gather(code_tab, 1, cidx).to(torch.float32)
-        chips = torch.where(mask, chips, 0.0).to(torch.float64)
-        # chips are +-1: each product is exact, and the float64 sum of
-        # a block's products rounds to the same float32 in any order
-        return ((xm_re.to(torch.float64) * chips).sum(-1).to(torch.float32),
-                (xm_im.to(torch.float64) * chips).sum(-1).to(torch.float32))
+        return vint.to(torch.int32), tf.tf_value(tf.tf_add_f(v, -vint))
 
-    p_early = corr(-el)
-    p_prompt = corr(torch.zeros_like(el))
-    p_late = corr(el)
-    return p_early, p_prompt, p_late, n, sub_j_next, n_full, ok, cf_dyn
+    (ve, fe), (vp, fp), (vl, fl) = (split(-el), split(torch.zeros_like(el)),
+                                    split(el))
+    carr_df = nco.freq_to_fixed_t(-st.carrier_f * ifs)
+    carr_p0 = nco.fixed_u32(torch.remainder(st.carrier_p, 1.0))
+    si = torch.stack([ve, vp, vl, coffset_df.to(torch.int32), n,
+                      _as_i32(st.coffset_p), carr_df.to(torch.int32),
+                      _as_i32(carr_p0), start.to(torch.int32)], dim=1)
+    sf = torch.stack([fe, fp, fl, cf, sp[:, SIGP_A0], sp[:, SIGP_A1],
+                      sp[:, SIGP_A6], sp[:, SIGP_TM]], dim=1)
+    return si, sf, n, sub_j_next, n_full, ok, cf_dyn
 
 
 def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
@@ -340,30 +364,77 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
 
 
 def check_supported(p: TrackParams):
-    if p.subcarrier != "none" or p.sub != 1:
-        raise NotImplementedError(
-            f"tracking port covers BPSK with one sub-block per code period; "
-            f"got subcarrier={p.subcarrier!r} sub={p.sub}")
     if p.coh_blocks > 1:
         raise NotImplementedError("extended-coherent tracking is not ported")
     if p.recover_after >= 0:
         raise NotImplementedError("unknown-code recovery is not ported")
+    if p.fused_scan and not track_fused.covers(p.subcarrier, p.sub,
+                                               p.code_length):
+        raise NotImplementedError(
+            f"kernel K2 covers BPSK with one sub-block per code period and "
+            f"codes of <= {track_fused.MAX_CODE} chips; got "
+            f"subcarrier={p.subcarrier!r} sub={p.sub} L={p.code_length} "
+            f"with fused_scan")
 
 
-def track_scan_plain(x, chunk_len, code_tab, state, params,
-                     n_blocks: int, ratios, coffset_df, sigp):
-    """K2's plain version: n_blocks steps of the gather-form block, all
-    channels at once.  Arguments as track_scan's, every one given."""
+def plain_correlate(p: TrackParams):
+    """The correlators' plain version for p's subcarrier (K3's form; K4's
+    static families give the same values)."""
+    kind = subc_kind(p.subcarrier)
+    return lambda si, sf, x, code: track_step.epl_correlate_plain(
+        si, sf, x, code, p.nmax, kind)
+
+
+def kernel_correlate(p: TrackParams):
+    """K3 (p.pallas_v2) or K4 on p's subcarrier; called through the
+    module, one launch a block."""
+    if p.pallas_v2:
+        kind = subc_kind(p.subcarrier)
+        return lambda si, sf, x, code: track_step.epl_correlate2(
+            si, sf, x, code, p.nmax, kind)
+    if p.subcarrier not in track_step.FAMILIES:
+        raise ValueError(f"K4 needs the subcarrier family, got "
+                         f"{p.subcarrier!r}")
+    return lambda si, sf, x, code: track_step.epl_correlate(
+        si, sf[:, :4], x, code, p.nmax, p.subcarrier)
+
+
+def _scan(x, chunk_len, code_tab, state, params, n_blocks: int, ratios,
+          coffset_df, sigp, correlate):
+    """n_blocks steps of _geometry -> correlate -> _post_block, all
+    channels at once.  Once every channel has stalled the rest of the
+    rows are NaN/0 and the state stays as it is, as further steps would
+    leave them; the loop looks for that every 32 steps."""
     rows_f, rows_i = [], []
     st = state
-    for _ in range(n_blocks):
-        pe, pp, pl, n, sj, nfull, ok, cf_dyn = _track_block(
-            x, chunk_len, code_tab, ratios, st, params, coffset_df, sigp)
+    for b in range(n_blocks):
+        if b % 32 == 31 and bool(st.stalled.all()):
+            break
+        si, sf, n, sj, nfull, ok, cf_dyn = _geometry(
+            x.shape[0], chunk_len, ratios, st, params, coffset_df, sigp)
+        sums = correlate(si, sf, x, code_tab)
+        pe, pp, pl = ((sums[:, k], sums[:, k + 1]) for k in (0, 2, 4))
         st, rf, ri = _post_block(pe, pp, pl, n, sj, nfull, ok, cf_dyn, st,
                                  params, coffset_df, sigp)
         rows_f.append(rf)
         rows_i.append(ri)
+    C, dev = st.ptr.shape[0], x.device
+    for _ in range(n_blocks - len(rows_f)):
+        rows_f.append(torch.full((C, 11), float("nan"), device=dev))
+        rows_i.append(torch.zeros((C, 3), dtype=torch.int32, device=dev))
+    if not rows_f:
+        return st, torch.zeros((0, C, 11), device=dev), torch.zeros(
+            (0, C, 3), dtype=torch.int32, device=dev)
     return st, torch.stack(rows_f), torch.stack(rows_i)
+
+
+def track_scan_plain(x, chunk_len, code_tab, state, params,
+                     n_blocks: int, ratios, coffset_df, sigp):
+    """The plain version of K2 and of the per-step route: n_blocks steps
+    of the correlators' plain version, all channels at once, on any
+    device.  Arguments as track_scan's, every one given."""
+    return _scan(x, chunk_len, code_tab, state, params, n_blocks, ratios,
+                 coffset_df, sigp, plain_correlate(params))
 
 
 def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
@@ -372,14 +443,15 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     """Run up to n_blocks blocks for C channels over one chunk.
 
     x_chunk: complex64 [N] whose last >= params.nmax samples are the
-    tail pad (beyond every chunk_len); code_tab: int8 [C, L]; state
-    leaves [C]; ratios f32 [C] carrier-aiding divisors; coffset_df [C]
-    int32 DDS increments; sigp f32 [C, 12].  chunk_len: int or [C].
+    tail pad (beyond every chunk_len); code_tab: int8 [C, L], L the code
+    length of every channel; state leaves [C]; ratios f32 [C]
+    carrier-aiding divisors; coffset_df [C] int32 DDS increments; sigp f32
+    [C, 12].  chunk_len: int or [C].
 
     Returns (state, rows_f [n_blocks, C, 11], rows_i [n_blocks, C, 3]);
     rows are NaN/0 once a channel exhausts the chunk.  On a CUDA chunk
-    this is one launch of kernel K2; on a CPU chunk, and only there, the
-    plain loop."""
+    this is one launch of kernel K2 (params.fused_scan) or one launch of
+    K3 or K4 a block; on a CPU chunk, and only there, the plain loop."""
     check_supported(params)
     dev = x_chunk.device
     C = state.ptr.shape[0]
@@ -396,11 +468,14 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     if int(chunk_len.max()) > x_chunk.shape[0] - params.nmax:
         raise ValueError("x_chunk needs a tail pad of >= params.nmax samples "
                          "beyond chunk_len")
-    if int(sigp[:, SIGP_L].max()) > code_tab.shape[1]:
-        raise ValueError("code_tab is narrower than the code length")
+    if (sigp[:, SIGP_L] != code_tab.shape[1]).any():
+        raise ValueError("code_tab must be [C, L], L every channel's code "
+                         "length")
     args = (x_chunk, chunk_len, code_tab, state, params, int(n_blocks),
             ratios.to(dev, torch.float32), coffset_df.to(dev, torch.int32),
             sigp.to(dev, torch.float32))
     if dev.type == "cpu":
         return track_scan_plain(*args)
-    return track_fused.track_scan_fused(*args)
+    if params.fused_scan:
+        return track_fused.track_scan_fused(*args)
+    return _scan(*args, kernel_correlate(params))

@@ -10,7 +10,10 @@ by W of the block sum against a 1/W scale per transform); K7 planted lags
 exact, the surface to rtol 1e-4 plus 2e-5 of its maximum; K2 bit-exact (the kernel and the plain version
 pin the same roundings, and sum the correlators in float64); K5 and K6
 idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
-sums each group's blocks before the IDFT, its plain version after).
+sums each group's blocks before the IDFT, its plain version after); K3
+and K4 equal to their plain version to one float32 ulp of the channel's
+largest sum (both sum exact float64 products and round once; a sum within
+2^-29 of a rounding tie may round the other way), two launches bit-equal.
 """
 
 import numpy as np
@@ -263,3 +266,128 @@ def test_k2_matches_plain_bit_for_bit(dev):
     assert bool(st.stalled.all())
     st = both(st._replace(stalled=torch.zeros_like(st.stalled)), n, 30)
     assert not bool(st.stalled.any())
+
+
+# subcarrier coefficient lanes (a0, a1, a6, tm) of the K3 kinds: "subc" for
+# each affine family (track/engine.SUBC_COEF), "tmboc" the gate
+_K3_CASES = [("none", (1.0, 0.0, 0.0, 0.0)), ("subc", (0.0, 1.0, 0.0, 0.0)),
+             ("subc", (0.0, 0.953463, 0.301511, 0.0)),
+             ("subc", (0.5, 0.5, 0.0, 0.0)), ("subc", (0.5, -0.5, 0.0, 0.0)),
+             ("tmboc", (0.0, 0.0, 0.0, 1.0))]
+
+
+def _step_inputs(dev, C, L, n, nmax, coef, seed, cf=1.023e6 / 4.096e6):
+    """si/sf lanes of one tracking step for C channels (channel 0 at
+    code phase ~0, so its early lag reads chip -1 -> L-1), a random chunk
+    and a random +-1 code."""
+    rng = np.random.default_rng(seed)
+    nx = nmax + 3000
+    x = (rng.standard_normal(nx) + 1j * rng.standard_normal(nx)
+         ).astype(np.complex64)
+    code = rng.choice([-1, 1], (C, L)).astype(np.int8)
+    si = np.zeros((C, 9), np.int32)
+    sf = np.zeros((C, 8), np.float32)
+    el = 0.2
+    for c in range(C):
+        cp = 0.05 if c == 0 else float(rng.uniform(0, L))
+        for k, lag in enumerate((-el, 0.0, el)):
+            si[c, k] = int(np.floor(cp + lag))
+            sf[c, k] = np.float32(cp + lag - np.floor(cp + lag))
+        si[c, 3] = int(rng.integers(-(1 << 20), 1 << 20))
+        si[c, 4] = n - 7 * c
+        si[c, 5] = int(rng.integers(-(1 << 31), 1 << 31))
+        si[c, 6] = int(rng.integers(-(1 << 20), 1 << 20))
+        si[c, 7] = int(rng.integers(-(1 << 31), 1 << 31))
+        si[c, 8] = int(rng.integers(0, nx - nmax))
+        sf[c, 3] = np.float32(cf * (1 + 1e-6 * c))
+        sf[c, 4:] = coef
+    return tuple(torch.from_numpy(a).to(dev) for a in (si, sf, x, code))
+
+
+def _check_step(got, want):
+    env = want.abs().amax(dim=1, keepdim=True)
+    ulp = torch.nextafter(env, torch.full_like(env, float("inf"))) - env
+    assert bool(((got - want).abs() <= ulp).all()), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("case", range(len(_K3_CASES)))
+@pytest.mark.parametrize("C,L,n,nmax,cf", [
+    (3, 1023, 4100, 6148, 0.25), (2, 767_250, 2046, 3076, 0.125),
+    (2, 5_110_000, 46_000, 46_100, 5.11 / 30.69)])
+def test_k3_matches_plain(dev, case, C, L, n, nmax, cf):
+    from gnss_dsp_tpu_torch.ops import track_step
+
+    kind, coef = _K3_CASES[case]
+    si, sf, x, code = _step_inputs(dev, C, L, n, nmax, coef, case + L, cf)
+    n0 = track_step.LAUNCHES_V2
+    got = track_step.epl_correlate2(si, sf, x, code, nmax, kind)
+    assert track_step.LAUNCHES_V2 == n0 + 1 and got.shape == (C, 6)
+    want = track_step.epl_correlate_plain(si, sf, x, code, nmax, kind)
+    _check_step(got, want)
+    assert torch.equal(got, track_step.epl_correlate2(si, sf, x, code, nmax,
+                                                      kind))
+
+
+@pytest.mark.parametrize("family", ["none", "boc11", "cboc", "tmboc",
+                                    "rz_even", "rz_odd"])
+def test_k4_matches_plain(dev, family):
+    from gnss_dsp_tpu_torch.ops import track_step
+
+    si, sf, x, code = _step_inputs(dev, 3, 10230, 8200, 12292,
+                                   (0.0, 0.0, 0.0, 0.0), 99)
+    n0 = track_step.LAUNCHES_V1
+    got = track_step.epl_correlate(si, sf[:, :4].contiguous(), x, code,
+                                   12292, family)
+    assert track_step.LAUNCHES_V1 == n0 + 1
+    want = track_step.epl_correlate_plain(si, sf, x, code, 12292, family,
+                                          v1=True)
+    _check_step(got, want)
+    # every static family is one of K3's runtime forms
+    kind, coef = {"none": _K3_CASES[0], "boc11": _K3_CASES[1],
+                  "cboc": _K3_CASES[2], "rz_even": _K3_CASES[3],
+                  "rz_odd": _K3_CASES[4], "tmboc": _K3_CASES[5]}[family]
+    sf[:, 4:] = torch.tensor(coef, device=dev)
+    assert torch.equal(want, track_step.epl_correlate_plain(
+        si, sf, x, code, 12292, kind))
+
+
+@pytest.mark.parametrize("name,v1", [("galileo-e1b", False),
+                                     ("gps-l1cp", True), ("gps-l1", False)])
+def test_step_scan_matches_plain(dev, name, v1):
+    """The per-step route on the card (K3, or K4) against the plain loop
+    over 60 blocks of a noiseless capture, across a stall and a refill."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_step
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+    from gnss_dsp_tpu_torch.track.driver import make_params
+    from gnss_dsp_tpu_torch.track.engine import (
+        init_state, sigp_from_params, track_scan, track_scan_plain)
+
+    sig = get_signal(name)
+    fs = 4.096e6
+    prns, dops, phases = sig.prns()[:2], [900.0, -2200.0], [0.01, 417.25]
+    n = int(fs * 0.07)
+    x = sum(synth_iq_t(sig.code_table((p,))[0], sig.chip_rate, fs, n, d, c,
+                       sig.subcarrier, sig.carrier_ratio, device=dev)
+            for p, d, c in zip(prns, dops, phases))
+    params = make_params(sig, fs, 0.0, loop_dwells=(8, 8))._replace(
+        fused_scan=False, pallas_v2=not v1)
+    xd = torch.cat([x, torch.zeros(params.nmax + 1024, dtype=x.dtype,
+                                   device=dev)])
+    tab = torch.from_numpy(sig.code_table(tuple(prns)).astype(np.int8)
+                           ).to(dev)
+    extra = (torch.full((2,), sig.carrier_ratio, device=dev),
+             torch.zeros(2, dtype=torch.int32, device=dev),
+             sigp_from_params(params, 2, dev))
+    st = init_state(phases, [0.0] * 2, [0.0] * 2, dops, device=dev)
+    for chunk_len, nb in ((int(fs * 0.03), 60), (n, 30)):
+        n0 = track_step.LAUNCHES_V1 if v1 else track_step.LAUNCHES_V2
+        k = track_scan(xd, chunk_len, tab, st, params, nb)
+        assert (track_step.LAUNCHES_V1 if v1 else track_step.LAUNCHES_V2
+                ) > n0
+        cl = torch.full((2,), chunk_len, dtype=torch.int32, device=dev)
+        p = track_scan_plain(xd, cl, tab, st, params, nb, *extra)
+        torch.testing.assert_close(k[2], p[2], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], p[1], rtol=2e-5, atol=2e-4,
+                                   equal_nan=True)
+        st = k[0]._replace(stalled=torch.zeros_like(k[0].stalled))

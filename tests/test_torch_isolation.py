@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
     assert "gnss_dsp_tpu_torch.ops.track_fused" in names
     for m in ("ops.acquire_coh", "acquire.coherent", "acquire.plan",
               "ops.acquire", "models.catalog", "models.codes.selftest",
-              "utils.synth", "utils.ranges", "cli.cn0"):
+              "utils.synth", "utils.ranges", "cli.cn0", "ops.track_step",
+              "tools.track_all"):
         assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
@@ -76,6 +77,28 @@ def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_track_file_defaults_to_the_card(monkeypatch):
+    """track_file runs on the card unless the caller asks for the CPU: its
+    default asks for CUDA, which raises here, and device="cpu" runs."""
+    import io
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+
+    sig = get_signal("galileo-e1b")
+    raw = np.zeros(2 * 20_000, np.int8).tobytes()
+
+    def chans():
+        return [TrackChannel(prn=11, doppler=900.0, code_offset=4000.0)]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        track_file(sig, io.BytesIO(raw), 2.048e6, 0.0, chans())
+    out = track_file(sig, io.BytesIO(raw), 2.048e6, 0.0, chans(),
+                     device="cpu")
+    assert len(out[0].rows) > 0
+
+
 def test_cpu_run_launches_no_kernel():
     from gnss_dsp_tpu_torch.acquire.engine import surface_v1
     from gnss_dsp_tpu_torch.models import get_signal
@@ -84,10 +107,13 @@ def test_cpu_run_launches_no_kernel():
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import init_state, track_scan
 
+    from gnss_dsp_tpu_torch.ops import track_step
+
     def counters():
         return (acquire2.LAUNCHES, track_fused.LAUNCHES,
                 acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK,
-                acquire.LAUNCHES)
+                acquire.LAUNCHES, track_step.LAUNCHES_V2,
+                track_step.LAUNCHES_V1)
 
     before = counters()
     g = torch.Generator().manual_seed(0)
@@ -111,7 +137,14 @@ def test_cpu_run_launches_no_kernel():
     tab = torch.from_numpy(sig.code_table((5,)).astype(np.int8))
     _, rf, ri = track_scan(x, 30_000, tab, st, p, 3)
     assert ri.shape == (3, 1, 3) and (ri[:, 0, 0] > 0).all()
-    assert counters() == before == (0, 0, 0, 0, 0)
+    for name, v1 in (("galileo-e1b", False), ("gps-l1cp", True)):
+        sig = get_signal(name)
+        p = make_params(sig, 2.048e6, 0.0)._replace(pallas_v2=not v1)
+        assert not p.fused_scan
+        tab = torch.from_numpy(sig.code_table((5,)).astype(np.int8))
+        _, rf, ri = track_scan(x, 30_000, tab, st, p, 3)
+        assert (ri[:, 0, 0] > 0).all()
+    assert counters() == before == (0,) * 7
 
 
 def test_track_kernel_wrapper_refuses_cpu_tensors():
@@ -134,6 +167,23 @@ def test_track_kernel_wrapper_refuses_cpu_tensors():
     assert track_fused.LAUNCHES == n0
 
 
+def test_track_step_wrappers_refuse_cpu_tensors():
+    from gnss_dsp_tpu_torch.ops import track_step
+
+    si = torch.zeros((2, 9), dtype=torch.int32)
+    sf = torch.zeros((2, 8), dtype=torch.float32)
+    x = torch.zeros(8192, dtype=torch.complex64)
+    code = torch.ones((2, 1023), dtype=torch.int8)
+    n0 = (track_step.LAUNCHES_V2, track_step.LAUNCHES_V1)
+    with pytest.raises(ValueError, match="CUDA"):
+        track_step.epl_correlate2(si, sf, x, code, 4096, "subc")
+    with pytest.raises(ValueError, match="CUDA"):
+        track_step.epl_correlate(si, sf, x, code, 4096, "cboc")
+    with pytest.raises(ValueError, match="kind"):
+        track_step.epl_correlate2(si, sf, x, code, 4096, "cboc")
+    assert (track_step.LAUNCHES_V2, track_step.LAUNCHES_V1) == n0
+
+
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     from gnss_dsp_tpu_torch.ops import _build
 
@@ -152,7 +202,8 @@ def test_build_hash_follows_the_sources():
 
     srcs = [os.path.basename(p) for p in _build._sources()]
     assert srcs == ["acq_surface.cuh", "acq_wide.cuh", "acquire.cu",
-                    "acquire2.cu", "acquire_coh.cu", "track_fused.cu"]
+                    "acquire2.cu", "acquire_coh.cu", "track_corr.cuh",
+                    "track_fused.cu", "track_step.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
     assert path == _build.lib_path()

@@ -201,10 +201,13 @@ def test_interop_params_match_port_make_params():
     from gnss_dsp_tpu.track.driver import make_params as jmake
     from gnss_dsp_tpu_torch.track.driver import make_params as tmake
 
+    # the reference's kernel route on GPS L1: K2 (fused_scan) and, on the
+    # per-step route, K3 (pallas_v2)
     sig = get_signal("gps-l1")
     for args in ((4.096e6, 0.0, (500, 500)), (2.048e6, 1250.0, (8, 8))):
         pj = jmake(sig, args[0], coffset=args[1], loop_dwells=args[2],
-                   use_pallas=False)
+                   use_pallas=True)
+        assert pj.fused_scan and pj.pallas_v2
         assert interop.params_from_jax(pj) == tmake(
             sig, args[0], coffset=args[1], loop_dwells=args[2])
 

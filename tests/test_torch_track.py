@@ -180,7 +180,10 @@ def test_track_scan_requires_a_tail_pad():
         _run_port(s, 2, chunk_len=len(s["xp"]) - s["params"].nmax + 1)
 
 
-@pytest.mark.parametrize("change", [dict(subcarrier="boc11"), dict(sub=4),
+# subcarriers and sub-blocks run on the per-step route, not on K2: a
+# params that asks for K2 (fused_scan) with them raises
+@pytest.mark.parametrize("change", [dict(subcarrier="boc11", fused_scan=True),
+                                    dict(sub=4, fused_scan=True),
                                     dict(coh_blocks=4),
                                     dict(recover_after=200)])
 def test_unported_modes_raise(change):
