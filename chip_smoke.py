@@ -15,10 +15,13 @@ Runs every phase, in this order:
           L5I and Galileo E6B padded with n_valid, Galileo E1B, GPS L1CP,
           GPS L2CM at 65536 to 163840), with timings
   k7      full-surface kernel vs its plain version at the Xona X5 launch
-          shape (1 PRN x 54 doppler x 80 blocks x 30690), with timings
+          shape (1 PRN x 54 doppler x 80 blocks x 30690), with timings, its
+          cluster plan (cluster size, clusters the card holds at once,
+          registers, spills) and the times at other cluster sizes
   k5      spectral-combine coherent kernel vs its plain version at the
           BeiDou B1I --coherent 20 shape (63 PRN x 51 doppler x 2 groups x
-          20 alignments x 16384), with timings
+          20 alignments x 16384), with timings, its cluster plan and the
+          time at another cluster size
   k6      per-block coherent kernel vs its plain version at the GPS L1
           --coherent 8 shape (32 PRN x 102 doppler x 80 blocks in groups
           of 8 x 4096) and the Xona X1P shape (1 PRN x 70 doppler x 200
@@ -101,7 +104,7 @@ KERNELS = {
                         source="gnss_dsp_tpu_torch/csrc/track_fused.cu",
                         replaces="gnss_dsp_tpu/ops/pallas_track_fused.py:536"),
     "acquire_coh_spec": dict(
-        route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire_coh.cu",
+        route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire_coh_spec.cu",
         replaces="gnss_dsp_tpu/ops/pallas_acquire_coh.py:273"),
     "acquire_coh": dict(
         route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire_coh.cu",
@@ -130,6 +133,12 @@ K4_FAMILIES = (("none", "gps-l1"), ("boc11", "gps-l1cd"),
 # the wide-window and odd-length searches of e2e_wide, one per route
 E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
             "gps-l2cm")
+
+# cluster sizes timed beside the kernels' own choice (K5: 8, K7: 4)
+K5_CLUSTERS = (4,)
+K7_CLUSTERS = (6, 8)
+# the cluster kernels' entry functions in nvcc's -Xptxas -v output
+CLUSTER_KERNELS = r"coh_spec_kernel|full_kernel"
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory and
 # float32 outside the tensor cores
@@ -195,6 +204,15 @@ def library_ms(code_f, F, reps=2):
     del prod
     torch.cuda.empty_cache()
     return ms, d
+
+
+def plan_text(info, sms):
+    """One line of a cluster kernel's launch plan (ops' launch_info)."""
+    per_sm = info["active"] * info["cluster"] / sms
+    return (f"cluster of {info['cluster']} CTAs, {info['active']} "
+            f"clusters at once ({per_sm:.2f} CTAs per SM), {info['regs']} "
+            f"registers and {info['spill_bytes']} local bytes a thread, "
+            f"{info['smem']} bytes of shared memory a CTA")
 
 
 def library_text(lib, DC):
@@ -471,12 +489,24 @@ def phase_k7(dev, card, results):
     lib = library_ms(code_f, F)
     bms, by = surface_bound(P, DC, B, W, P * DC * W * 4)
     cells = P * DC * B * W
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = acquire.launch_info(P, DC, B, W, dev.index or 0)
     log(f"[k7] xona-x5d: P={P} DC={DC} B={B} W={W}: planted lags exact, "
         f"surface within rtol 1e-4 + 2e-5 of its max ({scale:.4g}), "
         f"max|dq| = {err:.3g}, two launches bit-equal")
     log(f"[k7] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), plain "
         f"{plain_ms:.3f} ms, library ifft {library_text(lib, DC)}, bound "
         f"{bms:.3f} ms by {by}  [{card}]")
+    log(f"[k7] plan: {plan_text(info, sms)}, {info['nseg']} block segments "
+        f"per (PRN, doppler)")
+    for c in K7_CLUSTERS:
+        other = acquire.launch_info(P, DC, B, W, dev.index or 0, c)
+        q_c = acquire.corr_surface(F, code_f, cluster=c)
+        torch.testing.assert_close(q_c, q_p, rtol=1e-4, atol=2e-5 * scale)
+        ms_c = cuda_ms(lambda: acquire.corr_surface(F, code_f, cluster=c), 3)
+        log(f"[k7] ablation, {c} CTAs a cluster: {ms_c:.3f} ms against "
+            f"{ms:.3f}; {plan_text(other, sms)}, {other['nseg']} segments; "
+            f"surface within rtol 1e-4 of the plain version  [{card}]")
     results["acquire"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               library_ms=library_full(lib, DC), bound_ms=bms,
                               bound_by=by)
@@ -552,12 +582,26 @@ def phase_k5(dev, card, results):
     lib = library_ms(code_f, f2)
     bms, by = surface_bound(P, DC, G * A, W, P * DC * 12)
     cells = P * DC * G * A * W
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = acquire_coh.spec_launch_info(W, dev.index or 0)
     log(f"[k5] P={P} DC={DC} G={G} A={A} W={W}: idx and align exact on "
         f"planted cells, {nd} near-tie differences elsewhere, max|dpeak| = "
         f"{err:.3g}")
     log(f"[k5] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
         f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, DC)}, "
         f"bound {bms:.3f} ms by {by}  [{card}]")
+    log(f"[k5] plan: {plan_text(info, sms)}")
+    for c in K5_CLUSTERS:
+        other = acquire_coh.spec_launch_info(W, dev.index or 0, c)
+        got_c = acquire_coh.corr_surface_coh_spec(f2, code_f, A, cluster=c)
+        _check_coh("k5", got_c, plain, plants, lambda p, d: (
+            acquire_coh.surface_spec_plain(f2[d:d + 1], code_f[p:p + 1],
+                                           A)[0, 0]))
+        ms_c = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(
+            f2, code_f, A, cluster=c), 3)
+        log(f"[k5] ablation, {c} CTAs a cluster: {ms_c:.3f} ms against "
+            f"{ms:.3f}; {plan_text(other, sms)}; planted cells exact  "
+            f"[{card}]")
     results["acquire_coh_spec"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
@@ -1361,6 +1405,8 @@ def main(argv=None) -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "error" in line or "smem" in line:
             log(f"[build] {line.strip()}")
+    for name, v in _build.ptxas_summary(info["log"], CLUSTER_KERNELS).items():
+        log(f"[build] cluster kernel {name}: {v}")
     os.makedirs(args.out, exist_ok=True)
     phase_k1(dev, card, results)
     phase_k7(dev, card, results)

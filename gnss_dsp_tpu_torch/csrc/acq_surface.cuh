@@ -1,5 +1,5 @@
 // Correlation surfaces in shared memory, shared by the acquisition kernels
-// K1 (acquire2.cu), K5 and K6 (acquire_coh.cu).
+// K1 (acquire2.cu) and K6 (acquire_coh.cu).
 //
 // One CTA owns one (PRN p, doppler d, alignment a) cell.  For each of its
 // rows it forms a spectrum in shared memory, runs an inverse FFT there in
@@ -12,8 +12,7 @@
 // the kernel:
 //
 //   kRows     row r is code_f[p] * conj(F[d, r*A + a]): K1 (A = 1, the
-//             blocks) and K5 (rows of pre-combined spectra, group-major,
-//             alignment-minor)
+//             blocks)
 //   kCombine  row g is code_f[p] * conj(sum_m w[a, g*M + m] F[d, g*M + m])
 //             with w = sec[a, m] * conj(rot[d, m]): K6.  The IDFT is
 //             linear, so this is sum_m sec * rot * IDFT(code_f * conj(F_m)),

@@ -1,6 +1,5 @@
-// Correlation surfaces at windows a CTA's shared memory cannot hold, shared
-// by kernels K1 (acquire2.cu, the reduced surface) and K7 (acquire.cu, the
-// full surface).
+// Correlation surfaces at windows a CTA's shared memory cannot hold: the
+// wide mode of kernel K1 (acquire2.cu, the reduced surface).
 //
 // For PRN p, doppler d and block b the row IDFT_W(code_f[p] * conj(F[d, b]))
 // has W complex values: 245,520 bytes at W = 30690 and 1.25 MiB at 163840,
@@ -27,16 +26,17 @@
 // One CTA owns one unit at a time and walks over the units with a grid
 // stride.  A unit is one (p, d) = (item % P, item / P), so the P CTAs of
 // one doppler run side by side and read the same F rows; where there are
-// fewer (p, d) than CTA slots (Xona X5: P = 1), the blocks of each (p, d)
-// are split into nseg segments, one unit each, so the grid still fills
-// the card.  A CTA's scratch row (slot blockIdx.x of rowbuf [slots, W])
-// and its unit's |.| accumulator (acc: slot blockIdx.x of [slots, W] when
-// nseg = 1, else unit u of [P*DC*nseg, W]) are its own: every value is
-// made by one thread in a fixed order (blocks ascending), so a run gives
-// the same bits every time and needs no atomics.  The reduction of K1 and
-// the surface of K7 follow over the natural lags j, reading
-// acc[(j % n1)*n2 + j / n1] summed over the segments in order: in the
-// same CTA when nseg = 1, else in a second kernel, one CTA per (p, d).
+// fewer (p, d) than CTA slots, the blocks of each (p, d) are split into
+// nseg segments, one unit each, so the grid still fills the card.  A CTA's
+// scratch row (slot blockIdx.x of rowbuf [slots, W]) and its unit's |.|
+// accumulator (acc: slot blockIdx.x of [slots, W] when nseg = 1, else
+// unit u of [P*DC*nseg, W]) are its own: every value is made by one thread
+// in a fixed order (blocks ascending), so a run gives the same bits every
+// time and needs no atomics.  The reduction follows over the natural lags
+// j, reading acc[(j % n1)*n2 + j / n1] summed over the segments in order:
+// in the same CTA when nseg = 1, else in a second kernel, one CTA per
+// (p, d).  (Kernel K7, the full surface, has its own cluster design in
+// acquire.cu.)
 //
 // Offsets into F, the scratch and the outputs are 64-bit: one launch may
 // hold ~2^27 complex values of F.
@@ -168,13 +168,12 @@ struct WideArgs {
   const float2* root;    // [W]: e^{2 pi i t/W}
   float2* rowbuf;        // [slots, W] scratch
   float* acc;            // [slots, W] scratch, or [P*DC*nseg, W] if nseg > 1
-  float* q;              // K7: [P, DC, W], or null
-  float* peak;           // K1: [P, DC]
-  int* idx;              // K1: [P, DC], lag - lo
-  float* sum;            // K1: [P, DC]
+  float* peak;           // [P, DC]
+  int* idx;              // [P, DC], lag - lo
+  float* sum;            // [P, DC]
   int P, DC, B, W, n1, n2;
   int nseg;              // block segments per (p, d)
-  int lo;                // K1: lowest lag searched and summed
+  int lo;                // lowest lag searched and summed
 };
 
 inline size_t wide_smem(int n1, int n2) {
@@ -191,22 +190,13 @@ __device__ __forceinline__ float wide_at(const float* acc, int nseg,
   return v;
 }
 
-// K7: the surface of (p, d) in natural order, scaled by 1/W.  K1: its
-// (max, lowest lag >= lo reaching it, sum over lags >= lo).  All threads
-// of the CTA call it.
-template <bool REDUCE>
+// (max, lowest lag >= lo reaching it, sum over lags >= lo) of (p, d).  All
+// threads of the CTA call it.
 __device__ void wide_finish(const WideArgs& s, int p, int d,
                             const float* acc, int nseg) {
   const int W = s.W, n1 = s.n1, n2 = s.n2;
   const int tid = threadIdx.x;
   const float fw = (float)W;
-  if (!REDUCE) {
-    float* qo = s.q + ((size_t)p * s.DC + d) * W;
-    for (int j = tid; j < W; j += kWideT)
-      qo[j] = wide_at(acc, nseg, W, (size_t)(j % n1) * n2 + j / n1) / fw;
-    __syncthreads();
-    return;
-  }
   float bv = -INFINITY;
   int bi = W;
   float sm = 0.f;
@@ -243,7 +233,6 @@ __device__ void wide_finish(const WideArgs& s, int p, int d,
   __syncthreads();
 }
 
-template <bool REDUCE>
 __global__ void __launch_bounds__(kWideT, 2) wide_kernel(WideArgs s) {
   extern __shared__ float2 smem[];
   float2* bufa = smem;
@@ -310,16 +299,15 @@ __global__ void __launch_bounds__(kWideT, 2) wide_kernel(WideArgs s) {
         __syncthreads();
       }
     }
-    if (s.nseg == 1) wide_finish<REDUCE>(s, p, d, acc, 1);
+    if (s.nseg == 1) wide_finish(s, p, d, acc, 1);
   }
 }
 
 // second pass of a split launch: one CTA per (p, d) over its nseg
 // segment accumulators
-template <bool REDUCE>
 __global__ void __launch_bounds__(kWideT) wide_finish_kernel(WideArgs s) {
   const int item = blockIdx.x;
-  wide_finish<REDUCE>(s, item % s.P, item / s.P,
+  wide_finish(s, item % s.P, item / s.P,
                       s.acc + (size_t)item * s.nseg * s.W, s.nseg);
 }
 
@@ -331,7 +319,6 @@ inline bool wide_ok(int W, int n1, int n2) {
 
 // Launch over min(P*DC*nseg, slots) CTAs, then, when nseg > 1, the second
 // pass over P*DC.  Returns a cudaError_t.
-template <bool REDUCE>
 inline int launch_wide(WideArgs s, int slots, cudaStream_t stream) {
   const long long items = (long long)s.P * s.DC;
   if (!wide_ok(s.W, s.n1, s.n2) || s.P < 1 || s.DC < 1 || s.B < 1 ||
@@ -339,7 +326,7 @@ inline int launch_wide(WideArgs s, int slots, cudaStream_t stream) {
       items > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const size_t shmem = wide_smem(s.n1, s.n2);
-  auto k = wide_kernel<REDUCE>;
+  auto k = wide_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
@@ -348,7 +335,7 @@ inline int launch_wide(WideArgs s, int slots, cudaStream_t stream) {
   k<<<grid, kWideT, shmem, stream>>>(s);
   e = cudaGetLastError();
   if (e != cudaSuccess || s.nseg == 1) return (int)e;
-  wide_finish_kernel<REDUCE><<<(unsigned)items, kWideT, 0, stream>>>(s);
+  wide_finish_kernel<<<(unsigned)items, kWideT, 0, stream>>>(s);
   return (int)cudaGetLastError();
 }
 

@@ -88,5 +88,5 @@ extern "C" int acq2_reduce_wide(const void* F, const void* code_f,
   s.n2 = n2;
   s.nseg = nseg;
   s.lo = n_valid ? W - n_valid : 0;
-  return acq::launch_wide<true>(s, slots, (cudaStream_t)stream);
+  return acq::launch_wide(s, slots, (cudaStream_t)stream);
 }

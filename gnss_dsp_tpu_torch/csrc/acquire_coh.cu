@@ -1,12 +1,6 @@
-// Extended-coherent acquisition surfaces (kernels K5 and K6).
-//
-// K5 replaces gnss_dsp_tpu/ops/pallas_acquire_coh.py::corr_surface_coh_spec
-// (pallas_call at :305, body _kernel_spec :190, finalize _finalize_max
-// :158).  Its rows are spectra already combined across each group's blocks
-// (F2[d, g*A + a] = sum_m conj(w[a, m]) F[d, g*M + m]); alignment a's
-// surface is
-//
-//     s_a[j] = (1/W) * sum_g | IDFT_W( code_f[p] * conj(F2[d, g*A + a]) ) [j] |
+// Extended-coherent acquisition surface, per block (kernel K6).  The
+// spectral-combine kernel K5 has its own cluster design in
+// acquire_coh_spec.cu.
 //
 // K6 replaces pallas_acquire_coh.py::corr_surface_coh (pallas_call at
 // :508, body _kernel :333).  There the per-block complex surfaces are
@@ -16,23 +10,22 @@
 //     s_a[j] = (1/W) * sum_g | sum_m sec[a, m] rot[d, m]
 //                                     IDFT_W( code_f[p] * conj(F[d, m]) ) [j] |
 //
-// Both then report, per (p, d), the highest s_a[j] over alignments and the
+// It then reports, per (p, d), the highest s_a[j] over alignments and the
 // lags j >= lo = W - n_valid (all lags when n_valid = 0), the lowest such
-// lag, then the lowest alignment (the TPU kernels' _finalize_max ties), with
+// lag, then the lowest alignment (the TPU kernel's _finalize_max ties), with
 // the lag counted from lo.
 //
 // Design: one CTA per (p, d, a) runs the row-surface kernel of
 // acq_surface.cuh and writes its (max, lowest lag); a second small kernel
-// combines the A alignments of each (p, d).  K5's rows are the F2 rows of
-// alignment a.  K6 uses the linearity of the IDFT: for each group it forms
-// sum_m sec[a, m] conj(rot[d, m]) F[d, m] in shared memory and runs ONE
-// IDFT, instead of one per block kept in A complex accumulators (the TPU
-// kernel's VMEM-resident accC[A, W], which would not fit a CTA at A = 100).
+// combines the A alignments of each (p, d).  K6 uses the linearity of the
+// IDFT: for each group it forms sum_m sec[a, m] conj(rot[d, m]) F[d, m] in
+// shared memory and runs ONE IDFT, instead of one per block kept in A
+// complex accumulators (the TPU kernel's VMEM-resident accC[A, W], which
+// would not fit a CTA at A = 100).
 //
-// What bounds them on the card: K5 the shared-memory FFT passes, as K1.
-// K6 adds the combine, m_coh complex loads of F per cell and group; the
-// CTAs of one doppler run side by side (blockIdx.x = (d*A + a)*P + p), so
-// those loads are L2 hits after the first.
+// What bounds it on the card: the combine, m_coh complex loads of F per
+// cell and group; the CTAs of one doppler run side by side (blockIdx.x =
+// (d*A + a)*P + p), so those loads are L2 hits after the first.
 //
 // W must be a power of two, 2 <= W <= 16384.
 
@@ -76,36 +69,10 @@ int combine(const void* pk, const void* ix, void* peak, void* idx, void* al,
 
 }  // namespace
 
-// K5.  F2: complex64 [DC, GA, W] (row g*A + a); code_f: complex64 [P, W];
-// tw: complex64 twiddle table; pk_part f32 / ix_part i32 [P, DC, A]
-// scratch; outputs peak f32, idx i32, al i32 [P, DC].
-extern "C" int acq_coh_spec(const void* F2, const void* code_f,
-                            const void* tw, void* pk_part, void* ix_part,
-                            void* peak, void* idx, void* al, int P, int DC,
-                            int GA, int A, int W, int n_valid, void* stream) {
-  if (A < 1 || GA < A || GA % A != 0 || n_valid < 0 || n_valid > W)
-    return (int)cudaErrorInvalidValue;
-  acq::SurfaceArgs s = {};
-  s.F = (const float2*)F2;
-  s.code_f = (const float2*)code_f;
-  s.tw = (const float2*)tw;
-  s.peak = (float*)pk_part;
-  s.idx = (int*)ix_part;
-  s.P = P;
-  s.DC = DC;
-  s.A = A;
-  s.W = W;
-  s.rows_per_d = GA;
-  s.nrows = GA / A;
-  s.lo = n_valid ? W - n_valid : 0;
-  int e = acq::launch_surface<acq::kRows>(s, (cudaStream_t)stream);
-  if (e) return e;
-  return combine(pk_part, ix_part, peak, idx, al, P, DC, A,
-                 (cudaStream_t)stream);
-}
-
-// K6.  F: complex64 [DC, B, W]; code_f: complex64 [P, W]; cosang, sinang
-// f32 [DC, B]; sec_mat f32 [A, B]; scratch and outputs as acq_coh_spec.
+// K6.  F: complex64 [DC, B, W]; code_f: complex64 [P, W]; tw: complex64
+// twiddle table; cosang, sinang f32 [DC, B]; sec_mat f32 [A, B]; pk_part
+// f32 / ix_part i32 [P, DC, A] scratch; outputs peak f32, idx i32, al i32
+// [P, DC].
 extern "C" int acq_coh_blk(const void* F, const void* code_f, const void* tw,
                            const void* cosang, const void* sinang,
                            const void* sec_mat, void* pk_part, void* ix_part,

@@ -4,18 +4,24 @@ On first use, nvcc compiles each gnss_dsp_tpu_torch/csrc/*.cu to an object,
 all of them at once in parallel processes, and links them into one shared
 library with a plain C interface, which is loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -Xcompiler -fPIC -c -o X.o csrc/X.cu          (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v [--fmad=false]
+         -c -o X.o csrc/X.cu                           (one per source)
     nvcc -shared -o _build/libgnss_kernels_<hash>.so *.o
 
-On an H100 host with 8 cores the three sources build in 5.9 s this way,
-against 10.6-11.1 s for one nvcc line over all of them.
+On an H100 host with 8 cores the three sources of the first port built
+in 5.9 s this way, against 10.6-11.1 s for one nvcc line over all of them.
+
+Flags are per source (flags()).  --fmad=false keeps nvcc from contracting
+a*b + c into a fused multiply-add: the two-float code phase and the
+chip-boundary recurrence of the tracking kernels round differently when
+contracted, and the K1 and K6 sources keep it too, unchanged.  The
+cluster surface kernels K5 (acquire_coh_spec.cu) and K7 (acquire.cu) are
+held to rtol 1e-4 and build with contraction (FMA_SOURCES).
 
 The output lives in gnss_dsp_tpu_torch/_build/ and its name carries a
-hash of the sources (headers included) and flags, so a changed source
-rebuilds.  --fmad=false keeps nvcc from contracting a*b + c into a fused
-multiply-add: the two-float code phase and the chip-boundary recurrence
-round differently when contracted.
+hash of the sources (headers included) and of each source's flags, so a
+changed source or flag rebuilds.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -25,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,8 +40,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources built with FMA contraction; every other one with --fmad=false
+FMA_SOURCES = ("acquire.cu", "acquire_coh_spec.cu")
 
 _lock = threading.Lock()
 _lib = None
@@ -49,12 +58,14 @@ SIGNATURES = {
     "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "acq2_reduce_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "acq_surface_full": [_P, _P, _P, _P, _P, _P, _P,
+    "acq_surface_full": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "acq_full_info": [_I, _I, _I, _I, _I, _I, _I, _P],
     "track_fused": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P],
-    "acq_coh_spec": [_P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _P],
+    "acq_coh_spec": [_P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "acq_coh_spec_info": [_I, _I, _P],
     "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
     "track_step_v2": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
@@ -67,6 +78,12 @@ SIGNATURES = {
 def _sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                   if f.endswith((".cu", ".cuh")))
+
+
+def flags(source: str) -> list:
+    """nvcc's flags for one csrc/*.cu source."""
+    pin = [] if os.path.basename(source) in FMA_SOURCES else ["--fmad=false"]
+    return BASE_FLAGS + pin
 
 
 def _nvcc() -> str:
@@ -84,7 +101,8 @@ def lib_path() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(FLAGS).encode())
+        if path.endswith(".cu"):
+            h.update(" ".join(flags(path)).encode())
     return os.path.join(BUILD_DIR, f"libgnss_kernels_{h.hexdigest()[:16]}.so")
 
 
@@ -97,15 +115,21 @@ def _run_all(cmds):
     return [(rc, c, text) for c, text, rc in outs]
 
 
+def build_steps(nvcc: str, tag: str):
+    """(steps, objects): the nvcc commands that build the library at
+    `tag`.tmp, one compile per .cu source (run together), then the link."""
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(p)}.o" for p in cus]
+    return ([[[nvcc, *flags(cu), "-c", "-o", o, cu]
+              for cu, o in zip(cus, objs)],
+             [[nvcc, "-shared", "-o", f"{tag}.tmp", *objs]]], objs)
+
+
 def _compile(out: str) -> str:
     """Build the library at `out`; returns nvcc's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{out}.{os.getpid()}"
-    nvcc = _nvcc()
-    cus = [p for p in _sources() if p.endswith(".cu")]
-    objs = [f"{tag}.{os.path.basename(p)}.o" for p in cus]
-    steps = [[[nvcc, *FLAGS, "-c", "-o", o, cu] for cu, o in zip(cus, objs)],
-             [[nvcc, "-shared", "-o", f"{tag}.tmp", *objs]]]
+    steps, objs = build_steps(_nvcc(), tag)
     log = ""
     try:
         for cmds in steps:
@@ -141,6 +165,34 @@ def load():
         BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=out)
         _lib = lib
         return lib
+
+
+def ptxas_summary(log: str, pattern: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, smem}} from nvcc
+    -Xptxas -v output, for the entry functions whose (mangled) name
+    matches the regular expression `pattern`."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def check(err: int, what: str):

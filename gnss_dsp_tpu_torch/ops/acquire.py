@@ -15,11 +15,14 @@ lag axis is natural and the engine needs no index conversion.
 
 It serves the circular route at windows with no aligned split
 (acquire/plan.acq_plan "v1": Xona X5 at W = 30690); the engine takes
-max, first argmax and mean over the lags in torch.  The kernel is the
-four-step kernel that K1 runs at wide W (csrc/acq_wide.cuh), at any W
-that acquire2.wide_split factors; it divides the block sum by W once
-where the plain version scales each inverse transform (float32
-rounding apart, rtol 1e-4 in the card checks).
+max, first argmax and mean over the lags in torch.  The kernel
+transforms each row across a thread-block cluster (csrc/acq_cluster.cuh)
+at any W that acquire2.wide_split factors and whose row a cluster of up
+to 8 CTAs holds (W = 30690 on 4 CTAs; NotImplementedError otherwise);
+it divides the block sum by W once where the plain version scales each
+inverse transform (float32 rounding apart, rtol 1e-4 in the card
+checks).  Where P*DC clusters do not fill the card, each (PRN, doppler)'s
+blocks are split into segments, summed in order by a second kernel.
 
 corr_surface is the CUDA wrapper: it refuses CPU tensors, and the
 engine takes corr_surface_plain for those.  LAUNCHES counts launches.
@@ -27,13 +30,17 @@ engine takes corr_surface_plain for those.  LAUNCHES counts launches.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from gnss_dsp_tpu_torch.ops import _build
 from gnss_dsp_tpu_torch.ops.acquire2 import (
-    _check, surface_plain, wide_scratch, wide_tables)
+    _check, cluster_twiddles, surface_plain, wide_split)
 
 LAUNCHES = 0
+_INVALID = 1          # cudaErrorInvalidValue: no cluster holds the row
 
 
 def corr_surface_plain(F: torch.Tensor, code_f: torch.Tensor) -> torch.Tensor:
@@ -47,9 +54,33 @@ def corr_surface_plain(F: torch.Tensor, code_f: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def corr_surface(F: torch.Tensor, code_f: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def launch_info(P: int, DC: int, B: int, W: int, device_index: int,
+                cluster: int = 0) -> dict:
+    """The kernel's launch plan for P*DC items of B blocks at W on the
+    card `device_index` (cluster CTAs, 0: the kernel's choice): cluster
+    size, segments per (PRN, doppler), dynamic shared memory bytes a CTA,
+    registers and spilled bytes a thread, clusters the card holds at once.
+    NotImplementedError when no cluster of up to 8 CTAs holds the row."""
+    n1, n2 = wide_split(W)
+    lib = _build.load()
+    info = (ctypes.c_int * 6)()
+    with torch.cuda.device(device_index):
+        err = lib.acq_full_info(P, DC, B, W, n1, n2, cluster, info)
+    if err == _INVALID:
+        raise NotImplementedError(
+            f"no cluster of up to 8 CTAs holds a row of W = {W} = "
+            f"{n1} x {n2}" + (f" on {cluster} CTAs" if cluster else ""))
+    _build.check(err, "acq_full_info")
+    keys = ("cluster", "nseg", "smem", "regs", "spill_bytes", "active")
+    return dict(zip(keys, info), n1=n1, n2=n2)
+
+
+def corr_surface(F: torch.Tensor, code_f: torch.Tensor, *,
+                 cluster: int = 0) -> torch.Tensor:
     """q f32 [P, DC, W] for CUDA tensors F complex64 [DC, B, W] and
-    code_f complex64 [P, W]."""
+    code_f complex64 [P, W]; `cluster` CTAs a cluster (0: the kernel's
+    choice)."""
     global LAUNCHES
     _check(F, code_f)
     if F.device.type != "cuda":
@@ -58,18 +89,22 @@ def corr_surface(F: torch.Tensor, code_f: torch.Tensor) -> torch.Tensor:
                          f"on the CPU)")
     DC, B, W = F.shape
     P = code_f.shape[0]
-    n1, n2, tw, root = wide_tables(W, F.device)
+    dev = F.device.index if F.device.index is not None \
+        else torch.cuda.current_device()
+    info = launch_info(P, DC, B, W, dev, cluster)
+    n1, n2, nseg = info["n1"], info["n2"], info["nseg"]
+    tw = cluster_twiddles(n1, n2, F.device)
     lib = _build.load()
     F = F.contiguous()
     code_f = code_f.contiguous()
     q = torch.empty((P, DC, W), dtype=torch.float32, device=F.device)
-    slots, nseg, rowbuf, acc = wide_scratch(P, DC, B, W, F.device)
+    part = (torch.empty((P * DC * nseg, W), dtype=torch.float32,
+                        device=F.device) if nseg > 1 else q)
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
         err = lib.acq_surface_full(
-            F.data_ptr(), code_f.data_ptr(), tw.data_ptr(), root.data_ptr(),
-            rowbuf.data_ptr(), acc.data_ptr(), q.data_ptr(), P, DC, B, W,
-            n1, n2, slots, nseg, stream)
+            F.data_ptr(), code_f.data_ptr(), tw.data_ptr(), part.data_ptr(),
+            q.data_ptr(), P, DC, B, W, n1, n2, info["cluster"], nseg, stream)
     _build.check(err, "acq_surface_full launch")
     LAUNCHES += 1
     return q

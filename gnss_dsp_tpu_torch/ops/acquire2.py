@@ -24,10 +24,10 @@ The kernel takes a power-of-two W <= MAX_W in one CTA's shared memory
 other W that wide_split factors as n1 * n2 through the four-step kernel
 of csrc/acq_wide.cuh (the padded 32768 and 65536, Galileo E1 at 65536,
 GPS L1C and BeiDou B1C at 81920 = 256 * 320, GPS L2CM at 163840 =
-320 * 512).  Kernel K7 (ops/acquire.py) shares that four-step kernel.
-For a W that is not a power of two the kernel divides the block sum by
-W once where the plain version scales each inverse transform: the two
-differ by float32 rounding (rtol 1e-4 in the card checks).
+320 * 512).  For a W that is not a power of two the kernel divides the
+block sum by W once where the plain version scales each inverse
+transform: the two differ by float32 rounding (rtol 1e-4 in the card
+checks).
 
 corr_surface2 launches the CUDA kernel for CUDA tensors and takes the
 plain version only for CPU tensors.  LAUNCHES counts kernel launches.
@@ -125,6 +125,25 @@ def wide_twiddle_table(n1: int, n2: int) -> np.ndarray:
     return np.concatenate(parts).astype(np.complex64)
 
 
+def cluster_twiddle_table(n1: int, n2: int) -> np.ndarray:
+    """The cluster kernels' twiddles (csrc/acq_cluster.cuh), complex64:
+    wide_twiddle_table(n1, n2), then the two tables of the four-step
+    twiddle w^t = A[t mod n2] * B[t div n2] (w = e^{2 pi i/W}, W = n1*n2):
+    A[u] = w^u for u < n2, B[v] = e^{2 pi i v/n1} for v < n1.  float64,
+    rounded once."""
+    W = n1 * n2
+    return np.concatenate([
+        wide_twiddle_table(n1, n2),
+        np.exp(2j * np.pi * np.arange(n2) / W).astype(np.complex64),
+        np.exp(2j * np.pi * np.arange(n1) / n1).astype(np.complex64)])
+
+
+def cluster_twiddles(n1: int, n2: int, device) -> torch.Tensor:
+    """cluster_twiddle_table(n1, n2) on `device`, cached."""
+    return _cached(("cluster", n1, n2),
+                   lambda: cluster_twiddle_table(n1, n2), device)
+
+
 def root_table(W: int) -> np.ndarray:
     """e^{2 pi i t/W} for t < W, complex64 from float64: the four-step
     twiddle w^(j1*k2)."""
@@ -173,8 +192,8 @@ def in_smem(W: int) -> bool:
 
 
 def check_w(W: int, what: str):
-    """Raise NotImplementedError unless the shared-memory surface kernels
-    (K1 at these W, K5, K6) take this W."""
+    """Raise NotImplementedError unless W is a power of two <= MAX_W, the
+    windows of K1's shared-memory mode, K5 and K6."""
     if not in_smem(W):
         raise NotImplementedError(
             f"{what} kernel takes power-of-two W <= {MAX_W}, got {W}")

@@ -3,7 +3,7 @@ alignments and lags.
 
 Counterpart: gnss_dsp_tpu/ops/pallas_acquire_coh.py, the contracts of
 `corr_surface_coh_spec` (K5, :273) and `corr_surface_coh` (K6, :467),
-finalized as `_finalize_max` (:158).  Kernels: csrc/acquire_coh.cu.
+finalized as `_finalize_max` (:158).
 
 K5, rows of F2 [DC, G*A, W] pre-combined per (group g, alignment a):
 
@@ -24,11 +24,20 @@ idx counts from W - n_valid.  ifft is the 1/W-scaled inverse DFT.
 Inputs are complex64 in NATURAL order (interop.code_ffts_from_split
 converts the TPU kernels' permuted split planes).
 
+Kernels: K5 csrc/acquire_coh_spec.cu, one thread-block cluster per
+(PRN, doppler) walking all its rows, each transformed across the
+cluster (csrc/acq_cluster.cuh), the max over alignments in the kernel;
+K6 csrc/acquire_coh.cu, one CTA per (PRN, doppler, alignment) and a
+second kernel for the max over alignments.
+
 The wrappers launch the CUDA kernel for CUDA tensors and take the plain
 version only for CPU tensors.  Each kernel has its own launch counter.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -118,6 +127,22 @@ def corr_surface_coh_plain(F, code_f, cosang, sinang, sec_mat, m_coh: int,
     return tuple(torch.cat([o[k] for o in outs], 1) for k in range(3))
 
 
+@functools.lru_cache(maxsize=16)
+def spec_launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
+    """K5's launch plan at W on the card `device_index` (cluster CTAs, 0:
+    the kernel's choice, 8 at W = 16384; 4 is the other build there):
+    cluster size, dynamic shared memory bytes a CTA, registers and
+    spilled bytes a thread, clusters the card holds at once, threads a
+    CTA."""
+    lib = _build.load()
+    info = (ctypes.c_int * 6)()
+    with torch.cuda.device(device_index):
+        err = lib.acq_coh_spec_info(W, cluster, info)
+    _build.check(err, f"acq_coh_spec_info at W={W}, cluster={cluster}")
+    return dict(zip(("cluster", "smem", "regs", "spill_bytes", "active",
+                     "threads"), info))
+
+
 def _outputs(P, DC, A, device):
     f32, i32 = torch.float32, torch.int32
     return (torch.empty((P, DC, A), dtype=f32, device=device),
@@ -135,9 +160,12 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return True
 
 
-def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0):
+def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
+                          cluster: int = 0):
     """K5: (peak, idx, align) [P, DC] for pre-combined spectra f2
-    complex64 [DC, G*A, W] (row g*A + a) and code_f complex64 [P, W]."""
+    complex64 [DC, G*A, W] (row g*A + a) and code_f complex64 [P, W];
+    on the card `cluster` CTAs a cluster as spec_launch_info (0: the
+    kernel's choice)."""
     global LAUNCHES_SPEC
     _check(f2, code_f)
     DC, GA, W = f2.shape
@@ -148,18 +176,21 @@ def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0):
     if not _on_cuda(f2):
         return corr_surface_coh_spec_plain(f2, code_f, A, n_valid)
     check_w(W, "acquire_coh spec")
+    if A > 65535:
+        raise NotImplementedError(f"K5 keeps alignments in 16 bits: A={A}")
     lib = _build.load()
     f2 = f2.contiguous()
     code_f = code_f.contiguous()
     P = code_f.shape[0]
-    pk, ix, peak, idx, al = _outputs(P, DC, A, f2.device)
-    tw = twiddles(W, f2.device)
+    peak = torch.empty((P, DC), dtype=torch.float32, device=f2.device)
+    idx, al = (torch.empty((P, DC), dtype=torch.int32, device=f2.device)
+               for _ in range(2))
     with torch.cuda.device(f2.device):
         stream = torch.cuda.current_stream(f2.device).cuda_stream
         err = lib.acq_coh_spec(f2.data_ptr(), code_f.data_ptr(),
-                               tw.data_ptr(), pk.data_ptr(), ix.data_ptr(),
-                               peak.data_ptr(), idx.data_ptr(), al.data_ptr(),
-                               P, DC, GA, A, W, n_valid, stream)
+                               peak.data_ptr(), idx.data_ptr(),
+                               al.data_ptr(), P, DC, GA, A, W, n_valid,
+                               cluster, stream)
     _build.check(err, "acq_coh_spec launch")
     LAUNCHES_SPEC += 1
     return peak, idx, al

@@ -170,6 +170,148 @@ def test_k5_plain_matches_pallas_kernel_interpret():
                                                          a_true)
 
 
+def _split(N):
+    """csrc/acq_cluster.cuh Split<N>: R values a thread, Q threads a
+    transform, H step-C transforms a thread."""
+    R = min(N, 16)
+    return R, N // R, R // (N // R)
+
+
+def _split_index(N, o, t):
+    R, Q, H = _split(N)
+    return t * H + o // Q + R * (o % Q)
+
+
+def _roots(k, n):
+    """unit_root: e^{2 pi i k/n} from float64, rounded to complex64."""
+    return np.exp(2j * np.pi * np.asarray(k) / n).astype(np.complex64
+                                                          ).astype(complex)
+
+
+def _split_ab(x, N, t):
+    """Steps A and B for thread t of every transform: x [m, col] ->
+    v [a, col]."""
+    R, Q, _ = _split(N)
+    a = np.arange(R)
+    v = np.exp(2j * np.pi * np.outer(a, a) / R) @ x
+    return v * (_roots(a * t, N)[:, None] if Q > 1 else 1)
+
+
+def _spec_transform(X, L, C):
+    """K5's unscaled inverse DFT of one row (csrc/acquire_coh_spec.cu),
+    address for address, over C ranks: the staged [k1][col] slice of each
+    rank, the column role's registers and exchange buffer xb[(a*Q1 +
+    t)*nc + col], the four-step twiddle w^(j1*k2) = w^((t*H1 + h)*k2) *
+    w^(R1*b*k2) for cell j1 = t*H1 + h + R1*b, each factor from the two
+    small tables (w^t = A[t mod n2] * B[t div n2]), the store to
+    yb[col*(n1 + 1) + j1], the row role's reads of
+    yb[(k2 mod nc)*(n1 + 1) + j1] in rank k2 div nc, and its exchange
+    xb[(a*Q2 + t)*nr + jl].  Returns (x, owner): x[j] for the natural lags
+    and owner[j] the rank that produced lag j.  Every shared-memory slot
+    is written at most once a phase and read only once written."""
+    n1, n2 = 1 << (L // 2), 1 << (L - L // 2)
+    W = n1 * n2
+    assert len(X) == W and C <= n1
+    R1, Q1, _ = _split(n1)
+    R2, Q2, _ = _split(n2)
+    nc, nr, ys = n2 // C, n1 // C, n1 + 1
+    wA, wB = _roots(np.arange(n2), W), _roots(np.arange(n1), n1)
+
+    def w_of(t):                        # the two-table twiddle, t < W
+        assert (t < W).all()
+        return wA[t % n2] * wB[t // n2]
+
+    yb = []
+    for r in range(C):
+        k1, col = np.divmod(np.arange(W // C), nc)
+        stage = X[r * nc + col + n2 * k1]                 # [k1][col]
+        xb = np.full(W // C, np.nan, complex)
+        ys_r = np.full(nc * ys, np.nan, complex)
+        for t in range(Q1):             # column role: tid = t*nc + col
+            m = np.arange(R1)
+            v = _split_ab(stage[((t + Q1 * m)[:, None] * nc
+                                 + np.arange(nc)[None, :])], n1, t)
+            if Q1 > 1:
+                slots = (np.arange(R1)[:, None] * Q1 + t) * nc \
+                    + np.arange(nc)[None, :]
+                assert np.isnan(xb[slots]).all()
+                xb[slots] = v
+        for t in range(Q1):
+            if Q1 > 1:                  # step C over xb
+                out = np.zeros((R1, nc), complex)
+                for o in range(R1):
+                    h, b = divmod(o, Q1)
+                    a = t * (R1 // Q1) + h
+                    u = xb[(a * Q1 + np.arange(Q1))[:, None] * nc
+                           + np.arange(nc)[None, :]]
+                    assert not np.isnan(u).any()
+                    out[o] = np.exp(2j * np.pi * b * np.arange(Q1) / Q1) @ u
+            else:
+                out = v
+            k2 = r * nc + np.arange(nc)
+            for o in range(R1):
+                h, b = divmod(o, Q1)
+                j1 = _split_index(n1, o, t)
+                assert j1 == t * (R1 // Q1) + h + R1 * b
+                slot = np.arange(nc) * ys + j1
+                assert np.isnan(ys_r[slot]).all()
+                # w^(j1*k2) = gb[h] * wS[b][col], each a two-table product
+                ys_r[slot] = out[o] * w_of((t * (R1 // Q1) + h) * k2) \
+                    * w_of(R1 * b * k2)
+        yb.append(ys_r)
+    x = np.zeros(W, complex)
+    owner = np.full(W, -1)
+    for r in range(C):
+        jl = np.arange(nr)
+        j1 = r * nr + jl
+        xb = np.full(W // C, np.nan, complex)
+        zs = []
+        for t in range(Q2):             # row role: tid = t*nr + jl
+            k2 = t + Q2 * np.arange(R2)
+            z = np.stack([yb[k // nc][(k % nc) * ys + j1] for k in k2])
+            assert not np.isnan(z).any()
+            z = _split_ab(z, n2, t)
+            if Q2 > 1:
+                slots = (np.arange(R2)[:, None] * Q2 + t) * nr + jl[None, :]
+                assert np.isnan(xb[slots]).all()
+                xb[slots] = z
+            zs.append(z)
+        for t in range(Q2):
+            for o in range(R2):
+                if Q2 > 1:
+                    h, b = divmod(o, Q2)
+                    a = t * (R2 // Q2) + h
+                    u = xb[(a * Q2 + np.arange(Q2))[:, None] * nr
+                           + jl[None, :]]
+                    val = np.exp(2j * np.pi * b * np.arange(Q2) / Q2) @ u
+                else:
+                    val = zs[t][o]
+                lag = j1 + n1 * _split_index(n2, o, t)
+                assert (owner[lag] == -1).all()
+                x[lag] = val
+                owner[lag] = r
+    return x, owner
+
+
+@pytest.mark.parametrize("L,C", [(14, 2), (14, 4), (14, 8), (13, 8),
+                                 (9, 8), (5, 4), (1, 1)])
+def test_k5_cluster_transform_is_the_inverse_dft(L, C):
+    """K5's cluster core (csrc/acquire_coh_spec.cu) emulated in numpy at
+    the B1I window 16384 = 128 x 128 over 2, 4 and 8 ranks (8 is the
+    kernel's choice, 4 its other build) and at the card tests' 8192 and
+    512 and two small windows: each lag made by exactly one rank, rank r
+    owning the rows j1 in [r*nr, (r+1)*nr), and the result the inverse
+    DFT to float32 twiddle rounding (2e-6 of the input's scale)."""
+    W = 1 << L
+    n1 = 1 << (L // 2)                  # n1 = 2^floor(log2(W)/2)
+    rng = np.random.default_rng(W + C)
+    X = rng.standard_normal(W) + 1j * rng.standard_normal(W)
+    x, owner = _spec_transform(X, L, C)
+    np.testing.assert_allclose(x / W, np.fft.ifft(X), rtol=0,
+                               atol=2e-6 * np.abs(X).max())
+    assert (owner == (np.arange(W) % n1) // (n1 // C)).all()
+
+
 def test_k5_plain_is_k6_plain_on_combined_rows():
     """The spectral combine is the per-block coherent sum (linearity of
     the IDFT): K5 on combined rows == K6 on the blocks, incl. n_valid."""

@@ -15,7 +15,10 @@ against the JAX package, on the CPU.
   * K1's plain version at a non-power-of-two W against numpy;
   * the four-step inverse DFT the wide kernels run on the card (mixed-
     radix Stockham passes over the host twiddle tables, w^(j1*k2) between
-    them), emulated in numpy, against np.fft.ifft;
+    them), emulated in numpy, against np.fft.ifft; the same for K7's
+    cluster core (csrc/acq_cluster.cuh: which rank owns which columns and
+    rows, the distributed-shared-memory transpose addresses, the
+    two-table twiddle);
   * acquire_signal against the JAX one on small planted captures of one
     signal per route: planted PRNs with equal doppler and code offset and
     the metric to 2.4e-3 relative (the acquisition engine's bf16 budget),
@@ -146,6 +149,117 @@ def test_four_step_plan_is_the_inverse_dft(W):
                                rtol=0, atol=2e-6 * np.abs(X).max())
     tw = acquire2.wide_twiddle_table(*acquire2.wide_split(W))
     assert tw.dtype == np.complex64 and np.abs(np.abs(tw) - 1).max() < 1e-6
+
+
+def _cluster_stride(m):
+    return (m + (m >> 4)) | 1
+
+
+def _cluster_ifft(X, n1, n2, C):
+    """The cluster kernels' unscaled inverse DFT (csrc/acq_cluster.cuh),
+    step for step, one flat buffer pair per rank: the rank's columns
+    loaded in the column layout, the column passes, the transpose read
+    from the owning rank's buffer at at(tc, S1, j1) times the two-table
+    twiddle A[t mod n2] * B[t div n2], the row passes, and each rank's
+    lags read out of its row layout.  Returns (x, owner): x[j] for the
+    natural lags and owner[j] the rank that produced lag j."""
+    W = n1 * n2
+    tw = acquire2.cluster_twiddle_table(n1, n2).astype(np.complex128)
+    hdr = 16 + sum(acquire2.WIDE_ROOTS)
+    passes, off = [], hdr
+    for m in (n1, n2):              # make_sub: tables after the header
+        ps = []
+        for R, ns in acquire2.wide_passes(m):
+            ps.append((R, ns, off))
+            off += R * ns
+        passes.append(ps)
+    twA, twB = tw[off:off + n2], tw[off + n2:off + n2 + n1]
+    assert len(tw) == off + n2 + n1
+    nc, nr = -(-n2 // C), -(-n1 // C)
+    assert (C - 1) * nc < n2 and (C - 1) * nr < n1
+    S1, S2 = _cluster_stride(n1), _cluster_stride(n2)
+    size = max(nc * S1, nr * S2)
+
+    def at(t, S, e):
+        return t * S + e + (e >> 4)
+
+    def sub(a, nb, m, S, ps):       # out-of-place Stockham passes
+        for R, ns, o in ps:
+            items = m // R
+            u = np.arange(nb * items)
+            t, j = u // items, u % items
+            k = j % ns
+            v = np.stack([a[at(t, S, j + r * items)]
+                          * (tw[o + r * ns + k] if r and ns > 1 else 1)
+                          for r in range(R)])
+            y = np.exp(2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R
+                       ) @ v
+            b = np.zeros_like(a)
+            d = (j // ns) * ns * R + k
+            for s in range(R):
+                b[at(t, S, d + s * ns)] = y[s]
+            a = b
+        return a
+
+    share = [(r * nc, min(nc, n2 - r * nc), r * nr, min(nr, n1 - r * nr))
+             for r in range(C)]
+    cols = []
+    for c0, ncr, _, _ in share:     # load, then the column passes
+        buf = np.zeros(size, complex)
+        e = np.arange(ncr * n1)
+        k1, t = e // ncr, e % ncr
+        buf[at(t, S1, k1)] = X[c0 + t + n2 * k1]
+        cols.append(sub(buf, ncr, n1, S1, passes[0]))
+    x = np.zeros(W, complex)
+    owner = np.full(W, -1)
+    for r, (_, _, j10, nrr) in enumerate(share):
+        e = np.arange(nrr * n2)
+        k2, jl = e // nrr, e % nrr  # consecutive threads: consecutive j1
+        src, j1 = k2 // nc, j10 + jl
+        tc = k2 - src * nc
+        v = np.array([cols[s][at(c, S1, j)] for s, c, j in zip(src, tc, j1)])
+        tt = j1 * k2
+        buf = np.zeros(size, complex)
+        buf[at(jl, S2, k2)] = v * twA[tt % n2] * twB[tt // n2]
+        out = sub(buf, nrr, n2, S2, passes[1])
+        t, j2 = e // n2, e % n2     # the lags of this rank's row layout
+        lag = j10 + t + n1 * j2
+        assert (owner[lag] == -1).all()
+        x[lag] = out[at(t, S2, j2)]
+        owner[lag] = r
+    return x, owner
+
+
+def check_cluster_transform(n1, n2, C):
+    """The cluster core's emulation against np.fft.ifft: every lag made by
+    exactly one rank, rank r owning the rows j1 in [r*nr, (r+1)*nr), and
+    the result the inverse DFT to float32 twiddle rounding (2e-6 of the
+    input's scale per point); the two-table twiddle w^t to float32
+    rounding for every t < W."""
+    W = n1 * n2
+    rng = np.random.default_rng(W + C)
+    X = rng.standard_normal(W) + 1j * rng.standard_normal(W)
+    x, owner = _cluster_ifft(X, n1, n2, C)
+    np.testing.assert_allclose(x / W, np.fft.ifft(X), rtol=0,
+                               atol=2e-6 * np.abs(X).max())
+    nr = -(-n1 // C)
+    assert (owner == (np.arange(W) % n1) // nr).all()
+    # the two-table twiddle is w^t to float32 rounding for every t < W
+    tw = acquire2.cluster_twiddle_table(n1, n2)
+    t = np.arange(W)
+    A, B = tw[len(tw) - n1 - n2:len(tw) - n1], tw[len(tw) - n1:]
+    np.testing.assert_allclose(A[t % n2].astype(np.complex128) * B[t // n2],
+                               np.exp(2j * np.pi * t / W), rtol=0, atol=3e-7)
+
+
+@pytest.mark.parametrize("n1,n2,C", [(165, 186, 2), (165, 186, 3),
+                                     (165, 186, 4), (30, 32, 1),
+                                     (256, 256, 8)])
+def test_cluster_transform_is_the_inverse_dft(n1, n2, C):
+    """K7's cluster core at Xona X5's 30690 = 165 x 186 over 2, 3 and 4
+    ranks (4 is the kernel's choice), and at the card tests' 960 (one
+    CTA) and 65536 (eight)."""
+    check_cluster_transform(n1, n2, C)
 
 
 def test_k7_plain_matches_pallas_kernel_interpret():

@@ -123,6 +123,27 @@ def test_k7_matches_plain(dev, W, P, DC, B):
     assert torch.equal(qk, acquire.corr_surface(F, code))
 
 
+def test_k7_cluster_at_x5_is_deterministic(dev):
+    """K7 at Xona X5's window (30690 = 165 x 186, a cluster of 4 CTAs) on
+    a small grid: planted lags exact, the plain version to rtol 1e-4 plus
+    2e-5 of the maximum, two launches bit-equal, and the same at 6 CTAs
+    a cluster (uneven row shares)."""
+    from gnss_dsp_tpu_torch.ops import acquire
+
+    W, P, DC, B = 30690, 1, 2, 3
+    code, F, lags = _planted(dev, P, DC, B, W, 0, 4242)
+    assert acquire.launch_info(P, DC, B, W, dev.index or 0)["cluster"] == 4
+    qk = acquire.corr_surface(F, code)
+    qp = acquire.corr_surface_plain(F, code)
+    assert int(qk[0, 0].argmax()) == lags[0]
+    torch.testing.assert_close(qk, qp, rtol=1e-4,
+                               atol=2e-5 * float(qp.max()))
+    assert torch.equal(qk, acquire.corr_surface(F, code))
+    q6 = acquire.corr_surface(F, code, cluster=6)
+    torch.testing.assert_close(q6, qp, rtol=1e-4,
+                               atol=2e-5 * float(qp.max()))
+
+
 def test_k7_refuses_cpu_tensors_and_unsupported_w(dev):
     from gnss_dsp_tpu_torch.ops import acquire
 
@@ -208,6 +229,43 @@ def test_k5_matches_plain(dev, W, P, DC, A, G, n_valid):
     assert acquire_coh.LAUNCHES_SPEC == n0 + 1
     plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A, n_valid)
     _check_planted(got, plain, plants, W, n_valid)
+
+
+def test_k5_cluster_keeps_the_lowest_alignment_on_a_tie(dev):
+    """K5 at W = 16384 (a cluster of 8 CTAs), P 2, DC 3, G 2, A 3, with a
+    planted tie across alignments: at doppler 1 alignments 0 and 2 hold
+    the same rows, so their surfaces are equal at every lag and the
+    kernel must report alignment 0, as _finalize_max does; the other
+    cells as the plain version (idx and align exact on the plants, peak
+    rtol 1e-4), and the same at 4 CTAs a cluster."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    W, P, DC, A, G = 16384, 2, 3, 3, 2
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, P, DC, G * A, W, A, 0,
+                                                 16384 + 3)
+    # combined rows g*A + a (as test_k5_matches_plain): the plants add
+    # coherently (1.5) at their own alignment only
+    wc = sec_mat[None] * torch.complex(c, -s)[:, None, :]      # [DC, A, B]
+    F2 = torch.einsum("dagm,dgmw->dgaw", wc.reshape(DC, A, G, A),
+                      F.reshape(DC, G, A, W)).reshape(DC, G * A, W)
+    F2[1, 2::A] = F2[1, 0::A]
+    k = torch.arange(W, device=dev, dtype=torch.float64)
+    F2[1, 0::A] += (3.0 * code[1].to(torch.complex128)
+                    * torch.exp(2j * np.pi * k * 777 / W)
+                    ).to(torch.complex64)
+    F2[1, 2::A] = F2[1, 0::A]
+    assert acquire_coh.spec_launch_info(W, dev.index or 0)["cluster"] == 8
+    got = acquire_coh.corr_surface_coh_spec(F2, code, A)
+    plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A)
+    assert (int(got[1][1, 1]), int(got[2][1, 1])) == (777, 0)
+    assert (int(plain[1][1, 1]), int(plain[2][1, 1])) == (777, 0)
+    for p, d, a, j in plants:
+        if d != 1:
+            assert (int(got[1][p, d]), int(got[2][p, d])) == (j, a)
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+    got4 = acquire_coh.corr_surface_coh_spec(F2, code, A, cluster=4)
+    for a, b in zip(got, got4):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
 
 
 def test_coh_kernels_reject_unsupported_w(dev):

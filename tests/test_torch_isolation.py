@@ -201,12 +201,56 @@ def test_build_hash_follows_the_sources():
     from gnss_dsp_tpu_torch.ops import _build
 
     srcs = [os.path.basename(p) for p in _build._sources()]
-    assert srcs == ["acq_surface.cuh", "acq_wide.cuh", "acquire.cu",
-                    "acquire2.cu", "acquire_coh.cu", "track_corr.cuh",
-                    "track_fused.cu", "track_step.cu"]
+    assert srcs == ["acq_cluster.cuh", "acq_surface.cuh", "acq_wide.cuh",
+                    "acquire.cu", "acquire2.cu", "acquire_coh.cu",
+                    "acquire_coh_spec.cu", "track_corr.cuh", "track_fused.cu",
+                    "track_step.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
     assert path == _build.lib_path()
+
+
+def test_build_flags_per_source():
+    """The tracking kernels (and K1, K6) keep --fmad=false; the cluster
+    surface kernels K5 and K7 build with contraction; the flags are the
+    same but for that one."""
+    from gnss_dsp_tpu_torch.ops import _build
+
+    pinned = ["track_fused.cu", "track_step.cu", "acquire2.cu",
+              "acquire_coh.cu"]
+    for src in pinned:
+        assert "--fmad=false" in _build.flags(src), src
+    for src in ("acquire.cu", "acquire_coh_spec.cu"):
+        assert "--fmad=false" not in _build.flags(src), src
+        assert _build.flags(src) + ["--fmad=false"] == _build.flags(pinned[0])
+    assert all("-gencode" in _build.flags(s) and "arch=compute_90a,code=sm_90a"
+               in _build.flags(s) for s in pinned)
+
+
+def test_build_compiles_every_source_once():
+    from gnss_dsp_tpu_torch.ops import _build
+
+    steps, objs = _build.build_steps("nvcc", "/x/lib")
+    compiles, (link,) = steps
+    cus = sorted(os.path.basename(c[-1]) for c in compiles)
+    assert cus == sorted(os.path.basename(p) for p in _build._sources()
+                         if p.endswith(".cu"))
+    assert len(set(cus)) == len(cus) == 6
+    for cmd in compiles:
+        assert cmd[1:-4] == _build.flags(cmd[-1])
+        assert cmd[-4:-2] == ["-c", "-o"] and cmd[-2] in objs
+    assert link[:3] == ["nvcc", "-shared", "-o"] and link[4:] == objs
+
+
+def test_build_hash_follows_the_flags(monkeypatch):
+    from gnss_dsp_tpu_torch.ops import _build
+
+    path = _build.lib_path()
+    monkeypatch.setattr(_build, "FMA_SOURCES", ("acquire.cu",))
+    assert "--fmad=false" in _build.flags("acquire_coh_spec.cu")
+    assert _build.lib_path() != path
+    monkeypatch.undo()
+    assert _build.lib_path() == path
 
 
 def _smoke(cwd):
