@@ -13,7 +13,11 @@ Runs every phase, in this order:
           non-coherent BeiDou B1I shape (63 PRN x 70 doppler x 40 blocks x
           16384) and the launch shapes of the wide e2e searches below (GPS
           L5I and Galileo E6B padded with n_valid, Galileo E1B, GPS L1CP,
-          GPS L2CM at 65536 to 163840), with timings
+          GPS L2CM at 65536 to 163840), with timings, the kernel's plan at
+          each window (core, n1 x n2, cluster size, clusters the card holds
+          at once, registers, spills) and the times at the other cluster
+          sizes built; then a planted exact tie across cluster ranks at
+          each window, which must report the lower lag
   k7      full-surface kernel vs its plain version at the Xona X5 launch
           shape (1 PRN x 54 doppler x 80 blocks x 30690), with timings, its
           cluster plan (cluster size, clusters the card holds at once,
@@ -134,11 +138,15 @@ K4_FAMILIES = (("none", "gps-l1"), ("boc11", "gps-l1cd"),
 E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
             "gps-l2cm")
 
-# cluster sizes timed beside the kernels' own choice (K5: 8, K7: 4)
+# cluster sizes timed beside the kernels' own choice (K5: 8, K7: 4; K1:
+# the other sizes of acquire2.SPLIT_CLUSTERS, and at 81920 the run-time
+# core on 8 CTAs, its core before the 320-point register transform)
 K5_CLUSTERS = (4,)
 K7_CLUSTERS = (6, 8)
+K1_CLUSTERS = {4096: (1, 4, 8), 32768: (16,), 65536: (16,), 81920: (8,)}
 # the cluster kernels' entry functions in nvcc's -Xptxas -v output
-CLUSTER_KERNELS = r"coh_spec_kernel|full_kernel"
+CLUSTER_KERNELS = (r"coh_spec_kernel|full_kernel|acq2_split_kernel"
+                   r"|acq2_wide_kernel")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory and
 # float32 outside the tensor cores
@@ -209,10 +217,13 @@ def library_ms(code_f, F, reps=2):
 def plan_text(info, sms):
     """One line of a cluster kernel's launch plan (ops' launch_info)."""
     per_sm = info["active"] * info["cluster"] / sms
-    return (f"cluster of {info['cluster']} CTAs, {info['active']} "
-            f"clusters at once ({per_sm:.2f} CTAs per SM), {info['regs']} "
-            f"registers and {info['spill_bytes']} local bytes a thread, "
-            f"{info['smem']} bytes of shared memory a CTA")
+    core = (f"{info['core']} core, {info['n1']} x {info['n2']}, "
+            if "core" in info else "")
+    threads = f"{info['threads']} threads, " if "threads" in info else ""
+    return (f"{core}cluster of {info['cluster']} CTAs, {threads}"
+            f"{info['active']} clusters at once ({per_sm:.2f} CTAs per SM), "
+            f"{info['regs']} registers and {info['spill_bytes']} local bytes "
+            f"a thread, {info['smem']} bytes of shared memory a CTA")
 
 
 def library_text(lib, DC):
@@ -409,16 +420,40 @@ def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed, n_valid=0,
     lib = library_ms(code_f, F)
     bms, by = surface_bound(P, DC, B, W, P * DC * 12)
     cells = P * DC * B * W
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = acquire2.launch_info(W, dev.index or 0)
     log(f"[k1] {tag}: P={P} DC={DC} B={B} W={W} n_valid={n_valid}: idx "
         f"exact on planted cells, {len(diff)} near-tie argmax differences "
         f"elsewhere, max|dpeak|,|dsum| = {err:.3g}, two launches bit-equal")
+    log(f"[k1] {tag}: plan: {plan_text(info, sms)}")
+    scaled = lib[0] * DC / lib[1] if lib[1] else None
     log(f"[k1] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
         f"Gcells/s), plain {plain_ms:.3f} ms, library ifft "
-        f"{library_text(lib, DC)}, bound {bms:.3f} ms by {by}  [{card}]")
+        f"{library_text(lib, DC)}"
+        + (f" ({scaled:.3f} ms scaled to {DC}; kernel / library "
+           f"{ms / scaled:.3f})" if scaled else "")
+        + f", bound {bms:.3f} ms by {by}  [{card}]")
+    for c in K1_CLUSTERS.get(W, ()):
+        got = acquire2.corr_surface2(*args, cluster=c)
+        torch.cuda.synchronize()
+        check((got[1].cpu().numpy()[np.arange(P), dops] == want - lo).all(),
+              (tag, c, "planted lag"))
+        np.testing.assert_allclose(got[0].cpu().numpy(), peak_p, rtol=1e-4)
+        np.testing.assert_allclose(got[2].cpu().numpy(), sum_p, rtol=1e-4)
+        ms_c = cuda_ms(lambda: acquire2.corr_surface2(*args, cluster=c), reps)
+        other = acquire2.launch_info(W, dev.index or 0, c)
+        log(f"[k1] {tag}: ablation, {c} CTAs a cluster: {ms_c:.3f} ms "
+            f"against {ms:.3f}; {plan_text(other, sms)}; planted lags exact, "
+            f"peak and sum within rtol 1e-4  [{card}]")
     del F, args
     torch.cuda.empty_cache()
+    shape = dict(shape=f"{P} x {DC} x {B} x {W}" + (
+        f", n_valid {n_valid}" if n_valid else ""), signal=tag, ms=ms,
+        library_ms=scaled, library_dopplers=lib[1], bound_ms=bms,
+        k1_over_library=ms / scaled if scaled else None)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
+                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by,
+                shape=shape)
 
 
 def wide_launch(name, ms=80):
@@ -437,18 +472,59 @@ def wide_launch(name, ms=80):
     return route, P, engine.dop_chunk_for(route, P, B, W, D), B, W, n_valid
 
 
+def _k1_tie(dev, card, W, B=2):
+    """K1 on a row whose surface ties exactly at every lag with an even
+    row index j mod n1: X = code * conj(F) = delta[0] + delta[(n1/2) n2],
+    whose column IDFT is 1 + (-1)^j1 on column 0 alone, so that every
+    product the kernel forms is by a unit twiddle or by zero.  From lag 0
+    the lowest tied lag is 0 (rank 0); from lo = nr - 1 it is nr, made by
+    rank 1 while rank 0 makes the tied lag n1: the kernel must report
+    idx 0 and 1."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    _, n1, n2, C = acquire2.core_plan(W)
+    nr = -(-n1 // C)
+    code = torch.ones((1, W), dtype=torch.complex64, device=dev)
+    F = torch.zeros((1, B, W), dtype=torch.complex64, device=dev)
+    F[:, :, 0] = 1.0
+    F[:, :, (n1 // 2) * n2] = 1.0
+    got = [acquire2.corr_surface2(F, code, nv) for nv in (0, W - (nr - 1))]
+    plain = acquire2.corr_surface2_plain(F, code)
+    torch.cuda.synchronize()
+    idx = [int(g[1][0, 0]) for g in got]
+    check(idx == [0, 1], ("k1 tie", W, idx))
+    np.testing.assert_allclose(got[0][0].cpu().numpy(),
+                               plain[0].cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(got[0][2].cpu().numpy(),
+                               plain[2].cpu().numpy(), rtol=1e-4)
+    log(f"[k1] planted tie at W={W} ({C} CTAs, {nr} rows a rank): lags 0 "
+        f"and {nr} (rank 1) reported over the tied lags of rank 0 "
+        f"(idx {idx[0]} from 0, {idx[1]} from lo {nr - 1})  [{card}]")
+
+
 def phase_k1(dev, card, results):
     r = _k1_case(dev, card, "gps-l1", 32, 70, 80, 4096, 1234, 5)
-    _k1_case(dev, card, "beidou-b1i", 63, 70, 40, 16384, 4321, 8)
+    shapes = [r.pop("shape")]
+    shapes.append(_k1_case(dev, card, "beidou-b1i", 63, 70, 40, 16384, 4321,
+                           8)["shape"])
     # the kernels line keeps the GPS L1 case's numbers (the e2e shape)
     results["acquire2"].update(r)
     errs = [r["max_abs_err"]]
+    windows = {4096, 16384}
     for i, name in enumerate(E2E_WIDE):
         route, P, DC, B, W, n_valid = wide_launch(name)
         if route != "v1":
-            errs.append(_k1_case(dev, card, name, P, DC, B, W, 50 + i, 60 + i,
-                                 n_valid, reps=2, plain_reps=1)["max_abs_err"])
+            w = _k1_case(dev, card, name, P, DC, B, W, 50 + i, 60 + i,
+                         n_valid, reps=2, plain_reps=1)
+            errs.append(w["max_abs_err"])
+            shapes.append(w["shape"])
+            windows.add(W)
     results["acquire2"]["max_abs_err"] = max(errs)
+    results["acquire2"]["shapes"] = shapes
+    for W in sorted(windows):
+        _k1_tie(dev, card, W)
 
 
 # ---------------------------------------------------------------- phase k7

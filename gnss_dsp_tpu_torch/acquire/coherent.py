@@ -41,6 +41,7 @@ import torch
 
 from gnss_dsp_tpu_torch.acquire import engine as eng
 from gnss_dsp_tpu_torch.acquire.plan import coh_plan
+from gnss_dsp_tpu_torch.device import refuse_switches
 from gnss_dsp_tpu_torch.ops import acquire_coh
 from gnss_dsp_tpu_torch.ops.acquire2 import check_w
 from gnss_dsp_tpu_torch.ops.nco import MASK32
@@ -225,7 +226,10 @@ def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
     get an all-ones overlay.  engine: "auto" takes the fused route where
     plan.coh_plan gives one, "fused" requires it, "xla" forces the
     circular plain-torch engine.  Returns list[CoherentAcqResult] in PRN
-    order."""
+    order.  Refuses the reference's route switches GNSS_DSP_NO_PALLAS and
+    GNSS_DSP_NO_V2P (device.refuse_switches)."""
+    refuse_switches("acquire_signal_coherent",
+                    ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
     if sig.fdma_hz or sig.acq_serial:
         raise NotImplementedError(
             f"{sig.name}: FDMA and serial coherent searches are not ported")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from gnss_dsp_tpu_torch.acquire.plan import acq_plan
+from gnss_dsp_tpu_torch.device import refuse_switches
 from gnss_dsp_tpu_torch.models.codes import resample_host
 from gnss_dsp_tpu_torch.ops import acquire, acquire2, nco
 
@@ -206,7 +207,11 @@ def acquire_signal(sig, x_int: torch.Tensor, prns, doppler_search=None,
     """Run acquisition for one signal over `prns`.
 
     x_int: complex64 internal-rate samples covering >= ms+2 ms, on the
-    device the search runs on.  Returns list[AcqResult] in PRN order."""
+    device the search runs on.  Returns list[AcqResult] in PRN order.
+    Refuses the reference's route switches GNSS_DSP_NO_PALLAS and
+    GNSS_DSP_NO_V2P (device.refuse_switches)."""
+    refuse_switches("acquire_signal",
+                    ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
     if sig.fdma_hz or sig.acq_serial:
         raise NotImplementedError(
             f"{sig.name}: FDMA (acquire_signal_fdma) and serial searches "

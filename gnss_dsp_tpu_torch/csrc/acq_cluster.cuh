@@ -1,5 +1,6 @@
 // A row transform held across a thread-block cluster, shared by the
-// acquisition kernels K5 (acquire_coh_spec.cu) and K7 (acquire.cu).
+// acquisition kernels K1 (acquire2.cu), K5 (acquire_coh_spec.cu) and K7
+// (acquire.cu).
 //
 // A surface row is the unscaled inverse DFT of W complex values,
 // IDFT_W(code_f[p] * conj(F_row)).  At W = 16384 the row (128 KiB) leaves
@@ -8,11 +9,13 @@
 // four-step transform W = n1 * n2 whose transpose goes through distributed
 // shared memory (DSMEM), so no value of a row goes to device memory.  Two
 // cores share the cluster barriers, the register DFTs with compile-time
-// roots and the asynchronous copies below: K7's row_transform, for any W
-// whose factors are 2, 3, 5, 11, 31, with run-time sizes (described
-// here), and K5's power-of-two Split at the end of the file, with
-// compile-time sizes and the values in registers (acquire_coh_spec.cu).
-// K7's row_transform:
+// roots and the asynchronous copies below: row_transform, for any W whose
+// factors are 2, 3, 5, 11, 31, with run-time sizes (described here; K7,
+// and K1 at 163840), and Split at the end of the file, power-of-two and
+// 320-point sub-transforms with compile-time sizes and the values in
+// registers (surface_rows: K5, and K1 at 4096 to 81920).
+// The cluster's reduction (cluster_best) and launch helpers follow.
+// row_transform:
 //
 //   k = k2 + n2*k1, j = j1 + n1*j2, w = e^{+2 pi i / W}
 //   column pass  CTA r owns the columns k2 = r*nc + t (nc = ceil(n2/C),
@@ -31,7 +34,7 @@
 // Sub-transforms: out-of-place Stockham passes between two shared buffers,
 // radix 16, 8, 4, 2 (radix-2 stages in registers, compile-time roots of
 // 16) and 3, 5, 11, 31 (direct DFTs over conjugate pairs, compile-time
-// roots).  The radix order is next_radix of acq_wide.cuh, which
+// roots).  The radix order is next_radix below, which
 // ops/acquire2.wide_passes follows.  The per-pass twiddles (e^{2 pi i r k
 // /(ns R)}, ops/acquire2.wide_twiddle_table) sit in shared memory.  The
 // four-step twiddle comes from two small tables, w^t = A[t mod n2] *
@@ -493,38 +496,115 @@ __device__ float2* row_transform(const Plan& pl, const Share& h,
   return sub_ifft<T>(y, x, h.nr, pl.row, tw);
 }
 
-// ---- Power-of-two rows held in registers (K5) ----------------------------
+// ---- Sub-transforms held in registers (K1, K5) -------------------------
 //
-// At a power-of-two W every sub-transform is N = R * Q points (N <= 256):
-// Q threads share one transform, thread t holding x[t + Q*m] for m < R
-// (R = min(N, 16) values, compile-time sizes throughout):
+// A sub-transform of N = R * Q points (power-of-two N <= 256, and N = 320)
+// runs on Q threads that each hold R values, thread t holding x[t + Q*m]
+// for m < R, with compile-time sizes throughout:
 //
 //   step A  v[a] = sum_m x[t + Q m] w_R^(a m)   an R-point DFT in registers
 //   step B  v[a] *= w_N^(a t)                   (Q > 1)
-//   step C  y[a + R b] = sum_t v_t[a] w_Q^(b t) thread t' takes the H = R/Q
-//           a = t'*H + h, reads v_t[a] from the exchange buffer xb[(a*Q +
-//           t)*ld + col] for t < Q and runs H Q-point DFTs: it holds y[(t'*H
-//           + h) + R*b] in out[h*Q + b]
+//   step C  y[a + R b] = sum_t v_t[a] w_Q^(b t) from the exchange buffer
+//           xb[(a*Q + t)*ld + col], on QO threads of RO values each
 //
-// With Q = 1 steps B and C vanish.  The per-thread index math is shifts
-// and masks by constants.
+// At a power of two R = min(N, 16) and Q <= R: step C runs on the same Q
+// threads, thread t' taking the H = R/Q transforms a = t'*H + h and holding
+// y[(t'*H + h) + R*b] in out[h*Q + b].  At N = 320 = 20 * 16 (the rows of
+// 81920 = 256 * 320) Q = 16 does not divide R = 20: step A runs on 16
+// threads of 20 values (a 20 = 4 * 5-point DFT with compile-time roots),
+// step C on QO = 20 threads, thread a holding y[a + 20 b] in out[b] for
+// b < 16.  With Q = 1 steps B and C vanish.  The per-thread index math is
+// shifts, masks and multiplies by constants.
 
 template <int N>
 struct Split {
-  static constexpr int R = N < 16 ? N : 16;   // values a thread
-  static constexpr int Q = N / R;             // threads a transform
+  static constexpr int R = N < 16 ? N : 16;   // values a thread, step A
+  static constexpr int Q = N / R;             // threads a transform, step A
   static constexpr int H = R / Q;             // step-C transforms a thread
+  static constexpr int RO = R, QO = Q;        // values, threads: step C
   static constexpr int LR = ilog2(R), LQ = ilog2(Q);
+  static constexpr bool kMixed = false;
   static_assert(N >= 1 && (N & (N - 1)) == 0 && Q <= R, "N: 1 .. 256");
 };
 
-// steps A and B on v, loaded as v[m] = x[t + Q bitrev(m)]; wN[k] =
+template <>
+struct Split<320> {
+  static constexpr int R = 20, Q = 16, H = 1, RO = 16, QO = 20;
+  static constexpr int LR = 0, LQ = 4;
+  static constexpr bool kMixed = true;
+};
+
+// e^{2 pi i k/20}, k < 20, as compile-time constants (float64 rounded once)
+__device__ __forceinline__ float2 root20(int k) {
+  constexpr float c[20] = {
+      1.f, 0.951056516f, 0.809016994f, 0.587785252f, 0.309016994f, 0.f,
+      -0.309016994f, -0.587785252f, -0.809016994f, -0.951056516f, -1.f,
+      -0.951056516f, -0.809016994f, -0.587785252f, -0.309016994f, 0.f,
+      0.309016994f, 0.587785252f, 0.809016994f, 0.951056516f};
+  return make_float2(c[k], c[(k + 15) % 20]);
+}
+
+// 5-point inverse DFT in registers, natural order in and out, over the
+// conjugate pairs as dft_odd_store
+__device__ __forceinline__ void dft5(float2 (&v)[5]) {
+  const float2 a1 = make_float2(v[1].x + v[4].x, v[1].y + v[4].y);
+  const float2 b1 = make_float2(v[1].x - v[4].x, v[1].y - v[4].y);
+  const float2 a2 = make_float2(v[2].x + v[3].x, v[2].y + v[3].y);
+  const float2 b2 = make_float2(v[2].x - v[3].x, v[2].y - v[3].y);
+  const float2 x0 = v[0];
+  v[0] = make_float2(x0.x + a1.x + a2.x, x0.y + a1.y + a2.y);
+#pragma unroll
+  for (int s = 1; s <= 2; ++s) {
+    const float2 w1 = root_odd<5>(s), w2 = root_odd<5>((2 * s) % 5);
+    const float2 p = make_float2(x0.x + a1.x * w1.x + a2.x * w2.x,
+                                 x0.y + a1.y * w1.x + a2.y * w2.x);
+    const float2 q = make_float2(-(b1.y * w1.y + b2.y * w2.y),
+                                 b1.x * w1.y + b2.x * w2.y);
+    v[s] = make_float2(p.x + q.x, p.y + q.y);
+    v[5 - s] = make_float2(p.x - q.x, p.y - q.y);
+  }
+}
+
+// 20-point inverse DFT in registers, natural order in and out: with m =
+// m4 + 4 m5 and a = a5 + 5 a4, 5-point DFTs over m5, the twiddle
+// w20^(a5 m4), then 4-point DFTs over m4
+__device__ __forceinline__ void dft20(float2 (&v)[20]) {
+  float2 z[4][5];
+#pragma unroll
+  for (int m4 = 0; m4 < 4; ++m4) {
+#pragma unroll
+    for (int m5 = 0; m5 < 5; ++m5) z[m4][m5] = v[m4 + 4 * m5];
+    dft5(z[m4]);
+#pragma unroll
+    for (int a5 = 1; a5 < 5; ++a5)
+      if (m4 > 0) z[m4][a5] = cmul(z[m4][a5], root20(a5 * m4));
+  }
+#pragma unroll
+  for (int a5 = 0; a5 < 5; ++a5) {
+    float2 u[4] = {z[0][a5], z[2][a5], z[1][a5], z[3][a5]};  // bit-reversed
+    dft_pow2<4>(u);
+#pragma unroll
+    for (int a4 = 0; a4 < 4; ++a4) v[a5 + 5 * a4] = u[a4];
+  }
+}
+
+// the offset of v[m]'s input, x[t + split_in(m)]: bit-reversed for the
+// power-of-two DFTs, natural for the 20-point one
+template <int N>
+__device__ __forceinline__ int split_in(int m) {
+  using S = Split<N>;
+  if constexpr (S::kMixed) return S::Q * m;
+  else return S::Q * bitrev(m, S::LR);
+}
+
+// steps A and B on v, loaded as v[m] = x[t + split_in(m)]; wN[k] =
 // e^{2 pi i k/N}
 template <int N>
 __device__ __forceinline__ void split_ab(float2 (&v)[Split<N>::R], int t,
                                          const float2* __restrict__ wN) {
   using S = Split<N>;
-  dft_pow2<S::R>(v);
+  if constexpr (S::kMixed) dft20(v);
+  else dft_pow2<S::R>(v);
   if constexpr (S::Q > 1) {
 #pragma unroll
     for (int a = 1; a < S::R; ++a) v[a] = cmul(v[a], wN[a * t]);
@@ -541,12 +621,13 @@ __device__ __forceinline__ void split_put(const float2 (&v)[Split<N>::R],
   for (int a = 0; a < S::R; ++a) xb[(a * S::Q + t) * ld + col] = v[a];
 }
 
-// step C: out[h*Q + b] = y[(t*H + h) + R*b]
-template <int N>
-__device__ __forceinline__ void split_c(float2 (&out)[Split<N>::R],
+// step C for thread t (< QO): out[o] = y[split_index(o, t)], o < RO
+template <int N, int M>
+__device__ __forceinline__ void split_c(float2 (&out)[M],
                                         const float2* __restrict__ xb, int ld,
                                         int col, int t) {
   using S = Split<N>;
+  static_assert(M >= S::RO, "step C's outputs");
 #pragma unroll
   for (int h = 0; h < S::H; ++h) {
     const int a = t * S::H + h;
@@ -564,7 +645,8 @@ __device__ __forceinline__ void split_c(float2 (&out)[Split<N>::R],
 template <int N>
 __device__ __forceinline__ int split_index(int o, int t) {
   using S = Split<N>;
-  return t * S::H + (o >> S::LQ) + S::R * (o & (S::Q - 1));
+  if constexpr (S::kMixed) return t + S::R * o;
+  else return t * S::H + (o >> S::LQ) + S::R * (o & (S::Q - 1));
 }
 
 // e^{2 pi i k/n}, float64 rounded once
@@ -580,6 +662,451 @@ __device__ __forceinline__ void cp_async16(float2* smem, const float2* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
+}
+
+// ---- The cluster's (peak, lowest lag, alignment, sum) ---------------------
+
+struct Best {
+  float v;    // the highest value
+  int j, a;   // its lowest lag, its alignment
+  float s;    // the sum of the values
+};
+
+// higher value, then lower lag
+__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
+  return v > bv || (v == bv && j < bj);
+}
+
+__device__ __forceinline__ void take(Best& c, const Best& o) {
+  if (better(o.v, o.j, c.v, c.j)) {
+    c.v = o.v;
+    c.j = o.j;
+    c.a = o.a;
+  }
+}
+
+// Reduce every thread's b over a cluster of CTAs of T threads, in a fixed
+// order: a shuffle tree in each warp, the warps in order, then the ranks
+// in order, so the sum (kSum) has the same bits every launch.  Every
+// thread of the cluster calls it; thread 0 of rank 0 gets true and the
+// result in b.  It ends in a cluster barrier, after which no CTA reads
+// another's shared memory.
+template <int T, bool kSum>
+__device__ __forceinline__ bool cluster_best(Best& b) {
+  static_assert(T % 32 == 0, "whole warps");
+  __shared__ Best red[T / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    Best x;
+    x.v = __shfl_down_sync(0xffffffffu, b.v, o);
+    x.j = __shfl_down_sync(0xffffffffu, b.j, o);
+    x.a = __shfl_down_sync(0xffffffffu, b.a, o);
+    if constexpr (kSum) b.s += __shfl_down_sync(0xffffffffu, b.s, o);
+    take(b, x);
+  }
+  if ((tid & 31) == 0) red[tid >> 5] = b;
+  __syncthreads();
+  if (tid == 0) {
+    Best c = red[0];
+    for (int w = 1; w < T / 32; ++w) {
+      take(c, red[w]);
+      if constexpr (kSum) c.s += red[w].s;
+    }
+    red[0] = c;
+  }
+  cluster.sync();             // every CTA's red[0] is final
+  const bool lead = cluster.block_rank() == 0 && tid == 0;
+  if (lead) {
+    b = red[0];
+    for (unsigned r = 1; r < cluster.num_blocks(); ++r) {
+      const Best o = *cluster.map_shared_rank(&red[0], r);
+      take(b, o);
+      if constexpr (kSum) b.s += o.s;
+    }
+  }
+  cluster.sync();             // rank 0 has read the others' red[0]
+  return lead;
+}
+
+// ---- The surface over Split rows (K1 at 4096 to 81920, K5) ---------------
+//
+// One thread-block cluster of C CTAs per (PRN p, doppler d) walks the
+// rows of F[d] (K1: the B blocks; K5: the G*A combined rows, row g*A + a)
+// and computes, per row, IDFT_W(code_f[p] * conj(F[d, row])).  Each row is
+// a four-step transform W = n1 * n2 (power-of-two n1 <= 256, n2 <= 256 or
+// 320) split over the cluster, with no value in device memory:
+//
+//   load     CTA r owns the columns k2 in [r*nc, (r+1)*nc) (nc = n2/C).
+//            Its slice of the row, X[k2 + n2*k1] for every k1, was copied
+//            into `stage` by cp.async while the previous row transformed;
+//            times conj of code_f[p] (in shared memory, or with kCodeRegs
+//            in each thread's registers, for the whole cluster life), into
+//            registers
+//   columns  n1-point IDFTs over k1, in registers and one exchange
+//            (Split), then times w^(j1*k2): for a thread's cells j1 = a +
+//            16 b the product of w^(a*k2) (made once, in registers) and
+//            w^(16*b*k2) (a [Q][nc] table in shared memory), both from two
+//            small tables (w^t = A[t mod n2] * B[t div n2]); stored to
+//            yb[k2 - r*nc][j1]
+//   cluster barrier
+//   rows     CTA r owns the rows j1 in [r*nr, (r+1)*nr) (nr = n1/C): it
+//            reads Y[j1, k2] for its j1 from the yb of the CTA owning k2
+//            (cluster.map_shared_rank), then n2-point IDFTs over k2 in
+//            registers and one exchange: x[j1 + n1*j2]
+//
+// Each thread sums |x| of its R2 lags in registers across the rows (K5:
+// across the G groups of one alignment, keeping per lag the running (peak,
+// lowest alignment) over the A alignments, kAlign).  The cluster then
+// reduces (peak, lowest lag >= lo, its alignment) and, with kSum, the sum
+// over the lags >= lo (cluster_best), and writes them scaled by 1/W.
+// Clusters d*P + p: the P clusters of one doppler run side by side and
+// read its rows from L2.  All sizes are compile-time: one kernel per
+// (n1, n2, C).
+
+struct SurfaceArgs {
+  const float2* F;        // [DC, rows, W]
+  const float2* code_f;   // [P, W]
+  float* peak;            // [P, DC]
+  int* idx;               // [P, DC], lag - lo
+  int* al;                // [P, DC]: the alignment (kAlign)
+  float* sum;             // [P, DC]: the sum over the lags >= lo (kSum)
+  int P, DC, rows, A, lo;
+};
+
+// The compile-time layout of W = n1 * n2 over C CTAs (Spec: the power of
+// two 2^L, n1 = 2^floor(L/2)).  Index math divides by NC, NR, n2 and W as
+// unsigned constants: shifts and masks at a power of two.
+template <int N1_, int N2_, int C, bool kCodeRegs_ = false>
+struct SpecN {
+  static constexpr int N1 = N1_, N2 = N2_;
+  static constexpr int W = N1 * N2;
+  static constexpr bool kCodeRegs = kCodeRegs_;
+  using S1 = Split<N1>;
+  using S2 = Split<N2>;
+  static constexpr int NC = N2 / C, NR = N1 / C;     // columns, rows a CTA
+  // threads of the column role, and of the row role's steps A and C
+  static constexpr int TC = NC * S1::Q, TRA = NR * S2::Q, TRC = NR * S2::QO;
+  static constexpr int TR = TRA > TRC ? TRA : TRC;
+  static constexpr int T = TC > TR ? (TC > 32 ? TC : 32) : (TR > 32 ? TR : 32);
+  static constexpr int E = W / C;                    // values a CTA holds
+  static constexpr int YS = N1 + 1;                  // yb row stride (odd)
+  // shared memory, float2: stage[E], code[E] (not with kCodeRegs), xb[E],
+  // yb[NC*YS], wN1[N1], wN2[N2], wA[N2], wS[Q1][NC]
+  static constexpr int kOffCode = E;
+  static constexpr int kOffXb = kCodeRegs ? E : 2 * E, kOffYb = kOffXb + E;
+  static constexpr int kOffW1 = kOffYb + NC * YS;
+  static constexpr int kOffW2 = kOffW1 + N1, kOffWA = kOffW2 + N2;
+  static constexpr int kOffWS = kOffWA + N2;
+  static constexpr size_t kSmem =
+      (size_t)(kOffWS + S1::Q * NC) * sizeof(float2);
+  static constexpr int kPerSm = (int)((227 * 1024) / (kSmem + 1024));
+  // CTAs an SM holds by shared memory, as long as a thread keeps 128
+  // registers
+  static constexpr int kMinBlocks =
+      kPerSm < 1 ? 1 : (kPerSm * T > 512 ? (T >= 512 ? 1 : 512 / T) : kPerSm);
+  static_assert(C >= 1 && C <= 16 && NR * C == N1 && NC * C == N2,
+                "C CTAs must each own whole rows and columns");
+  static_assert(!S1::kMixed && (NC == 1 || NC % 2 == 0),
+                "power-of-two columns, staged in pairs");
+  static_assert(kSmem <= 227 * 1024, "one CTA's shared memory");
+};
+
+template <int L, int C, bool kCodeRegs = false>
+using Spec = SpecN<1 << (L / 2), 1 << (L - L / 2), C, kCodeRegs>;
+
+__device__ __forceinline__ int udiv(int x, int d) {
+  return (int)((unsigned)x / (unsigned)d);
+}
+
+__device__ __forceinline__ int umod(int x, int d) {
+  return (int)((unsigned)x % (unsigned)d);
+}
+
+template <class K, bool kAlign, bool kSum>
+__device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
+  using S1 = typename K::S1;
+  using S2 = typename K::S2;
+  constexpr int N1 = K::N1, N2 = K::N2, W = K::W, NC = K::NC, NR = K::NR;
+  constexpr int R1 = S1::R, Q1 = S1::Q, R2 = S2::R, Q2 = S2::Q;
+  constexpr int RO2 = S2::RO;                // lags a row-role thread sums
+  constexpr int C = N2 / NC;
+  constexpr bool kCodeRegs = K::kCodeRegs;
+  extern __shared__ __align__(16) float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int item = blockIdx.x / C;
+  const int p = item % s.P;
+  const int d = item / s.P;
+  const int tid = threadIdx.x;
+  float2* stage = smem;
+  float2* code = smem + K::kOffCode;
+  float2* xb = smem + K::kOffXb;
+  float2* yb = smem + K::kOffYb;
+  float2* wN1 = smem + K::kOffW1;
+  float2* wN2 = smem + K::kOffW2;
+  float2* wA = smem + K::kOffWA;
+  float2* wS = smem + K::kOffWS;
+  const int A = kAlign ? s.A : 1;
+  const int G = s.rows / A;
+  const int c0 = rank * NC;
+  // column role (tid < TC): column c0 + col, thread t1 of its transform;
+  // row role (tid < TR): row j1 = rank*NR + jl, thread t2 of its transform
+  const int t1 = udiv(tid, NC), col = umod(tid, NC);
+  const int t2 = udiv(tid, NR), jl = umod(tid, NR);
+  const int j1 = rank * NR + jl;
+
+  // this CTA's slice of row i of F into stage, [k1][col]
+  auto stage_row = [&](int i) {
+    const float2* row = s.F + ((size_t)d * s.rows + i) * W + c0;
+    if constexpr (NC >= 2) {
+      for (int e = tid; e < K::E / 2; e += K::T) {
+        const int k1 = udiv(e, NC / 2), c = umod(e, NC / 2) * 2;
+        cp_async16(stage + k1 * NC + c, row + c + (size_t)N2 * k1);
+      }
+    } else {
+      for (int k1 = tid; k1 < N1; k1 += K::T)
+        cp_async8(stage + k1, row + (size_t)N2 * k1);
+    }
+    cp_async_commit();
+  };
+
+  stage_row(0);
+  for (int i = tid; i < N1; i += K::T) wN1[i] = unit_root(i, N1);
+  for (int i = tid; i < N2; i += K::T) {
+    wN2[i] = unit_root(i, N2);
+    wA[i] = unit_root(i, W);
+  }
+  const float2* cf = s.code_f + (size_t)p * W + c0;
+  // the code values of the column role's cells: with kCodeRegs thread
+  // (t1, col) keeps its R1 of them in registers, cr[m] at stage index
+  // (t1 + Q1 bitrev(m))*NC + col; else the CTA's slice, [k1][col]
+  [[maybe_unused]] float2 cr[kCodeRegs ? R1 : 1];
+  if constexpr (kCodeRegs) {
+    if (tid < K::TC) {
+#pragma unroll
+      for (int m = 0; m < R1; ++m)
+        cr[m] = __ldg(cf + col + (size_t)N2 * (t1 + Q1 * bitrev(m, S1::LR)));
+    }
+  } else {
+    for (int e = tid; e < K::E; e += K::T) {
+      const int k1 = udiv(e, NC), c = umod(e, NC);
+      code[e] = __ldg(cf + c + (size_t)N2 * k1);
+    }
+  }
+  __syncthreads();
+  // The four-step twiddle w^(j1*k2) of step C's cell out[h*Q1 + b] (j1 =
+  // t1*H1 + h + R1*b) is gb[h] * wS[b][col]: gb[h] = w^((t1*H1 + h)*k2)
+  // in registers, wS[b][col] = w^(R1*b*k2) in shared memory, each from
+  // the two small tables, w^t = wA[t mod n2] * wN1[t div n2].
+  auto w_of = [&](int t) {
+    t = umod(t, W);
+    return cmul(wA[umod(t, N2)], wN1[udiv(t, N2)]);
+  };
+  float2 gb[S1::H];
+#pragma unroll
+  for (int h = 0; h < S1::H; ++h)
+    gb[h] = w_of(tid < K::TC ? (t1 * S1::H + h) * (c0 + col) : 0);
+  for (int e = tid; e < Q1 * NC; e += K::T)
+    wS[e] = w_of(R1 * udiv(e, NC) * (c0 + umod(e, NC)));
+  cluster_arrive();           // pairs with the first row's wait
+
+  // per lag: the sum over the rows (of one alignment), and with kAlign the
+  // best such sum over the alignments so far and its alignment (16 bits,
+  // two to a register: A <= 65535)
+  float acc[RO2];
+  [[maybe_unused]] float best[kAlign ? RO2 : 1];
+  [[maybe_unused]] uint32_t besta[kAlign ? (RO2 + 1) / 2 : 1];
+  if constexpr (kAlign) {
+#pragma unroll
+    for (int o = 0; o < RO2; ++o) best[o] = -INFINITY;
+#pragma unroll
+    for (int o = 0; o < (RO2 + 1) / 2; ++o) besta[o] = 0;
+  }
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int o = 0; o < RO2; ++o) acc[o] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      cp_async_wait_all();
+      __syncthreads();        // stage holds row g*A + a; xb is free
+      float2 v[R1];
+      if (tid < K::TC) {
+#pragma unroll
+        for (int m = 0; m < R1; ++m) {
+          const int e = (t1 + Q1 * bitrev(m, S1::LR)) * NC + col;
+          float2 c;
+          if constexpr (kCodeRegs) c = cr[m];
+          else c = code[e];
+          v[m] = cmul_conj(c, stage[e]);
+        }
+        split_ab<N1>(v, t1, wN1);
+        if constexpr (Q1 > 1) split_put<N1>(v, xb, NC, col, t1);
+      }
+      __syncthreads();        // stage read out, xb complete
+      if (g + 1 < G)
+        stage_row((g + 1) * A + a);
+      else if (a + 1 < A)
+        stage_row(a + 1);
+      if (tid < K::TC) {
+        if constexpr (Q1 > 1) split_c<N1>(v, xb, NC, col, t1);
+#pragma unroll
+        for (int o = 0; o < R1; ++o)
+          v[o] = cmul(v[o], cmul(gb[o / Q1], wS[(o % Q1) * NC + col]));
+      }
+      cluster_wait();         // the last row's readers of yb are done
+      if (tid < K::TC) {
+#pragma unroll
+        for (int o = 0; o < R1; ++o)
+          yb[col * K::YS + split_index<N1>(o, t1)] = v[o];
+      }
+      cluster_arrive();
+      cluster_wait();         // every CTA's yb holds this row's columns
+      float2 z[R2];                // step C's RO2 <= R2 outputs reuse it
+      if (tid < K::TRA) {
+#pragma unroll
+        for (int m = 0; m < R2; ++m) {
+          const int k2 = t2 + split_in<N2>(m);
+          const float2* src = cluster.map_shared_rank(
+              yb + umod(k2, NC) * K::YS + j1, udiv(k2, NC));
+          z[m] = *src;
+        }
+        split_ab<N2>(z, t2, wN2);
+        if constexpr (Q2 > 1) split_put<N2>(z, xb, NR, jl, t2);
+      }
+      cluster_arrive();       // this CTA's reads of the others are done
+      __syncthreads();        // xb complete
+      if (tid < K::TRC) {
+        if constexpr (Q2 > 1) split_c<N2>(z, xb, NR, jl, t2);
+#pragma unroll
+        for (int o = 0; o < RO2; ++o)
+          acc[o] += cabs_approx(z[o]);
+      }
+    }
+    if constexpr (kAlign) {
+#pragma unroll
+      for (int o = 0; o < RO2; ++o) {
+        if (acc[o] > best[o]) {  // a ascending: the lowest alignment on ties
+          const int sh = (o & 1) * 16;
+          best[o] = acc[o];
+          besta[o / 2] =
+              (besta[o / 2] & ~(0xffffu << sh)) | ((uint32_t)a << sh);
+        }
+      }
+    }
+  }
+  cluster_wait();             // nobody reads this CTA's yb any more
+
+  // (peak, lowest lag >= lo reaching it, its alignment, sum) over the
+  // thread's lags, then the cluster
+  Best b = {-INFINITY, W, 0, 0.f};
+  if (tid < K::TRC) {
+#pragma unroll
+    for (int o = 0; o < RO2; ++o) {
+      const int j = j1 + N1 * split_index<N2>(o, t2);
+      float val;
+      if constexpr (kAlign) val = best[o];
+      else val = acc[o];
+      if (j >= s.lo) {
+        if (better(val, j, b.v, b.j)) {
+          b.v = val;
+          b.j = j;
+          if constexpr (kAlign)
+            b.a = (int)((besta[o / 2] >> ((o & 1) * 16)) & 0xffffu);
+        }
+        if constexpr (kSum) b.s += val;
+      }
+    }
+  }
+  if (cluster_best<K::T, kSum>(b)) {
+    const size_t o = (size_t)p * s.DC + d;
+    s.peak[o] = b.v / (float)W;   // exact at a power of two W
+    s.idx[o] = b.j - s.lo;
+    if constexpr (kAlign) s.al[o] = b.a;
+    if constexpr (kSum) s.sum[o] = b.s / (float)W;
+  }
+}
+
+// ---- Launching a cluster kernel ------------------------------------------
+
+constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kMaxPortable = 8;   // larger clusters are non-portable (16)
+
+inline cudaLaunchConfig_t cluster_config(int grid, int T, int C, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid, 1, 1);
+  cfg.blockDim = dim3((unsigned)T, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The attributes a cluster kernel needs before a launch: its dynamic
+// shared memory, and above 8 CTAs the non-portable cluster size.
+template <typename Kernel>
+inline cudaError_t prepare(Kernel kernel, int C, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && C > kMaxPortable)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// A cluster kernel's launch plan: info[0] C, [1] dynamic shared memory
+// bytes a CTA, [2] registers a thread, [3] local (spilled) bytes a thread,
+// [4] clusters the card holds at once (cudaOccupancyMaxActiveClusters),
+// [5] threads a CTA.
+template <typename Kernel>
+inline cudaError_t cluster_info(Kernel kernel, int T, int C, size_t smem,
+                                int* info) {
+  cudaError_t e = prepare(kernel, C, smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(C, T, C, smem, 0, attr);
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  info[0] = C;
+  info[1] = (int)smem;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = active;
+  info[5] = T;
+  return cudaSuccess;
+}
+
+// Launch a cluster kernel over `grid` CTAs; above 8 CTAs a cluster only
+// where the card holds one such cluster at once.  Returns the launch's
+// cudaError_t.
+template <typename Kernel, typename Args>
+inline cudaError_t launch_cluster(Kernel kernel, int grid, int T, int C,
+                                  size_t smem, cudaStream_t stream,
+                                  const Args& args) {
+  cudaError_t e = prepare(kernel, C, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(grid, T, C, smem, stream, attr);
+  if (C > kMaxPortable) {
+    int active = 0;
+    e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (active < 1) return cudaErrorLaunchOutOfResources;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,23 +1,18 @@
-// Correlation surfaces in shared memory, shared by the acquisition kernels
-// K1 (acquire2.cu) and K6 (acquire_coh.cu).
+// The correlation surface of the per-block coherent kernel K6
+// (acquire_coh.cu) in shared memory.
 //
 // One CTA owns one (PRN p, doppler d, alignment a) cell.  For each of its
-// rows it forms a spectrum in shared memory, runs an inverse FFT there in
-// place, and adds |.| into per-thread accumulators:
+// groups it forms a spectrum in shared memory, runs an inverse FFT there
+// in place, and adds |.| into per-thread accumulators:
 //
-//     s[j] = (1/W) * sum_rows | IDFT_W( spectrum_row ) [j] |
+//     s[j] = (1/W) * sum_g | IDFT_W( row_g ) [j] |
 //
 // then reduces s to (max, lowest lag j >= lo reaching it, sum over the
-// lags j >= lo) and writes them at (p, d, a).  What a row is depends on
-// the kernel:
-//
-//   kRows     row r is code_f[p] * conj(F[d, r*A + a]): K1 (A = 1, the
-//             blocks)
-//   kCombine  row g is code_f[p] * conj(sum_m w[a, g*M + m] F[d, g*M + m])
-//             with w = sec[a, m] * conj(rot[d, m]): K6.  The IDFT is
-//             linear, so this is sum_m sec * rot * IDFT(code_f * conj(F_m)),
-//             the coherent per-block sum of the TPU kernel, with one IDFT
-//             per group instead of one per block and alignment.
+// lags j >= lo) and writes them at (p, d, a).  Row g is code_f[p] *
+// conj(sum_m w[a, g*M + m] F[d, g*M + m]) with w = sec[a, m] * conj(rot[d,
+// m]).  The IDFT is linear, so this is sum_m sec * rot * IDFT(code_f *
+// conj(F_m)), the coherent per-block sum of the TPU kernel, with one IDFT
+// per group instead of one per block and alignment.
 //
 // Inverse FFT: Stockham passes of radix 16 (a smaller radix for the last
 // pass when W is not a power of 16), in place in ONE shared buffer: every
@@ -154,22 +149,20 @@ __device__ void ifft_inplace(float2* buf, const float2* tw,
   }
 }
 
-enum RowKind { kRows = 0, kCombine = 1 };
-
 struct SurfaceArgs {
-  const float2* F;       // kRows: [DC, rows_per_d, W]; kCombine: [DC, B, W]
+  const float2* F;       // [DC, B, W]
   const float2* code_f;  // [P, W]
   const float2* tw;      // twiddle table, device memory
-  const float* cosang;   // kCombine: [DC, B]
-  const float* sinang;   // kCombine: [DC, B]
-  const float* sec_mat;  // kCombine: [A, B]
+  const float* cosang;   // [DC, B]
+  const float* sinang;   // [DC, B]
+  const float* sec_mat;  // [A, B]
   float* peak;           // [P, DC, A]
   int* idx;              // [P, DC, A], lag - lo
   float* sum;            // [P, DC, A] or null
   int P, DC, A, W;
-  int rows_per_d;        // kRows: rows of F per doppler; kCombine: B
-  int nrows;             // rows summed per CTA (kRows) or groups (kCombine)
-  int m_coh;             // kCombine: blocks per group
+  int rows_per_d;        // B
+  int nrows;             // groups
+  int m_coh;             // blocks per group
   int lo;                // lowest lag searched and summed (W - n_valid, or 0)
   int tw_in_smem;
 };
@@ -182,14 +175,14 @@ inline size_t surface_smem(int W, int ntw, int tw_in_smem, int m_coh) {
 
 // CTA blockIdx.x = (d*A + a)*P + p: the P CTAs that read the same rows run
 // side by side, so each row comes from device memory about once.
-template <int T, int PER, int KIND>
+template <int T, int PER>
 __global__ void __launch_bounds__(T) surface_kernel(SurfaceArgs s) {
   extern __shared__ float2 smem[];
   const int W = s.W;
   float2* buf = smem;
   float2* w16 = smem + padded(W);
   const int ntw = s.tw_in_smem ? twiddle_count(W) : 16;
-  float2* wts = w16 + ntw;                        // kCombine: [m_coh]
+  float2* wts = w16 + ntw;                        // [m_coh]
   const int tid = threadIdx.x;
   const int p = blockIdx.x % s.P;
   const int da = blockIdx.x / s.P;
@@ -206,37 +199,27 @@ __global__ void __launch_bounds__(T) surface_kernel(SurfaceArgs s) {
   __syncthreads();
 
   for (int r = 0; r < s.nrows; ++r) {
-    if (KIND == kRows) {
-      const float2* fb =
-          s.F + ((size_t)d * s.rows_per_d + (size_t)r * s.A + a) * W;
+    const int M = s.m_coh;
+    const int m0 = r * M;
+    for (int m = tid; m < M; m += T) {
+      const size_t dm = (size_t)d * s.rows_per_d + m0 + m;
+      const float sg = s.sec_mat[(size_t)a * s.rows_per_d + m0 + m];
+      wts[m] = make_float2(sg * s.cosang[dm], -sg * s.sinang[dm]);
+    }
+    __syncthreads();
+    const float2* fg = s.F + ((size_t)d * s.rows_per_d + m0) * W;
 #pragma unroll
-      for (int t = 0; t < PER; ++t) {
-        const int e = tid + t * T;
-        if (e < W) buf[padded(e)] = cmul_conj(__ldg(cf + e), __ldg(fb + e));
-      }
-    } else {
-      const int M = s.m_coh;
-      const int m0 = r * M;
-      for (int m = tid; m < M; m += T) {
-        const size_t dm = (size_t)d * s.rows_per_d + m0 + m;
-        const float sg = s.sec_mat[(size_t)a * s.rows_per_d + m0 + m];
-        wts[m] = make_float2(sg * s.cosang[dm], -sg * s.sinang[dm]);
-      }
-      __syncthreads();
-      const float2* fg = s.F + ((size_t)d * s.rows_per_d + m0) * W;
-#pragma unroll
-      for (int t = 0; t < PER; ++t) {
-        const int e = tid + t * T;
-        if (e < W) {
-          float2 acc_c = make_float2(0.f, 0.f);
-          for (int m = 0; m < M; ++m) {
-            const float2 f = __ldg(fg + (size_t)m * W + e);
-            const float2 w = wts[m];
-            acc_c.x += w.x * f.x - w.y * f.y;
-            acc_c.y += w.x * f.y + w.y * f.x;
-          }
-          buf[padded(e)] = cmul_conj(__ldg(cf + e), acc_c);
+    for (int t = 0; t < PER; ++t) {
+      const int e = tid + t * T;
+      if (e < W) {
+        float2 acc_c = make_float2(0.f, 0.f);
+        for (int m = 0; m < M; ++m) {
+          const float2 f = __ldg(fg + (size_t)m * W + e);
+          const float2 w = wts[m];
+          acc_c.x += w.x * f.x - w.y * f.y;
+          acc_c.y += w.x * f.y + w.y * f.x;
         }
+        buf[padded(e)] = cmul_conj(__ldg(cf + e), acc_c);
       }
     }
     __syncthreads();
@@ -301,26 +284,24 @@ inline bool supported_w(int W) {
 }
 
 // Launch the surface kernel for (P, DC, A) CTAs.  Returns a cudaError_t.
-template <int KIND>
 inline int launch_surface(SurfaceArgs s, cudaStream_t stream) {
   if (!supported_w(s.W) || s.P < 1 || s.DC < 1 || s.A < 1 || s.nrows < 0)
     return (int)cudaErrorInvalidValue;
   const int ntw = twiddle_count(s.W);
   s.tw_in_smem =
-      surface_smem(s.W, ntw, 1, KIND == kCombine ? s.m_coh : 0) <= kTwSmemBytes;
-  const size_t shmem = surface_smem(s.W, ntw, s.tw_in_smem,
-                                    KIND == kCombine ? s.m_coh : 0);
+      surface_smem(s.W, ntw, 1, s.m_coh) <= kTwSmemBytes;
+  const size_t shmem = surface_smem(s.W, ntw, s.tw_in_smem, s.m_coh);
   const long long ctas = (long long)s.P * s.DC * s.A;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (s.W <= kSmallW) {
-    auto k = surface_kernel<256, kSmallW / 256, KIND>;
+    auto k = surface_kernel<256, kSmallW / 256>;
     e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)shmem);
     if (e != cudaSuccess) return (int)e;
     k<<<(unsigned)ctas, 256, shmem, stream>>>(s);
   } else {
-    auto k = surface_kernel<1024, kMaxW / 1024, KIND>;
+    auto k = surface_kernel<1024, kMaxW / 1024>;
     e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)shmem);
     if (e != cudaSuccess) return (int)e;

@@ -38,7 +38,6 @@ namespace {
 constexpr int kT = 384;                 // threads per CTA (168 registers)
 constexpr int kPer = 27;                // values per thread and CTA row share
 constexpr int kMaxE = kT * kPer;        // values per CTA
-constexpr size_t kMaxSmem = 227 * 1024;
 
 struct FullArgs {
   const float2* F;        // [DC, B, W]
@@ -162,27 +161,10 @@ size_t full_smem(const acqc::Plan& pl) {
 bool full_plan(acqc::Plan& pl, int W, int n1, int n2, int C) {
   for (int c = C ? C : 1; c <= (C ? C : 8); ++c) {
     if (acqc::make_plan(pl, W, n1, n2, c) && pl.nr * n2 <= kMaxE &&
-        full_smem(pl) <= kMaxSmem)
+        full_smem(pl) <= acqc::kMaxSmem)
       return true;
   }
   return false;
-}
-
-cudaLaunchConfig_t cluster_config(int grid, int C, size_t smem,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid, 1, 1);
-  cfg.blockDim = dim3(kT, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 // segments per (p, d): the count up to min(B, 8) whose clusters fill the
@@ -218,23 +200,15 @@ extern "C" int acq_full_info(int P, int DC, int B, int W, int n1, int n2,
   if (P < 1 || DC < 1 || B < 1 || !full_plan(pl, W, n1, n2, cluster))
     return (int)cudaErrorInvalidValue;
   const size_t smem = full_smem(pl);
-  cudaError_t e = cudaFuncSetAttribute(
-      full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, full_kernel);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(pl.C, pl.C, smem, 0, attr);
-  int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, full_kernel, &cfg);
+  int ci[6];
+  const cudaError_t e = acqc::cluster_info(full_kernel, kT, pl.C, smem, ci);
   if (e != cudaSuccess) return (int)e;
   info[0] = pl.C;
-  info[1] = segments((long long)P * DC, B, active);
+  info[1] = segments((long long)P * DC, B, ci[4]);
   info[2] = (int)smem;
-  info[3] = fa.numRegs;
-  info[4] = (int)fa.localSizeBytes;
-  info[5] = active;
+  info[3] = ci[2];
+  info[4] = ci[3];
+  info[5] = ci[4];
   return 0;
 }
 
@@ -261,17 +235,10 @@ extern "C" int acq_surface_full(const void* F, const void* code_f,
   s.DC = DC;
   s.B = B;
   s.nseg = nseg;
-  const size_t smem = full_smem(s.plan);
-  cudaError_t e = cudaFuncSetAttribute(
-      full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config((int)grid, s.plan.C, smem,
-                                          (cudaStream_t)stream, attr);
-  e = cudaLaunchKernelEx(&cfg, full_kernel, s);
+  const cudaError_t e =
+      acqc::launch_cluster(full_kernel, (int)grid, kT, s.plan.C,
+                           full_smem(s.plan), (cudaStream_t)stream, s);
   if (e != cudaSuccess || nseg == 1) return (int)e;
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   segment_sum_kernel<<<264, 256, 0, (cudaStream_t)stream>>>(
       (const float*)part, (float*)q, P, DC, nseg, W);
   return (int)cudaGetLastError();

@@ -99,7 +99,7 @@ extern "C" int acq_coh_blk(const void* F, const void* code_f, const void* tw,
   s.nrows = B / m_coh;
   s.m_coh = m_coh;
   s.lo = n_valid ? W - n_valid : 0;
-  int e = acq::launch_surface<acq::kCombine>(s, (cudaStream_t)stream);
+  int e = acq::launch_surface(s, (cudaStream_t)stream);
   if (e) return e;
   return combine(pk_part, ix_part, peak, idx, al, P, DC, A,
                  (cudaStream_t)stream);

@@ -8,7 +8,33 @@ a card fails loudly instead of running on the CPU.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# The reference's environment switches that the port does not honour yet,
+# and what each does there.  An entry point that one of them would move
+# refuses to run while it is set (refuse_switches): it never runs a route
+# the caller asked to leave.
+SWITCHES = {
+    "GNSS_DSP_NO_PALLAS": "sends acquisition and tracking to the XLA "
+                          "engine (acquire/engine.py:307, acquire/"
+                          "coherent.py:356, track/driver.py:112)",
+    "GNSS_DSP_NO_V2P": "sends the pad2 signals to the v1 route at the "
+                       "unpadded 2n window (acquire/engine.py:318)",
+    "GNSS_DSP_UPLOAD_INT4": "quantises each tracking chunk to 4 bits "
+                            "before the scan (track/driver.py:623)",
+}
+
+
+def refuse_switches(what: str, names=tuple(SWITCHES)):
+    """Raise NotImplementedError naming the first of the switches `names`
+    that is set (non-empty, as the reference reads them)."""
+    for name in names:
+        if os.environ.get(name):
+            raise NotImplementedError(
+                f"{what}: {name} is set; the reference then {SWITCHES[name]}, "
+                f"which the port does not do yet")
 
 
 def resolve_device(name="cuda") -> torch.device:

@@ -15,9 +15,10 @@ in 5.9 s this way, against 10.6-11.1 s for one nvcc line over all of them.
 Flags are per source (flags()).  --fmad=false keeps nvcc from contracting
 a*b + c into a fused multiply-add: the two-float code phase and the
 chip-boundary recurrence of the tracking kernels round differently when
-contracted, and the K1 and K6 sources keep it too, unchanged.  The
-cluster surface kernels K5 (acquire_coh_spec.cu) and K7 (acquire.cu) are
-held to rtol 1e-4 and build with contraction (FMA_SOURCES).
+contracted, and the K6 source keeps it too, unchanged.  The cluster
+surface kernels K1 (acquire2.cu), K5 (acquire_coh_spec.cu) and K7
+(acquire.cu) are held to rtol 1e-4 and build with contraction
+(FMA_SOURCES).
 
 The output lives in gnss_dsp_tpu_torch/_build/ and its name carries a
 hash of the sources (headers included) and of each source's flags, so a
@@ -43,7 +44,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources built with FMA contraction; every other one with --fmad=false
-FMA_SOURCES = ("acquire.cu", "acquire_coh_spec.cu")
+FMA_SOURCES = ("acquire.cu", "acquire2.cu", "acquire_coh_spec.cu")
 
 _lock = threading.Lock()
 _lib = None
@@ -55,9 +56,8 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would pass a bare python int as a 32-bit int)
 SIGNATURES = {
-    "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "acq2_reduce_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "acq2_info": [_I, _I, _P],
     "acq_surface_full": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_full_info": [_I, _I, _I, _I, _I, _I, _I, _P],

@@ -19,15 +19,19 @@ correlations, reported from 0.  Inputs are complex64 in NATURAL order
 (the TPU kernel took split bf16 planes in a permuted order;
 interop.code_ffts_from_split converts).
 
-The kernel takes a power-of-two W <= MAX_W in one CTA's shared memory
-(GPS L1 at 4096, the 2n windows of BeiDou B1I/B2I at 16384), and any
-other W that wide_split factors as n1 * n2 through the four-step kernel
-of csrc/acq_wide.cuh (the padded 32768 and 65536, Galileo E1 at 65536,
-GPS L1C and BeiDou B1C at 81920 = 256 * 320, GPS L2CM at 163840 =
-320 * 512).  For a W that is not a power of two the kernel divides the
-block sum by W once where the plain version scales each inverse
-transform: the two differ by float32 rounding (rtol 1e-4 in the card
-checks).
+The kernel runs one thread-block cluster per (PRN, doppler) and keeps
+every row in the cluster's shared memory (csrc/acq_cluster.cuh), on one
+of two cores (core_plan): at the windows of SPLIT_CLUSTERS (GPS L1 at
+4096, BeiDou B1I/B2I at 16384, the padded 32768 and 65536, Galileo E1 at
+65536, GPS L1C and BeiDou B1C at 81920 = 256 * 320) the sub-transforms
+run in registers at compile-time sizes, one build per (W, cluster size);
+at any other W that wide_split factors and a cluster of up to
+MAX_CLUSTER CTAs holds (GPS L2CM at 163840 = 320 * 512) they run as
+Stockham passes at run-time sizes.  Any other window raises
+NotImplementedError on a CUDA tensor.  The kernel divides the block sum
+by W once where the plain version scales each inverse transform: at a W
+that is not a power of two the two differ by float32 rounding (rtol 1e-4
+in the card checks).
 
 corr_surface2 launches the CUDA kernel for CUDA tensors and takes the
 plain version only for CPU tensors.  LAUNCHES counts kernel launches.
@@ -35,6 +39,8 @@ plain version only for CPU tensors.  LAUNCHES counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -47,16 +53,30 @@ LAUNCHES = 0
 _PLAIN_CHUNK_BYTES = 1 << 28   # bound on the plain version's temporary
 _TW_CACHE: dict = {}
 
-# four-step kernel (csrc/acq_wide.cuh): the Stockham radices in the order
-# next_radix tries them, the roots of the odd ones after e^{2 pi i k/16}
-# in the table header, and the longest sub-transform a tile holds
+# the cluster cores' Stockham passes (csrc/acq_cluster.cuh): the radices
+# in the order next_radix tries them, the roots of the odd ones after
+# e^{2 pi i k/16} in the table header, and the longest sub-transform
 WIDE_RADICES = (16, 8, 4, 2, 3, 5, 11, 31)
 WIDE_ROOTS = (3, 5, 11, 31)
 WIDE_TILE = 4096
 
+# K1 (csrc/acquire2.cu).  The register (Split) core's builds: W -> the
+# cluster sizes built, the kernel's choice first; at (32768, 8) and
+# (65536, 8) each thread keeps its code values in registers; 81920 =
+# 256 x 320 runs its rows on Split<320>.  Any other (W, cluster) takes the
+# run-time core.
+SPLIT_CLUSTERS = {4096: (2, 1, 4, 8), 16384: (8,), 32768: (8, 16),
+                  65536: (8, 16), 81920: (16,)}
+# The run-time core's CTA (threads, lags a thread), the largest cluster
+# (16 CTAs: non-portable) and the shared memory a CTA may use
+WIDE_THREADS, WIDE_PER = 384, 27
+MAX_CLUSTER = 16
+SMEM_LIMIT = 227 * 1024
+
 
 def twiddle_table(W: int) -> np.ndarray:
-    """The kernel's inverse-FFT twiddles, complex64: e^{2 pi i k/16}
+    """K6's in-place inverse-FFT twiddles (csrc/acq_surface.cuh),
+    complex64: e^{2 pi i k/16}
     (k < 16), then for each Stockham pass (radix R = min(16, W/Ns) at
     span Ns) the [R, Ns] table e^{2 pi i r k/(Ns R)}.  float64, rounded
     once."""
@@ -144,12 +164,6 @@ def cluster_twiddles(n1: int, n2: int, device) -> torch.Tensor:
                    lambda: cluster_twiddle_table(n1, n2), device)
 
 
-def root_table(W: int) -> np.ndarray:
-    """e^{2 pi i t/W} for t < W, complex64 from float64: the four-step
-    twiddle w^(j1*k2)."""
-    return np.exp(2j * np.pi * np.arange(W) / W).astype(np.complex64)
-
-
 def _cached(key, make, device):
     key = key + (torch.device(device),)
     t = _TW_CACHE.get(key)
@@ -163,38 +177,10 @@ def twiddles(W: int, device) -> torch.Tensor:
     return _cached(("pow2", W), lambda: twiddle_table(W), device)
 
 
-def wide_tables(W: int, device):
-    """(n1, n2, wide_twiddle_table, root_table) of W on `device`, cached."""
-    n1, n2 = wide_split(W)
-    tw = _cached(("wide", n1, n2), lambda: wide_twiddle_table(n1, n2),
-                 device)
-    return n1, n2, tw, _cached(("root", W), lambda: root_table(W), device)
-
-
-def wide_scratch(P: int, DC: int, B: int, W: int, device):
-    """(slots, nseg, rowbuf, acc): the four-step kernel's CTA slots (two
-    per SM), its block segments per (PRN, doppler), and its scratch:
-    rowbuf complex64 [slots, W] and acc f32 [slots, W], or
-    [P*DC*nseg, W] where P*DC falls short of half the slots and each
-    (PRN, doppler)'s blocks are split over nseg CTAs, as many as one wave
-    of the grid holds."""
-    slots = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    nseg = max(1, min(B, slots // (P * DC)))
-    return (slots, nseg,
-            torch.empty((slots, W), dtype=torch.complex64, device=device),
-            torch.empty((slots if nseg == 1 else P * DC * nseg, W),
-                        dtype=torch.float32, device=device))
-
-
-def in_smem(W: int) -> bool:
-    """The one-CTA shared-memory kernel takes W (else the four-step)."""
-    return 2 <= W <= MAX_W and W & (W - 1) == 0
-
-
 def check_w(W: int, what: str):
     """Raise NotImplementedError unless W is a power of two <= MAX_W, the
-    windows of K1's shared-memory mode, K5 and K6."""
-    if not in_smem(W):
+    windows of K5 and K6."""
+    if not (2 <= W <= MAX_W and W & (W - 1) == 0):
         raise NotImplementedError(
             f"{what} kernel takes power-of-two W <= {MAX_W}, got {W}")
 
@@ -246,10 +232,72 @@ def corr_surface2_plain(F: torch.Tensor, code_f: torch.Tensor,
     return peak, idx, sm
 
 
-def corr_surface2(F: torch.Tensor, code_f: torch.Tensor, n_valid: int = 0):
+def _stride(m: int) -> int:
+    """acq_cluster.cuh stride_of: a transform's stride in shared memory."""
+    return (m + (m >> 4)) | 1
+
+
+def core_plan(W: int, cluster: int = 0):
+    """(core, n1, n2, C): the core and the cluster size K1 runs W on, as
+    csrc/acquire2.cu chooses them (cluster: 0 for the kernel's choice).
+    core "split": the register core at the windows and cluster sizes of
+    SPLIT_CLUSTERS, n1 = 2^floor(log2(W)/2); core "wide": the run-time
+    core at any other, at wide_split(W) over the fewest CTAs (up to
+    MAX_CLUSTER; or `cluster`) whose lags (nr * n2) fit WIDE_THREADS *
+    WIDE_PER and whose two buffers and twiddle table fit SMEM_LIMIT.
+    NotImplementedError when there is none."""
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise NotImplementedError(f"K1 takes clusters of up to {MAX_CLUSTER} "
+                                  f"CTAs, not {cluster}")
+    built = SPLIT_CLUSTERS.get(W, ())
+    if not cluster and built or cluster in built:
+        n1 = 1 << (W.bit_length() - 1) // 2
+        return "split", n1, W // n1, cluster or built[0]
+    n1, n2 = wide_split(W)
+    ntw = (16 + sum(WIDE_ROOTS) + sum(r * ns for m in (n1, n2)
+                                      for r, ns in wide_passes(m))
+           + n1 + n2)
+    for C in ([cluster] if cluster else range(1, MAX_CLUSTER + 1)):
+        nc, nr = -(-n2 // C), -(-n1 // C)
+        if (C - 1) * nc >= n2 or (C - 1) * nr >= n1:
+            continue
+        buf = max(nc * _stride(n1), nr * _stride(n2))
+        if (nr * n2 <= WIDE_THREADS * WIDE_PER
+                and (2 * buf + ntw) * 8 <= SMEM_LIMIT):
+            return "wide", n1, n2, C
+    raise NotImplementedError(
+        f"K1: no cluster of up to {MAX_CLUSTER} CTAs holds a row of W = {W}"
+        f" = {n1} x {n2}" + (f" on {cluster} CTAs" if cluster else ""))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
+    """K1's launch plan at W on the card `device_index` (acq2_info):
+    cluster size, dynamic shared memory bytes a CTA, registers and
+    spilled bytes a thread, clusters the card holds at once, threads a
+    CTA, n1, n2 and the core ("split" or "wide").  NotImplementedError
+    where core_plan has none."""
+    core, n1, n2, C = core_plan(W, cluster)
+    lib = _build.load()
+    info = (ctypes.c_int * 9)()
+    with torch.cuda.device(device_index):
+        err = lib.acq2_info(W, cluster, info)
+    _build.check(err, f"acq2_info at W={W}, cluster={cluster}")
+    got = dict(zip(("cluster", "smem", "regs", "spill_bytes", "active",
+                    "threads", "n1", "n2"), info))
+    got["core"] = ("split", "wide")[info[8]]
+    if (got["core"], got["n1"], got["n2"], got["cluster"]) != (core, n1, n2, C):
+        raise RuntimeError(f"K1's plan at W={W}: kernel {got}, host "
+                           f"{(core, n1, n2, C)}")
+    return got
+
+
+def corr_surface2(F: torch.Tensor, code_f: torch.Tensor, n_valid: int = 0,
+                  *, cluster: int = 0):
     """(peak f32 [P, DC], idx i32 [P, DC], sum f32 [P, DC]) for F
     complex64 [DC, B, W] and code_f complex64 [P, W], over the n_valid
-    last lags (all lags when 0)."""
+    last lags (all lags when 0); on the card `cluster` CTAs a cluster as
+    core_plan (0: the kernel's choice)."""
     global LAUNCHES
     _check(F, code_f)
     DC, B, W = F.shape
@@ -260,7 +308,11 @@ def corr_surface2(F: torch.Tensor, code_f: torch.Tensor, n_valid: int = 0):
     if F.device.type != "cuda":
         raise ValueError(f"unsupported device {F.device}")
     P = code_f.shape[0]
-    wide = None if in_smem(W) else wide_tables(W, F.device)
+    dev = F.device.index if F.device.index is not None \
+        else torch.cuda.current_device()
+    info = launch_info(W, dev, cluster)
+    tw = (cluster_twiddles(info["n1"], info["n2"], F.device)
+          if info["core"] == "wide" else None)
     lib = _build.load()
     F = F.contiguous()
     code_f = code_f.contiguous()
@@ -269,20 +321,10 @@ def corr_surface2(F: torch.Tensor, code_f: torch.Tensor, n_valid: int = 0):
     sm = torch.empty((P, DC), dtype=torch.float32, device=F.device)
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
-        if wide is None:
-            tw = twiddles(W, F.device)
-            err = lib.acq2_reduce(F.data_ptr(), code_f.data_ptr(),
-                                  tw.data_ptr(), peak.data_ptr(),
-                                  idx.data_ptr(), sm.data_ptr(), P, DC, B, W,
-                                  n_valid, stream)
-        else:
-            n1, n2, tw, root = wide
-            slots, nseg, rowbuf, acc = wide_scratch(P, DC, B, W, F.device)
-            err = lib.acq2_reduce_wide(
-                F.data_ptr(), code_f.data_ptr(), tw.data_ptr(),
-                root.data_ptr(), rowbuf.data_ptr(), acc.data_ptr(),
-                peak.data_ptr(), idx.data_ptr(), sm.data_ptr(), P, DC, B, W,
-                n1, n2, n_valid, slots, nseg, stream)
+        err = lib.acq2_reduce(F.data_ptr(), code_f.data_ptr(),
+                              None if tw is None else tw.data_ptr(),
+                              peak.data_ptr(), idx.data_ptr(), sm.data_ptr(),
+                              P, DC, B, W, n_valid, cluster, stream)
     _build.check(err, "acq2_reduce launch")
     LAUNCHES += 1
     return peak, idx, sm

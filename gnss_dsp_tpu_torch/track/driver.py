@@ -16,8 +16,9 @@ K2 on every family; the port's K2 covers BPSK with one sub-block per code
 period, so the subcarrier, sub-block and long-code signals take K3.
 
 Not ported here: mesh sharding, checkpoint/resume, mixed-signal (`multi`)
-and preloaded chunks, the int4 front end, unknown-code recovery and
-extended-coherent tracking.  The kernels read the plain [C, L] int8 code
+and preloaded chunks, the int4 front end (track_file refuses
+GNSS_DSP_UPLOAD_INT4, and the route switch GNSS_DSP_NO_PALLAS), unknown-code
+recovery and extended-coherent tracking.  The kernels read the plain [C, L] int8 code
 table (long codes too: L2CL's 767,250 and GLONASS P's 5,110,000 chips
 stay in device memory), so the JAX package's extended code rows have no
 counterpart.
@@ -33,7 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gnss_dsp_tpu_torch.device import resolve_device
+from gnss_dsp_tpu_torch.device import refuse_switches, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx, nco, track_fused
 from gnss_dsp_tpu_torch.track.engine import (
     TrackParams, init_state, sigp_from_params, track_scan,
@@ -147,7 +148,10 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
 
     emit(channel_index, row_dict) is called once per completed block, in
     block order per chunk.  Returns the channels (rows accumulated when
-    emit is None)."""
+    emit is None).  Refuses GNSS_DSP_UPLOAD_INT4 (the int4 front end is
+    not ported) and the route switches GNSS_DSP_NO_PALLAS and
+    GNSS_DSP_NO_V2P (device.refuse_switches)."""
+    refuse_switches("track_file")
     if sig.code_table is None:
         raise NotImplementedError(
             f"{sig.name}: no code table (code windows only), as in the "

@@ -171,14 +171,19 @@ def test_k5_plain_matches_pallas_kernel_interpret():
 
 
 def _split(N):
-    """csrc/acq_cluster.cuh Split<N>: R values a thread, Q threads a
-    transform, H step-C transforms a thread."""
+    """csrc/acq_cluster.cuh Split<N>: step A on Q threads of R values, H
+    step-C transforms a thread, step C on QO threads of RO values; N = 320
+    is 16 threads of 20 values, then 20 threads of 16."""
+    if N == 320:
+        return 20, 16, 1, 16, 20
     R = min(N, 16)
-    return R, N // R, R // (N // R)
+    return R, N // R, R // (N // R), R, N // R
 
 
 def _split_index(N, o, t):
-    R, Q, H = _split(N)
+    R, Q, H, _, _ = _split(N)
+    if N == 320:
+        return t + R * o
     return t * H + o // Q + R * (o % Q)
 
 
@@ -189,36 +194,36 @@ def _roots(k, n):
 
 
 def _split_ab(x, N, t):
-    """Steps A and B for thread t of every transform: x [m, col] ->
-    v [a, col]."""
-    R, Q, _ = _split(N)
+    """Steps A and B for thread t of every transform: x [m, col] (m in
+    natural order) -> v [a, col]."""
+    R, Q, _, _, _ = _split(N)
     a = np.arange(R)
     v = np.exp(2j * np.pi * np.outer(a, a) / R) @ x
     return v * (_roots(a * t, N)[:, None] if Q > 1 else 1)
 
 
-def _spec_transform(X, L, C):
-    """K5's unscaled inverse DFT of one row (csrc/acquire_coh_spec.cu),
-    address for address, over C ranks: the staged [k1][col] slice of each
-    rank, the column role's registers and exchange buffer xb[(a*Q1 +
-    t)*nc + col], the four-step twiddle w^(j1*k2) = w^((t*H1 + h)*k2) *
+def _split_transform(X, n1, n2, C):
+    """The cluster register core's unscaled inverse DFT of one row
+    (csrc/acq_cluster.cuh surface_rows), address for address, over C
+    ranks: the staged [k1][col] slice of each rank (nc = n2/C columns),
+    the column role's registers and exchange buffer xb[(a*Q1 + t)*nc +
+    col], the four-step twiddle w^(j1*k2) = w^((t*H1 + h)*k2) *
     w^(R1*b*k2) for cell j1 = t*H1 + h + R1*b, each factor from the two
     small tables (w^t = A[t mod n2] * B[t div n2]), the store to
-    yb[col*(n1 + 1) + j1], the row role's reads of
-    yb[(k2 mod nc)*(n1 + 1) + j1] in rank k2 div nc, and its exchange
-    xb[(a*Q2 + t)*nr + jl].  Returns (x, owner): x[j] for the natural lags
+    yb[col*(n1 + 1) + j1], the row role's reads of yb[(k2 mod nc)*(n1 +
+    1) + j1] in rank k2 div nc, and its exchange xb[(a*Q2 + t)*nr + jl]
+    (step C on QO2 threads).  Returns (x, owner): x[j] for the natural lags
     and owner[j] the rank that produced lag j.  Every shared-memory slot
     is written at most once a phase and read only once written."""
-    n1, n2 = 1 << (L // 2), 1 << (L - L // 2)
     W = n1 * n2
-    assert len(X) == W and C <= n1
-    R1, Q1, _ = _split(n1)
-    R2, Q2, _ = _split(n2)
+    R1, Q1, H1, _, _ = _split(n1)
+    R2, Q2, H2, RO2, QO2 = _split(n2)
     nc, nr, ys = n2 // C, n1 // C, n1 + 1
+    assert nc * C == n2 and nr * C == n1 and len(X) == W
     wA, wB = _roots(np.arange(n2), W), _roots(np.arange(n1), n1)
 
-    def w_of(t):                        # the two-table twiddle, t < W
-        assert (t < W).all()
+    def w_of(t):                        # the two-table twiddle
+        t = t % W
         return wA[t % n2] * wB[t // n2]
 
     yb = []
@@ -227,6 +232,7 @@ def _spec_transform(X, L, C):
         stage = X[r * nc + col + n2 * k1]                 # [k1][col]
         xb = np.full(W // C, np.nan, complex)
         ys_r = np.full(nc * ys, np.nan, complex)
+        vs = []
         for t in range(Q1):             # column role: tid = t*nc + col
             m = np.arange(R1)
             v = _split_ab(stage[((t + Q1 * m)[:, None] * nc
@@ -236,27 +242,28 @@ def _spec_transform(X, L, C):
                     + np.arange(nc)[None, :]
                 assert np.isnan(xb[slots]).all()
                 xb[slots] = v
+            vs.append(v)
         for t in range(Q1):
-            if Q1 > 1:                  # step C over xb
-                out = np.zeros((R1, nc), complex)
-                for o in range(R1):
-                    h, b = divmod(o, Q1)
-                    a = t * (R1 // Q1) + h
+            out = np.zeros((R1, nc), complex)
+            for o in range(R1):
+                h, b = divmod(o, Q1)
+                if Q1 > 1:              # step C over xb
+                    a = t * H1 + h
                     u = xb[(a * Q1 + np.arange(Q1))[:, None] * nc
                            + np.arange(nc)[None, :]]
                     assert not np.isnan(u).any()
                     out[o] = np.exp(2j * np.pi * b * np.arange(Q1) / Q1) @ u
-            else:
-                out = v
+                else:
+                    out[o] = vs[t][o]
             k2 = r * nc + np.arange(nc)
             for o in range(R1):
                 h, b = divmod(o, Q1)
                 j1 = _split_index(n1, o, t)
-                assert j1 == t * (R1 // Q1) + h + R1 * b
+                assert j1 == t * H1 + h + R1 * b
                 slot = np.arange(nc) * ys + j1
                 assert np.isnan(ys_r[slot]).all()
                 # w^(j1*k2) = gb[h] * wS[b][col], each a two-table product
-                ys_r[slot] = out[o] * w_of((t * (R1 // Q1) + h) * k2) \
+                ys_r[slot] = out[o] * w_of((t * H1 + h) * k2) \
                     * w_of(R1 * b * k2)
         yb.append(ys_r)
     x = np.zeros(W, complex)
@@ -266,7 +273,7 @@ def _spec_transform(X, L, C):
         j1 = r * nr + jl
         xb = np.full(W // C, np.nan, complex)
         zs = []
-        for t in range(Q2):             # row role: tid = t*nr + jl
+        for t in range(Q2):             # row role, step A: tid = t*nr + jl
             k2 = t + Q2 * np.arange(R2)
             z = np.stack([yb[k // nc][(k % nc) * ys + j1] for k in k2])
             assert not np.isnan(z).any()
@@ -276,13 +283,14 @@ def _spec_transform(X, L, C):
                 assert np.isnan(xb[slots]).all()
                 xb[slots] = z
             zs.append(z)
-        for t in range(Q2):
-            for o in range(R2):
+        for t in range(QO2):            # step C: tid = t*nr + jl
+            for o in range(RO2):
                 if Q2 > 1:
-                    h, b = divmod(o, Q2)
-                    a = t * (R2 // Q2) + h
+                    a, b = (t, o) if n2 == 320 else \
+                        (t * H2 + o // Q2, o % Q2)
                     u = xb[(a * Q2 + np.arange(Q2))[:, None] * nr
                            + jl[None, :]]
+                    assert not np.isnan(u).any()
                     val = np.exp(2j * np.pi * b * np.arange(Q2) / Q2) @ u
                 else:
                     val = zs[t][o]
@@ -291,6 +299,13 @@ def _spec_transform(X, L, C):
                 x[lag] = val
                 owner[lag] = r
     return x, owner
+
+
+def _spec_transform(X, L, C):
+    """K5's unscaled inverse DFT of one row at W = 2^L over C ranks
+    (csrc/acquire_coh_spec.cu on surface_rows): _split_transform at
+    n1 = 2^floor(L/2)."""
+    return _split_transform(X, 1 << (L // 2), 1 << (L - L // 2), C)
 
 
 @pytest.mark.parametrize("L,C", [(14, 2), (14, 4), (14, 8), (13, 8),

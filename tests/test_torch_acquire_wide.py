@@ -13,12 +13,11 @@ against the JAX package, on the CPU.
     at the padded-window case of tests/test_pallas.py: idx exact, peak to
     2e-2 of the scale, sum to rtol 3e-2 (bf16 again);
   * K1's plain version at a non-power-of-two W against numpy;
-  * the four-step inverse DFT the wide kernels run on the card (mixed-
-    radix Stockham passes over the host twiddle tables, w^(j1*k2) between
-    them), emulated in numpy, against np.fft.ifft; the same for K7's
-    cluster core (csrc/acq_cluster.cuh: which rank owns which columns and
-    rows, the distributed-shared-memory transpose addresses, the
-    two-table twiddle);
+  * the run-time cluster core of K7, and of K1 at its windows that are
+    not a power of two (csrc/acq_cluster.cuh row_transform: mixed-radix
+    Stockham passes over the host twiddle tables, which rank owns which
+    columns and rows, the distributed-shared-memory transpose addresses,
+    the two-table twiddle), emulated in numpy, against np.fft.ifft;
   * acquire_signal against the JAX one on small planted captures of one
     signal per route: planted PRNs with equal doppler and code offset and
     the metric to 2.4e-3 relative (the acquisition engine's bf16 budget),
@@ -78,77 +77,6 @@ def test_wide_split_of_the_catalog_windows():
     assert acquire2.wide_split(163840) == (320, 512)
     with pytest.raises(NotImplementedError):
         acquire2.wide_split(7 * 13 * 64)
-
-
-def _four_step_ifft(X, W):
-    """The four-step kernel's inverse DFT (csrc/acq_wide.cuh), step for
-    step: the column pass of n1-point transforms over k1, the twiddle
-    w^(j1*k2), the row pass of n2-point transforms, each a sequence of
-    Stockham passes in next_radix order over wide_twiddle_table."""
-    n1, n2 = acquire2.wide_split(W)
-    tw = acquire2.wide_twiddle_table(n1, n2).astype(np.complex128)
-    root = acquire2.root_table(W).astype(np.complex128)
-    hdr = tw[:16 + sum(acquire2.WIDE_ROOTS)]
-    roots = {}
-    off = 16
-    for r in acquire2.WIDE_ROOTS:
-        roots[r] = hdr[off:off + r]
-        off += r
-
-    def sub(a, m, toff):
-        nb = a.size // m
-        ns, o = 1, toff
-        while ns < m:
-            R = acquire2.next_radix(m // ns)
-            items = m // R
-            u = np.arange(nb * items)
-            t, j = u // items, u % items
-            k = j % ns
-            v = [a[t * m + j + r * items] * (tw[o + r * ns + k] if r else 1)
-                 for r in range(R)]
-            if R & (R - 1) == 0:     # radix-2 stages, roots of 16
-                bits = R.bit_length() - 1
-                v = [v[int(format(r, f"0{bits}b")[::-1], 2) if bits else 0]
-                     for r in range(R)]
-                ln = 2
-                while ln <= R:
-                    for i in range(0, R, ln):
-                        for kk in range(ln // 2):
-                            x0 = v[i + kk]
-                            x1 = v[i + kk + ln // 2] * (
-                                hdr[kk * (16 // ln)] if kk else 1)
-                            v[i + kk], v[i + kk + ln // 2] = x0 + x1, x0 - x1
-                    ln <<= 1
-                y = v
-            else:                    # direct DFT on the stored roots
-                y = [sum(v[r] * roots[R][(r * s) % R] for r in range(R))
-                     for s in range(R)]
-            b = np.empty_like(a)
-            d = t * m + (j - k) * R + k
-            for s in range(R):
-                b[d + s * ns] = y[s]
-            a = b
-            o += R * ns
-            ns *= R
-        return a
-
-    len1 = sum(r * ns for r, ns in acquire2.wide_passes(n1))
-    k1, k2 = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
-    cols = sub(X[(k2 + n2 * k1).T].reshape(-1), n1, len(hdr))  # [k2][j1]
-    row = (cols.reshape(n2, n1).T * root[k1 * k2]).reshape(-1)  # [j1][k2]
-    x = sub(row, n2, len(hdr) + len1).reshape(n1, n2)           # [j1][j2]
-    j = np.arange(W)
-    return x[j % n1, j // n1] / W
-
-
-@pytest.mark.parametrize("W", [6, 1280, 20460, 30690, 81920])
-def test_four_step_plan_is_the_inverse_dft(W):
-    rng = np.random.default_rng(W)
-    X = rng.standard_normal(W) + 1j * rng.standard_normal(W)
-    np.testing.assert_allclose(_four_step_ifft(X, W), np.fft.ifft(X),
-                               rtol=0, atol=2e-6 * np.abs(X).max())
-    tw = acquire2.wide_twiddle_table(*acquire2.wide_split(W))
-    assert tw.dtype == np.complex64 and np.abs(np.abs(tw) - 1).max() < 1e-6
 
 
 def _cluster_stride(m):
@@ -250,6 +178,19 @@ def check_cluster_transform(n1, n2, C):
     A, B = tw[len(tw) - n1 - n2:len(tw) - n1], tw[len(tw) - n1:]
     np.testing.assert_allclose(A[t % n2].astype(np.complex128) * B[t // n2],
                                np.exp(2j * np.pi * t / W), rtol=0, atol=3e-7)
+
+
+@pytest.mark.parametrize("W", [6, 1280, 20460, 30690, 61380, 163840])
+def test_four_step_plan_is_the_inverse_dft(W):
+    """The run-time cluster core at the split and cluster size K1 takes
+    for W (ops/acquire2.core_plan: every window but the register core's,
+    GPS L2CM's 163840 among them) against np.fft.ifft, and its twiddle
+    table unit modulus in complex64."""
+    core, n1, n2, C = acquire2.core_plan(W)
+    assert core == "wide" and (n1, n2) == acquire2.wide_split(W)
+    check_cluster_transform(n1, n2, C)
+    tw = acquire2.cluster_twiddle_table(n1, n2)
+    assert tw.dtype == np.complex64 and np.abs(np.abs(tw) - 1).max() < 1e-6
 
 
 @pytest.mark.parametrize("n1,n2,C", [(165, 186, 2), (165, 186, 3),

@@ -6,7 +6,8 @@ of JAX, so on a machine without it run:
 
 Tolerances: K1 argmax exact on planted cells, peak/sum rtol 1e-4 (float32
 FFTs in another order, and at a W that is not a power of two one division
-by W of the block sum against a 1/W scale per transform); K7 planted lags
+by W of the block sum against a 1/W scale per transform), two launches
+bit-equal, and an exact tie across cluster ranks to the lowest lag; K7 planted lags
 exact, the surface to rtol 1e-4 plus 2e-5 of its maximum; K2 bit-exact (the kernel and the plain version
 pin the same roundings, and sum the correlators in float64); K5 and K6
 idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
@@ -104,6 +105,76 @@ def test_k1_wide_matches_plain(dev, W, n_valid, P, DC, B):
     again = acquire2.corr_surface2(F, code, n_valid)   # same bits each run
     for a, b in zip((pk, ik, sk), again):
         assert torch.equal(a, b)
+
+
+# the windows acquire/plan.acq_plan sends K1, each with its route's n_valid
+# (v2p) and without, at every cluster size built there (81920 on 8 CTAs:
+# the run-time core)
+K1_WINDOWS = [(4096, 0, c) for c in (2, 1, 4, 8)] + [
+    (16384, 0, 8), (32768, 15345, 8), (32768, 0, 16), (65536, 30690, 16),
+    (65536, 0, 16), (65536, 30690, 8), (81920, 0, 16), (81920, 0, 8),
+    (163840, 0, 0)]
+
+
+@pytest.mark.parametrize("W,n_valid,cluster", K1_WINDOWS)
+def test_k1_at_every_window(dev, W, n_valid, cluster):
+    """K1 on its core and cluster size at each window of the catalog
+    (P 3, DC 2, B 2): planted lags exact, peak and sum rtol 1e-4, two
+    launches bit-equal, one launch a call."""
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    info = acquire2.launch_info(W, dev.index or 0, cluster)
+    assert (info["core"], info["n1"], info["n2"], info["cluster"]) == \
+        acquire2.core_plan(W, cluster)
+    lo = W - n_valid if n_valid else 0
+    code, F, lags = _planted(dev, 3, 2, 2, W, lo, W + n_valid + cluster)
+    n0 = acquire2.LAUNCHES
+    got = acquire2.corr_surface2(F, code, n_valid, cluster=cluster)
+    assert acquire2.LAUNCHES == n0 + 1
+    plain = acquire2.corr_surface2_plain(F, code, n_valid)
+    for p in range(3):
+        assert int(got[1][p, p % 2]) == int(plain[1][p, p % 2]) == lags[p] - lo
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[2], plain[2], rtol=1e-4, atol=0)
+    again = acquire2.corr_surface2(F, code, n_valid, cluster=cluster)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def k1_tie(dev, W, B=2, cluster=0):
+    """K1 on a row whose surface ties exactly at every lag j with an even
+    row index j mod n1 (X = code * conj(F) = delta[0] + delta[(n1/2) n2]:
+    the column IDFT is 1 + (-1)^j1 on column 0 alone, and every product
+    the kernel forms is by a unit twiddle or by zero).  Searched from lag
+    0, the lowest tied lag is 0, owned by rank 0; from lo = nr - 1 (the
+    last row of rank 0, odd) it is nr, owned by rank 1, while rank 0
+    owns the tied lag n1.  Returns ((idx from 0, idx from lo), the plain
+    version's and the kernel's (peak, idx, sum) from 0, nr)."""
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    _, n1, n2, C = acquire2.core_plan(W, cluster)
+    nr = -(-n1 // C)
+    code = torch.ones((1, W), dtype=torch.complex64, device=dev)
+    F = torch.zeros((1, B, W), dtype=torch.complex64, device=dev)
+    F[:, :, 0] = 1.0
+    F[:, :, (n1 // 2) * n2] = 1.0
+    out = []
+    for n_valid in (0, W - (nr - 1)):
+        got = acquire2.corr_surface2(F, code, n_valid, cluster=cluster)
+        out.append((int(got[1][0, 0]), got))
+    plain = acquire2.corr_surface2_plain(F, code, 0)
+    return (out[0][0], out[1][0]), plain, out[0][1], nr
+
+
+@pytest.mark.parametrize("W,cluster", [(4096, 2), (4096, 8), (16384, 8),
+                                       (32768, 8), (32768, 16), (65536, 16),
+                                       (65536, 8), (81920, 16),
+                                       (81920, 8), (163840, 0)])
+def test_k1_tie_across_ranks_takes_the_lowest_lag(dev, W, cluster):
+    (i0, i1), plain, got, nr = k1_tie(dev, W, cluster=cluster)
+    assert (i0, i1) == (0, 1)           # lag 0; lag nr from lo = nr - 1
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[2], plain[2], rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("W,P,DC,B", [(30690, 2, 3, 4), (1280, 3, 2, 5),
