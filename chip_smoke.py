@@ -32,9 +32,16 @@ Runs every phase, in this order:
           blocks x 100 alignments x 4096), with timings
   k2      fused tracking kernel vs its plain version at the tracking bench
           shape (32 channels x 900 blocks, 4.096 MHz), with timings; then
-          at the main path's shape (the e2e capture's 8 channels at
-          8.184 MHz, int8 ingest on the card) across a chunk that ends
-          mid-run, the stall, and the driver's refill with pointer rebase
+          at every family shape of e2e_track (galileo-e1b, gps-l1cp,
+          gps-l2cm, gps-l2cl with its chips read from device memory, 4
+          FDMA channels of glonass-l1-p with 5.11 M chips) and the
+          e2e_coherent_track shape (6 BeiDou B1I channels at 16.368 MHz,
+          M = 20), each over two launches whose chunk boundary falls
+          mid-run (mid-period when coherent): int rows and state equal,
+          float rows bit-equal, with timings and bounds; then at the main
+          path's shape (the e2e capture's 8 channels at 8.184 MHz, int8
+          ingest on the card) across a chunk that ends mid-run, the stall,
+          and the driver's refill with pointer rebase
   k3      per-step correlator K3 vs its plain version, every launch of a
           per-step scan on a 45 dB-Hz capture: the tracking bench shape
           (32 GPS L1 channels x 900 blocks at 4.096 MHz, the scan's rows
@@ -55,17 +62,29 @@ Runs every phase, in this order:
           first 200 blocks, all channels in lock
   e2e_track
           the subcarrier, sub-block and long-code families through the
-          track CLI on K3: 2.2 s captures at acq_fs, 8 channels each of
+          track CLI on K2: 2.2 s captures at acq_fs, 8 channels each of
           galileo-e1b, gps-l1cp, gps-l2cm, gps-l2cl and 4 FDMA channels of
           glonass-l1-p at 45 dB-Hz; every channel within 5 Hz of its
           doppler over the last 200 rows, C/N0 41-47 dB-Hz (38-44 for the
-          RZ codes)
+          RZ codes); K3 and K4 launch no time.  Then galileo-e1b once more
+          under GNSS_DSP_NO_FUSED, on the per-step route (K3)
   e2e_coherent
           the extended-coherent path through the acquire CLI: a 50 ms
           BeiDou B1I capture (16.368 MHz, 6 satellites with NH20 at
           32 dB-Hz) searched with --coherent 20 --time 40 over all 63
           PRNs on a 25 Hz grid, then --coherent 8 --time 80 on the e2e
           GPS L1 capture; the launch counters must show K5 and K6 there
+  e2e_coherent_track
+          the weak-signal workflow at full size: a 1.2 s BeiDou B1I
+          capture (16.368 MHz, 6 satellites at 32 dB-Hz, all from one
+          overlay phase, dopplers within 4 Hz of the 25 Hz grid), the
+          coherent acquisition (the acquire CLI's --coherent 20 --time 40
+          path over all 63 PRNs, K5) hands doppler, code and
+          track_overlay_phase to the track CLI with --coherent 20
+          --overlay-phase k --carrier-phase 0 on K2: the overlay phase
+          equals the truth, the mean carrier_f of the last 200 rows
+          within 1 Hz of the truth and its spread under 1 Hz, C/N0 of the
+          last 500 rows within 3 dB of 32
   e2e_wide
           the wide-window and odd-length searches through the acquire CLI,
           one 85 ms capture per route at the signal's internal rate (four
@@ -75,10 +94,12 @@ Runs every phase, in this order:
           65536, 81920, 163840); the launch counters must show K7 on
           xona-x5d and K1 on the others
 
-In the e2e phases every surface-kernel and per-step correlator call is
-recorded with its shape, and each must have been held against its plain
-version at that shape in k1, k3, k4, k5, k6 or k7 (a surface launch's
-doppler count may be smaller).
+In the e2e phases every surface-kernel, per-step correlator and K2 call
+is recorded with its shape, and each must have been held against its
+plain version at that shape in k1, k2, k3, k4, k5, k6 or k7 (a surface
+launch's doppler count may be smaller; K2's shape is its subcarrier kind,
+channels, nmax, code length and coherent span, its block count a loop
+bound).
 
 Prints a JSON line of per-kernel results (times, the bound the card's
 peaks put on each kernel's work, the time of one torch.fft.ifft over the
@@ -291,7 +312,8 @@ SURFACE_WRAPPERS = {
 STEP_WRAPPERS = {"track_step_v2": "epl_correlate2",
                  "track_step_v1": "epl_correlate"}
 # shape_key of every case the k phases held against its plain version
-CHECKED = {name: [] for name in (*SURFACE_WRAPPERS, *STEP_WRAPPERS)}
+CHECKED = {name: [] for name in (*SURFACE_WRAPPERS, *STEP_WRAPPERS,
+                                 "track_fused")}
 
 
 def shape_key(name, F, code_f, *rest):
@@ -314,10 +336,20 @@ def step_key(name, si, sf, x, code, nmax, sub):
     return 0, (sub, si.shape[0], int(nmax), code.shape[1])
 
 
+def fused_key(name, x, chunk_len, code_tab, state, params, *rest):
+    """(0, (kind, channels, nmax, code length, coherent span)) of a K2
+    call: the kernel's template and grid and the loop's lanes; the block
+    count is a loop bound."""
+    from gnss_dsp_tpu_torch.ops.track_step import subc_kind
+
+    return 0, (subc_kind(params.subcarrier), code_tab.shape[0],
+               int(params.nmax), code_tab.shape[1], int(params.coh_blocks))
+
+
 @contextlib.contextmanager
 def recording():
-    """Yields a list that collects (kernel, shape_key) for every surface
-    and per-step correlator wrapper call made inside.  The engines call
+    """Yields a list that collects (kernel, shape_key) for every surface,
+    per-step correlator and K2 wrapper call made inside.  The engines call
     the wrappers through their ops module, so wrapping the module
     attribute sees every call; the launch counters are the wrappers' own
     and count as before."""
@@ -326,6 +358,7 @@ def recording():
              for name, (mod, fn) in SURFACE_WRAPPERS.items()]
     spies += [(name, "track_step", fn, step_key)
               for name, fn in STEP_WRAPPERS.items()]
+    spies += [("track_fused", "track_fused", "track_scan_fused", fused_key)]
     for name, mod, fn, key in spies:
         m = importlib.import_module(f"gnss_dsp_tpu_torch.ops.{mod}")
         orig = getattr(m, fn)
@@ -345,8 +378,8 @@ def recording():
 
 
 def check_covered(tag, calls):
-    """Every surface-kernel and per-step correlator call of the main path
-    was held against its plain version at its shape.  A launch may cover fewer dopplers than
+    """Every surface-kernel, per-step correlator and K2 call of the main
+    path was held against its plain version at its shape.  A launch may cover fewer dopplers than
     the checked case (the grid's last chunk): the doppler count only
     sizes the launch grid, one CTA per (PRN, doppler, alignment)."""
     for name, (dc, key) in sorted(set(calls)):
@@ -758,6 +791,7 @@ def phase_k2(dev, card, results):
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.main_path import B1I_FS, B1I_PRNS
     from gnss_dsp_tpu_torch.utils.synth import synth_iq
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import (
@@ -821,19 +855,113 @@ def phase_k2(dev, card, results):
     ms = cuda_ms(run_kernel, 3)
     plain_ms = cuda_ms(run_plain, 1)
     samples = float(ri_k[..., 0].sum())
-    # the chunk, the code table and the rows each cross device memory
-    # once; about 20 operations per sample and channel (carrier wipe 6,
-    # E/P/L chip phases 6, E/P/L sums 6, the DDS index 2)
-    bms, by = bound(xd.numel() * 8 + tab.numel() + NB * C * 14 * 4,
-                    samples * 20)
+    bms, by = k2_bound(xd.numel(), tab.numel(), NB * C, samples, "none")
     log(f"[k2] C={C} NB={NB} fs={fs:g}: first {H} blocks rows_i exact, "
         f"rows_f max|d| = {err:.3g}; {same_rows}/{NB * C} rows bit-equal; "
         f"after: max|dcarrier_f| {np.nanmax(dcf):.3g} Hz, "
         f"max|dcode_p| {np.nanmax(dcp):.3g} chip")
     log(f"[k2] kernel {ms:.3f} ms ({samples / ms / 1e3:.4g} Msamples/s), "
         f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms by {by}  [{card}]")
+    CHECKED["track_fused"].append(fused_key("track_fused", xd, n, tab, None,
+                                            params))
     results["track_fused"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bms, bound_by=by)
+    fams = [_k2_family(dev, card, name, C, get_signal(name).acq_fs, 1, 60 + i)
+            for i, (name, C) in enumerate(E2E_TRACK)]
+    # e2e_coherent_track's shape (tools/main_path.synth_b1i_track)
+    fams.append(_k2_family(dev, card, "beidou-b1i", len(B1I_PRNS), B1I_FS,
+                           20, 66))
+    log("[k2] families " + json.dumps(fams))
+
+
+def sample_ops(kind):
+    """Operations a sample and channel of the tracking correlators: about
+    20 (carrier wipe 6, E/P/L chip phases 6, E/P/L sums 6, the DDS index
+    2), plus the subcarrier factor's per lag (a family or K3's "subc" 6,
+    K3's "tmboc" with its gate 10)."""
+    return 20 + 3 * {"none": 0, "tmboc": 10}.get(kind, 6)
+
+
+def k2_bound(x_numel, chips, rows, samples, kind):
+    """bound() of one K2 launch: the chunk read once (8 bytes a sample),
+    the chips the lags touch, the rows written (14 values a block and
+    channel); the operations of sample_ops."""
+    return bound(x_numel * 8 + chips + rows * 14 * 4,
+                 samples * sample_ops(kind))
+
+
+def _k2_family(dev, card, name, C, fs, coh, seed, seconds=0.3,
+               chunk_s=0.15):
+    """K2 against its plain version at a main-path shape: C channels of
+    `name` at fs with coherent span coh (tools/track_all.scan_inputs: 45
+    dB-Hz, each code 2-40 ms before its end, so the long codes wrap in
+    the run).  A launch whose chunk ends at chunk_s (every channel
+    stalls; when coherent, each channel's chunk ends 150.5 periods after
+    its start, half-way through its eighth coherent period), then the
+    refill: int rows and state equal, float rows bit-equal.  Then the
+    time of one launch over the whole capture, its plain version's, and
+    the bound.  Returns the numbers."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops.track_step import subc_kind
+    from gnss_dsp_tpu_torch.tools.track_all import scan_inputs
+    from gnss_dsp_tpu_torch.track.engine import track_scan, track_scan_plain
+
+    sig = get_signal(name)
+    d = scan_inputs(name, C, fs, seconds, seed, dev, coherent_blocks=coh)
+    p = d["params"]
+    check(p.fused_scan and p.coh_blocks == coh, (name, "not K2", p))
+    extra = (d["ratios"], d["cdf"], d["sigp"], d["overlay"])
+    nb = int(seconds * 1000 / (sig.code_period_ms / sig.sub_blocks)) + 2
+    st, wraps = d["st"], None
+    full = torch.full((C,), d["n"], dtype=torch.int32, device=dev)
+    first = (d["st"].ptr + int(150.5 * fs * 1e-3 * sig.code_period_ms)
+             if coh > 1 else torch.full_like(full, int(fs * chunk_s)))
+    for launch, cl in enumerate((first, full)):
+        k = track_scan(d["x"], cl, d["tab"], st, p, nb, *extra)
+        pl = track_scan_plain(d["x"], cl, d["tab"], st, p, nb, *extra)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k[2], pl[2], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], pl[1], rtol=0, atol=0,
+                                   equal_nan=True)
+        for field, a, b in zip(k[0]._fields, k[0], pl[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                       msg=f"{name} state {field}")
+        stalled = int(k[0].stalled.sum())
+        check(stalled == C, (name, launch, "channels stalled", stalled))
+        if launch == 0 and coh > 1:
+            check(bool((k[0].block % coh != 0).all()),
+                  (name, "chunk boundary not mid-period"))
+        hit = (k[2][:, :, 2] == sig.code_length).any(0)
+        wraps = hit if wraps is None else wraps | hit
+        st = k[0]._replace(stalled=torch.zeros_like(k[0].stalled))
+    check(bool(wraps.all()), (name, "a channel never crossed its code's end"))
+    CHECKED["track_fused"].append(fused_key("track_fused", d["x"], d["n"],
+                                            d["tab"], d["st"], p))
+
+    def run_kernel():
+        return track_scan(d["x"], d["n"], d["tab"], d["st"], p, nb, *extra)
+
+    ms = cuda_ms(run_kernel, 3)
+    plain_ms = cuda_ms(lambda: track_scan_plain(
+        d["x"], full, d["tab"], d["st"], p, nb, *extra), 1)
+    ri = run_kernel()[2][..., 0].to(torch.float64)
+    ns = ri.sum(0).cpu().numpy()
+    cf = sig.chip_rate / fs
+    chips = sum(min(sig.code_length, int(v * cf) + 3) for v in ns)
+    bms, by = k2_bound(d["x"].numel(), chips, nb * C, float(ns.sum()),
+                       subc_kind(sig.subcarrier))
+    rows = int((ri > 0).sum())
+    log(f"[k2] {name} ({sig.subcarrier}, sub {sig.sub_blocks}, L "
+        f"{sig.code_length}{', M ' + str(coh) if coh > 1 else ''}) C={C} "
+        f"fs={fs:g} nmax={p.nmax}: two launches across a stall, rows_i "
+        f"and state exact, rows_f bit-equal; {rows} rows in {nb} blocks; "
+        f"kernel {ms:.3f} ms ({ns.sum() / ms / 1e3:.4g} Msamples/s), plain "
+        f"{plain_ms:.3f} ms, bound {bms:.4f} ms by {by}  [{card}]")
+    return dict(name=name, channels=C, fs=fs, coherent=coh, blocks=nb,
+                rows=rows, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------- phase k2, main
@@ -925,6 +1053,8 @@ def phase_k2_main_path(dev, results, work, seconds=0.8, chunk_s=0.35,
     log(f"[k2] main-path shape: rows_i and state ints exact, rows_f max|d| "
         f"= {err:.3g}, {same}/{total} rows bit-equal across the stall and "
         f"refill")
+    CHECKED["track_fused"].append(fused_key("track_fused", x, nbuf, tab, st,
+                                            params))
     r = results["track_fused"]
     r["max_abs_err"] = max(r["max_abs_err"], err)
 
@@ -934,13 +1064,11 @@ def phase_k2_main_path(dev, results, work, seconds=0.8, chunk_s=0.35,
 def step_bound(sig, ns, L, kind):
     """bound() of one per-step correlator launch over blocks of ns
     samples (one per channel): each sample read once (8 bytes), the chips
-    the three lags touch, the lanes in and the sums out; about 20
-    operations a sample and channel as K2 counts them, plus the
-    subcarrier factor's per lag (6 affine, 10 with the TMBOC gate)."""
+    the three lags touch, the lanes in and the sums out; the operations
+    of sample_ops."""
     chips = sum(min(L, int(n * sig.chip_rate / sig.acq_fs) + 3) for n in ns)
-    extra = {"none": 0, "subc": 6, "tmboc": 10}.get(kind, 6)
     return bound(sum(ns) * 8 + chips + len(ns) * (36 + 32 + 24) + 8192,
-                 sum(ns) * (20 + 3 * extra))
+                 sum(ns) * sample_ops(kind))
 
 
 def _step_case(dev, card, tag, name, C, fs, nb, v1, seed, sub=None,
@@ -961,7 +1089,7 @@ def _step_case(dev, card, tag, name, C, fs, nb, v1, seed, sub=None,
     sig = get_signal(name)
     params = make_params(sig, fs, 0.0, loop_dwells=dwells)._replace(
         fused_scan=False, pallas_v2=not v1)
-    sub = sub or (sig.subcarrier if v1 else engine.subc_kind(sig.subcarrier))
+    sub = sub or (sig.subcarrier if v1 else track_step.subc_kind(sig.subcarrier))
     if v1:
         params = params._replace(subcarrier=sub)
     rng = np.random.default_rng(seed)
@@ -1136,11 +1264,13 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
         f"{t_acq:.2f} s")
 
     t0 = time.perf_counter()
-    out = run_cli(trk_cli.main, "gps-l1",
-                  ["--blocks", str(nblocks), "--device", str(dev), path,
-                   str(fs), "0", ",".join(specs)])
+    with recording() as calls:
+        out = run_cli(trk_cli.main, "gps-l1",
+                      ["--blocks", str(nblocks), "--device", str(dev), path,
+                       str(fs), "0", ",".join(specs)])
     torch.cuda.synchronize()
     t_trk = time.perf_counter() - t0
+    check_covered("e2e", calls)
     rows = {p: [] for p in truth["prns"]}
     for line in out.splitlines():
         tag, rest = line.split(" ", 1)
@@ -1179,44 +1309,70 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
 
 # ---------------------------------------------------------- phase e2e_track
 
-def phase_e2e_track(dev, card, results, work):
+def _check_track(tag, name, r):
+    """run_signal's lock check, and C/N0 of the last 500 rows 41-47
+    dB-Hz (3 dB less for the RZ codes, whose chips are zero half the
+    time)."""
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    sig = get_signal(name)
+    check(not r["bad"], (tag, name, "out of lock", r["bad"]))
+    lo = 41.0 - (3.0 if sig.subcarrier.startswith("rz") else 0.0)
+    for prn, df, c in zip(r["truth"]["prns"], r["max_df"], r["cn0"]):
+        check(lo <= c <= lo + 6.0, (tag, name, prn, "C/N0", c))
+        log(f"[{tag}] {name} {'chan' if sig.fdma_hz else 'prn'} "
+            f"{prn:3d}: {len(r['rows'][prn])} rows, last-200 "
+            f"|carrier_f - truth| <= {df:.3f} Hz, C/N0 {c:.2f} dB-Hz")
+
+
+def phase_e2e_track(dev, card, work):
     """The track CLI on one 2.2 s capture per family of E2E_TRACK
-    (tools/track_all.synth_track: 45 dB-Hz, acq_fs), default loop dwells:
-    every channel within 5 Hz of its doppler over the last 200 rows, and
-    C/N0 of the last 500 rows 41-47 dB-Hz (3 dB less for the RZ codes,
-    whose chips are zero half the time).  Returns K3's launches."""
+    (tools/track_all.synth_track: 45 dB-Hz, acq_fs), default loop dwells,
+    on K2 (K3 and K4 launch no time): every channel within 5 Hz of its
+    doppler over the last 200 rows, and C/N0 as _check_track.  Then
+    galileo-e1b's capture once more under GNSS_DSP_NO_FUSED, on the
+    per-step route (K3; K2 launches no time), with the same checks.
+    Returns (K2 launches by family, K3 launches)."""
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.main_path import environ
     from gnss_dsp_tpu_torch.tools.track_all import run_signal
 
-    v2 = 0
-    for i, (name, C) in enumerate(E2E_TRACK):
-        sig = get_signal(name)
+    def run(name, C, seed):
         track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
         track_fused.LAUNCHES = 0
         with recording() as calls:
             r = run_signal(name, str(dev), work, seconds=2.2, count=C,
-                           seed=40 + i, tail=200, cn0_rows=500)
+                           seed=seed, tail=200, cn0_rows=500)
         torch.cuda.synchronize()
-        launches = (track_step.LAUNCHES_V2, track_step.LAUNCHES_V1,
-                    track_fused.LAUNCHES)
-        check(launches[0] > 0 and launches[1:] == (0, 0),
-              (name, "K3 not the route", launches))
-        v2 += launches[0]
         check_covered("e2e_track", calls)
-        check(not r["bad"], (name, "out of lock", r["bad"]))
-        lo = 41.0 - (3.0 if sig.subcarrier.startswith("rz") else 0.0)
-        for prn, df, c in zip(r["truth"]["prns"], r["max_df"], r["cn0"]):
-            check(lo <= c <= lo + 6.0, (name, prn, "C/N0", c))
-            log(f"[e2e_track] {name} {'chan' if sig.fdma_hz else 'prn'} "
-                f"{prn:3d}: {len(r['rows'][prn])} rows, last-200 "
-                f"|carrier_f - truth| <= {df:.3f} Hz, C/N0 {c:.2f} dB-Hz")
+        return r, (track_fused.LAUNCHES, track_step.LAUNCHES_V2,
+                   track_step.LAUNCHES_V1)
+
+    k2, walls = {}, {}
+    for i, (name, C) in enumerate(E2E_TRACK):
+        sig = get_signal(name)
+        r, launches = run(name, C, 40 + i)
+        check(launches[0] > 0 and launches[1:] == (0, 0),
+              (name, "K2 not the route", launches))
+        k2[name] = launches[0]
+        walls[name] = r["wall_s"]
+        _check_track("e2e_track", name, r)
         log(f"[e2e_track] {name} ({sig.subcarrier}, sub {sig.sub_blocks}, L "
             f"{sig.code_length}) {C} ch at {r['truth']['fs']:g} Hz: track CLI "
-            f"{r['wall_s']:.2f} s, K3 launches {launches[0]}  [{card}]")
-    return v2
+            f"{r['wall_s']:.2f} s, K2 launches {launches[0]}  [{card}]")
+    # the per-step route end to end, on the galileo-e1b capture again
+    with environ({"GNSS_DSP_NO_FUSED": "1"}):
+        r, launches = run("galileo-e1b", 8, 40)
+    check(launches[0] == 0 and launches[1] > 0 and launches[2] == 0,
+          ("galileo-e1b", "K3 not the route", launches))
+    _check_track("e2e_track", "galileo-e1b", r)
+    log(f"[e2e_track] galileo-e1b under GNSS_DSP_NO_FUSED: track CLI "
+        f"{r['wall_s']:.2f} s on K3 ({launches[1]} launches) against "
+        f"{walls['galileo-e1b']:.2f} s on K2  [{card}]")
+    return k2, launches[1]
 
 
 # ------------------------------------------------------- phase gps_l1_routes
@@ -1239,7 +1395,7 @@ def phase_gps_l1_routes(dev, card, results, e2e):
 
     from gnss_dsp_tpu_torch.cli import track as trk_cli
     from gnss_dsp_tpu_torch.ops import track_fused, track_step
-    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+    from gnss_dsp_tpu_torch.tools.main_path import environ, run_cli
 
     path, fs, specs, k2_out, truth = e2e
     want = _rows_by_prn(k2_out)
@@ -1249,9 +1405,7 @@ def phase_gps_l1_routes(dev, card, results, e2e):
              "track_step_v1")):
         track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
         track_fused.LAUNCHES = 0
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
+        with environ(env):
             t0 = time.perf_counter()
             with recording() as calls:
                 out = run_cli(trk_cli.main, "gps-l1",
@@ -1259,12 +1413,6 @@ def phase_gps_l1_routes(dev, card, results, e2e):
                                str(fs), "0", specs])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
         n_v2, n_v1 = track_step.LAUNCHES_V2, track_step.LAUNCHES_V1
         launches = n_v2 if label == "K3" else n_v1
         check(launches > 0 and track_fused.LAUNCHES == 0
@@ -1393,6 +1541,87 @@ def phase_e2e_coherent(dev, card, results, work):
     os.remove(l1)
 
 
+# ------------------------------------------------- phase e2e_coherent_track
+
+def phase_e2e_coherent_track(dev, card, work, seconds=1.2):
+    """tests/test_coherent.py::test_acquire_to_track_overlay_handoff at
+    full size: the B1I capture of tools/main_path.synth_b1i_track (6
+    satellites at 32 dB-Hz and 16.368 MHz, all from one overlay phase),
+    its coherent acquisition (the acquire CLI's --coherent 20 --time 40
+    path over 63 PRNs: K5), then the track CLI with --coherent 20
+    --overlay-phase k --carrier-phase 0 on K2.  Checks: each planted
+    PRN's doppler within one 25 Hz bin and code within 1 chip, its
+    track_overlay_phase the truth; over the last 200 rows the mean
+    carrier_f within 1 Hz of the truth and its spread under 1 Hz (the
+    handoff test's bounds); C/N0 of the last 500 rows within 3 dB of the
+    planted 32 dB-Hz.  Returns K2's launches."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import cn0 as cn0_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.ops import acquire_coh, track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        B1I_FS, acquire_coherent_b1i, coherent_track_args, run_cli,
+        synth_b1i_track)
+
+    path = os.path.join(work, "e2e_b1i_track.iq")
+    t0 = time.perf_counter()
+    truth = synth_b1i_track(path, seconds, device=dev)
+    t_synth = time.perf_counter() - t0
+    acquire_coh.LAUNCHES_SPEC = acquire_coh.LAUNCHES_BLK = 0
+    t0 = time.perf_counter()
+    with recording() as calls:
+        res = acquire_coherent_b1i(path, B1I_FS, dev)
+    torch.cuda.synchronize()
+    t_acq = time.perf_counter() - t0
+    check_covered("e2e_coherent_track", calls)
+    check(acquire_coh.LAUNCHES_SPEC > 0, "K5 not on the path")
+    hits = {r.prn: r for r in res}
+    L = truth["code_length"]
+    for prn, dop, cp in zip(truth["prns"], truth["dops"], truth["phases"]):
+        h = hits[prn]
+        dc = abs(h.code_offset - cp) % L
+        ovl = h.track_overlay_phase(L)
+        check(abs(h.doppler - dop) <= 25.0 and min(dc, L - dc) <= 1.0
+              and ovl == truth["overlay_phase"], (prn, h, dop, cp, ovl))
+        log(f"[e2e_coherent_track] acquire prn {prn:2d}: doppler "
+            f"{h.doppler:7.1f} (truth {dop:7.1f}) code {h.code_offset:8.2f} "
+            f"(truth {cp:8.2f}) overlay phase {ovl} (truth "
+            f"{truth['overlay_phase']})")
+
+    track_fused.LAUNCHES = 0
+    track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
+    t0 = time.perf_counter()
+    with recording() as calls:
+        out = run_cli(trk_cli.main, "beidou-b1i", coherent_track_args(
+            hits, truth["prns"], path, B1I_FS, dev))
+    torch.cuda.synchronize()
+    t_trk = time.perf_counter() - t0
+    os.remove(path)
+    check_covered("e2e_coherent_track", calls)
+    lt = track_fused.LAUNCHES
+    check(lt > 0 and track_step.LAUNCHES_V2 == track_step.LAUNCHES_V1 == 0,
+          ("K2 not the route", lt, track_step.LAUNCHES_V2))
+    rows = _rows_by_prn(out)
+    for prn, dop in zip(truth["prns"], truth["dops"]):
+        r = rows[prn]
+        cf = np.array([float(v.split()[3]) for v in r[-200:]])
+        est = run_cli(cn0_cli.main, ["--time", "500"],
+                      stdin_text="\n".join(r[-500:]) + "\n").split()
+        c = float(est[0])
+        check(len(r) >= 1000 and abs(np.mean(cf) - dop) < 1.0
+              and np.std(cf) < 1.0 and abs(c - truth["cn0"]) <= 3.0,
+              (prn, len(r), np.mean(cf) - dop, np.std(cf), c))
+        log(f"[e2e_coherent_track] track prn {prn:2d}: {len(r)} rows, last "
+            f"200 mean carrier_f - truth {np.mean(cf) - dop:+.3f} Hz, "
+            f"spread {np.std(cf):.3f} Hz, C/N0 {c:.2f} dB-Hz (truth "
+            f"{truth['cn0']:g})")
+    log(f"[e2e_coherent_track] wall: synth {t_synth:.2f} s, coherent "
+        f"acquire {t_acq:.2f} s, track --coherent 20 6 ch x {seconds} s "
+        f"{t_trk:.2f} s, K2 launches {lt}  [{card}]")
+    return lt
+
+
 # ---------------------------------------------------------- phase e2e_wide
 
 def phase_e2e_wide(dev, card, results, work):
@@ -1495,9 +1724,14 @@ def main(argv=None) -> int:
     e2e = phase_e2e(dev, card, results, args.out)
     phase_gps_l1_routes(dev, card, results, e2e)
     os.remove(e2e[0])
-    results["track_step_v2"]["launches"] += phase_e2e_track(
-        dev, card, results, args.out)
+    k2_fams, k3 = phase_e2e_track(dev, card, args.out)
+    results["track_step_v2"]["launches"] += k3
     phase_e2e_coherent(dev, card, results, args.out)
+    k2_fams["beidou-b1i --coherent 20"] = phase_e2e_coherent_track(
+        dev, card, args.out)
+    log(f"[k2] launches: e2e {results['track_fused']['launches']}, "
+        f"e2e_track and e2e_coherent_track {json.dumps(k2_fams)}")
+    results["track_fused"]["launches"] += sum(k2_fams.values())
     k1_wide = phase_e2e_wide(dev, card, results, args.out)
     log(f"[e2e_wide] acquire2 launches: e2e {results['acquire2']['launches']}"
         f", e2e_wide {k1_wide}")

@@ -2,9 +2,9 @@
 
 The JAX package (`gnss_dsp_tpu`) stays the reference; this package runs
 the GPS L1 C/A main path (acquire -> track -> C/N0), non-coherent
-acquisition of every CDMA signal with an FFT search, and extended-
-coherent acquisition on an NVIDIA Hopper card through hand-written CUDA
-kernels:
+acquisition of every CDMA signal with an FFT search, tracking of every
+signal with a code table, and extended-coherent acquisition and tracking
+on an NVIDIA Hopper card through hand-written CUDA kernels:
 
   ops/acquire2.py     non-coherent acquisition surface with in-kernel
                       (max, argmax, sum) reduction  (csrc/acquire2.cu)
@@ -13,6 +13,8 @@ kernels:
   ops/acquire_coh.py  extended-coherent surfaces  (csrc/acquire_coh.cu)
   ops/track_fused.py  the whole tracking loop, all blocks in one launch
                       (csrc/track_fused.cu)
+  ops/track_step.py   one tracking step's E/P/L sums, the per-step route
+                      (csrc/track_step.cu)
 
 Every kernel has a plain PyTorch version; the port takes the plain
 version only for a tensor that lies on the CPU.  The layout mirrors the

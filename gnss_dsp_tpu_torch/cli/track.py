@@ -11,12 +11,16 @@ Prints one row per tracked block in the reference's 9- or 14-column text
 format (track-gps-l1.py:176-177); with several channels each row starts
 "ch<prn> ".  Adds --device (default cuda).  Every signal with a code
 table tracks, with its subcarrier, sub-blocks and long code: on the card
-BPSK signals with one sub-block per code period run kernel K2, the others
-(and every signal under GNSS_DSP_NO_FUSED) one launch of K3 a block, or
-of K4 under GNSS_DSP_PALLAS_V1; --device cpu runs the plain versions.
+kernel K2 runs the whole loop, as the reference routes it; under
+GNSS_DSP_NO_FUSED one launch of K3 a block, or of K4 under
+GNSS_DSP_PALLAS_V1; --device cpu runs the plain versions.
+--coherent M (M = -1: the signal's own overlay length) tracks with
+M-period extended-coherent integration on every route, --overlay-phase
+the overlay chip of the first tracked code period (from coherent
+acquisition); sub-divided signals refuse it, as in the reference.
 Not ported here: unknown-code recovery (beidou-b2bi/b2bq raise
-NotImplementedError), extended-coherent tracking (--coherent),
-checkpoint/resume, mesh and the mixed-signal `multi` mode.
+NotImplementedError), checkpoint/resume, mesh and the mixed-signal
+`multi` mode.
 """
 
 from __future__ import annotations
@@ -44,6 +48,16 @@ def main(signal: str, argv=None) -> int:
                       help="initial carrier phase in cycles (PLL from start)")
     parser.add_option("--blocks", type="int", default=0,
                       help="stop after N blocks (0 = run to EOF)")
+    parser.add_option("--coherent", type="int", default=1, metavar="M",
+                      help="extended-coherent tracking: accumulate "
+                           "secondary-wiped complex E/P/L over M code "
+                           "periods, loop updates at the M boundary; "
+                           "-1 = the signal's own overlay length "
+                           "(sub-divided signals excluded)")
+    parser.add_option("--overlay-phase", type="int", default=0,
+                      help="secondary-overlay chip index of the first "
+                           "tracked code period (from coherent "
+                           "acquisition; default %default)")
     parser.add_option("--chunk-ms", type="float", default=2000.0,
                       help="device chunk length in ms (default %default)")
     # --device is taken out of argv by pop_device_arg before parsing, so
@@ -65,16 +79,21 @@ def main(signal: str, argv=None) -> int:
             p, d, co = spec.split(":")
             channels.append(TrackChannel(
                 prn=int(p), doppler=float(d), code_offset=float(co),
-                carrier_phase=carrier_phase, pll_from_start=pll))
+                carrier_phase=carrier_phase, pll_from_start=pll,
+                overlay_phase=options.overlay_phase))
     elif len(args) == 6:
         filename, fs, coffset = args[0], float(args[1]), float(args[2])
         channels = [TrackChannel(
             prn=int(args[3]), doppler=float(args[4]),
             code_offset=float(args[5]),
-            carrier_phase=carrier_phase, pll_from_start=pll)]
+            carrier_phase=carrier_phase, pll_from_start=pll,
+            overlay_phase=options.overlay_phase)]
     else:
         parser.error(f"expected file fs coffset {label} doppler code_offset"
                      f" (or file fs coffset prn:dop:code,prn:dop:code,...)")
+    if options.coherent > 1 and sig.sub_blocks != 1:
+        parser.error(f"--coherent needs a whole-period signal; "
+                     f"{signal} tracks in {sig.sub_blocks} sub-blocks")
     dev = resolve_device(device)
 
     fmt = format_row_14 if sig.row_format == 14 else format_row_9
@@ -88,7 +107,8 @@ def main(signal: str, argv=None) -> int:
     fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
     track_file(sig, fp, fs, coffset, channels, loop_dwells=dwells,
                chunk_ms=options.chunk_ms,
-               max_blocks=options.blocks or None, emit=emit, device=dev)
+               max_blocks=options.blocks or None, emit=emit, device=dev,
+               coherent_blocks=options.coherent)
     return 0
 
 

@@ -8,19 +8,37 @@
 // One CTA of 256 threads per channel loops over the B blocks: the loop
 // filter closes over each block's correlators, so blocks are sequential and
 // the parallelism is the channel count.  Per block:
-//   1. thread 0 computes the geometry: the adaptive block length n, whether
-//      the chunk still holds the block (ok), the integer and fractional
-//      code phase of the three lags, and the two DDS phases/increments
-//      (track/engine.py _track_block);
+//   1. thread 0 computes the geometry: the adaptive block length n (the
+//      sub-block's share of the code period, the q/r split of
+//      track/engine._sub_block_len), whether the chunk still holds the
+//      block (ok), the integer and fractional code phase of the three
+//      lags, and the two DDS phases/increments (track/engine.py
+//      _geometry);
 //   2. every thread strides over the samples i < n: the fused double-LUT
-//      carrier wipe, three direct reads of the code table in shared
-//      memory, and six partial sums (float64: the chips are +-1, so the
-//      products are exact and the rounded sum does not depend on order);
-//      this body is track_corr.cuh's epl_samples, shared with K3 and K4,
-//      here with the subcarrier factor fixed to BPSK;
+//      carrier wipe, three chip reads, the subcarrier factor of K3's
+//      runtime kind (template K: "none", "subc" = a0 + a1 boc + a6 boc6,
+//      "tmboc" adds tm times the TMBOC blend at the absolute chip index),
+//      and six partial sums (float64: each product of a float32 sample and
+//      a float32 factor is exact); this body is track_corr.cuh's
+//      epl_samples, shared with K3 and K4;
 //   3. warp shuffles and shared memory reduce the sums;
 //   4. thread 0 runs the loop filter and bookkeeping (_post_block), writes
-//      the block's rows and keeps the state in registers.
+//      the block's rows and keeps the state in registers.  With coh set
+//      (extended-coherent tracking, M = the sigp COH lane), it first wipes
+//      the block's E/P/L by the channel's overlay chip
+//      overlay[c, block % nov_c], adds them into the six cacc sums, lets
+//      the filters see the sums and advance only where (block + 1) % M ==
+//      0, and resets cacc there; the row keeps the block's wiped values.
+// Codes of <= kMaxCode chips are copied to shared memory once (template
+// kSmemCode); longer ones (GPS L2CL 767,250 chips, GLONASS P 5,110,000)
+// are read with __ldg straight from the int8 [C, L] table in device
+// memory: a block's three lags touch a window of about n cf + 2 chips
+// (~1,000 for L2CL's 1 ms sub-block, ~5,100 for GLONASS P), neighbouring
+// threads read the same or the next chip, and the window stays in L1/L2,
+// so a copy into shared memory would add a barrier a block and save
+// little.  This is the port's form of the TPU kernel's streamed code
+// window (:264-304).  The overlay rows (<= kMaxOverlay chips) are staged
+// in shared memory.
 // None of the TPU machinery carries over: no one-hot MXU routing, no
 // 128-lane packing, no scalar prefetch, no window DMA, no tile padding.
 //
@@ -32,9 +50,6 @@
 // Rounding is pinned down to match the plain version (ops/track_fused.py):
 // built with --fmad=false; the multiply-adds the reference rounds once are
 // __fmaf_rn here; division by fs is a multiply by inv_fs.
-//
-// Scope: BPSK, one sub-block per code period, codes of <= 10230 chips
-// (checked by the wrapper).
 
 #include "track_corr.cuh"
 
@@ -44,14 +59,17 @@ using gnss_track::kLut;
 
 constexpr int kThreads = 256;
 constexpr int kMaxCode = 10230;
+constexpr int kMaxOverlay = 1024;
 
 // int32 state lanes (ops/track_fused.py I_*)
 enum { I_PTR, I_BLOCK, I_COFF_P, I_COFF_DF, I_STALLED, I_CHUNKLEN, I_NFULL,
        I_SUBJ, NI };
-// float32 lanes (F_*): loop state, ratio, then the 12 sigp lanes
+// float32 lanes (F_*): loop state, ratio, the 12 sigp lanes, the 6 cacc
 enum { F_CP_HI, F_CP_LO, F_CFO, F_CARR_P, F_CARR_F, F_P1RE, F_P1IM, F_CE1,
-       F_DE1, F_RATIO, F_SIGP, NF = F_SIGP + 12 };
-enum { S_CF_HI, S_CF_LO, S_EL, S_L, S_SPP, S_SUB };
+       F_DE1, F_RATIO, F_SIGP, F_CACC = F_SIGP + 12, NF = F_CACC + 6 };
+// sigp lanes (track/engine.SIGP_*)
+enum { S_CF_HI, S_CF_LO, S_EL, S_L, S_SPP, S_SUB, S_A0, S_A1, S_A6, S_COH,
+       S_NOV, S_TM };
 
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kHalfPi = 1.57079632679489661923f;
@@ -138,17 +156,20 @@ __device__ __forceinline__ float pll_costas(float re, float im) {
   return atan2f(flip * im, flip * re);
 }
 
+template <int K, bool kSmemCode>
 __global__ void __launch_bounds__(kThreads)
 track_fused_kernel(const float2* __restrict__ x,
                    const int8_t* __restrict__ code, int code_stride,
                    const int* __restrict__ s_i32,
                    const float* __restrict__ s_f32,
+                   const float* __restrict__ ovl_g, int nov,
                    const float2* __restrict__ lut_g,
                    float* __restrict__ rows_f, int* __restrict__ rows_i,
                    int* __restrict__ sti_out, float* __restrict__ stf_out,
-                   int C, int B, Loop lp) {
+                   int C, int B, int coh, Loop lp) {
   __shared__ float2 lut[kLut];
-  __shared__ int8_t chips[kMaxCode];
+  __shared__ int8_t chips[kSmemCode ? kMaxCode : 1];
+  __shared__ float ovl[kMaxOverlay];
   __shared__ double red[kThreads / 32][6];
   // block geometry, broadcast from thread 0
   __shared__ int g_n, g_ok, g_ptr;
@@ -164,10 +185,20 @@ track_fused_kernel(const float2* __restrict__ x,
   const float* sp = sf + F_SIGP;
   const int L = (int)sp[S_L];
   const float Lf = sp[S_L];
+  const int8_t* row = code + (size_t)c * code_stride;
 
   for (int i = tid; i < kLut; i += blockDim.x) lut[i] = lut_g[i];
-  for (int i = tid; i < L; i += blockDim.x)
-    chips[i] = code[(size_t)c * code_stride + i];
+  if constexpr (kSmemCode) {
+    for (int i = tid; i < L; i += blockDim.x) chips[i] = row[i];
+  }
+  for (int i = tid; i < nov; i += blockDim.x)
+    ovl[i] = ovl_g[(size_t)c * nov + i];
+  gnss_track::Coef coef{0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (K == gnss_track::SUB_AFFINE ||
+                K == gnss_track::SUB_AFFINE_TMBOC)
+    coef = gnss_track::Coef{sp[S_A0], sp[S_A1], sp[S_A6],
+                            K == gnss_track::SUB_AFFINE_TMBOC ? sp[S_TM]
+                                                              : 0.0f};
 
   // loop state (meaningful in thread 0)
   int ptr = si[I_PTR], block = si[I_BLOCK], stalled = si[I_STALLED];
@@ -179,10 +210,16 @@ track_fused_kernel(const float2* __restrict__ x,
   float carr_p = sf[F_CARR_P], carr_f = sf[F_CARR_F];
   float p1re = sf[F_P1RE], p1im = sf[F_P1IM];
   float ce1 = sf[F_CE1], de1 = sf[F_DE1];
+  float cacc[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) cacc[j] = sf[F_CACC + j];
   const float ratio = sf[F_RATIO];
   const float cf_hi = sp[S_CF_HI], cf_lo = sp[S_CF_LO], el = sp[S_EL];
   const float spp = sp[S_SPP];
   const int sub = (int)sp[S_SUB];
+  // coherent span M and the overlay period (0 in the lane: the table's)
+  const int M = max((int)sp[S_COH], 1);
+  const int nov_c = ((int)sp[S_NOV] > 0) ? (int)sp[S_NOV] : nov;
   // per-block values carried from the geometry to the loop filter
   int n = 0, n_full = 0, sub_j_next = 0;
   bool ok = false;
@@ -229,9 +266,13 @@ track_fused_kernel(const float2* __restrict__ x,
       const gnss_track::Block g{g_coff_p, g_coff_df, g_carr_p0, g_carr_df,
                                 g_cf, {g_vint[0], g_vint[1], g_vint[2]},
                                 {g_fr[0], g_fr[1], g_fr[2]}};
-      gnss_track::epl_samples<gnss_track::SUB_BPSK>(
-          x + g_ptr, lut, g, L, gnss_track::Coef{},
-          [&](int k) { return (float)chips[k]; }, tid, g_n, blockDim.x, acc);
+      gnss_track::epl_samples<K>(
+          x + g_ptr, lut, g, L, coef,
+          [&](int k) {
+            if constexpr (kSmemCode) return (float)chips[k];
+            else return (float)__ldg(row + k);
+          },
+          tid, g_n, blockDim.x, acc);
     }
 #pragma unroll
     for (int j = 0; j < 6; ++j) acc[j] = gnss_track::warp_sum(acc[j]);
@@ -242,16 +283,28 @@ track_fused_kernel(const float2* __restrict__ x,
     __syncthreads();
 
     if (tid == 0) {
-      float e3[6];
+      // w: the block's correlators (overlay-wiped when coherent); f: what
+      // the loop filters see (the M-period sums when coherent)
+      float w[6], f[6];
 #pragma unroll
       for (int j = 0; j < 6; ++j) {
         double s = 0.0;
-        for (int w = 0; w < kThreads / 32; ++w) s += red[w][j];
-        e3[j] = (float)s;
+        for (int k = 0; k < kThreads / 32; ++k) s += red[k][j];
+        w[j] = (float)s;
       }
-      const float e_re = e3[0], e_im = e3[1];
-      const float p_re = e3[2], p_im = e3[3];
-      const float l_re = e3[4], l_im = e3[5];
+      bool u = true;
+      if (coh) {
+        const float s_ovl = ovl[block % nov_c];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          w[j] = s_ovl * w[j];
+          f[j] = cacc[j] + w[j];
+        }
+        u = ((block + 1) % M) == 0;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) f[j] = w[j];
+      }
       float* rf = rows_f + ((size_t)b * C + c) * 11;
       int* ri = rows_i + ((size_t)b * C + c) * 3;
       if (!ok) {
@@ -269,8 +322,8 @@ track_fused_kernel(const float2* __restrict__ x,
         // carrier loop; prompt1 only refreshed in FLL modes
         int mode = (block >= lp.fll_wide) ? 1 : 0;
         if (block >= lp.fll_wide + lp.fll_narrow) mode = 2;
-        const float e_fll = fll_atan(p_re, p_im, p1re, p1im);
-        const float e_pll = pll_costas(p_re, p_im);
+        const float e_fll = fll_atan(f[2], f[3], p1re, p1im);
+        const float e_pll = pll_costas(f[2], f[3]);
         const float fll_k = (mode == 0) ? lp.fll_wide_k : lp.fll_narrow_k;
         float carr_f_new, ce1_new, p1re_new, p1im_new;
         if (mode == 2) {
@@ -282,18 +335,29 @@ track_fused_kernel(const float2* __restrict__ x,
         } else {
           carr_f_new = __fmaf_rn(fll_k, e_fll, carr_f);
           ce1_new = ce1;
-          p1re_new = p_re;
-          p1im_new = p_im;
+          p1re_new = f[2];
+          p1im_new = f[3];
         }
 
-        // code loop: normalized-envelope EML DLL
-        const float early = sqrtf(e_re * e_re + e_im * e_im);
-        const float prompt = sqrtf(p_re * p_re + p_im * p_im);
-        const float late = sqrtf(l_re * l_re + l_im * l_im);
-        const float denom = late + early;
-        const float e_dll = (denom == 0.0f) ? 0.0f : (late - early) / denom;
-        const float cfo_new = __fmaf_rn(lp.dll_k2, e_dll - de1,
-                                        __fmaf_rn(lp.dll_k1, e_dll, cfo));
+        // code loop: normalized-envelope EML DLL on the filters' sums
+        const float early = sqrtf(w[0] * w[0] + w[1] * w[1]);
+        const float prompt = sqrtf(w[2] * w[2] + w[3] * w[3]);
+        const float late = sqrtf(w[4] * w[4] + w[5] * w[5]);
+        const float f_e = coh ? sqrtf(f[0] * f[0] + f[1] * f[1]) : early;
+        const float f_l = coh ? sqrtf(f[4] * f[4] + f[5] * f[5]) : late;
+        const float denom = f_l + f_e;
+        float e_dll = (denom == 0.0f) ? 0.0f : (f_l - f_e) / denom;
+        float cfo_new = __fmaf_rn(lp.dll_k2, e_dll - de1,
+                                  __fmaf_rn(lp.dll_k1, e_dll, cfo));
+        if (!u) {
+          // coherent: the filters advance only at the M-period boundary
+          carr_f_new = carr_f;
+          ce1_new = ce1;
+          p1re_new = p1re;
+          p1im_new = p1im;
+          cfo_new = cfo;
+          e_dll = de1;
+        }
 
         // code phase advance in two-float
         TF adv = tf_mul_f({cf_hi, cf_lo}, n_f);
@@ -305,11 +369,11 @@ track_fused_kernel(const float2* __restrict__ x,
         const int code_dcyc = (int)(wraps * Lf);
 
         rf[0] = (float)block;
-        rf[1] = p_re;
-        rf[2] = p_im;
+        rf[1] = w[2];
+        rf[2] = w[3];
         rf[3] = carr_f_new;
         rf[4] = cfo_new;
-        rf[5] = kRadToDeg * atan2f(p_im, p_re);
+        rf[5] = kRadToDeg * atan2f(w[3], w[2]);
         rf[6] = early;
         rf[7] = prompt;
         rf[8] = late;
@@ -330,6 +394,10 @@ track_fused_kernel(const float2* __restrict__ x,
         p1im = p1im_new;
         ce1 = ce1_new;
         de1 = e_dll;
+        if (coh) {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) cacc[j] = u ? 0.0f : f[j];
+        }
         block += 1;
         n_full_s = n_full;
         sub_j = sub_j_next;
@@ -359,32 +427,64 @@ track_fused_kernel(const float2* __restrict__ x,
     fo[F_P1IM] = p1im;
     fo[F_CE1] = ce1;
     fo[F_DE1] = de1;
-    for (int j = F_RATIO; j < NF; ++j) fo[j] = sf[j];
+    for (int j = F_RATIO; j < F_CACC; ++j) fo[j] = sf[j];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) fo[F_CACC + j] = cacc[j];
   }
+}
+
+template <int K, bool kSmemCode>
+int launch(const void* x, const void* code, int code_stride,
+           const void* s_i32, const void* s_f32, const void* ovl, int nov,
+           const void* lut, void* rows_f, void* rows_i, void* sti_out,
+           void* stf_out, int C, int B, int coh, const Loop& lp,
+           cudaStream_t st) {
+  track_fused_kernel<K, kSmemCode><<<C, kThreads, 0, st>>>(
+      (const float2*)x, (const int8_t*)code, code_stride, (const int*)s_i32,
+      (const float*)s_f32, (const float*)ovl, nov, (const float2*)lut,
+      (float*)rows_f, (int*)rows_i, (int*)sti_out, (float*)stf_out, C, B,
+      coh, lp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: complex64 [nx]; code: int8 [C, code_stride]; s_i32/s_f32: packed
-// state [C, 8] / [C, 22]; lut: f32 [1024, 2]; outputs rows_f [B, C, 11],
-// rows_i [B, C, 3], sti_out [C, 8], stf_out [C, 22].  Returns the
-// cudaError_t of the launch (0 = launched).
+// x: complex64 [nx]; code: int8 [C, code_stride] (code_stride = L, every
+// channel's code length); s_i32/s_f32: packed state [C, 8] / [C, 28];
+// ovl: float32 [C, nov] overlay chips (read when coh != 0); lut: f32
+// [1024, 2]; kind: K3's subcarrier kind, 0 "none", 1 "subc", 2 "tmboc";
+// outputs rows_f [B, C, 11], rows_i [B, C, 3], sti_out [C, 8], stf_out
+// [C, 28].  Returns the cudaError_t of the launch (0 = launched).
 extern "C" int track_fused(const void* x, int nx, const void* code,
                            int code_stride, const void* s_i32,
-                           const void* s_f32, const void* lut, void* rows_f,
-                           void* rows_i, void* sti_out, void* stf_out, int C,
-                           int B, float fs_inv, int fll_wide, int fll_narrow,
-                           float fll_wide_k, float fll_narrow_k, float pll_k1,
-                           float pll_k2, float dll_k1, float dll_k2,
-                           void* stream) {
-  if (C < 1 || B < 0 || nx < 1 || code_stride > kMaxCode)
+                           const void* s_f32, const void* ovl, int nov,
+                           const void* lut, void* rows_f, void* rows_i,
+                           void* sti_out, void* stf_out, int C, int B,
+                           int kind, int coh, float fs_inv, int fll_wide,
+                           int fll_narrow, float fll_wide_k,
+                           float fll_narrow_k, float pll_k1, float pll_k2,
+                           float dll_k1, float dll_k2, void* stream) {
+  if (C < 1 || B < 0 || nx < 1 || code_stride < 1 || nov < 1 ||
+      nov > kMaxOverlay || kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  Loop lp{fs_inv, fll_wide, fll_narrow, fll_wide_k, fll_narrow_k,
-          pll_k1, pll_k2, dll_k1, dll_k2};
-  track_fused_kernel<<<C, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)x, (const int8_t*)code, code_stride,
-      (const int*)s_i32, (const float*)s_f32, (const float2*)lut,
-      (float*)rows_f, (int*)rows_i, (int*)sti_out, (float*)stf_out, C, B, lp);
-  return (int)cudaGetLastError();
+  const Loop lp{fs_inv, fll_wide, fll_narrow, fll_wide_k, fll_narrow_k,
+                pll_k1, pll_k2, dll_k1, dll_k2};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool smem = code_stride <= kMaxCode;
+#define K2_ARGS x, code, code_stride, s_i32, s_f32, ovl, nov, lut, rows_f, \
+                rows_i, sti_out, stf_out, C, B, coh, lp, st
+  using namespace gnss_track;
+  switch (kind) {
+    case 0:
+      return smem ? launch<SUB_BPSK, true>(K2_ARGS)
+                  : launch<SUB_BPSK, false>(K2_ARGS);
+    case 1:
+      return smem ? launch<SUB_AFFINE, true>(K2_ARGS)
+                  : launch<SUB_AFFINE, false>(K2_ARGS);
+    default:
+      return smem ? launch<SUB_AFFINE_TMBOC, true>(K2_ARGS)
+                  : launch<SUB_AFFINE_TMBOC, false>(K2_ARGS);
+  }
+#undef K2_ARGS
 }

@@ -3,9 +3,11 @@
 The tests use these so that both packages start from identical inputs:
 
   params_from_jax(p)           JAX TrackParams -> port TrackParams, with
-                               the route (fused_scan, pallas_v2)
-  state_from_numpy(d, device)  {field: array} (JAX TrackState leaves) ->
-                               port TrackState; coffset_p uint32 -> int64
+                               the route (fused_scan, pallas_v2) and the
+                               coherent span (coh_blocks)
+  state_from_numpy(d, device)  {field: array} (JAX TrackState leaves,
+                               cacc [C, 6] among them) -> port
+                               TrackState; coffset_p uint32 -> int64
   state_to_numpy(state)        port TrackState -> {field: array};
                                coffset_p int64 -> uint32
   code_ffts_from_split(re, im, plan=None)
@@ -32,16 +34,16 @@ _DTYPES = {"ptr": np.int32, "block": np.int32, "n_full": np.int32,
 
 def params_from_jax(p) -> TrackParams:
     """A JAX TrackParams (any NamedTuple with those fields) -> the port's.
-    The route fields fused_scan (K2) and pallas_v2 (K3, else K4) carry
-    across; the TPU layout fields (use_pallas, pallas_tiles, pallas_w,
-    pallas_stream) are dropped."""
+    The route fields fused_scan (K2) and pallas_v2 (K3, else K4), and
+    coh_blocks and recover_after, carry across; the TPU layout fields
+    (use_pallas, pallas_tiles, pallas_w, pallas_stream) are dropped."""
     src = p._asdict()
     return TrackParams(**{k: src[k] for k in TrackParams._fields})
 
 
 def state_from_numpy(d, device="cpu") -> TrackState:
     """{field: array} -> TrackState.  Accepts a JAX TrackState too
-    (its extra leaves acc_re/acc_im/cacc are ignored)."""
+    (its recovery leaves acc_re/acc_im are ignored)."""
     if hasattr(d, "_asdict"):
         d = d._asdict()
     out = {}

@@ -54,6 +54,12 @@ CBOC_W6 = np.float32(0.301511)
 _TMBOC_SLOTS = (0, 4, 6, 29)     # BOC(6,1) chips of each 33 (l1cp.py:202)
 
 
+def subc_kind(subcarrier: str) -> str:
+    """K3's kind of a subcarrier: "none", "tmboc", or "subc" (every
+    affine family, its coefficients in the sigp lanes)."""
+    return subcarrier if subcarrier in KINDS else "subc"
+
+
 def _square_waves(cp):
     """(bp, boc, boc6) of float32 code phases cp: floor(2 cp) and
     floor(12 cp) decide the square waves (2 vint and 12 vint are even)."""

@@ -12,14 +12,23 @@ synth_at_acq_fs the captures of the wide-window acquisition path (four
 satellites, or Xona X5's one, at 45 dB-Hz and the signal's own internal
 rate and subcarrier).
 
+synth_b1i_track writes the BeiDou B1I capture of coherent tracking (the
+same six satellites at 32 dB-Hz, all from one overlay phase),
+acquire_coherent_b1i runs the acquire CLI's coherent path on it, and
+coherent_track_args hands its results to the track CLI (--coherent 20
+--overlay-phase k).
+
 Run as a program on a CUDA card, this module drives the coherent acquire
 CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
 then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
 (2.2 s at 8.184 MHz, 2150 tracked blocks), then the acquire CLI on the
 wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
---time 80), then the track CLI on the per-step route (K3) on a 2.2 s
-galileo-e1b capture of 8 satellites (tools/track_all.synth_track), each
-once cold and once warm under torch.profiler with CUDA activity.  It prints one JSON object: per stage
+--time 80), then the track CLI on a 2.2 s galileo-e1b capture of 8
+satellites (tools/track_all.synth_track) on K2 and again under
+GNSS_DSP_NO_FUSED on the per-step route (K3), then the coherent track
+CLI (--coherent 20, K2) on synth_b1i_track's 1.2 s capture from its
+coherent acquisition, each once cold and once warm under torch.profiler
+with CUDA activity.  It prints one JSON object: per stage
 the cold and warm host walls, the device busy time (the union of the
 trace's device events: kernels and copies), the idle share
 1 - busy / warm wall, and the costliest device events; then the
@@ -114,6 +123,86 @@ def synth_b1i(path, fs, seconds, cn0=32.0, seed=11):
                 code_length=sig.code_length)
 
 
+B1I_TRACK_ROLL = 7         # the capture starts 7 chips into the NH20 overlay
+B1I_TRACK_SECONDS = 1.2
+
+
+def synth_b1i_track(path, seconds, fs=B1I_FS, cn0=32.0, roll=B1I_TRACK_ROLL,
+                    seed=13, device="cuda"):
+    """The six B1I_PRNS for coherent tracking, synthesised on `device`:
+    every satellite from the same overlay phase (code period p carries
+    NH20 chip (roll + p) mod 20, so one --overlay-phase serves all),
+    dopplers within 4 Hz of the acquisition's 25 Hz grid (as
+    tests/test_coherent.py plants its doppler on its grid: a 20 ms
+    coherent PLL pulls in over less than a quarter cycle a period),
+    random code phases, one noise array at `cn0` dB-Hz per satellite,
+    written to `path` as int8 I/Q.  Returns the truth."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+    from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
+
+    sig = get_signal("beidou-b1i")
+    n = int(fs * seconds)
+    rng = np.random.default_rng(seed)
+    grid = np.round(rng.uniform(-2000.0, 2000.0, len(B1I_PRNS)) / 25.0) * 25.0
+    dops = (grid + rng.uniform(-4.0, 4.0, len(B1I_PRNS))).round(1)
+    phases = rng.uniform(0.0, sig.code_length, len(B1I_PRNS)).round(2)
+    x = torch.zeros(n, dtype=torch.complex64, device=device)
+    for prn, dop, cp in zip(B1I_PRNS, dops, phases):
+        x += synth_iq_t(sig.code_table((prn,))[0], sig.chip_rate, fs, n,
+                        float(dop), float(cp), "none", sig.carrier_ratio,
+                        device=device,
+                        data_bits=np.roll(sig.secondary(prn), -roll))
+    g = torch.Generator(device=device).manual_seed(seed)
+    sigma = float(np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0))))
+    x += sigma * torch.complex(torch.randn(n, generator=g, device=device),
+                               torch.randn(n, generator=g, device=device))
+    scale = 127.0 / (4.0 * float(x.real.std()))
+    with open(path, "wb") as f:
+        f.write(to_int8_iq(x.cpu().numpy(), scale=scale))
+    return dict(prns=B1I_PRNS, dops=dops, phases=phases, fs=fs, cn0=cn0,
+                overlay_phase=(roll + 1) % 20, code_length=sig.code_length)
+
+
+def acquire_coherent_b1i(path, fs, device, prns=None,
+                         doppler_search=(-2500.0, 2500.0, 25.0), ms=40):
+    """The acquire CLI's beidou-b1i --coherent 20 --time 40 path on the
+    capture at `path` (read_samples, prepare_baseband,
+    acquire_signal_coherent; all 63 PRNs unless `prns`), returning the
+    CoherentAcqResults: their track_overlay_phase seeds coherent
+    tracking."""
+    from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
+    from gnss_dsp_tpu_torch.cli.acquire import read_samples
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops.frontend import prepare_baseband
+
+    sig = get_signal("beidou-b1i")
+    x = read_samples(path, int((ms + 5) * fs / 1000), device)
+    xb = prepare_baseband(x, fs, 0.0, sig.acq_fs, sig.acq_lowpass_hz, ms + 2)
+    return acquire_signal_coherent(sig, xb, prns or sig.prns(),
+                                   doppler_search, m_coh=20, ms=ms)
+
+
+def coherent_track_args(hits, prns, path, fs, device):
+    """The track CLI's arguments for the coherent tracking of `prns` from
+    their coherent acquisition `hits` ({prn: CoherentAcqResult}): M = 20,
+    the overlay phase the hits agree on, PLL from the start (as
+    tests/test_coherent.py's handoff)."""
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    L = get_signal("beidou-b1i").code_length
+    phases = {hits[p].track_overlay_phase(L) for p in prns}
+    if len(phases) != 1:
+        raise RuntimeError(f"overlay phases disagree: {phases}")
+    spec = ",".join(f"{p}:{hits[p].doppler}:{hits[p].code_offset}"
+                    for p in prns)
+    return ["--coherent", "20", "--overlay-phase", str(phases.pop()),
+            "--carrier-phase", "0", path, str(fs), "0", spec, "--device",
+            str(device)]
+
+
 def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4):
     """`count` satellites of signal `name` (its default PRN list; all of
     it when shorter) at random dopplers and random code phases, with its
@@ -152,6 +241,21 @@ def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4):
         f.write(to_int8_iq(x, scale=scale))
     return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs,
                 code_length=sig.code_length)
+
+
+@contextlib.contextmanager
+def environ(env):
+    """os.environ updated with `env` inside, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def run_cli(main, *args, stdin_text=None) -> str:
@@ -278,15 +382,32 @@ def main(argv=None) -> int:
         tpath = os.path.join(args.out, "main_path_galileo_e1b.iq")
         tt = synth_track(tpath, "galileo-e1b", seconds, count=8, seed=40)
         try:
-            spec = ",".join(f"{p}:{d}:{c}" for p, d, c in zip(
-                tt["prns"], tt["dops"], tt["phases"]))
-            text, step = _profiled("track_galileo_e1b", trk_cli.main,
-                                   ("galileo-e1b", [tpath, str(tt["fs"]),
-                                                    "0", spec, "--device",
-                                                    "cuda"]), args.out)
+            targs = ("galileo-e1b", [tpath, str(tt["fs"]), "0", ",".join(
+                f"{p}:{d}:{c}" for p, d, c in zip(
+                    tt["prns"], tt["dops"], tt["phases"])),
+                "--device", "cuda"])
+            text, fam = _profiled("track_galileo_e1b", trk_cli.main, targs,
+                                  args.out)
+            fam["rows"] = len(text.splitlines())
+            with environ({"GNSS_DSP_NO_FUSED": "1"}):
+                text, step = _profiled("track_galileo_e1b_no_fused",
+                                       trk_cli.main, targs, args.out)
+            step["rows"] = len(text.splitlines())
         finally:
             os.remove(tpath)
-        step["rows"] = len(text.splitlines())
+        cpath = os.path.join(args.out, "main_path_b1i_track.iq")
+        ct = synth_b1i_track(cpath, B1I_TRACK_SECONDS)
+        try:
+            hits = {r.prn: r for r in acquire_coherent_b1i(cpath, B1I_FS,
+                                                           "cuda")}
+            text, coh_trk = _profiled(
+                "track_coherent_b1i", trk_cli.main,
+                ("beidou-b1i", coherent_track_args(hits, ct["prns"], cpath,
+                                                   B1I_FS, "cuda")),
+                args.out)
+        finally:
+            os.remove(cpath)
+        coh_trk["rows"] = len(text.splitlines())
     finally:
         os.remove(path)
         os.remove(b1i)
@@ -295,8 +416,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps(dict(acquire=acq, track=trk, acquire_coherent=coh,
-                          acquire_wide=wide, track_step_galileo_e1b=step,
-                          seconds=seconds,
+                          acquire_wide=wide, track_galileo_e1b=fam,
+                          track_step_galileo_e1b=step,
+                          track_coherent_b1i=coh_trk, seconds=seconds,
                           blocks=blocks, channels=len(truth["prns"]),
                           card=card), indent=1))
     return 0

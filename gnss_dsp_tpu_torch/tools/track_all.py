@@ -13,7 +13,9 @@ rows) and exits non-zero if any signal fails.  beidou-b2bi and
 beidou-b2bq (unknown-code recovery) and gps-p (no code table, as in the
 reference) must raise NotImplementedError.
 
-synth_track and run_signal are also chip_smoke.py's e2e_track phase.
+synth_track and run_signal are also chip_smoke.py's e2e_track phase;
+scan_inputs gives track_scan's arguments for a family, synthesised on the
+card, to K2's card tests and chip_smoke.py's k2 phase.
 """
 
 from __future__ import annotations
@@ -53,10 +55,13 @@ def _subcarrier_t(sub, cp):
 
 
 def synth_iq_t(code, chip_rate, fs, n, doppler_hz, code_phase, subcarrier,
-               carrier_ratio, code_doppler_hz=None, device="cpu"):
+               carrier_ratio, code_doppler_hz=None, device="cpu",
+               data_bits=None):
     """utils.synth.synth_iq (noiseless) in torch on `device`: complex64
     [n].  Phases are float64 in the absolute sample index; the carrier
-    phase wraps to [0, 1) before it drops to float32."""
+    phase wraps to [0, 1) before it drops to float32.  data_bits: one +-1
+    per code period, period floor(code phase / L) taking
+    data_bits[that mod len]."""
     import torch
 
     t = torch.arange(n, dtype=torch.float64, device=device)
@@ -66,9 +71,88 @@ def synth_iq_t(code, chip_rate, fs, n, doppler_hz, code_phase, subcarrier,
     chips = tab[torch.remainder(torch.floor(cp).to(torch.int64), len(code))]
     if subcarrier != "none":
         chips = chips * _subcarrier_t(subcarrier, cp).to(torch.float32)
+    if data_bits is not None:
+        bits = torch.as_tensor(np.asarray(data_bits, np.float32),
+                               device=device)
+        chips = chips * bits[torch.remainder(
+            torch.floor(cp / len(code)).to(torch.int64), len(bits))]
     phi = torch.remainder(doppler_hz / fs * t, 1.0).to(torch.float32) \
         * np.float32(2 * np.pi)
     return torch.complex(chips * torch.cos(phi), chips * torch.sin(phi))
+
+
+def scan_inputs(name, C, fs, seconds, seed, device, coherent_blocks=1,
+                dwells=(8, 8), cn0=CN0_DBHZ):
+    """Everything track/engine.track_scan takes for C channels of `name`
+    on a `seconds` capture at fs, synthesised on `device`: satellites at
+    `cn0` dB-Hz, each code 2-40 ms before its end at sample 0.  The
+    channels start at sample 0, so that the code's end (for L2CL and
+    GLONASS P its wrap) falls inside the first code period; with
+    coherent_blocks > 1 the satellites carry their overlay (from a random
+    phase) and the channels start at their first code boundary, as
+    track_file aligns them, so that block b carries overlay[c, b].
+    Returns dict(params, x (tail-padded), n, tab, st, ratios, cdf, sigp,
+    overlay, truth)."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import nco
+    from gnss_dsp_tpu_torch.track import engine
+    from gnss_dsp_tpu_torch.track.driver import (
+        TrackChannel, make_params, overlay_table)
+
+    sig = get_signal(name)
+    rng = np.random.default_rng(seed)
+    cands = [p for p in sig.prns() if abs(sig.fdma_hz * p) < 0.45 * fs]
+    prns = [int(cands[k % len(cands)]) for k in range(C)]
+    dops = rng.uniform(-4000, 4000, C).round(1)
+    L = sig.code_length
+    phases = np.mod(L - rng.uniform(0.002, 0.040, C) * sig.chip_rate,
+                    L).round(2)
+    rolls = rng.integers(0, 100, C)
+    M, overlay, periods = overlay_table(
+        sig, [TrackChannel(p, 0.0, 0.0, overlay_phase=int(r))
+              for p, r in zip(prns, rolls)], coherent_blocks)
+    params = make_params(sig, fs, 0.0, loop_dwells=dwells, coherent_blocks=M)
+    n = int(fs * seconds)
+    x = torch.zeros(n, dtype=torch.complex64, device=device)
+    for p, d, cp, r in zip(prns, dops, phases, rolls):
+        # the first code boundary starts period 1, tracked block 0: block b
+        # carries overlay chip (roll + b), as overlay_table rolls the row
+        bits = (np.roll(sig.secondary(p), 1 - int(r))
+                if overlay is not None else None)
+        x += synth_iq_t(sig.code_table((p,))[0], sig.chip_rate, fs, n,
+                        float(d) + sig.fdma_hz * p, float(cp), sig.subcarrier,
+                        sig.track_carrier_ratio(p),
+                        code_doppler_hz=float(d), device=device,
+                        data_bits=bits)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sigma = float(np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0))))
+    x += sigma * torch.complex(torch.randn(n, generator=g, device=device),
+                               torch.randn(n, generator=g, device=device))
+    x = torch.cat([x, torch.zeros(params.nmax + 1024, dtype=x.dtype,
+                                  device=device)])
+    sigp = engine.sigp_from_params(params, C, device)
+    code_p, ptr = phases, np.zeros(C, np.int32)
+    if overlay is not None:
+        sigp[:, engine.SIGP_NOV] = torch.tensor(periods, dtype=torch.float32,
+                                                device=device)
+        overlay = torch.from_numpy(overlay).to(device)
+        ptr = np.array([int(fs * 0.001 * sig.code_period_ms * (L - cp) / L)
+                        for cp in phases], np.int32)
+        code_p = phases + ptr * (sig.chip_rate / fs)
+    return dict(
+        params=params, x=x, n=n,
+        tab=torch.from_numpy(sig.code_table(tuple(prns)).astype(np.int8)
+                             ).to(device),
+        st=engine.init_state(code_p, np.zeros(C), np.zeros(C), dops,
+                             ptr=ptr, device=device),
+        ratios=torch.tensor([sig.track_carrier_ratio(p) for p in prns],
+                            dtype=torch.float32, device=device),
+        cdf=torch.tensor([nco.freq_to_fixed(-sig.fdma_hz * p / fs)
+                          for p in prns], dtype=torch.int32, device=device),
+        sigp=sigp, overlay=overlay,
+        truth=dict(prns=prns, dops=dops, phases=phases))
 
 
 def synth_track(path, name, seconds, count=4, cn0=CN0_DBHZ, seed=5,

@@ -8,17 +8,23 @@ chunk loop with refill and pointer rebase :580-701, `format_row_14`
 pointer; the unbounded counters (samp, code_cyc, carrier_cyc) accumulate
 on the host in python ints from per-block deltas.
 
-make_params records the route on the card as the reference's switches
-choose it: the whole-loop kernel K2 (fused_scan) where it covers the
-signal and GNSS_DSP_NO_FUSED is unset, else the per-step route on K3, or
-on K4 when GNSS_DSP_PALLAS_V1 is set (pallas_v2).  The reference runs its
-K2 on every family; the port's K2 covers BPSK with one sub-block per code
-period, so the subcarrier, sub-block and long-code signals take K3.
+make_params records the route on the card as the reference's router
+chooses it (:178-183): the whole-loop kernel K2 (fused_scan) for every
+signal with a code table, every subcarrier family, sub-block and long
+code, coherent or not, unless GNSS_DSP_NO_FUSED is set or recovery is on;
+else the per-step route on K3, or on K4 when GNSS_DSP_PALLAS_V1 is set
+(pallas_v2).
+
+Extended-coherent tracking (coherent_blocks = M, -1 for the signal's own
+overlay length) builds the reference's overlay table (:393-413): each
+channel's secondary code rolled by its TrackChannel.overlay_phase, the
+overlay period in the sigp NOV lane, M in the COH lane.  Only
+whole-period signals qualify (:299-306).
 
 Not ported here: mesh sharding, checkpoint/resume, mixed-signal (`multi`)
 and preloaded chunks, the int4 front end (track_file refuses
-GNSS_DSP_UPLOAD_INT4, and the route switch GNSS_DSP_NO_PALLAS), unknown-code
-recovery and extended-coherent tracking.  The kernels read the plain [C, L] int8 code
+GNSS_DSP_UPLOAD_INT4, and the route switch GNSS_DSP_NO_PALLAS) and
+unknown-code recovery.  The kernels read the plain [C, L] int8 code
 table (long codes too: L2CL's 767,250 and GLONASS P's 5,110,000 chips
 stay in device memory), so the JAX package's extended code rows have no
 counterpart.
@@ -35,9 +41,9 @@ import numpy as np
 import torch
 
 from gnss_dsp_tpu_torch.device import refuse_switches, resolve_device
-from gnss_dsp_tpu_torch.ops import cplx, nco, track_fused
+from gnss_dsp_tpu_torch.ops import cplx, nco
 from gnss_dsp_tpu_torch.track.engine import (
-    TrackParams, init_state, sigp_from_params, track_scan,
+    SIGP_NOV, TrackParams, init_state, sigp_from_params, track_scan,
 )
 from gnss_dsp_tpu_torch.utils.twofloat import tf_from_f64
 
@@ -100,6 +106,9 @@ class TrackChannel:
     code_offset: float
     carrier_phase: float = 0.0
     pll_from_start: bool = False   # --carrier-phase given
+    overlay_phase: int = 0         # overlay chip of the first tracked code
+                                   # period (coherent tracking; from
+                                   # coherent acquisition)
     # host-side accumulators
     samp: int = 0
     code_cyc: int = 0
@@ -108,7 +117,8 @@ class TrackChannel:
 
 
 def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
-                pll_from_start: bool = False) -> TrackParams:
+                pll_from_start: bool = False, recover_after: int = -1,
+                coherent_blocks: int = 1) -> TrackParams:
     period_ms = sig.code_period_ms
     sub = sig.sub_blocks
     nmax = int(fs * 0.001 * period_ms / sub * 1.5) + 4
@@ -133,18 +143,45 @@ def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
         code_period_ms=float(period_ms),
         sub=int(sub),
         subcarrier=str(sig.subcarrier),
+        recover_after=int(recover_after),
+        coh_blocks=int(coherent_blocks),
         pallas_v2=not os.environ.get("GNSS_DSP_PALLAS_V1"),
-        fused_scan=track_fused.covers(str(sig.subcarrier), int(sub),
-                                      int(sig.code_length))
+        fused_scan=recover_after < 0
         and not os.environ.get("GNSS_DSP_NO_FUSED"),
     )
 
 
+def overlay_table(sig, channels, coherent_blocks: int):
+    """(M, overlay f32 [C, nov] or None, each row's period): the coherent
+    span and each channel's secondary code rolled so that block b reads
+    chip (overlay_phase + b) mod its period, rows zero-padded to the
+    longest.  M = -1 is the signal's own overlay length; M = 1 (or an
+    overlay-free signal at -1) is non-coherent."""
+    nov = len(sig.secondary(1)) if sig.secondary is not None else 1
+    M = max(nov, 1) if coherent_blocks == -1 else int(coherent_blocks)
+    if M <= 1:
+        return 1, None, None
+    if sig.sub_blocks != 1:
+        raise ValueError(f"coherent tracking needs a whole-period signal; "
+                         f"{sig.name} tracks in {sig.sub_blocks} sub-blocks")
+    rows = [np.roll(np.asarray(sig.secondary(ch.prn) if sig.secondary
+                               is not None else np.ones(1), np.float32),
+                    -int(ch.overlay_phase)) for ch in channels]
+    periods = [len(r) for r in rows]
+    table = np.zeros((len(rows), max(periods)), np.float32)
+    for k, r in enumerate(rows):
+        table[k, :len(r)] = r
+    return M, table, periods
+
+
 def track_file(sig, fp, fs: float, coffset: float, channels,
                loop_dwells=(500, 500), chunk_ms: float = 2000.0,
-               max_blocks: int | None = None, emit=None, device="cuda"):
+               max_blocks: int | None = None, emit=None, device="cuda",
+               coherent_blocks: int = 1):
     """Track `channels` (list[TrackChannel]) through the int8 I/Q stream
     `fp` on `device` (the card unless the caller asks for the CPU).
+    coherent_blocks: the extended-coherent span M (1 = off, -1 = the
+    signal's overlay length; see overlay_table).
 
     emit(channel_index, row_dict) is called once per completed block, in
     block order per chunk.  Returns the channels (rows accumulated when
@@ -160,12 +197,19 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         raise NotImplementedError(
             f"{sig.name}: unknown-code recovery is not ported")
     dev = resolve_device(device)
+    M, overlay, periods = overlay_table(sig, channels, coherent_blocks)
     params = make_params(sig, fs, coffset, loop_dwells,
                          pll_from_start=all(c.pll_from_start
-                                            for c in channels))
+                                            for c in channels),
+                         coherent_blocks=M)
     C = len(channels)
-    # the signal's constants and subcarrier lanes, one row per channel
+    # the signal's constants, subcarrier and coherent lanes, one row per
+    # channel; each channel's overlay period in the NOV lane
     sigp = sigp_from_params(params, C, dev)
+    if overlay is not None:
+        sigp[:, SIGP_NOV] = torch.tensor(periods, dtype=torch.float32,
+                                         device=dev)
+        overlay = torch.from_numpy(overlay).to(dev)
 
     # alignment to the first code boundary (:141-143), per channel: the
     # reference discards n0 samples; with a shared stream each channel's
@@ -254,7 +298,7 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         state = state._replace(stalled=torch.zeros_like(state.stalled))
         state, rows_f, rows_i = track_scan(
             x_dev, nbuf, code_tab, state, params, nb, ratios=ratios,
-            coffset_df=coffset_df, sigp=sigp)
+            coffset_df=coffset_df, sigp=sigp, overlay=overlay)
         emitted_any = emit_rows(rows_f, rows_i, nb)
         total_blocks += nb
         if max_blocks is not None and total_blocks >= max_blocks:

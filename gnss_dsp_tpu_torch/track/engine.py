@@ -8,20 +8,25 @@ block a carrier wipeoff with the running LUT-NCO phase, the doppler-aided
 code rate, early/prompt/late correlations with the signal's subcarrier,
 an FLL_WIDE -> FLL_NARROW -> PLL schedule, a normalized-envelope EML DLL,
 and phase/cycle bookkeeping; long code periods run in `sub` sub-blocks.
+Extended-coherent tracking (coh_blocks = M > 1): each block's E/P/L are
+wiped by the channel's secondary-overlay chip and summed into
+TrackState.cacc, the loop filters see the M-period sums and update only
+at each M-period boundary (`_post_block`).
 
 Every block is _geometry (block length, lag chip phases, DDS phases, in
 the JAX kernels' si/sf lane layout), one E/P/L correlation, then
 _post_block (loop filters and bookkeeping).  track_scan routes a chunk by
 its device and the route recorded in TrackParams, as the reference does:
 
-  * CUDA, fused_scan: kernel K2 (ops/track_fused) runs the whole loop;
+  * CUDA, fused_scan: kernel K2 (ops/track_fused) runs the whole loop,
+    every subcarrier family, sub-block and code length, coherent or not;
   * CUDA otherwise: the per-step loop (_scan), one launch of K3
     (pallas_v2) or K4 (ops/track_step) per block;
   * CPU: the same loop on the correlators' plain version
     (track_scan_plain), which is K2's plain version too.
 
-Scope: no extended-coherent integration (coh_blocks == 1), no unknown-code
-recovery; those raise NotImplementedError.
+Scope: no unknown-code recovery (recover_after >= 0 raises
+NotImplementedError).
 
 Arithmetic follows the JAX engine op for op in float32, and where the
 rounding of one operation decides a later integer (a chip index, a DDS
@@ -87,14 +92,15 @@ class TrackParams(NamedTuple):
     sub: int = 1               # sub-blocks per code period
     subcarrier: str = "none"   # none|boc11|cboc|tmboc|rz_even|rz_odd
     recover_after: int = -1    # unknown-code recovery (not ported)
-    coh_blocks: int = 1        # extended-coherent periods (not ported)
+    coh_blocks: int = 1        # extended-coherent periods M (1 = off)
     pallas_v2: bool = False    # per-step route: K3 (True) or K4 (False)
-    fused_scan: bool = False   # whole-loop kernel K2 (BPSK, sub == 1)
+    fused_scan: bool = False   # whole-loop kernel K2
 
 
 # Per-channel runtime signal constants ("sigp" lanes, f32 [C, 12]), the
-# JAX engine's layout.  The coherent lanes (COH, NOV) carry the
-# non-coherent values: the port tracks nothing else yet.
+# JAX engine's layout.  COH is the channel's coherent span M (1 =
+# non-coherent), NOV its overlay period in the overlay table (0 = the
+# table's width).
 SIGP_CF_HI, SIGP_CF_LO, SIGP_EL, SIGP_L, SIGP_SPP, SIGP_SUB, \
     SIGP_A0, SIGP_A1, SIGP_A6, SIGP_COH, SIGP_NOV, SIGP_TM = range(12)
 SIGP_LANES = 12
@@ -109,17 +115,10 @@ SUBC_COEF = {
 }
 
 
-def subc_kind(subcarrier: str) -> str:
-    """K3's kind of a subcarrier: "none", "tmboc", or "subc" (every
-    affine family, its coefficients in the sigp lanes)."""
-    return subcarrier if subcarrier in ("none", "tmboc", "subc") \
-        else "subc"
-
-
-def sigp_row(cf_hi, cf_lo, el, L, spp, sub, subcarrier: str = "none"
-             ) -> np.ndarray:
+def sigp_row(cf_hi, cf_lo, el, L, spp, sub, subcarrier: str = "none",
+             coh: int = 1, nov: int = 0) -> np.ndarray:
     """"none" carries the identity coefficients (1, 0, 0), TMBOC zero
-    coefficients and the gate tm = 1."""
+    coefficients and the gate tm = 1; coh and nov the coherent lanes."""
     if subcarrier == "none":
         a0, a1, a6 = 1.0, 0.0, 0.0
     elif subcarrier == "tmboc":
@@ -131,12 +130,13 @@ def sigp_row(cf_hi, cf_lo, el, L, spp, sub, subcarrier: str = "none"
                          f"{subcarrier!r}: pass explicit sigp rows")
     tm = 1.0 if subcarrier == "tmboc" else 0.0
     return np.array([cf_hi, cf_lo, el, L, spp, sub, a0, a1, a6,
-                     1.0, 0.0, tm], np.float32)
+                     coh, nov, tm], np.float32)
 
 
 def sigp_from_params(p: TrackParams, C: int, device="cpu") -> torch.Tensor:
     row = sigp_row(p.cf_hi, p.cf_lo, p.el_spacing, p.code_length,
-                   p.fs * 0.001 * p.code_period_ms, p.sub, p.subcarrier)
+                   p.fs * 0.001 * p.code_period_ms, p.sub, p.subcarrier,
+                   coh=p.coh_blocks)
     return torch.from_numpy(np.tile(row, (C, 1))).to(device)
 
 
@@ -157,6 +157,8 @@ class TrackState(NamedTuple):
     stalled: torch.Tensor      # bool: ran out of chunk samples
     n_full: torch.Tensor       # int32 samples in the current code period
     sub_j: torch.Tensor        # int32 sub-block index within the period
+    cacc: torch.Tensor         # f32 [C, 6] coherent E/P/L sums (re, im of
+                               # E, P, L; zeros when coh_blocks == 1)
 
 
 def init_state(code_p, code_f_off, carrier_p, carrier_f, ptr=0,
@@ -189,6 +191,7 @@ def init_state(code_p, code_f_off, carrier_p, carrier_f, ptr=0,
         stalled=as1(zeros, bool),
         n_full=as1(zeros, np.int32),
         sub_j=as1(zeros, np.int32),
+        cacc=torch.zeros((c, 6), dtype=torch.float32, device=device),
     )
 
 
@@ -275,11 +278,34 @@ def _geometry(x_len: int, chunk_len, ratio, st: TrackState, p: TrackParams,
 
 
 def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
-                cf_dyn, st: TrackState, p: TrackParams, coffset_df, sp):
+                cf_dyn, st: TrackState, p: TrackParams, coffset_df, sp,
+                s_ovl=None):
     """Loop-filter updates and bookkeeping after the three correlations
     (track-gps-l1.py:50-92), for all channels.  Returns (state, row_f
-    [C, 11], row_i [C, 3])."""
+    [C, 11], row_i [C, 3]).
+
+    With p.coh_blocks > 1, s_ovl [C] is this block's overlay chip (+-1):
+    it wipes the block's E/P/L, which add into st.cacc; the loop filters
+    see the sums and advance only at the channel's M-period boundary u
+    (M the sigp COH lane), where cacc resets.  The row carries the
+    block's wiped correlators."""
     L = sp[:, SIGP_L]
+
+    coh = p.coh_blocks > 1
+    if coh:
+        p_early, p_prompt, p_late = ((s_ovl * c[0], s_ovl * c[1])
+                                     for c in (p_early, p_prompt, p_late))
+        acc = st.cacc + torch.stack([p_early[0], p_early[1], p_prompt[0],
+                                     p_prompt[1], p_late[0], p_late[1]],
+                                    dim=1)
+        M = torch.clamp(sp[:, SIGP_COH].to(torch.int32), min=1)
+        u = torch.remainder(st.block + 1, M) == 0
+        cacc_new = torch.where(u[:, None], 0.0, acc)
+        f_early, f_prompt, f_late = ((acc[:, k], acc[:, k + 1])
+                                     for k in (0, 2, 4))
+    else:
+        cacc_new = st.cacc
+        f_early, f_prompt, f_late = p_early, p_prompt, p_late
 
     # carrier phase bookkeeping (:38-42); dcyc counts whole cycles
     n_f = n.to(torch.float32)
@@ -292,8 +318,8 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
 
     # carrier loop (:50-70); prompt1 only refreshed in FLL modes
     mode = _mode_of(st.block, p)
-    e_fll = disc.fll_atan(p_prompt, (st.prompt1_re, st.prompt1_im))
-    e_pll = disc.pll_costas(p_prompt)
+    e_fll = disc.fll_atan(f_prompt, (st.prompt1_re, st.prompt1_im))
+    e_pll = disc.pll_costas(f_prompt)
     fll_k = torch.where(mode == 0, p.fll_wide_k, p.fll_narrow_k
                         ).to(torch.float32)
     pll = mode == 2
@@ -304,20 +330,30 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
         fma(fll_k, e_fll, st.carrier_f),
     )
     carrier_e1_new = torch.where(pll, e_pll, st.carrier_e1)
-    prompt1_re_new = torch.where(pll, st.prompt1_re, p_prompt[0])
-    prompt1_im_new = torch.where(pll, st.prompt1_im, p_prompt[1])
+    prompt1_re_new = torch.where(pll, st.prompt1_re, f_prompt[0])
+    prompt1_im_new = torch.where(pll, st.prompt1_im, f_prompt[1])
 
-    # code loop: normalized-envelope EML DLL (:74-86)
+    # code loop: normalized-envelope EML DLL (:74-86), on the sums
     def env(c):
         return torch.sqrt(c[0] * c[0] + c[1] * c[1])
 
     early, prompt, late = env(p_early), env(p_prompt), env(p_late)
-    denom = late + early
+    f_e, f_l = (env(f_early), env(f_late)) if coh else (early, late)
+    denom = f_l + f_e
     zero = denom == 0
     e_dll = torch.where(zero, 0.0,
-                        (late - early) / torch.where(zero, 1.0, denom))
+                        (f_l - f_e) / torch.where(zero, 1.0, denom))
     code_f_off_new = fma(p.dll_k2, e_dll - st.code_e1,
                          fma(p.dll_k1, e_dll, st.code_f_off))
+
+    if coh:
+        # the loop filters advance only at the M-period boundary
+        carrier_f_new = torch.where(u, carrier_f_new, st.carrier_f)
+        carrier_e1_new = torch.where(u, carrier_e1_new, st.carrier_e1)
+        prompt1_re_new = torch.where(u, prompt1_re_new, st.prompt1_re)
+        prompt1_im_new = torch.where(u, prompt1_im_new, st.prompt1_im)
+        code_f_off_new = torch.where(u, code_f_off_new, st.code_f_off)
+        e_dll = torch.where(u, e_dll, st.code_e1)
 
     # code phase advance (:88-92) in two-float
     cfh = sp[:, SIGP_CF_HI], sp[:, SIGP_CF_LO]
@@ -344,9 +380,11 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
         stalled=st.stalled,
         n_full=n_full_new,
         sub_j=sub_j_next,
+        cacc=cacc_new,
     )
     # freeze the channel if the chunk ran dry (host refills and resumes)
-    new = TrackState(*[torch.where(ok, a, b).to(b.dtype)
+    new = TrackState(*[torch.where(ok.view(-1, *[1] * (b.dim() - 1)), a,
+                                   b).to(b.dtype)
                        for a, b in zip(new, st)])
     new = new._replace(stalled=torch.logical_not(ok))
 
@@ -364,23 +402,14 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
 
 
 def check_supported(p: TrackParams):
-    if p.coh_blocks > 1:
-        raise NotImplementedError("extended-coherent tracking is not ported")
     if p.recover_after >= 0:
         raise NotImplementedError("unknown-code recovery is not ported")
-    if p.fused_scan and not track_fused.covers(p.subcarrier, p.sub,
-                                               p.code_length):
-        raise NotImplementedError(
-            f"kernel K2 covers BPSK with one sub-block per code period and "
-            f"codes of <= {track_fused.MAX_CODE} chips; got "
-            f"subcarrier={p.subcarrier!r} sub={p.sub} L={p.code_length} "
-            f"with fused_scan")
 
 
 def plain_correlate(p: TrackParams):
     """The correlators' plain version for p's subcarrier (K3's form; K4's
     static families give the same values)."""
-    kind = subc_kind(p.subcarrier)
+    kind = track_step.subc_kind(p.subcarrier)
     return lambda si, sf, x, code: track_step.epl_correlate_plain(
         si, sf, x, code, p.nmax, kind)
 
@@ -389,7 +418,7 @@ def kernel_correlate(p: TrackParams):
     """K3 (p.pallas_v2) or K4 on p's subcarrier; called through the
     module, one launch a block."""
     if p.pallas_v2:
-        kind = subc_kind(p.subcarrier)
+        kind = track_step.subc_kind(p.subcarrier)
         return lambda si, sf, x, code: track_step.epl_correlate2(
             si, sf, x, code, p.nmax, kind)
     if p.subcarrier not in track_step.FAMILIES:
@@ -399,12 +428,25 @@ def kernel_correlate(p: TrackParams):
         si, sf[:, :4], x, code, p.nmax, p.subcarrier)
 
 
+def overlay_chip(overlay, block, sigp):
+    """Each channel's overlay chip for `block`: overlay[c, block % nov_c],
+    nov_c the sigp NOV lane, or the table's width where that is 0."""
+    nov = sigp[:, SIGP_NOV].to(torch.int64)
+    nov = torch.where(nov > 0, nov, overlay.shape[1])
+    idx = torch.remainder(block.to(torch.int64), nov)
+    return torch.gather(overlay, 1, idx[:, None])[:, 0]
+
+
 def _scan(x, chunk_len, code_tab, state, params, n_blocks: int, ratios,
-          coffset_df, sigp, correlate):
+          coffset_df, sigp, correlate, overlay=None):
     """n_blocks steps of _geometry -> correlate -> _post_block, all
     channels at once.  Once every channel has stalled the rest of the
     rows are NaN/0 and the state stays as it is, as further steps would
-    leave them; the loop looks for that every 32 steps."""
+    leave them; the loop looks for that every 32 steps.  overlay f32
+    [C, nov]: the coherent mode's overlay table (None: all ones)."""
+    coh = params.coh_blocks > 1
+    if coh and overlay is None:
+        overlay = torch.ones((state.ptr.shape[0], 1), device=x.device)
     rows_f, rows_i = [], []
     st = state
     for b in range(n_blocks):
@@ -414,8 +456,9 @@ def _scan(x, chunk_len, code_tab, state, params, n_blocks: int, ratios,
             x.shape[0], chunk_len, ratios, st, params, coffset_df, sigp)
         sums = correlate(si, sf, x, code_tab)
         pe, pp, pl = ((sums[:, k], sums[:, k + 1]) for k in (0, 2, 4))
+        s_ovl = overlay_chip(overlay, st.block, sigp) if coh else None
         st, rf, ri = _post_block(pe, pp, pl, n, sj, nfull, ok, cf_dyn, st,
-                                 params, coffset_df, sigp)
+                                 params, coffset_df, sigp, s_ovl)
         rows_f.append(rf)
         rows_i.append(ri)
     C, dev = st.ptr.shape[0], x.device
@@ -429,24 +472,26 @@ def _scan(x, chunk_len, code_tab, state, params, n_blocks: int, ratios,
 
 
 def track_scan_plain(x, chunk_len, code_tab, state, params,
-                     n_blocks: int, ratios, coffset_df, sigp):
+                     n_blocks: int, ratios, coffset_df, sigp, overlay=None):
     """The plain version of K2 and of the per-step route: n_blocks steps
     of the correlators' plain version, all channels at once, on any
-    device.  Arguments as track_scan's, every one given."""
+    device.  Arguments as track_scan's, every one but overlay given."""
     return _scan(x, chunk_len, code_tab, state, params, n_blocks, ratios,
-                 coffset_df, sigp, plain_correlate(params))
+                 coffset_df, sigp, plain_correlate(params), overlay)
 
 
 def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
                state: TrackState, params: TrackParams, n_blocks: int,
-               ratios=None, coffset_df=None, sigp=None):
+               ratios=None, coffset_df=None, sigp=None, overlay=None):
     """Run up to n_blocks blocks for C channels over one chunk.
 
     x_chunk: complex64 [N] whose last >= params.nmax samples are the
     tail pad (beyond every chunk_len); code_tab: int8 [C, L], L the code
-    length of every channel; state leaves [C]; ratios f32 [C]
-    carrier-aiding divisors; coffset_df [C] int32 DDS increments; sigp f32
-    [C, 12].  chunk_len: int or [C].
+    length of every channel; state leaves [C] (cacc [C, 6]); ratios f32
+    [C] carrier-aiding divisors; coffset_df [C] int32 DDS increments; sigp
+    f32 [C, 12]; overlay f32 [C, nov], with params.coh_blocks > 1 the
+    secondary-overlay chips, block b of channel c taking
+    overlay[c, b % nov_c] (None: all ones).  chunk_len: int or [C].
 
     Returns (state, rows_f [n_blocks, C, 11], rows_i [n_blocks, C, 3]);
     rows are NaN/0 once a channel exhausts the chunk.  On a CUDA chunk
@@ -471,11 +516,16 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     if (sigp[:, SIGP_L] != code_tab.shape[1]).any():
         raise ValueError("code_tab must be [C, L], L every channel's code "
                          "length")
+    if params.coh_blocks > 1 and overlay is not None:
+        overlay = overlay.to(dev, torch.float32)
+        if (sigp[:, SIGP_NOV] > overlay.shape[1]).any():
+            raise ValueError("a channel's overlay period (sigp NOV lane) "
+                             "exceeds the overlay table's width")
     args = (x_chunk, chunk_len, code_tab, state, params, int(n_blocks),
             ratios.to(dev, torch.float32), coffset_df.to(dev, torch.int32),
             sigp.to(dev, torch.float32))
     if dev.type == "cpu":
-        return track_scan_plain(*args)
+        return track_scan_plain(*args, overlay)
     if params.fused_scan:
-        return track_fused.track_scan_fused(*args)
-    return _scan(*args, kernel_correlate(params))
+        return track_fused.track_scan_fused(*args, overlay)
+    return _scan(*args, kernel_correlate(params), overlay)

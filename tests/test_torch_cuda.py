@@ -8,8 +8,10 @@ Tolerances: K1 argmax exact on planted cells, peak/sum rtol 1e-4 (float32
 FFTs in another order, and at a W that is not a power of two one division
 by W of the block sum against a 1/W scale per transform), two launches
 bit-equal, and an exact tie across cluster ranks to the lowest lag; K7 planted lags
-exact, the surface to rtol 1e-4 plus 2e-5 of its maximum; K2 bit-exact (the kernel and the plain version
-pin the same roundings, and sum the correlators in float64); K5 and K6
+exact, the surface to rtol 1e-4 plus 2e-5 of its maximum; K2 bit-exact at
+every subcarrier kind, sub-block count, long code and coherent (the kernel
+and the plain version pin the same roundings, and sum the correlators in
+float64); K5 and K6
 idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
 sums each group's blocks before the IDFT, its plain version after); K3
 and K4 equal to their plain version to one float32 ulp of the channel's
@@ -395,6 +397,58 @@ def test_k2_matches_plain_bit_for_bit(dev):
     assert bool(st.stalled.all())
     st = both(st._replace(stalled=torch.zeros_like(st.stalled)), n, 30)
     assert not bool(st.stalled.any())
+
+
+# K2 at each subcarrier kind and sub-block count, across the long codes'
+# wrap (L2CL, GLONASS P with two FDMA channels), and coherent (B1I, M = 20)
+# over a chunk boundary mid-period: (signal, channels, fs, M)
+_K2_CASES = [("galileo-e1b", 3, 4.096e6, 1), ("gps-l1cp", 2, 4.096e6, 1),
+             ("gps-l2cm", 2, 4.096e6, 1), ("gps-l2cl", 2, 2.048e6, 1),
+             ("glonass-l1-p", 2, 4.096e6, 1), ("beidou-b1i", 3, 4.096e6, 20)]
+
+
+@pytest.mark.parametrize("name,C,fs,coh", _K2_CASES)
+def test_k2_families_match_plain_bit_for_bit(dev, name, C, fs, coh):
+    """As test_k2_matches_plain_bit_for_bit, on scan_inputs' capture (45
+    dB-Hz, each code 2-40 ms before its end): a first launch whose chunk
+    ends at 45 ms (coherent: 24.5 periods after each channel's start, 4
+    blocks into a period), so that every channel stalls, then the
+    refill."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.track_all import scan_inputs
+    from gnss_dsp_tpu_torch.track.engine import track_scan, track_scan_plain
+
+    d = scan_inputs(name, C, fs, 0.08, 5, dev, coherent_blocks=coh)
+    p = d["params"]
+    assert p.fused_scan and p.coh_blocks == coh
+    extra = (d["ratios"], d["cdf"], d["sigp"], d["overlay"])
+    st, rows = d["st"], []
+    full = torch.full((C,), d["n"], dtype=torch.int32, device=dev)
+    first = (d["st"].ptr + int(24.5 * fs * 1e-3) if coh > 1
+             else torch.full_like(full, int(fs * 0.045)))
+    for cl, nb in ((first, 60), (full, 60)):
+        n0 = track_fused.LAUNCHES
+        k = track_scan(d["x"], cl, d["tab"], st, p, nb, *extra)
+        assert track_fused.LAUNCHES == n0 + 1
+        pl = track_scan_plain(d["x"], cl, d["tab"], st, p, nb, *extra)
+        torch.testing.assert_close(k[2], pl[2], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], pl[1], rtol=0, atol=0,
+                                   equal_nan=True)
+        for a, b in zip(k[0], pl[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert bool(k[0].stalled.all())
+        if len(rows) == 0 and coh > 1:
+            assert bool((k[0].block % coh == 4).all())
+        rows.append(k[2])
+        st = k[0]._replace(stalled=torch.zeros_like(k[0].stalled))
+    ri = torch.cat(rows)
+    assert bool((ri[:, :, 0] > 0).sum(0).ge(35).all())
+    L = get_signal(name).code_length
+    if L > 10230:                     # the code's end passed in every channel
+        assert bool((ri[:, :, 2] == L).any(0).all())
+    if coh > 1:
+        assert bool((st.cacc != 0).any())
 
 
 # subcarrier coefficient lanes (a0, a1, a6, tm) of the K3 kinds: "subc" for

@@ -140,10 +140,12 @@ def test_cpu_run_launches_no_kernel():
     for name, v1 in (("galileo-e1b", False), ("gps-l1cp", True)):
         sig = get_signal(name)
         p = make_params(sig, 2.048e6, 0.0)._replace(pallas_v2=not v1)
-        assert not p.fused_scan
+        assert p.fused_scan
         tab = torch.from_numpy(sig.code_table((5,)).astype(np.int8))
-        _, rf, ri = track_scan(x, 30_000, tab, st, p, 3)
-        assert (ri[:, 0, 0] > 0).all()
+        for fused in (True, False):
+            _, rf, ri = track_scan(x, 30_000, tab, st,
+                                   p._replace(fused_scan=fused), 3)
+            assert (ri[:, 0, 0] > 0).all()
     assert counters() == before == (0,) * 7
 
 

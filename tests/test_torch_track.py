@@ -36,7 +36,7 @@ _PHASES = [5.0, 417.25]
 _EXACT_STATE = ("ptr", "block", "stalled", "coffset_p", "n_full", "sub_j")
 _FLOAT_STATE = ("code_p_hi", "code_p_lo", "code_f_off", "carrier_p",
                 "carrier_f", "prompt1_re", "prompt1_im", "carrier_e1",
-                "code_e1")
+                "code_e1", "cacc")
 _CORR_FIELDS = (1, 2, 6, 7, 8)        # p_re, p_im, early, prompt, late
 _PHASE_FIELD = 5
 
@@ -180,17 +180,28 @@ def test_track_scan_requires_a_tail_pad():
         _run_port(s, 2, chunk_len=len(s["xp"]) - s["params"].nmax + 1)
 
 
-# subcarriers and sub-blocks run on the per-step route, not on K2: a
-# params that asks for K2 (fused_scan) with them raises
+# subcarriers, sub-blocks and the coherent lanes: once refused, now
+# tracked on every route; each against the JAX XLA scan (on the CPU the
+# port runs the plain version whatever fused_scan says)
 @pytest.mark.parametrize("change", [dict(subcarrier="boc11", fused_scan=True),
                                     dict(sub=4, fused_scan=True),
-                                    dict(coh_blocks=4),
-                                    dict(recover_after=200)])
-def test_unported_modes_raise(change):
+                                    dict(coh_blocks=4)])
+def test_former_refusals_match_jax_scan(change):
+    s = _setup(2, pallas=False)
+    s["params"] = s["params"]._replace(**change)
+    st_j, rf_j, ri_j = _run_jax(s, 40)
+    st_t, rf_t, ri_t = _run_port(s, 40)
+    assert (ri_t[:, :, 0] > 0).all()
+    np.testing.assert_array_equal(ri_t, ri_j)
+    np.testing.assert_allclose(rf_t, rf_j, rtol=2e-5, atol=2e-4)
+    _check_state(st_j, st_t)
+
+
+def test_unported_modes_raise():
+    """Unknown-code recovery is the one mode the port still refuses."""
     s = _setup(1, pallas=False)
-    p = interop.params_from_jax(s["params"])._replace(**change)
+    p = interop.params_from_jax(s["params"])._replace(recover_after=200)
     with pytest.raises(NotImplementedError):
         teng.track_scan(torch.from_numpy(s["xp"]), s["n"],
                         torch.from_numpy(s["code"]),
                         interop.state_from_numpy(s["st"]), p, 2)
-

@@ -66,9 +66,9 @@ _CASES = {
 }
 
 
-def _setup(name, pallas, seconds=0.05, cn0=None):
+def _setup(name, pallas, seconds=0.05, cn0=None, case=None):
     sig = get_signal(name)
-    fs, chans = _CASES[name]
+    fs, chans = case or _CASES[name]
     C = len(chans)
     prns = [c[0] for c in chans]
     n = int(fs * seconds)
@@ -140,6 +140,26 @@ def test_step_scan_matches_jax_xla_scan(name):
     st_j, rf_j, ri_j = _run_jax(s, 40)
     st_t, rf_t, ri_t = _run_port(s, 40)
     assert (ri_t[:, :, 0] > 0).all()
+    np.testing.assert_array_equal(ri_t, ri_j)
+    np.testing.assert_allclose(rf_t, rf_j, rtol=2e-5, atol=2e-4)
+    _check_state(st_j, st_t)
+
+
+# the long codes 10 ms before their end: the code period wraps at block ~10
+_WRAP = {"gps-l2cl": (2.048e6, [(5, 800.0, 767250 - 5115.0)]),
+         "glonass-l1-p": (8.192e6, [(2, -1300.0, 5110000 - 51100.0)])}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAP))
+def test_long_code_wrap_matches_jax_xla_scan(name):
+    """The code-period wrap of L2CL (767,250 chips) and GLONASS P
+    (5,110,000): code_dcyc counts the wrap, the chip index wraps mod L."""
+    s = _setup(name, pallas=False, case=_WRAP[name])
+    st_j, rf_j, ri_j = _run_jax(s, 40)
+    st_t, rf_t, ri_t = _run_port(s, 40)
+    L = get_signal(name).code_length
+    assert (ri_t[:, :, 0] > 0).all()
+    assert (ri_t[:, 0, 2] == L).sum() == 1          # one wrap
     np.testing.assert_array_equal(ri_t, ri_j)
     np.testing.assert_allclose(rf_t, rf_j, rtol=2e-5, atol=2e-4)
     _check_state(st_j, st_t)

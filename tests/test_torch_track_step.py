@@ -189,9 +189,9 @@ def test_plain_reads_only_the_block():
 
 
 def test_make_params_route_for_every_signal(monkeypatch):
-    """K2 where it covers the signal (BPSK, one sub-block, <= 10230 chips)
-    unless GNSS_DSP_NO_FUSED; else K3, or K4 under GNSS_DSP_PALLAS_V1 --
-    the reference's switches (track/driver.py:178-184)."""
+    """K2 for every signal with a code table unless GNSS_DSP_NO_FUSED or
+    recovery; else K3, or K4 under GNSS_DSP_PALLAS_V1 -- the reference's
+    switches (track/driver.py:178-184)."""
     from gnss_dsp_tpu_torch.models.signal import all_signals
     from gnss_dsp_tpu_torch.track.driver import make_params
 
@@ -206,17 +206,12 @@ def test_make_params_route_for_every_signal(monkeypatch):
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
-        k2 = []
         for name, sig in sigs.items():
             p = make_params(sig, sig.acq_fs, 0.0)
-            covers = (sig.subcarrier == "none" and sig.sub_blocks == 1
-                      and sig.code_length <= 10230)
-            assert p.fused_scan == (fused_ok and covers), name
+            assert p.fused_scan == fused_ok, name
             assert p.pallas_v2 == v2, name
-            k2 += [name] if covers else []
-        # the ten families the issue names leave K2 (plus the recovery
-        # signals, which raise in track_file)
-        assert len(sigs) - len(k2) == 10
+            assert not make_params(sig, sig.acq_fs, 0.0,
+                                   recover_after=200).fused_scan, name
 
 
 @pytest.mark.parametrize("v1", [False, True], ids=["K3", "K4"])
