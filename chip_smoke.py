@@ -24,8 +24,16 @@ Runs every phase, in this order:
           registers, spills) and the times at other cluster sizes
   k5      spectral-combine coherent kernel vs its plain version at the
           BeiDou B1I --coherent 20 shape (63 PRN x 51 doppler x 2 groups x
-          20 alignments x 16384), with timings, its cluster plan and the
-          time at another cluster size
+          20 alignments x 16384) and at the launch shape of every search of
+          e2e_coherent_wide (GPS L5Q and Galileo E6C padded with n_valid,
+          Galileo E1C at 65536, GPS L1CD at 81920, GPS L2CM at 163840 on
+          the run-time core), a planted cell per PRN (and on the padded
+          windows a stronger one below the searched lags, which must not
+          win), with timings, the library ifft, the bound, the kernel's
+          plan and the times at the other cluster sizes built; then a
+          planted exact tie across cluster ranks and two alignments at each
+          new window, which must report the lower lag, then the lower
+          alignment
   k6      per-block coherent kernel vs its plain version at the GPS L1
           --coherent 8 shape (32 PRN x 102 doppler x 80 blocks in groups
           of 8 x 4096) and the Xona X1P shape (1 PRN x 70 doppler x 200
@@ -36,7 +44,8 @@ Runs every phase, in this order:
           gps-l2cm, gps-l2cl with its chips read from device memory, 4
           FDMA channels of glonass-l1-p with 5.11 M chips) and the
           e2e_coherent_track shape (6 BeiDou B1I channels at 16.368 MHz,
-          M = 20), each over two launches whose chunk boundary falls
+          M = 20) and the GPS L5Q one (4 channels at 30.69 MHz, M = 20),
+          each over two launches whose chunk boundary falls
           mid-run (mid-period when coherent): int rows and state equal,
           float rows bit-equal, with timings and bounds; then at the main
           path's shape (the e2e capture's 8 channels at 8.184 MHz, int8
@@ -84,7 +93,10 @@ Runs every phase, in this order:
           --overlay-phase k --carrier-phase 0 on K2: the overlay phase
           equals the truth, the mean carrier_f of the last 200 rows
           within 1 Hz of the truth and its spread under 1 Hz, C/N0 of the
-          last 500 rows within 3 dB of 32
+          last 500 rows within 3 dB of 32; then the same workflow on GPS
+          L5Q (a 1.2 s capture at 30.69 MHz, 4 satellites at 32 dB-Hz
+          from one NH20 phase; K5 at the padded 65536 window over +-500
+          Hz, then track --coherent 20 on K2) with the same checks
   e2e_wide
           the wide-window and odd-length searches through the acquire CLI,
           one 85 ms capture per route at the signal's internal rate (four
@@ -93,6 +105,19 @@ Runs every phase, in this order:
           (K1 padded, n_valid), galileo-e1b, gps-l1cp and gps-l2cm (K1 at
           65536, 81920, 163840); the launch counters must show K7 on
           xona-x5d and K1 on the others
+  e2e_coherent_wide
+          the extended-coherent searches at the wide windows through the
+          acquire CLI, one capture per window class at the signal's acq_fs
+          and default PRNs, the doppler grid about 1 / (2 x the coherent
+          span) over +-500 Hz: gps-l5q --coherent 20 --time 40 (65536
+          padded), galileo-e1c --coherent 25 --time 104 (65536, CS25, the
+          FFT combine), galileo-e6c --coherent 100 --time 100 (32768
+          padded, CS100 per PRN: one K5 call a PRN), each 4 satellites at
+          32 dB-Hz from random overlay phases; gps-l1cd --coherent 2
+          --time 20 (81920) and gps-l2cm --coherent 2 --time 60 (163840),
+          4 satellites at 45 dB-Hz with no data-bit change: every planted
+          PRN within one bin and one chip with the truth's alignment and
+          above every absent PRN; the launch counters must show K5 on each
 
 In the e2e phases every surface-kernel, per-step correlator and K2 call
 is recorded with its shape, and each must have been held against its
@@ -159,15 +184,16 @@ K4_FAMILIES = (("none", "gps-l1"), ("boc11", "gps-l1cd"),
 E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
             "gps-l2cm")
 
-# cluster sizes timed beside the kernels' own choice (K5: 8, K7: 4; K1:
-# the other sizes of acquire2.SPLIT_CLUSTERS, and at 81920 the run-time
-# core on 8 CTAs, its core before the 320-point register transform)
-K5_CLUSTERS = (4,)
+# cluster sizes timed beside the kernels' own choice (K7: 4; K1 and K5:
+# the other sizes of their register core's builds, and at 81920 the
+# run-time core on 8 CTAs, its core before the 320-point register
+# transform)
+K5_CLUSTERS = {16384: (4,), 32768: (8,), 65536: (16,), 81920: (8,)}
 K7_CLUSTERS = (6, 8)
 K1_CLUSTERS = {4096: (1, 4, 8), 32768: (16,), 65536: (16,), 81920: (8,)}
 # the cluster kernels' entry functions in nvcc's -Xptxas -v output
-CLUSTER_KERNELS = (r"coh_spec_kernel|full_kernel|acq2_split_kernel"
-                   r"|acq2_wide_kernel")
+CLUSTER_KERNELS = (r"coh_spec_kernel|coh_wide_kernel|full_kernel"
+                   r"|acq2_split_kernel|acq2_wide_kernel")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory and
 # float32 outside the tensor cores
@@ -660,60 +686,164 @@ def _check_coh(tag, got, plain, plants, surface):
     return float(np.abs(pk_k - pk_p).max()), len(diff)
 
 
-def phase_k5(dev, card, results):
+def coherent_launch(name, m, ms, step):
+    """(P, DC, G, A, W, n_valid) of the first (largest) K5 launch of the
+    acquire CLI's `name` --coherent m --time ms over -500..500 Hz in
+    `step` Hz at its default PRNs, as acquire/coherent.py plans it (per-PRN
+    overlays: one PRN a launch)."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.acquire.coherent import coh_dop_chunk
+    from gnss_dsp_tpu_torch.acquire.plan import coh_plan
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    sig = get_signal(name)
+    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
+    prns = sig.prns()
+    secs = [np.asarray(sig.secondary(p)) if sig.secondary is not None
+            else np.ones(1) for p in prns]
+    N = len(secs[0])
+    per_prn = any(not np.array_equal(v, secs[0]) for v in secs[1:])
+    blocks = max(int(ms / sig.acq_coherent_ms) // m, 1) * m
+    fast = coh_plan(sig, n, m, N)
+    check(fast is not None and fast[0] == "spec", (name, "not K5", fast))
+    D = len(engine.doppler_grid(sig, (-500.0, 500.0, step))[0])
+    dc = coh_dop_chunk(fast, len(prns), blocks, m, N, fast[1], D)
+    return (1 if per_prn else len(prns)), dc, blocks // m, N, fast[1], fast[3]
+
+
+def _k5_case(dev, card, tag, P, DC, G, A, W, n_valid, seed, reps=3):
+    """K5 against its plain version on [DC, G*A, W] noise rows with one
+    planted cell per PRN at a random (doppler, alignment, searched lag)
+    and, with n_valid, a stronger one at a lag below lo = W - n_valid in
+    the same cell row, which must not win; then at the other cluster
+    sizes built.  Returns the numbers."""
     import torch
 
     from gnss_dsp_tpu_torch.ops import acquire_coh
 
-    # beidou-b1i --coherent 20 --time 40 over 63 PRNs: 40 blocks in G=2
-    # groups, A=20 alignments, linear 2n windows, 51 dopplers a launch
-    P, DC, G, A, W = 63, 51, 2, 20, 16384
-    g = torch.Generator(device=dev).manual_seed(2345)
+    g = torch.Generator(device=dev).manual_seed(seed)
     code_f = _planted_code(dev, g, P, W)
     f2 = torch.complex(torch.randn((DC, G * A, W), generator=g, device=dev),
                        torch.randn((DC, G * A, W), generator=g, device=dev))
-    rng = np.random.default_rng(6)
-    dops = rng.integers(0, DC, P)          # P > DC: dopplers are shared
-    plants = [(p, int(dops[p]), int(rng.integers(A)), int(rng.integers(W)))
-              for p in range(P)]
+    rng = np.random.default_rng(seed)
+    lo = W - n_valid if n_valid else 0
+    dops = rng.permutation(DC)[:P] if P <= DC else rng.integers(0, DC, P)
+    plants = [(p, int(dops[p]), int(rng.integers(A)),
+               int(rng.integers(W - lo))) for p in range(P)]
     for p, d, a, j in plants:
-        f2[d, a::A] += (0.5 * _ramp(code_f[p], j, W)).to(torch.complex64)
-    CHECKED["acquire_coh_spec"].append(
-        shape_key("acquire_coh_spec", f2, code_f, A))
-    got = acquire_coh.corr_surface_coh_spec(f2, code_f, A)
-    plain = acquire_coh.corr_surface_coh_spec_plain(f2, code_f, A)
+        f2[d, a::A] += (0.5 * _ramp(code_f[p], lo + j, W)).to(torch.complex64)
+        if lo:
+            decoy = _ramp(code_f[p], int(rng.integers(lo)), W)
+            f2[d, int(rng.integers(A))::A] += decoy.to(torch.complex64)
+    args = (f2, code_f, A, n_valid)
+    CHECKED["acquire_coh_spec"].append(shape_key("acquire_coh_spec", *args))
+
+    def surface(p, d):
+        return acquire_coh.surface_spec_plain(
+            f2[d:d + 1], code_f[p:p + 1], A)[0, 0, :, lo:]
+
+    got = acquire_coh.corr_surface_coh_spec(*args)
+    plain = acquire_coh.corr_surface_coh_spec_plain(*args)
+    again = acquire_coh.corr_surface_coh_spec(*args)
     torch.cuda.synchronize()
-    err, nd = _check_coh("k5", got, plain, plants, lambda p, d: (
-        acquire_coh.surface_spec_plain(f2[d:d + 1], code_f[p:p + 1], A)[0, 0]))
-    ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(f2, code_f, A), 3)
-    plain_ms = cuda_ms(
-        lambda: acquire_coh.corr_surface_coh_spec_plain(f2, code_f, A), 1)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          (tag, "two launches differ"))
+    err, nd = _check_coh(f"k5 {tag}", got, plain, plants, surface)
+    ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(*args), reps)
+    plain_ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec_plain(*args),
+                       1)
     lib = library_ms(code_f, f2)
     bms, by = surface_bound(P, DC, G * A, W, P * DC * 12)
     cells = P * DC * G * A * W
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     info = acquire_coh.spec_launch_info(W, dev.index or 0)
-    log(f"[k5] P={P} DC={DC} G={G} A={A} W={W}: idx and align exact on "
-        f"planted cells, {nd} near-tie differences elsewhere, max|dpeak| = "
-        f"{err:.3g}")
-    log(f"[k5] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
-        f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, DC)}, "
-        f"bound {bms:.3f} ms by {by}  [{card}]")
-    log(f"[k5] plan: {plan_text(info, sms)}")
-    for c in K5_CLUSTERS:
+    log(f"[k5] {tag}: P={P} DC={DC} G={G} A={A} W={W} n_valid={n_valid}: "
+        f"idx and align exact on planted cells"
+        + (", the stronger cells below lo lost" if lo else "")
+        + f", {nd} near-tie differences elsewhere, max|dpeak| = {err:.3g}, "
+        f"two launches bit-equal")
+    scaled = lib[0] * DC / lib[1] if lib[1] else None
+    log(f"[k5] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
+        f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, DC)}"
+        + (f" ({scaled:.3f} ms scaled to {DC}; kernel / library "
+           f"{ms / scaled:.3f})" if scaled else "")
+        + f", bound {bms:.3f} ms by {by}  [{card}]")
+    log(f"[k5] {tag}: plan: {plan_text(info, sms)}")
+    for c in K5_CLUSTERS.get(W, ()):
         other = acquire_coh.spec_launch_info(W, dev.index or 0, c)
-        got_c = acquire_coh.corr_surface_coh_spec(f2, code_f, A, cluster=c)
-        _check_coh("k5", got_c, plain, plants, lambda p, d: (
-            acquire_coh.surface_spec_plain(f2[d:d + 1], code_f[p:p + 1],
-                                           A)[0, 0]))
+        got_c = acquire_coh.corr_surface_coh_spec(*args, cluster=c)
+        _check_coh(f"k5 {tag}", got_c, plain, plants, surface)
         ms_c = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(
-            f2, code_f, A, cluster=c), 3)
-        log(f"[k5] ablation, {c} CTAs a cluster: {ms_c:.3f} ms against "
-            f"{ms:.3f}; {plan_text(other, sms)}; planted cells exact  "
-            f"[{card}]")
-    results["acquire_coh_spec"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
+            *args, cluster=c), reps)
+        log(f"[k5] {tag}: ablation, {c} CTAs a cluster: {ms_c:.3f} ms "
+            f"against {ms:.3f}; {plan_text(other, sms)}; planted cells "
+            f"exact  [{card}]")
+    del f2, args
+    torch.cuda.empty_cache()
+    shape = dict(shape=f"{P} x {DC} x {G}x{A} rows x {W}" + (
+        f", n_valid {n_valid}" if n_valid else ""), signal=tag, ms=ms,
+        library_ms=scaled, library_dopplers=lib[1], bound_ms=bms,
+        k5_over_library=ms / scaled if scaled else None)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by,
+                shape=shape)
+
+
+def _k5_tie(dev, card, W, G=2, A=3):
+    """K5 on rows whose surface ties exactly at every lag with an even row
+    index j mod n1 (as _k1_tie: X = delta[0] + delta[(n1/2) n2], every
+    product by a unit twiddle or by zero), alignment 0 at half that,
+    alignments 1 and 2 equal: from lag 0 the kernel must report lag 0 at
+    alignment 1, and from lo = nr - 1 lag nr (rank 1, over rank 0's tied
+    lag n1), idx 1, alignment 1."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    _, n1, n2, C = acquire_coh.spec_core_plan(W)
+    nr = -(-n1 // C)
+    code = torch.ones((1, W), dtype=torch.complex64, device=dev)
+    f2 = torch.zeros((1, G * A, W), dtype=torch.complex64, device=dev)
+    f2[:, :, 0] = 1.0
+    f2[:, :, (n1 // 2) * n2] = 1.0
+    f2[:, 0::A] *= 0.5
+    got = [acquire_coh.corr_surface_coh_spec(f2, code, A, nv)
+           for nv in (0, W - (nr - 1))]
+    plain = acquire_coh.corr_surface_coh_spec_plain(f2, code, A)
+    torch.cuda.synchronize()
+    cells = [(int(g[1][0, 0]), int(g[2][0, 0])) for g in got]
+    check(cells == [(0, 1), (1, 1)], ("k5 tie", W, cells))
+    np.testing.assert_allclose(got[0][0].cpu().numpy(),
+                               plain[0].cpu().numpy(), rtol=1e-4)
+    log(f"[k5] planted tie at W={W} ({C} CTAs, {nr} rows a rank, "
+        f"alignments 1 and 2 equal): lag 0 and lag {nr} (rank 1) reported "
+        f"over rank 0's tied lags, alignment 1 over 2 ((idx, align) "
+        f"{cells[0]} from 0, {cells[1]} from lo {nr - 1})  [{card}]")
+
+
+def phase_k5(dev, card, results):
+    # beidou-b1i --coherent 20 --time 40 over 63 PRNs: 40 blocks in G=2
+    # groups, A=20 alignments, linear 2n windows, 51 dopplers a launch
+    r = _k5_case(dev, card, "beidou-b1i", 63, 51, 2, 20, 16384, 0, 2345)
+    shapes = [r.pop("shape")]
+    # the kernels line keeps the B1I case's numbers (e2e_coherent's shape)
+    results["acquire_coh_spec"].update(r)
+    errs = [r["max_abs_err"]]
+    from gnss_dsp_tpu_torch.tools.main_path import COHERENT_WIDE
+
+    seen = set()
+    for i, (name, m, ms, step, _) in enumerate(COHERENT_WIDE):
+        launch = coherent_launch(name, m, ms, step)
+        if launch in seen:
+            continue
+        seen.add(launch)
+        w = _k5_case(dev, card, name, *launch, 70 + i, reps=2)
+        errs.append(w["max_abs_err"])
+        shapes.append(w["shape"])
+    results["acquire_coh_spec"]["max_abs_err"] = max(errs)
+    results["acquire_coh_spec"]["shapes"] = shapes
+    for W in sorted({launch[4] for launch in seen}):
+        _k5_tie(dev, card, W)
 
 
 def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
@@ -791,7 +921,8 @@ def phase_k2(dev, card, results):
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.tools.main_path import B1I_FS, B1I_PRNS
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        B1I_FS, B1I_PRNS, L5Q_FS, L5Q_PRNS)
     from gnss_dsp_tpu_torch.utils.synth import synth_iq
     from gnss_dsp_tpu_torch.track.driver import make_params
     from gnss_dsp_tpu_torch.track.engine import (
@@ -868,9 +999,11 @@ def phase_k2(dev, card, results):
                                   bound_ms=bms, bound_by=by)
     fams = [_k2_family(dev, card, name, C, get_signal(name).acq_fs, 1, 60 + i)
             for i, (name, C) in enumerate(E2E_TRACK)]
-    # e2e_coherent_track's shape (tools/main_path.synth_b1i_track)
+    # e2e_coherent_track's shapes (tools/main_path.synth_coherent_track)
     fams.append(_k2_family(dev, card, "beidou-b1i", len(B1I_PRNS), B1I_FS,
                            20, 66))
+    fams.append(_k2_family(dev, card, "gps-l5q", len(L5Q_PRNS), L5Q_FS, 20,
+                           67))
     log("[k2] families " + json.dumps(fams))
 
 
@@ -1545,37 +1678,59 @@ def phase_e2e_coherent(dev, card, results, work):
 
 def phase_e2e_coherent_track(dev, card, work, seconds=1.2):
     """tests/test_coherent.py::test_acquire_to_track_overlay_handoff at
-    full size: the B1I capture of tools/main_path.synth_b1i_track (6
-    satellites at 32 dB-Hz and 16.368 MHz, all from one overlay phase),
-    its coherent acquisition (the acquire CLI's --coherent 20 --time 40
-    path over 63 PRNs: K5), then the track CLI with --coherent 20
-    --overlay-phase k --carrier-phase 0 on K2.  Checks: each planted
-    PRN's doppler within one 25 Hz bin and code within 1 chip, its
-    track_overlay_phase the truth; over the last 200 rows the mean
-    carrier_f within 1 Hz of the truth and its spread under 1 Hz (the
-    handoff test's bounds); C/N0 of the last 500 rows within 3 dB of the
-    planted 32 dB-Hz.  Returns K2's launches."""
+    full size, on BeiDou B1I and on GPS L5Q (_coherent_track).  Returns
+    K2's launches by signal."""
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        B1I_FS, B1I_PRNS, L5Q_FS, L5Q_PRNS, synth_coherent_track)
+
+    return {
+        "beidou-b1i --coherent 20": _coherent_track(
+            dev, card, work, "beidou-b1i", B1I_FS, seconds,
+            lambda path: synth_coherent_track(
+                path, "beidou-b1i", B1I_PRNS, B1I_FS, seconds, device=dev),
+            (-2500.0, 2500.0, 25.0)),
+        "gps-l5q --coherent 20": _coherent_track(
+            dev, card, work, "gps-l5q", L5Q_FS, seconds,
+            lambda path: synth_coherent_track(
+                path, "gps-l5q", L5Q_PRNS, L5Q_FS, seconds, device=dev,
+                dmax=400.0, seed=17),
+            (-500.0, 500.0, 25.0))}
+
+
+def _coherent_track(dev, card, work, name, fs, seconds, synth, grid):
+    """The capture synth(path) writes (tools/main_path.synth_coherent_track:
+    satellites at 32 dB-Hz, all from one overlay phase, dopplers within 4
+    Hz of the 25 Hz grid), its coherent acquisition (the acquire CLI's
+    --coherent 20 --time 40 path over every default PRN and `grid`: K5),
+    then the track CLI with --coherent 20 --overlay-phase k
+    --carrier-phase 0 on K2.  Checks: each planted PRN's doppler within
+    one 25 Hz bin and code within 1 chip, its track_overlay_phase the
+    truth; over the last 200 rows the mean carrier_f within 1 Hz of the
+    truth and its spread under 1 Hz (the handoff test's bounds); C/N0 of
+    the last 500 rows within 3 dB of the planted 32 dB-Hz.  Returns K2's
+    launches."""
     import torch
 
     from gnss_dsp_tpu_torch.cli import cn0 as cn0_cli
     from gnss_dsp_tpu_torch.cli import track as trk_cli
     from gnss_dsp_tpu_torch.ops import acquire_coh, track_fused, track_step
     from gnss_dsp_tpu_torch.tools.main_path import (
-        B1I_FS, acquire_coherent_b1i, coherent_track_args, run_cli,
-        synth_b1i_track)
+        acquire_coherent, coherent_track_args, run_cli)
 
-    path = os.path.join(work, "e2e_b1i_track.iq")
+    tag = "e2e_coherent_track"
+    path = os.path.join(work, f"e2e_{name}_track.iq")
     t0 = time.perf_counter()
-    truth = synth_b1i_track(path, seconds, device=dev)
+    truth = synth(path)
     t_synth = time.perf_counter() - t0
     acquire_coh.LAUNCHES_SPEC = acquire_coh.LAUNCHES_BLK = 0
     t0 = time.perf_counter()
     with recording() as calls:
-        res = acquire_coherent_b1i(path, B1I_FS, dev)
+        res = acquire_coherent(path, name, fs, dev, doppler_search=grid)
     torch.cuda.synchronize()
     t_acq = time.perf_counter() - t0
-    check_covered("e2e_coherent_track", calls)
-    check(acquire_coh.LAUNCHES_SPEC > 0, "K5 not on the path")
+    check_covered(tag, calls)
+    k5 = acquire_coh.LAUNCHES_SPEC
+    check(k5 > 0, (name, "K5 not on the path"))
     hits = {r.prn: r for r in res}
     L = truth["code_length"]
     for prn, dop, cp in zip(truth["prns"], truth["dops"], truth["phases"]):
@@ -1583,25 +1738,25 @@ def phase_e2e_coherent_track(dev, card, work, seconds=1.2):
         dc = abs(h.code_offset - cp) % L
         ovl = h.track_overlay_phase(L)
         check(abs(h.doppler - dop) <= 25.0 and min(dc, L - dc) <= 1.0
-              and ovl == truth["overlay_phase"], (prn, h, dop, cp, ovl))
-        log(f"[e2e_coherent_track] acquire prn {prn:2d}: doppler "
-            f"{h.doppler:7.1f} (truth {dop:7.1f}) code {h.code_offset:8.2f} "
-            f"(truth {cp:8.2f}) overlay phase {ovl} (truth "
+              and ovl == truth["overlay_phase"], (name, prn, h, dop, cp, ovl))
+        log(f"[{tag}] {name} acquire prn {prn:2d}: doppler {h.doppler:7.1f} "
+            f"(truth {dop:7.1f}) code {h.code_offset:8.2f} (truth "
+            f"{cp:8.2f}) overlay phase {ovl} (truth "
             f"{truth['overlay_phase']})")
 
     track_fused.LAUNCHES = 0
     track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
     t0 = time.perf_counter()
     with recording() as calls:
-        out = run_cli(trk_cli.main, "beidou-b1i", coherent_track_args(
-            hits, truth["prns"], path, B1I_FS, dev))
+        out = run_cli(trk_cli.main, name, coherent_track_args(
+            name, hits, truth["prns"], path, fs, dev))
     torch.cuda.synchronize()
     t_trk = time.perf_counter() - t0
     os.remove(path)
-    check_covered("e2e_coherent_track", calls)
+    check_covered(tag, calls)
     lt = track_fused.LAUNCHES
     check(lt > 0 and track_step.LAUNCHES_V2 == track_step.LAUNCHES_V1 == 0,
-          ("K2 not the route", lt, track_step.LAUNCHES_V2))
+          (name, "K2 not the route", lt, track_step.LAUNCHES_V2))
     rows = _rows_by_prn(out)
     for prn, dop in zip(truth["prns"], truth["dops"]):
         r = rows[prn]
@@ -1611,15 +1766,16 @@ def phase_e2e_coherent_track(dev, card, work, seconds=1.2):
         c = float(est[0])
         check(len(r) >= 1000 and abs(np.mean(cf) - dop) < 1.0
               and np.std(cf) < 1.0 and abs(c - truth["cn0"]) <= 3.0,
-              (prn, len(r), np.mean(cf) - dop, np.std(cf), c))
-        log(f"[e2e_coherent_track] track prn {prn:2d}: {len(r)} rows, last "
-            f"200 mean carrier_f - truth {np.mean(cf) - dop:+.3f} Hz, "
-            f"spread {np.std(cf):.3f} Hz, C/N0 {c:.2f} dB-Hz (truth "
+              (name, prn, len(r), np.mean(cf) - dop, np.std(cf), c))
+        log(f"[{tag}] {name} track prn {prn:2d}: {len(r)} rows, last 200 "
+            f"mean carrier_f - truth {np.mean(cf) - dop:+.3f} Hz, spread "
+            f"{np.std(cf):.3f} Hz, C/N0 {c:.2f} dB-Hz (truth "
             f"{truth['cn0']:g})")
-    log(f"[e2e_coherent_track] wall: synth {t_synth:.2f} s, coherent "
-        f"acquire {t_acq:.2f} s, track --coherent 20 6 ch x {seconds} s "
-        f"{t_trk:.2f} s, K2 launches {lt}  [{card}]")
-    return lt
+    log(f"[{tag}] {name} wall: synth {t_synth:.2f} s, coherent acquire "
+        f"{t_acq:.2f} s (K5 launches {k5}), track --coherent 20 "
+        f"{len(truth['prns'])} ch x {seconds} s at {fs:g} Hz {t_trk:.2f} s, "
+        f"K2 launches {lt}  [{card}]")
+    return lt, k5
 
 
 # ---------------------------------------------------------- phase e2e_wide
@@ -1675,6 +1831,64 @@ def phase_e2e_wide(dev, card, results, work):
     return k1
 
 
+# -------------------------------------------------- phase e2e_coherent_wide
+
+def phase_e2e_coherent_wide(dev, card, work):
+    """The acquire CLI with --coherent on one capture per window class of
+    tools/main_path.COHERENT_WIDE (main_path.synth_at_acq_fs: 4 satellites
+    at the signal's acq_fs within +-450 Hz, carrying their overlay from a
+    random chip); returns K5's launches over the phase."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        COHERENT_WIDE, parse_hits, returns_of, run_cli, synth_at_acq_fs)
+
+    k5 = 0
+    for i, (name, m, ms, step, cn0) in enumerate(COHERENT_WIDE):
+        sig = get_signal(name)
+        overlay = sig.secondary is not None
+        path = os.path.join(work, f"e2e_coherent_{name}.iq")
+        t0 = time.perf_counter()
+        truth = synth_at_acq_fs(path, name, (ms + 6) / 1000.0, cn0=cn0,
+                                seed=30 + i, dop_max=450.0, overlay=overlay)
+        t_synth = time.perf_counter() - t0
+        acquire_coh.LAUNCHES_SPEC = acquire_coh.LAUNCHES_BLK = 0
+        t0 = time.perf_counter()
+        with recording() as calls, \
+                returns_of(acq_cli, "acquire_signal_coherent") as res:
+            out = run_cli(acq_cli.main, name, [
+                "--coherent", str(m), "--time", str(ms), "--doppler-search",
+                f"-500,500,{step:g}", path, str(truth["fs"]), "0",
+                "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        os.remove(path)
+        l5, l6 = acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK
+        check(l5 > 0 and l6 == 0, (name, "K5 not on the path", l5, l6))
+        k5 += l5
+        check_covered("e2e_coherent_wide", calls)
+        hits = parse_hits(out)
+        check(sorted(hits) == sorted(sig.prns()), (name, sorted(hits)))
+        check_hits(name, hits, truth, step, phase="e2e_coherent_wide")
+        # linear windows: block m holds code period m + 1 whole, which
+        # carries overlay chip (roll + m + 1) mod N
+        N = len(sig.secondary(truth["prns"][0])) if overlay else 1
+        got = {r.prn: r for r in res[0]}
+        for prn, roll in zip(truth["prns"], truth["rolls"]):
+            want = (int(roll) + 1) % N
+            check(got[prn].align == want, (name, prn, got[prn], want))
+        log(f"[e2e_coherent_wide] {name} --coherent {m} --time {ms}: "
+            f"{len(sig.prns())} PRNs, "
+            f"{len(np.arange(-500.0, 500.0, step))} dopplers at {step:g} Hz, "
+            f"alignments the truth's {[got[p].align for p in truth['prns']]}"
+            f"; K5 launches {l5}; synth {t_synth:.2f} s, acquire CLI "
+            f"{wall:.2f} s  [{card}]")
+    return k5
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1727,8 +1941,8 @@ def main(argv=None) -> int:
     k2_fams, k3 = phase_e2e_track(dev, card, args.out)
     results["track_step_v2"]["launches"] += k3
     phase_e2e_coherent(dev, card, results, args.out)
-    k2_fams["beidou-b1i --coherent 20"] = phase_e2e_coherent_track(
-        dev, card, args.out)
+    coh = phase_e2e_coherent_track(dev, card, args.out)
+    k2_fams.update((k, v[0]) for k, v in coh.items())
     log(f"[k2] launches: e2e {results['track_fused']['launches']}, "
         f"e2e_track and e2e_coherent_track {json.dumps(k2_fams)}")
     results["track_fused"]["launches"] += sum(k2_fams.values())
@@ -1736,6 +1950,12 @@ def main(argv=None) -> int:
     log(f"[e2e_wide] acquire2 launches: e2e {results['acquire2']['launches']}"
         f", e2e_wide {k1_wide}")
     results["acquire2"]["launches"] += k1_wide
+    k5_wide = phase_e2e_coherent_wide(dev, card, args.out)
+    k5_track = sum(v[1] for v in coh.values())
+    log(f"[e2e_coherent_wide] acquire_coh_spec launches: e2e_coherent "
+        f"{results['acquire_coh_spec']['launches']}, e2e_coherent_track "
+        f"{k5_track}, e2e_coherent_wide {k5_wide}")
+    results["acquire_coh_spec"]["launches"] += k5_track + k5_wide
     for r in results.values():
         need = ["launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by"] + (["library_ms"] if r["name"] not in NO_LIBRARY

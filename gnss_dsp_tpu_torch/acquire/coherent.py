@@ -26,9 +26,11 @@ them:
   xla    circular n windows, every surface built in plain torch (the JAX
          package's XLA einsum engine; no kernel).
 
-On CUDA the kernels take power-of-two windows up to 16384; a fused route
-at another window raises NotImplementedError naming the signal and W.
-Not ported here: FDMA channels (chan offsets).
+On CUDA, K5 takes every window the route sends to spec (the register
+core up to 81920, the run-time core at 163840: ops/acquire_coh.
+spec_core_plan), K6 power-of-two windows up to 16384; a fused route at a
+window its kernel does not take raises NotImplementedError naming the
+signal and W.  Not ported here: FDMA channels (chan offsets).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from gnss_dsp_tpu_torch.acquire.plan import coh_plan
 from gnss_dsp_tpu_torch.device import refuse_switches
 from gnss_dsp_tpu_torch.ops import acquire_coh
 from gnss_dsp_tpu_torch.ops.acquire2 import check_w
+from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
 from gnss_dsp_tpu_torch.ops.nco import MASK32
 
 
@@ -214,6 +217,23 @@ class CoherentAcqResult(eng.AcqResult):
         return a % self.n_overlay
 
 
+def coh_dop_chunk(fast, P: int, blocks: int, m_coh: int, N: int,
+                  window: int, D: int) -> int:
+    """Dopplers per chunk of the coherent search on route `fast`
+    (plan.coh_plan's, None for the XLA engine): the fused route budgets
+    256 MiB of [dc, B, W] spectra, and in spec mode of [dc, G*A, W]
+    combined rows, whichever is larger (the combine's temporaries are a
+    few such arrays); the XLA engine 64 MiB of [P, dc, B, W] surfaces."""
+    if fast:
+        cells = blocks
+        if fast[0] == "spec":
+            cells = max(blocks, (blocks // m_coh) * N)
+        dc = 256 * 2**20 // (cells * window * 8)
+    else:
+        dc = 64 * 2**20 // (P * blocks * window * 8)
+    return min(D, max(1, dc))
+
+
 def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
                             m_coh: int | None = None, ms: int | None = None,
                             dop_chunk: int | None = None,
@@ -269,21 +289,29 @@ def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
     window = fast[1] if fast else n     # XLA engine: circular, no pad
     dev = x_int.device
     if fast and dev.type == "cuda":
-        check_w(window, f"{sig.name}: the coherent {fast[0]}")
+        try:
+            if fast[0] == "spec":
+                spec_core_plan(window)
+            else:
+                check_w(window, "K6")
+        except NotImplementedError as e:
+            raise NotImplementedError(
+                f"{sig.name}: the coherent {fast[0]} route at W={window}: "
+                f"{e}") from None
+    # the blocks' windows (2n linear ones reach one code period past the
+    # last block) must lie inside the capture, as the reference's reshape
+    # requires: say so before any work
+    need = (blocks + (fast[2] // n if fast else 1) - 1) * n
+    if x_int.shape[0] < need:
+        raise ValueError(
+            f"{sig.name}: {blocks} blocks of {m_coh}-period groups need "
+            f"{need} samples ({need / sig.acq_fs * 1e3:g} ms), the capture "
+            f"holds {x_int.shape[0]}: give ms (--time) one code period more")
 
     dops, fixed = eng.doppler_grid(sig, doppler_search)
     if dop_chunk is None:
-        if fast:
-            # [dc, B, W] spectra, and in spec mode [dc, G*A, W] combined
-            # rows: budget the larger per doppler
-            cells = blocks
-            if fast[0] == "spec":
-                cells = max(blocks, (blocks // m_coh) * N)
-            dop_chunk = max(1, 256 * 2**20 // (cells * window * 8))
-        else:
-            dop_chunk = max(1, 64 * 2**20 // (len(prns) * blocks * window
-                                                * 8))
-        dop_chunk = min(len(dops), dop_chunk)
+        dop_chunk = coh_dop_chunk(fast, len(prns), blocks, m_coh, N, window,
+                                  len(dops))
     fixed_t = torch.from_numpy(fixed.astype(np.int64))
 
     if fast:

@@ -9,7 +9,9 @@ Counterpart: gnss_dsp_tpu/cli/acquire.py:26-180 (`read_samples`,
 Output rows are the reference workers' (acquire-gps-l1.py:102).  Adds
 --device (default cuda); a CUDA device that does not exist is an error,
 never a silent CPU run.  --coherent M runs the extended-coherent search
-(acquire/coherent.py; M = -1: the full overlay length).  Not ported
+(acquire/coherent.py; M = -1: the full overlay length) on every CDMA
+signal with an FFT search, on the card through kernel K5 or K6 where the
+route takes one (K5 at every window up to GPS L2CM's 163840).  Not ported
 here: FDMA and serial searches (they raise NotImplementedError) and the
 sharded --mesh search (the option is unknown here).
 """

@@ -11,9 +11,9 @@
 // cores share the cluster barriers, the register DFTs with compile-time
 // roots and the asynchronous copies below: row_transform, for any W whose
 // factors are 2, 3, 5, 11, 31, with run-time sizes (described here; K7,
-// and K1 at 163840), and Split at the end of the file, power-of-two and
-// 320-point sub-transforms with compile-time sizes and the values in
-// registers (surface_rows: K5, and K1 at 4096 to 81920).
+// and wide_rows at the end of the file: K1 and K5 at 163840), and Split,
+// power-of-two and 320-point sub-transforms with compile-time sizes and
+// the values in registers (surface_rows: K1 and K5 at 4096 to 81920).
 // The cluster's reduction (cluster_best) and launch helpers follow.
 // row_transform:
 //
@@ -1107,6 +1107,193 @@ inline cudaError_t launch_cluster(Kernel kernel, int grid, int T, int C,
   e = cudaLaunchKernelEx(&cfg, kernel, args);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// ---- The surface over run-time rows (K1 and K5 at 163840) ---------------
+//
+// For the windows surface_rows has no build for (163840 = 320 x 512 for
+// GPS L2CM, whose 320-point rows would need 640 threads a CTA even on 16
+// CTAs): one cluster per (p, d) walks the rows of F[d] (K1: the B
+// blocks; K5: row g*A + a, all G groups of one alignment, then the next),
+// each through row_transform over the fewest CTAs, up to 16, whose two
+// buffers fit (wide_plan).  There is no room beside the buffers for a
+// staged copy of the next row, so each row's slice of F and the code are
+// read from L2 in batches.  A thread sums |x| of its kWPer lags of the
+// row layout in registers across the rows (K5: the G groups of one
+// alignment, then folds the sums into its running per-lag (peak, lowest
+// alignment), kAlign); the cluster then reduces as surface_rows does.
+
+constexpr int kWT = 384;                // threads a CTA
+constexpr int kWPer = 27;               // lags a thread
+constexpr int kWMaxE = kWT * kWPer;     // lags a CTA
+constexpr int kMaxCluster = 16;
+
+struct WideArgs {
+  const float2* F;        // [DC, rows, W]
+  const float2* code_f;   // [P, W]
+  const float2* tw;       // ops/acquire2.cluster_twiddle_table(n1, n2)
+  float* peak;            // [P, DC]
+  int* idx;               // [P, DC], lag - lo
+  int* al;                // [P, DC]: the alignment (kAlign)
+  float* sum;             // [P, DC]: the sum over the lags >= lo (kSum)
+  int P, DC, rows, A, lo;
+  Plan plan;
+};
+
+template <bool kAlign, bool kSum>
+__device__ __forceinline__ void wide_rows(const WideArgs& s) {
+  extern __shared__ __align__(16) float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Plan& pl = s.plan;
+  const int W = pl.W, n1 = pl.n1, n2 = pl.n2;
+  const Share h = share_of(pl, (int)cluster.block_rank());
+  const int El = h.nc * n1;               // values loaded (column layout)
+  const int Ea = h.nr * n2;               // lags summed (row layout)
+  const int item = blockIdx.x / pl.C;     // d*P + p
+  const int p = item % s.P;
+  const int d = item / s.P;
+  float2* buf_a = smem;
+  float2* buf_b = smem + pl.buf;
+  float2* tw = buf_b + pl.buf;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < pl.ntw; i += kWT) tw[i] = s.tw[i];
+  const float2* cf = s.code_f + (size_t)p * W + h.c0;
+  const int A = kAlign ? s.A : 1;
+  const int G = s.rows / A;
+
+  // per lag: the sum over the rows (of one alignment), and with kAlign the
+  // best such sum over the alignments so far and its alignment (16 bits,
+  // two to a register: A <= 65535)
+  float acc[kWPer];
+  [[maybe_unused]] float best[kAlign ? kWPer : 1];
+  [[maybe_unused]] uint32_t besta[kAlign ? (kWPer + 1) / 2 : 1];
+  if constexpr (kAlign) {
+#pragma unroll
+    for (int i = 0; i < kWPer; ++i) best[i] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < (kWPer + 1) / 2; ++i) besta[i] = 0;
+  }
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int i = 0; i < kWPer; ++i) acc[i] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const float2* fb = s.F + ((size_t)d * s.rows + g * A + a) * W + h.c0;
+      __syncthreads();           // tw in place; the last row read out
+      for (int e0 = tid; e0 < El; e0 += kBatch * kWT) {
+        float2 c[kBatch], f[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * kWT;
+          if (e < El) {
+            const int k1 = fdiv(e, h.ncd);
+            const size_t o = (size_t)(e - k1 * h.nc) + (size_t)n2 * k1;
+            c[u] = __ldg(cf + o);
+            f[u] = __ldg(fb + o);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * kWT;
+          if (e < El) {
+            const int k1 = fdiv(e, h.ncd);
+            buf_a[at(e - k1 * h.nc, pl.col.S, k1)] = cmul_conj(c[u], f[u]);
+          }
+        }
+      }
+      __syncthreads();           // the row is in buf_a
+      const float2* z = row_transform<kWT>(pl, h, buf_a, buf_b, tw);
+#pragma unroll
+      for (int i = 0; i < kWPer; ++i) {
+        const int e = tid + i * kWT;
+        if (e < Ea) {
+          const int t = fdiv(e, pl.n2_d);
+          acc[i] += cabs_approx(z[at(t, pl.row.S, e - t * n2)]);
+        }
+      }
+    }
+    if constexpr (kAlign) {
+#pragma unroll
+      for (int i = 0; i < kWPer; ++i) {
+        if (acc[i] > best[i]) {  // a ascending: the lowest alignment on ties
+          const int sh = (i & 1) * 16;
+          best[i] = acc[i];
+          besta[i / 2] =
+              (besta[i / 2] & ~(0xffffu << sh)) | ((uint32_t)a << sh);
+        }
+      }
+    }
+  }
+
+  // (peak, lowest lag >= lo reaching it, its alignment, sum) over the
+  // thread's lags (element e of the row layout is lag j10 + t + n1*j2),
+  // then the cluster
+  Best bst = {-INFINITY, W, 0, 0.f};
+#pragma unroll
+  for (int i = 0; i < kWPer; ++i) {
+    const int e = tid + i * kWT;
+    if (e < Ea) {
+      const int t = fdiv(e, pl.n2_d);
+      const int j = h.j10 + t + n1 * (e - t * n2);
+      float val;
+      if constexpr (kAlign) val = best[i];
+      else val = acc[i];
+      if (j >= s.lo) {
+        if (better(val, j, bst.v, bst.j)) {
+          bst.v = val;
+          bst.j = j;
+          if constexpr (kAlign)
+            bst.a = (int)((besta[i / 2] >> ((i & 1) * 16)) & 0xffffu);
+        }
+        if constexpr (kSum) bst.s += val;
+      }
+    }
+  }
+  if (cluster_best<kWT, kSum>(bst)) {
+    const size_t o = (size_t)p * s.DC + d;
+    const float fw = (float)W;
+    s.peak[o] = bst.v / fw;
+    s.idx[o] = bst.j - s.lo;
+    if constexpr (kAlign) s.al[o] = bst.a;
+    if constexpr (kSum) s.sum[o] = bst.s / fw;
+  }
+}
+
+// m made of the factors 2, 3, 5, 11 and 31 only
+inline bool radix_ok(int m) {
+  static const int kPrimes[] = {2, 3, 5, 11, 31};
+  for (int r : kPrimes)
+    while (m % r == 0) m /= r;
+  return m == 1;
+}
+
+// ops/acquire2.wide_split: the largest n1 <= sqrt(W) dividing W with n1
+// and n2 = W / n1 made of the pass radices and n2 <= 4096
+inline bool wide_split(int W, int* n1, int* n2) {
+  int r = 1;
+  while ((long long)(r + 1) * (r + 1) <= W) ++r;
+  for (int a = r; a > 1; --a) {
+    if (W % a || W / a > 4096 || !radix_ok(a) || !radix_ok(W / a)) continue;
+    *n1 = a;
+    *n2 = W / a;
+    return true;
+  }
+  return false;
+}
+
+inline size_t wide_smem(const Plan& pl) { return cluster_smem(pl, 0); }
+
+// wide_rows' plan of W over C CTAs (0: the fewest, up to 16, whose lags
+// fit kWMaxE a CTA and whose buffers fit its shared memory)
+inline bool wide_plan(Plan& pl, int W, int C) {
+  int n1, n2;
+  if (W < 2 || C < 0 || C > kMaxCluster || !wide_split(W, &n1, &n2))
+    return false;
+  for (int c = C ? C : 1; c <= (C ? C : kMaxCluster); ++c) {
+    if (make_plan(pl, W, n1, n2, c) && pl.nr * n2 <= kWMaxE &&
+        wide_smem(pl) <= kMaxSmem)
+      return true;
+  }
+  return false;
 }
 
 }  // namespace

@@ -29,12 +29,13 @@
 //   65536.  81920 takes 16 CTAs of 320 threads.
 // * every other W that ops/acquire2.wide_split factors (163840 = 320 x
 //   512 for GPS L2CM, whose 320-point rows would need 640 threads a CTA
-//   even on 16 CTAs): the run-time row_transform K7 runs (Stockham passes
-//   in shared memory, radix 16/8/4/2 and direct 3/5/11/31 with
-//   compile-time roots) over the fewest CTAs, up to 16, whose two buffers
-//   fit: 16 at 163840.  There is no room beside the buffers for a staged
-//   copy of the next block (K7's `stage`), so each row's slice of F and
-//   the code are read from L2 in batches.
+//   even on 16 CTAs): wide_rows, the core K5 runs there too, on the
+//   run-time row_transform K7 runs (Stockham passes in shared memory,
+//   radix 16/8/4/2 and direct 3/5/11/31 with compile-time roots) over the
+//   fewest CTAs, up to 16, whose two buffers fit: 16 at 163840.  There is
+//   no room beside the buffers for a staged copy of the next block (K7's
+//   `stage`), so each row's slice of F and the code are read from L2 in
+//   batches.
 //
 // What bounds it on the card: the float32 operations of the transforms
 // (~5 log2 W per value and row) against the shared-memory traffic (per
@@ -57,6 +58,9 @@ using acqc::Plan;
 using acqc::Spec;
 using acqc::SpecN;
 using acqc::SurfaceArgs;
+using acqc::WideArgs;
+using acqc::wide_plan;
+using acqc::wide_smem;
 
 // ---- the windows of the register core ------------------------------------
 
@@ -118,146 +122,11 @@ bool split_launch(SplitLaunch& l, int W, int C) {
   return false;
 }
 
-// ---- other W on the run-time core ----------------------------------------
+// ---- other W on the run-time core (acq_cluster.cuh wide_rows) -----------
 
-constexpr int kWT = 384;                // threads a CTA
-constexpr int kWPer = 27;               // lags a thread
-constexpr int kWMaxE = kWT * kWPer;     // lags a CTA
-constexpr int kMaxCluster = 16;
-
-struct WideArgs {
-  const float2* F;        // [DC, B, W]
-  const float2* code_f;   // [P, W]
-  const float2* tw;       // ops/acquire2.cluster_twiddle_table(n1, n2)
-  float* peak;            // [P, DC]
-  int* idx;               // [P, DC], lag - lo
-  float* sum;             // [P, DC]
-  int P, DC, B, lo;
-  Plan plan;
-};
-
-__global__ void __launch_bounds__(kWT, 1)
+__global__ void __launch_bounds__(acqc::kWT, 1)
     acq2_wide_kernel(const __grid_constant__ WideArgs s) {
-  using namespace acqc;
-  extern __shared__ __align__(16) float2 smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const Plan& pl = s.plan;
-  const int W = pl.W, n1 = pl.n1, n2 = pl.n2;
-  const Share h = share_of(pl, (int)cluster.block_rank());
-  const int El = h.nc * n1;               // values loaded (column layout)
-  const int Ea = h.nr * n2;               // lags summed (row layout)
-  const int item = blockIdx.x / pl.C;     // d*P + p
-  const int p = item % s.P;
-  const int d = item / s.P;
-  float2* buf_a = smem;
-  float2* buf_b = smem + pl.buf;
-  float2* tw = buf_b + pl.buf;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < pl.ntw; i += kWT) tw[i] = s.tw[i];
-  const float2* cf = s.code_f + (size_t)p * W + h.c0;
-
-  float acc[kWPer];
-#pragma unroll
-  for (int i = 0; i < kWPer; ++i) acc[i] = 0.f;
-  for (int b = 0; b < s.B; ++b) {
-    const float2* fb = s.F + ((size_t)d * s.B + b) * W + h.c0;
-    __syncthreads();             // tw in place; the last row read out
-    for (int e0 = tid; e0 < El; e0 += kBatch * kWT) {
-      float2 c[kBatch], f[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int e = e0 + u * kWT;
-        if (e < El) {
-          const int k1 = fdiv(e, h.ncd);
-          const size_t o = (size_t)(e - k1 * h.nc) + (size_t)n2 * k1;
-          c[u] = __ldg(cf + o);
-          f[u] = __ldg(fb + o);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int e = e0 + u * kWT;
-        if (e < El) {
-          const int k1 = fdiv(e, h.ncd);
-          buf_a[at(e - k1 * h.nc, pl.col.S, k1)] = cmul_conj(c[u], f[u]);
-        }
-      }
-    }
-    __syncthreads();             // the row is in buf_a
-    const float2* z = row_transform<kWT>(pl, h, buf_a, buf_b, tw);
-#pragma unroll
-    for (int i = 0; i < kWPer; ++i) {
-      const int e = tid + i * kWT;
-      if (e < Ea) {
-        const int t = fdiv(e, pl.n2_d);
-        acc[i] += cabs_approx(z[at(t, pl.row.S, e - t * n2)]);
-      }
-    }
-  }
-
-  // (peak, lowest lag >= lo reaching it, sum) over the thread's lags
-  // (element e of the row layout is lag j10 + t + n1*j2), then the cluster
-  Best bst = {-INFINITY, W, 0, 0.f};
-#pragma unroll
-  for (int i = 0; i < kWPer; ++i) {
-    const int e = tid + i * kWT;
-    if (e < Ea) {
-      const int t = fdiv(e, pl.n2_d);
-      const int j = h.j10 + t + n1 * (e - t * n2);
-      if (j >= s.lo) {
-        if (better(acc[i], j, bst.v, bst.j)) {
-          bst.v = acc[i];
-          bst.j = j;
-        }
-        bst.s += acc[i];
-      }
-    }
-  }
-  if (cluster_best<kWT, true>(bst)) {
-    const size_t o = (size_t)p * s.DC + d;
-    const float fw = (float)W;
-    s.peak[o] = bst.v / fw;
-    s.idx[o] = bst.j - s.lo;
-    s.sum[o] = bst.s / fw;
-  }
-}
-
-// m made of the factors 2, 3, 5, 11 and 31 only
-bool radix_ok(int m) {
-  static const int kPrimes[] = {2, 3, 5, 11, 31};
-  for (int r : kPrimes)
-    while (m % r == 0) m /= r;
-  return m == 1;
-}
-
-// ops/acquire2.wide_split: the largest n1 <= sqrt(W) dividing W with n1
-// and n2 = W / n1 made of the pass radices and n2 <= 4096
-bool wide_split(int W, int* n1, int* n2) {
-  int r = 1;
-  while ((long long)(r + 1) * (r + 1) <= W) ++r;
-  for (int a = r; a > 1; --a) {
-    if (W % a || W / a > 4096 || !radix_ok(a) || !radix_ok(W / a)) continue;
-    *n1 = a;
-    *n2 = W / a;
-    return true;
-  }
-  return false;
-}
-
-size_t wide_smem(const Plan& pl) { return acqc::cluster_smem(pl, 0); }
-
-// The run-time core's plan of W over C CTAs (0: the fewest, up to 16,
-// whose lags fit kWMaxE a CTA and whose buffers fit its shared memory)
-bool wide_plan(Plan& pl, int W, int C) {
-  int n1, n2;
-  if (W < 2 || C < 0 || C > kMaxCluster || !wide_split(W, &n1, &n2))
-    return false;
-  for (int c = C ? C : 1; c <= (C ? C : kMaxCluster); ++c) {
-    if (acqc::make_plan(pl, W, n1, n2, c) && pl.nr * n2 <= kWMaxE &&
-        wide_smem(pl) <= acqc::kMaxSmem)
-      return true;
-  }
-  return false;
+  acqc::wide_rows<false, true>(s);
 }
 
 }  // namespace
@@ -281,7 +150,8 @@ extern "C" int acq2_info(int W, int cluster, int* info) {
   } else {
     Plan pl;
     if (!wide_plan(pl, W, cluster)) return (int)cudaErrorInvalidValue;
-    e = acqc::cluster_info(acq2_wide_kernel, kWT, pl.C, wide_smem(pl), info);
+    e = acqc::cluster_info(acq2_wide_kernel, acqc::kWT, pl.C, wide_smem(pl),
+                           info);
     info[6] = pl.n1;
     info[7] = pl.n2;
     info[8] = 1;
@@ -332,9 +202,10 @@ extern "C" int acq2_reduce(const void* F, const void* code_f, const void* tw,
   s.sum = (float*)sum;
   s.P = P;
   s.DC = DC;
-  s.B = B;
+  s.rows = B;
+  s.A = 1;
   s.lo = lo;
-  return (int)acqc::launch_cluster(acq2_wide_kernel, (int)grid, kWT,
+  return (int)acqc::launch_cluster(acq2_wide_kernel, (int)grid, acqc::kWT,
                                    s.plan.C, wide_smem(s.plan),
                                    (cudaStream_t)stream, s);
 }

@@ -63,7 +63,7 @@ SIGNATURES = {
     "acq_full_info": [_I, _I, _I, _I, _I, _I, _I, _P],
     "track_fused": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P],
-    "acq_coh_spec": [_P, _P, _P, _P, _P,
+    "acq_coh_spec": [_P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_coh_spec_info": [_I, _I, _P],
     "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

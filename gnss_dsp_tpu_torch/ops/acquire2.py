@@ -179,7 +179,7 @@ def twiddles(W: int, device) -> torch.Tensor:
 
 def check_w(W: int, what: str):
     """Raise NotImplementedError unless W is a power of two <= MAX_W, the
-    windows of K5 and K6."""
+    windows of K6."""
     if not (2 <= W <= MAX_W and W & (W - 1) == 0):
         raise NotImplementedError(
             f"{what} kernel takes power-of-two W <= {MAX_W}, got {W}")
@@ -239,21 +239,31 @@ def _stride(m: int) -> int:
 
 def core_plan(W: int, cluster: int = 0):
     """(core, n1, n2, C): the core and the cluster size K1 runs W on, as
-    csrc/acquire2.cu chooses them (cluster: 0 for the kernel's choice).
-    core "split": the register core at the windows and cluster sizes of
-    SPLIT_CLUSTERS, n1 = 2^floor(log2(W)/2); core "wide": the run-time
-    core at any other, at wide_split(W) over the fewest CTAs (up to
-    MAX_CLUSTER; or `cluster`) whose lags (nr * n2) fit WIDE_THREADS *
-    WIDE_PER and whose two buffers and twiddle table fit SMEM_LIMIT.
-    NotImplementedError when there is none."""
+    csrc/acquire2.cu chooses them (cluster: 0 for the kernel's choice):
+    cluster_core_plan over SPLIT_CLUSTERS."""
+    return cluster_core_plan(W, cluster, SPLIT_CLUSTERS.get(W, ()), "K1")
+
+
+def cluster_core_plan(W: int, cluster: int, built: tuple, what: str):
+    """(core, n1, n2, C) of a kernel on the cluster cores of
+    csrc/acq_cluster.cuh (K1, K5) whose register core is built at W on
+    the cluster sizes `built`, its choice first (cluster: 0 for the
+    kernel's choice).  core "split": the register core on a size built,
+    n1 = 2^floor(log2(W)/2); core "wide": the run-time core at any other,
+    at wide_split(W) over the fewest CTAs (up to MAX_CLUSTER; or
+    `cluster`) whose lags (nr * n2) fit WIDE_THREADS * WIDE_PER and whose
+    two buffers and twiddle table fit SMEM_LIMIT.  NotImplementedError
+    naming `what` and W when there is none."""
     if not 0 <= cluster <= MAX_CLUSTER:
-        raise NotImplementedError(f"K1 takes clusters of up to {MAX_CLUSTER} "
-                                  f"CTAs, not {cluster}")
-    built = SPLIT_CLUSTERS.get(W, ())
+        raise NotImplementedError(f"{what} takes clusters of up to "
+                                  f"{MAX_CLUSTER} CTAs, not {cluster}")
     if not cluster and built or cluster in built:
         n1 = 1 << (W.bit_length() - 1) // 2
         return "split", n1, W // n1, cluster or built[0]
-    n1, n2 = wide_split(W)
+    try:
+        n1, n2 = wide_split(W)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{what}: {e}") from None
     ntw = (16 + sum(WIDE_ROOTS) + sum(r * ns for m in (n1, n2)
                                       for r, ns in wide_passes(m))
            + n1 + n2)
@@ -266,8 +276,8 @@ def core_plan(W: int, cluster: int = 0):
                 and (2 * buf + ntw) * 8 <= SMEM_LIMIT):
             return "wide", n1, n2, C
     raise NotImplementedError(
-        f"K1: no cluster of up to {MAX_CLUSTER} CTAs holds a row of W = {W}"
-        f" = {n1} x {n2}" + (f" on {cluster} CTAs" if cluster else ""))
+        f"{what}: no cluster of up to {MAX_CLUSTER} CTAs holds a row of W = "
+        f"{W} = {n1} x {n2}" + (f" on {cluster} CTAs" if cluster else ""))
 
 
 @functools.lru_cache(maxsize=64)
@@ -277,18 +287,25 @@ def launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
     spilled bytes a thread, clusters the card holds at once, threads a
     CTA, n1, n2 and the core ("split" or "wide").  NotImplementedError
     where core_plan has none."""
-    core, n1, n2, C = core_plan(W, cluster)
-    lib = _build.load()
+    return read_launch_info(_build.load().acq2_info, W, device_index,
+                            cluster, core_plan(W, cluster), "K1")
+
+
+def read_launch_info(info_fn, W: int, device_index: int, cluster: int,
+                     plan: tuple, what: str) -> dict:
+    """A cluster-core kernel's launch plan from its C entry point
+    `info_fn` (acq2_info, acq_coh_spec_info), checked against the host's
+    plan (core, n1, n2, C)."""
     info = (ctypes.c_int * 9)()
     with torch.cuda.device(device_index):
-        err = lib.acq2_info(W, cluster, info)
-    _build.check(err, f"acq2_info at W={W}, cluster={cluster}")
+        err = info_fn(W, cluster, info)
+    _build.check(err, f"{what}'s plan at W={W}, cluster={cluster}")
     got = dict(zip(("cluster", "smem", "regs", "spill_bytes", "active",
                     "threads", "n1", "n2"), info))
     got["core"] = ("split", "wide")[info[8]]
-    if (got["core"], got["n1"], got["n2"], got["cluster"]) != (core, n1, n2, C):
-        raise RuntimeError(f"K1's plan at W={W}: kernel {got}, host "
-                           f"{(core, n1, n2, C)}")
+    if (got["core"], got["n1"], got["n2"], got["cluster"]) != tuple(plan):
+        raise RuntimeError(f"{what}'s plan at W={W}: kernel {got}, host "
+                           f"{plan}")
     return got
 
 

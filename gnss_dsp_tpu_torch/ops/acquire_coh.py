@@ -26,9 +26,12 @@ converts the TPU kernels' permuted split planes).
 
 Kernels: K5 csrc/acquire_coh_spec.cu, one thread-block cluster per
 (PRN, doppler) walking all its rows, each transformed across the
-cluster (csrc/acq_cluster.cuh), the max over alignments in the kernel;
-K6 csrc/acquire_coh.cu, one CTA per (PRN, doppler, alignment) and a
-second kernel for the max over alignments.
+cluster (csrc/acq_cluster.cuh) on K1's cores (spec_core_plan: the
+register core at the windows of SPEC_CLUSTERS, the run-time core at
+163840 and any other window wide_split factors), the max over alignments
+in the kernel; K6 csrc/acquire_coh.cu, one CTA per (PRN, doppler,
+alignment) and a second kernel for the max over alignments, at
+power-of-two W <= 16384.
 
 The wrappers launch the CUDA kernel for CUDA tensors and take the plain
 version only for CPU tensors.  Each kernel has its own launch counter.
@@ -36,17 +39,25 @@ version only for CPU tensors.  Each kernel has its own launch counter.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from gnss_dsp_tpu_torch.ops import _build
-from gnss_dsp_tpu_torch.ops.acquire2 import check_w, twiddles
+from gnss_dsp_tpu_torch.ops.acquire2 import (
+    check_w, cluster_core_plan, cluster_twiddles, read_launch_info, twiddles)
 
 LAUNCHES_SPEC = 0      # K5
 LAUNCHES_BLK = 0       # K6
 _PLAIN_CHUNK_BYTES = 1 << 28   # bound on the plain versions' temporaries
+
+# K5's register-core builds (csrc/acquire_coh_spec.cu): W -> the cluster
+# sizes built, the kernel's choice first (16 at 32768, 8 at 65536; on 8
+# CTAs each thread keeps its code values in registers there).  Any other
+# (W, cluster) takes the run-time core.
+SPEC_CLUSTERS = {**{1 << L: (min(8, 1 << (L // 2)),) for L in range(1, 14)},
+                 16384: (8, 4), 32768: (16, 8), 65536: (8, 16),
+                 81920: (16,)}
 
 
 def finalize_max(q: torch.Tensor, n_valid: int = 0):
@@ -127,20 +138,23 @@ def corr_surface_coh_plain(F, code_f, cosang, sinang, sec_mat, m_coh: int,
     return tuple(torch.cat([o[k] for o in outs], 1) for k in range(3))
 
 
+def spec_core_plan(W: int, cluster: int = 0):
+    """(core, n1, n2, C) K5 runs W on (ops/acquire2.cluster_core_plan
+    over SPEC_CLUSTERS): the check of K5's windows, NotImplementedError
+    naming W where it has none."""
+    return cluster_core_plan(W, cluster, SPEC_CLUSTERS.get(W, ()), "K5")
+
+
 @functools.lru_cache(maxsize=16)
 def spec_launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
-    """K5's launch plan at W on the card `device_index` (cluster CTAs, 0:
-    the kernel's choice, 8 at W = 16384; 4 is the other build there):
-    cluster size, dynamic shared memory bytes a CTA, registers and
-    spilled bytes a thread, clusters the card holds at once, threads a
-    CTA."""
-    lib = _build.load()
-    info = (ctypes.c_int * 6)()
-    with torch.cuda.device(device_index):
-        err = lib.acq_coh_spec_info(W, cluster, info)
-    _build.check(err, f"acq_coh_spec_info at W={W}, cluster={cluster}")
-    return dict(zip(("cluster", "smem", "regs", "spill_bytes", "active",
-                     "threads"), info))
+    """K5's launch plan at W on the card `device_index`
+    (acq_coh_spec_info), as ops/acquire2.launch_info: cluster size,
+    dynamic shared memory bytes a CTA, registers and spilled bytes a
+    thread, clusters the card holds at once, threads a CTA, n1, n2 and
+    the core ("split" or "wide")."""
+    return read_launch_info(_build.load().acq_coh_spec_info, W,
+                            device_index, cluster,
+                            spec_core_plan(W, cluster), "K5")
 
 
 def _outputs(P, DC, A, device):
@@ -164,7 +178,7 @@ def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
                           cluster: int = 0):
     """K5: (peak, idx, align) [P, DC] for pre-combined spectra f2
     complex64 [DC, G*A, W] (row g*A + a) and code_f complex64 [P, W];
-    on the card `cluster` CTAs a cluster as spec_launch_info (0: the
+    on the card `cluster` CTAs a cluster as spec_core_plan (0: the
     kernel's choice)."""
     global LAUNCHES_SPEC
     _check(f2, code_f)
@@ -175,9 +189,13 @@ def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
         raise ValueError(f"n_valid={n_valid} outside [0, {W}]")
     if not _on_cuda(f2):
         return corr_surface_coh_spec_plain(f2, code_f, A, n_valid)
-    check_w(W, "acquire_coh spec")
     if A > 65535:
         raise NotImplementedError(f"K5 keeps alignments in 16 bits: A={A}")
+    dev = f2.device.index if f2.device.index is not None \
+        else torch.cuda.current_device()
+    info = spec_launch_info(W, dev, cluster)
+    tw = (cluster_twiddles(info["n1"], info["n2"], f2.device)
+          if info["core"] == "wide" else None)
     lib = _build.load()
     f2 = f2.contiguous()
     code_f = code_f.contiguous()
@@ -188,6 +206,7 @@ def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
     with torch.cuda.device(f2.device):
         stream = torch.cuda.current_stream(f2.device).cuda_stream
         err = lib.acq_coh_spec(f2.data_ptr(), code_f.data_ptr(),
+                               None if tw is None else tw.data_ptr(),
                                peak.data_ptr(), idx.data_ptr(),
                                al.data_ptr(), P, DC, GA, A, W, n_valid,
                                cluster, stream)

@@ -12,10 +12,11 @@ synth_at_acq_fs the captures of the wide-window acquisition path (four
 satellites, or Xona X5's one, at 45 dB-Hz and the signal's own internal
 rate and subcarrier).
 
-synth_b1i_track writes the BeiDou B1I capture of coherent tracking (the
-same six satellites at 32 dB-Hz, all from one overlay phase),
-acquire_coherent_b1i runs the acquire CLI's coherent path on it, and
-coherent_track_args hands its results to the track CLI (--coherent 20
+synth_coherent_track writes a capture for coherent tracking (satellites
+at 32 dB-Hz, all from one overlay phase: the same six B1I satellites at
+16.368 MHz, or chip_smoke.py's four GPS L5Q ones at 30.69 MHz),
+acquire_coherent runs the acquire CLI's coherent path on it, and
+coherent_track_args hands its results to the track CLI (--coherent M
 --overlay-phase k).
 
 Run as a program on a CUDA card, this module drives the coherent acquire
@@ -23,11 +24,14 @@ CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
 then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
 (2.2 s at 8.184 MHz, 2150 tracked blocks), then the acquire CLI on the
 wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
---time 80), then the track CLI on a 2.2 s galileo-e1b capture of 8
-satellites (tools/track_all.synth_track) on K2 and again under
-GNSS_DSP_NO_FUSED on the per-step route (K3), then the coherent track
-CLI (--coherent 20, K2) on synth_b1i_track's 1.2 s capture from its
-coherent acquisition, each once cold and once warm under torch.profiler
+--time 80), the coherent acquire CLI on the captures of COHERENT_WIDE
+(K5 at 32768-163840, as chip_smoke.py's e2e_coherent_wide), the coherent
+track CLI (--coherent 20, K2) on a 1.2 s B1I capture from its coherent
+acquisition and on a 1.2 s GPS L5Q one (4 satellites at 30.69 MHz, its
+acquisition K5 at 65536), then the track CLI on a 2.2 s galileo-e1b
+capture of 8 satellites (tools/track_all.synth_track) on K2 and again
+under GNSS_DSP_NO_FUSED on the per-step route (K3), each once cold and
+once warm under torch.profiler
 with CUDA activity.  It prints one JSON object: per stage
 the cold and warm host walls, the device busy time (the union of the
 trace's device events: kernels and copies), the idle share
@@ -52,6 +56,18 @@ import numpy as np
 # wide-window acquisitions profiled: K1 padded (n_valid), K1 at 65536,
 # K7 at 30690
 WIDE_STAGES = ("gps-l5i", "galileo-e1b", "xona-x5d")
+# the extended-coherent searches at the wide windows (chip_smoke.py's
+# e2e_coherent_wide, profiled here too), one per window class: (signal,
+# M, --time ms, doppler step Hz, C/N0 dB-Hz), the grid about 1 / (2 x the
+# coherent span) over +-500 Hz.  The CLI prepares --time + 2 ms, and the
+# 2n linear windows of the last block reach one code period past it:
+# galileo-e1c's 25 blocks of 4 ms need 104 ms (--time 104), gps-l2cm's 2
+# of 20 ms need 60 (--time 60; both keep their 25 and 2 blocks)
+COHERENT_WIDE = (("gps-l5q", 20, 40, 25.0, 32.0),
+                 ("galileo-e1c", 25, 104, 5.0, 32.0),
+                 ("galileo-e6c", 100, 100, 5.0, 32.0),
+                 ("gps-l1cd", 2, 20, 25.0, 45.0),
+                 ("gps-l2cm", 2, 60, 12.5, 45.0))
 
 E2E_PRNS = (3, 8, 12, 17, 21, 24, 28, 31)
 E2E_DOPS = (-5437.0, -3811.0, -2206.0, -577.0, 1049.0, 2633.0, 4188.0, 5794.0)
@@ -125,35 +141,43 @@ def synth_b1i(path, fs, seconds, cn0=32.0, seed=11):
 
 B1I_TRACK_ROLL = 7         # the capture starts 7 chips into the NH20 overlay
 B1I_TRACK_SECONDS = 1.2
+# coherent GPS L5Q acquire -> track: 4 satellites at 30.69 MHz, the
+# acquisition's K5 at the padded 65536 window over +-500 Hz
+L5Q_PRNS = (4, 13, 22, 29)
+L5Q_FS = 30.69e6
+L5Q_COHERENT = ["--coherent", "20", "--time", "40", "--doppler-search",
+                "-500,500,25"]
 
 
-def synth_b1i_track(path, seconds, fs=B1I_FS, cn0=32.0, roll=B1I_TRACK_ROLL,
-                    seed=13, device="cuda"):
-    """The six B1I_PRNS for coherent tracking, synthesised on `device`:
-    every satellite from the same overlay phase (code period p carries
-    NH20 chip (roll + p) mod 20, so one --overlay-phase serves all),
-    dopplers within 4 Hz of the acquisition's 25 Hz grid (as
-    tests/test_coherent.py plants its doppler on its grid: a 20 ms
-    coherent PLL pulls in over less than a quarter cycle a period),
-    random code phases, one noise array at `cn0` dB-Hz per satellite,
-    written to `path` as int8 I/Q.  Returns the truth."""
+def synth_coherent_track(path, name, prns, fs, seconds, cn0=32.0,
+                         roll=B1I_TRACK_ROLL, seed=13, device="cuda",
+                         dmax=2000.0, step=25.0):
+    """Satellites `prns` of signal `name` for coherent tracking,
+    synthesised on `device`: every satellite from the same overlay phase
+    (code period p carries overlay chip (roll + p) mod N, so one
+    --overlay-phase serves all), dopplers within 4 Hz of a `step` Hz
+    acquisition grid inside +-dmax (as tests/test_coherent.py plants its
+    doppler on its grid: a 20 ms coherent PLL pulls in over less than a
+    quarter cycle a period), random code phases, one noise array at `cn0`
+    dB-Hz per satellite, written to `path` as int8 I/Q.  Returns the
+    truth."""
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
     from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
 
-    sig = get_signal("beidou-b1i")
+    sig = get_signal(name)
     n = int(fs * seconds)
     rng = np.random.default_rng(seed)
-    grid = np.round(rng.uniform(-2000.0, 2000.0, len(B1I_PRNS)) / 25.0) * 25.0
-    dops = (grid + rng.uniform(-4.0, 4.0, len(B1I_PRNS))).round(1)
-    phases = rng.uniform(0.0, sig.code_length, len(B1I_PRNS)).round(2)
+    grid = np.round(rng.uniform(-dmax, dmax, len(prns)) / step) * step
+    dops = (grid + rng.uniform(-4.0, 4.0, len(prns))).round(1)
+    phases = rng.uniform(0.0, sig.code_length, len(prns)).round(2)
     x = torch.zeros(n, dtype=torch.complex64, device=device)
-    for prn, dop, cp in zip(B1I_PRNS, dops, phases):
+    for prn, dop, cp in zip(prns, dops, phases):
         x += synth_iq_t(sig.code_table((prn,))[0], sig.chip_rate, fs, n,
-                        float(dop), float(cp), "none", sig.carrier_ratio,
-                        device=device,
+                        float(dop), float(cp), sig.subcarrier,
+                        sig.carrier_ratio, device=device,
                         data_bits=np.roll(sig.secondary(prn), -roll))
     g = torch.Generator(device=device).manual_seed(seed)
     sigma = float(np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0))))
@@ -162,57 +186,62 @@ def synth_b1i_track(path, seconds, fs=B1I_FS, cn0=32.0, roll=B1I_TRACK_ROLL,
     scale = 127.0 / (4.0 * float(x.real.std()))
     with open(path, "wb") as f:
         f.write(to_int8_iq(x.cpu().numpy(), scale=scale))
-    return dict(prns=B1I_PRNS, dops=dops, phases=phases, fs=fs, cn0=cn0,
-                overlay_phase=(roll + 1) % 20, code_length=sig.code_length)
+    N = len(sig.secondary(prns[0]))
+    return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs, cn0=cn0,
+                overlay_phase=(roll + 1) % N, code_length=sig.code_length)
 
 
-def acquire_coherent_b1i(path, fs, device, prns=None,
-                         doppler_search=(-2500.0, 2500.0, 25.0), ms=40):
-    """The acquire CLI's beidou-b1i --coherent 20 --time 40 path on the
+def acquire_coherent(path, name, fs, device, m_coh=20, ms=40,
+                     doppler_search=(-2500.0, 2500.0, 25.0), prns=None):
+    """The acquire CLI's `name` --coherent m_coh --time ms path on the
     capture at `path` (read_samples, prepare_baseband,
-    acquire_signal_coherent; all 63 PRNs unless `prns`), returning the
-    CoherentAcqResults: their track_overlay_phase seeds coherent
+    acquire_signal_coherent; every default PRN unless `prns`), returning
+    the CoherentAcqResults: their track_overlay_phase seeds coherent
     tracking."""
     from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
     from gnss_dsp_tpu_torch.cli.acquire import read_samples
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.ops.frontend import prepare_baseband
 
-    sig = get_signal("beidou-b1i")
+    sig = get_signal(name)
     x = read_samples(path, int((ms + 5) * fs / 1000), device)
     xb = prepare_baseband(x, fs, 0.0, sig.acq_fs, sig.acq_lowpass_hz, ms + 2)
     return acquire_signal_coherent(sig, xb, prns or sig.prns(),
-                                   doppler_search, m_coh=20, ms=ms)
+                                   doppler_search, m_coh=m_coh, ms=ms)
 
 
-def coherent_track_args(hits, prns, path, fs, device):
-    """The track CLI's arguments for the coherent tracking of `prns` from
-    their coherent acquisition `hits` ({prn: CoherentAcqResult}): M = 20,
-    the overlay phase the hits agree on, PLL from the start (as
-    tests/test_coherent.py's handoff)."""
+def coherent_track_args(name, hits, prns, path, fs, device, m=20):
+    """The track CLI's arguments for the coherent tracking of `prns` of
+    signal `name` from their coherent acquisition `hits` ({prn:
+    CoherentAcqResult}): M = m, the overlay phase the hits agree on, PLL
+    from the start (as tests/test_coherent.py's handoff)."""
     from gnss_dsp_tpu_torch.models import get_signal
 
-    L = get_signal("beidou-b1i").code_length
+    L = get_signal(name).code_length
     phases = {hits[p].track_overlay_phase(L) for p in prns}
     if len(phases) != 1:
         raise RuntimeError(f"overlay phases disagree: {phases}")
     spec = ",".join(f"{p}:{hits[p].doppler}:{hits[p].code_offset}"
                     for p in prns)
-    return ["--coherent", "20", "--overlay-phase", str(phases.pop()),
+    return ["--coherent", str(m), "--overlay-phase", str(phases.pop()),
             "--carrier-phase", "0", path, str(fs), "0", spec, "--device",
             str(device)]
 
 
-def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4):
+def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4,
+                    dop_max=None, overlay=False, phase_max=None):
     """`count` satellites of signal `name` (its default PRN list; all of
     it when shorter) at random dopplers and random code phases, with its
     subcarrier, plus one noise array at `cn0` dB-Hz per satellite,
     sampled at the signal's acq_fs and written to `path` as int8 I/Q.
-    The dopplers lie inside the default grid and are small enough that
-    the code drifts at most half a chip over the capture (doppler /
-    carrier_ratio chips per second): the non-coherent search does not
-    follow code doppler, so a larger drift smears the peak over chips.
-    Returns the truth."""
+    The dopplers lie inside the default grid (and within +-dop_max) and
+    are small enough that the code drifts at most half a chip over the
+    capture (doppler / carrier_ratio chips per second): the searches do
+    not follow code doppler, so a larger drift smears the peak over chips.
+    With `overlay` each satellite carries its secondary code from a random
+    chip (truth "rolls": code period p carries chip (roll + p) mod N);
+    without, no data bit changes sign.  Code phases are random in [0,
+    phase_max) chips (default: the code length).  Returns the truth."""
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.utils.synth import synth_iq, to_int8_iq
 
@@ -223,16 +252,23 @@ def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4):
     prns = sorted(rng.permutation(sig.prns())[:count].tolist())
     dmin, dmax, _ = sig.doppler_default
     drift = 0.5 * sig.carrier_ratio / seconds
+    if dop_max is not None:
+        drift = min(drift, dop_max)
     dops = rng.uniform(max(0.8 * dmin, -drift), min(0.8 * dmax, drift),
                        len(prns)).round(1)
-    phases = rng.uniform(0.0, sig.code_length, len(prns)).round(2)
+    phases = rng.uniform(0.0, phase_max or sig.code_length,
+                         len(prns)).round(2)
+    rolls = (rng.integers(0, len(sig.secondary(prns[0])), len(prns))
+             if overlay else np.zeros(len(prns), np.int64))
     x = np.zeros(n, np.complex64)
-    for prn, dop, cp in zip(prns, dops, phases):
+    for prn, dop, cp, r in zip(prns, dops, phases, rolls):
         x += synth_iq(sig.code_table((prn,))[0].astype(np.float64),
                       sig.chip_rate, fs, n, doppler_hz=float(dop),
                       code_phase=float(cp), cn0_dbhz=None,
                       subcarrier=sig.subcarrier,
-                      carrier_ratio=sig.carrier_ratio)
+                      carrier_ratio=sig.carrier_ratio,
+                      data_bits=(np.roll(sig.secondary(prn), -int(r))
+                                 if overlay else None))
     sigma = np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0)))
     x += (sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
           ).astype(np.complex64)
@@ -240,7 +276,7 @@ def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4):
     with open(path, "wb") as f:
         f.write(to_int8_iq(x, scale=scale))
     return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs,
-                code_length=sig.code_length)
+                code_length=sig.code_length, rolls=rolls)
 
 
 @contextlib.contextmanager
@@ -256,6 +292,25 @@ def environ(env):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def returns_of(module, fn):
+    """Yields a list that collects what module.fn returns while inside
+    (the acquire CLI prints no overlay alignment: its CoherentAcqResults
+    carry it)."""
+    seen, orig = [], getattr(module, fn)
+
+    def spy(*a, **kw):
+        r = orig(*a, **kw)
+        seen.append(r)
+        return r
+
+    setattr(module, fn, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, fn, orig)
 
 
 def run_cli(main, *args, stdin_text=None) -> str:
@@ -379,6 +434,57 @@ def main(argv=None) -> int:
             for prn, dop in zip(wt["prns"], wt["dops"]):
                 if abs(hits[prn]["doppler"] - dop) > step:
                     raise RuntimeError(f"{name} prn {prn} missed: {hits[prn]}")
+        coh_wide = {}
+        for i, (name, m, ms, step, cn0) in enumerate(COHERENT_WIDE):
+            wpath = os.path.join(args.out, f"main_path_coh_{name}.iq")
+            wt = synth_at_acq_fs(wpath, name, (ms + 6) / 1000.0, cn0=cn0,
+                                 seed=30 + i, dop_max=450.0,
+                                 overlay=get_signal(name).secondary
+                                 is not None)
+            try:
+                text, coh_wide[name] = _profiled(
+                    f"acquire_coherent_{name}", acq_cli.main,
+                    (name, ["--coherent", str(m), "--time", str(ms),
+                            "--doppler-search", f"-500,500,{step:g}", wpath,
+                            str(wt["fs"]), "0", "--device", "cuda"]),
+                    args.out)
+            finally:
+                os.remove(wpath)
+            hits = parse_hits(text)
+            for prn, dop in zip(wt["prns"], wt["dops"]):
+                if abs(hits[prn]["doppler"] - dop) > step:
+                    raise RuntimeError(f"{name} prn {prn} missed: {hits[prn]}")
+        cpath = os.path.join(args.out, "main_path_b1i_track.iq")
+        ct = synth_coherent_track(cpath, "beidou-b1i", B1I_PRNS, B1I_FS,
+                                  B1I_TRACK_SECONDS)
+        try:
+            hits = {r.prn: r for r in acquire_coherent(
+                cpath, "beidou-b1i", B1I_FS, "cuda")}
+            text, coh_trk = _profiled(
+                "track_coherent_b1i", trk_cli.main,
+                ("beidou-b1i", coherent_track_args(
+                    "beidou-b1i", hits, ct["prns"], cpath, B1I_FS, "cuda")),
+                args.out)
+        finally:
+            os.remove(cpath)
+        coh_trk["rows"] = len(text.splitlines())
+        lpath = os.path.join(args.out, "main_path_l5q_track.iq")
+        lt = synth_coherent_track(lpath, "gps-l5q", L5Q_PRNS, L5Q_FS,
+                                  B1I_TRACK_SECONDS, dmax=400.0, seed=17)
+        try:
+            hits = {r.prn: r for r in acquire_coherent(
+                lpath, "gps-l5q", L5Q_FS, "cuda",
+                doppler_search=(-500.0, 500.0, 25.0))}
+            text, l5q_trk = _profiled(
+                "track_coherent_l5q", trk_cli.main,
+                ("gps-l5q", coherent_track_args(
+                    "gps-l5q", hits, lt["prns"], lpath, L5Q_FS, "cuda")),
+                args.out)
+        finally:
+            os.remove(lpath)
+        l5q_trk["rows"] = len(text.splitlines())
+        # the per-step route last: its ~600,000 device events a call can
+        # leave the profiler's later traces without their kernels
         tpath = os.path.join(args.out, "main_path_galileo_e1b.iq")
         tt = synth_track(tpath, "galileo-e1b", seconds, count=8, seed=40)
         try:
@@ -395,19 +501,6 @@ def main(argv=None) -> int:
             step["rows"] = len(text.splitlines())
         finally:
             os.remove(tpath)
-        cpath = os.path.join(args.out, "main_path_b1i_track.iq")
-        ct = synth_b1i_track(cpath, B1I_TRACK_SECONDS)
-        try:
-            hits = {r.prn: r for r in acquire_coherent_b1i(cpath, B1I_FS,
-                                                           "cuda")}
-            text, coh_trk = _profiled(
-                "track_coherent_b1i", trk_cli.main,
-                ("beidou-b1i", coherent_track_args(hits, ct["prns"], cpath,
-                                                   B1I_FS, "cuda")),
-                args.out)
-        finally:
-            os.remove(cpath)
-        coh_trk["rows"] = len(text.splitlines())
     finally:
         os.remove(path)
         os.remove(b1i)
@@ -416,9 +509,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps(dict(acquire=acq, track=trk, acquire_coherent=coh,
-                          acquire_wide=wide, track_galileo_e1b=fam,
+                          acquire_wide=wide, acquire_coherent_wide=coh_wide,
+                          track_galileo_e1b=fam,
                           track_step_galileo_e1b=step,
-                          track_coherent_b1i=coh_trk, seconds=seconds,
+                          track_coherent_b1i=coh_trk,
+                          track_coherent_l5q=l5q_trk, seconds=seconds,
                           blocks=blocks, channels=len(truth["prns"]),
                           card=card), indent=1))
     return 0

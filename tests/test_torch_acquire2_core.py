@@ -18,7 +18,11 @@ the CPU, index for index, at every window the acquisition plan sends it.
   * the kernel's reduction: each thread's lags in the order it sums them,
     the shuffle tree of each warp, the warps, then the ranks in order;
     (max, lowest lag, sum) with and without n_valid against
-    corr_surface2_plain, and a tie across ranks to the lowest lag.
+    corr_surface2_plain, and a tie across ranks to the lowest lag;
+  * K5's reduction on the same cores (csrc/acquire_coh_spec.cu at every
+    window the coherent route sends it): the per-lag fold over the
+    alignments, then a tie across ranks and alignments to the lowest lag,
+    then the lowest alignment.
 """
 
 import numpy as np
@@ -60,13 +64,14 @@ def test_k1_plan_at_every_window_of_the_catalog():
         acquire2.core_plan(163840, 32)      # clusters hold up to 16 CTAs
 
 
-def _threads(W, cluster=0):
+def _threads(W, cluster=0, plan=acquire2.core_plan):
     """The kernel's threads, [rank][tid] -> the lags the thread sums, in
     its order: the register core's row role (tid < TR: t2 = tid / NR, jl =
     tid mod NR, lag rank*NR + jl + n1*split_index(o, t2) for o < R2), the
     run-time core's row layout (element e = tid + i*384 < nr*n2 of rank r
-    is lag r*nr + e div n2 + n1*(e mod n2)).  Also returns T."""
-    core, n1, n2, C = acquire2.core_plan(W, cluster)
+    is lag r*nr + e div n2 + n1*(e mod n2)).  Also returns T.  `plan`:
+    K1's core_plan, or K5's spec_core_plan."""
+    core, n1, n2, C = plan(W, cluster)
     if core == "split":
         _, Q1, _, _, _ = _split(n1)
         _, Q2, _, RO2, QO2 = _split(n2)
@@ -258,3 +263,73 @@ def test_k1_reduction_takes_the_lowest_of_tied_lags_across_ranks(W):
             assert (v, j) == (2.0, min(a, b))
             np.testing.assert_allclose(sm, s[lo:].sum(dtype=np.float64),
                                        rtol=1e-6)
+
+
+def _reduce_k5(q, W, lo):
+    """K5's reduction of the alignment surfaces q [A, W] (float32) as the
+    kernel orders it on either core: per lag the best over the alignments
+    walked in ascending order (a strict >: the lowest alignment on ties),
+    then (peak, lowest lag >= lo reaching it, its alignment) over each
+    thread's lags, the shuffle tree of each warp, the warps, the ranks."""
+    from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
+
+    A = q.shape[0]
+    best, besta = q[0].copy(), np.zeros(W, int)
+    for a in range(1, A):
+        up = q[a] > best
+        best[up], besta[up] = q[a][up], a
+    threads, T = _threads(W, plan=spec_core_plan)
+
+    def take(c, o):
+        return list(o) if _better(o[0], o[1], c[0], c[1]) else c
+
+    ranks = []
+    for lanes in threads:
+        bests = []
+        for lags in lanes:
+            b = [np.float32(-np.inf), W, 0]
+            for j in lags:
+                if j >= lo and _better(best[j], j, b[0], b[1]):
+                    b = [best[j], j, besta[j]]
+            bests.append(b)
+        warps = []
+        for w in range(T // 32):
+            lane = [list(b) for b in bests[32 * w:32 * w + 32]]
+            for off in (16, 8, 4, 2, 1):
+                old = [list(b) for b in lane]
+                lane = [take(old[i], old[i + off] if i + off < 32 else old[i])
+                        for i in range(32)]
+            warps.append(lane[0])
+        c = warps[0]
+        for o in warps[1:]:
+            c = take(c, o)
+        ranks.append(c)
+    c = ranks[0]
+    for o in ranks[1:]:
+        c = take(c, o)
+    return c
+
+
+@pytest.mark.parametrize("W", [16384, 32768, 65536, 81920, 163840])
+def test_k5_reduction_takes_the_lowest_lag_then_alignment(W):
+    """K5's reduction (ops/acquire_coh.spec_core_plan's core at each
+    window the coherent route sends it, csrc/acquire_coh_spec.cu) on
+    alignment surfaces that tie: alignments 1 and 2 equal at a lag of
+    rank 0 and one of the last rank, alignment 0 lower there; searched
+    from 0 and from just below the lower lag it reports the lower lag at
+    alignment 1.  A higher value at a higher alignment and lag wins; a
+    still higher one below lo loses."""
+    from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
+
+    _, n1, n2, C = spec_core_plan(W)
+    nr = -(-n1 // C)
+    last = (C - 1) * nr                       # the first row of the last rank
+    for a_lag, b_lag in ((1, last + n1), (last, n1 + 1)):
+        q = np.full((3, W), 0.25, np.float32)
+        q[1:, [a_lag, b_lag]] = 2.0
+        q[0, [a_lag, b_lag]] = 1.0
+        for lo in (0, min(a_lag, b_lag) - 1):
+            assert _reduce_k5(q, W, lo) == [2.0, min(a_lag, b_lag), 1]
+        q[2, W - 5] = 3.0
+        q[0, 7] = 4.0
+        assert _reduce_k5(q, W, 8) == [3.0, W - 5, 2]

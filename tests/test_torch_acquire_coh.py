@@ -4,14 +4,17 @@ the JAX package, on the CPU.
   * K6's plain version against pallas_acquire_coh.corr_surface_coh in
     interpret mode, on the circular (W=2048, lane-packed g=8) and padded
     (n_valid) shapes of tests/test_pallas_coh.py, and K5's plain version
-    against corr_surface_coh_spec at that file's W=16384 shape.  Both get
+    against corr_surface_coh_spec at that file's W=16384 shape, at 65536
+    padded (n_valid 30690) and at 81920.  Both get
     the same bf16-rounded spectra.  idx and align exact; peak within 3e-2
     of the largest peak (the bound the TPU kernels' bf16 Karatsuba IDFT
     meets against the float64 oracle);
   * acquire_signal_coherent against the JAX engine="fused" (interpret
-    mode) on the B1I NH20 planted capture, the per-PRN-overlay capture
-    and the 25-chip FFT-combine capture: PRN, doppler, code offset,
-    align, linear and track_overlay_phase equal;
+    mode) on the B1I NH20 planted capture, the per-PRN-overlay capture,
+    the 25-chip FFT-combine capture and, at their catalog windows, GPS
+    L5Q (65536 padded), Galileo E1C (65536, CS25) and Galileo E6C (32768
+    padded, CS100 per PRN): PRN, doppler, code offset, align, linear and
+    track_overlay_phase equal, metric within 3e-2;
   * engine="xla" against the JAX XLA engine on tests/test_coherent.py's
     L5I and no-secondary cases: metric rtol 1e-4, the rest exact;
   * the CLI with --coherent 8 against the JAX CLI (its fused route in
@@ -129,7 +132,16 @@ def test_k6_plain_matches_pallas_kernel_interpret(padded):
     assert (int(got[1][0, d0]), int(got[2][0, d0])) == (lag, a_true)
 
 
-def test_k5_plain_matches_pallas_kernel_interpret():
+@pytest.mark.parametrize("W,n_valid,P", [(16384, 0, 2), (65536, 30690, 1),
+                                         (81920, 0, 1)],
+                         ids=["16384", "65536_padded", "81920"])
+def test_k5_plain_matches_pallas_kernel_interpret(W, n_valid, P):
+    """K5's plain version against the Pallas kernel (interpret mode) on
+    the same bf16-rounded combined rows, at B1I's 16384 = 128 x 128, the
+    padded L5/E5/B2a/B3I/L3OC window 65536 = 256 x 256 (n_valid 30690:
+    data in the first 2n samples of each window, the code zero-padded)
+    and GPS L1C's 81920 = 128 x 640 in the TPU plan (G*A = 8 rows), a
+    planted cell at each doppler (noise alone ties to bf16 rounding)."""
     import jax.numpy as jnp
 
     from gnss_dsp_tpu.ops import cplx, fft as fftm
@@ -137,15 +149,22 @@ def test_k5_plain_matches_pallas_kernel_interpret():
     from gnss_dsp_tpu.ops.pallas_acquire_coh import corr_surface_coh_spec
 
     rng = np.random.default_rng(7)
-    W = 16384
     n1, n2 = pa2.plan_aligned(W)
     assert pa2.pick_g(n1) == 1
-    P, DC, m_coh, A, B, G = 2, 2, 4, 4, 8, 2
+    DC, m_coh, A, B, G = 2, 4, 4, 8, 2
     sec_mat = SEC4[(np.arange(A)[:, None] + np.arange(B)[None, :]) % A]
-    code = rng.choice([-1.0, 1.0], size=(P, W))
+    n = n_valid or W                         # code samples
+    code = np.zeros((P, W))
+    code[:, :n] = rng.choice([-1.0, 1.0], size=(P, n))
     a_true, cp0, d0 = 3, 4000, 1
-    x, ang = _planted_blocks(rng, P, DC, B, W, W, code, sec_mat, a_true,
-                             cp0, d0)
+    dw = 2 * n if n_valid else W
+    x, ang = _planted_blocks(rng, P, DC, B, W, dw, code[:, :n], sec_mat,
+                             a_true, cp0, d0)
+    a1, cp1 = 1, 1234                        # doppler 0's cell
+    t = np.arange(dw)
+    for m in range(B):
+        x[0, m, :dw] += (sec_mat[a1, m] * np.exp(1j * ang[0, m])
+                         * code[0][(t - cp1) % n])
     # the spectral combine of grid_search_coherent_fast(mode="spec")
     Fp = fftm.fft_two_level_perm(cplx.from_numpy(x), bf16=True, n1=n1)
     F = (np.asarray(Fp[0], np.float32), np.asarray(Fp[1], np.float32))
@@ -162,12 +181,13 @@ def test_k5_plain_matches_pallas_kernel_interpret():
                        ).reshape(DC, G * A, W)).astype(jnp.bfloat16))
     C16 = _bf16_split(np.fft.fft(code, axis=-1), n1, n2)
     want = corr_surface_coh_spec(F2, C16, n1=n1, n2=n2, bt=4, A=A,
-                                 interpret=True)
+                                 n_valid=n_valid, interpret=True)
     got = acquire_coh.corr_surface_coh_spec(
-        _natural(F2, n1, n2), _natural(C16, n1, n2), A)
+        _natural(F2, n1, n2), _natural(C16, n1, n2), A, n_valid)
     _same_surface(got, want)
-    assert (int(got[1][0, d0]), int(got[2][0, d0])) == ((W - cp0) % W,
-                                                         a_true)
+    for d, a, cp in ((d0, a_true, cp0), (0, a1, cp1)):
+        lag = n_valid - cp if n_valid else (W - cp) % W
+        assert (int(got[1][0, d]), int(got[2][0, d])) == (lag, a)
 
 
 def _split(N):
@@ -391,8 +411,38 @@ def _per_prn_capture(rng, n_chips, ms, grid, plants):
     return sig, x, [5, 34], grid, ms
 
 
+def _catalog_capture(rng, name, plants, ms, grid, roll=3):
+    """Noiseless PRNs of catalog signal `name` at its own acq_fs and
+    subcarrier, each carrying its own overlay from chip `roll`: the
+    fused route at the signal's catalog window."""
+    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu.utils.synth import synth_iq
+
+    sig = get_signal(name)
+    n = int(sig.acq_fs * (ms + 6) / 1000)
+    x = np.zeros(n, np.complex64)
+    for prn, (dop, cp) in plants.items():
+        x += synth_iq(sig.code_table((prn,))[0], sig.chip_rate, sig.acq_fs,
+                      n, doppler_hz=dop, code_phase=cp, cn0_dbhz=None,
+                      subcarrier=sig.subcarrier,
+                      carrier_ratio=sig.carrier_ratio,
+                      data_bits=np.roll(sig.secondary(prn), -roll), rng=rng)
+    return sig, x, sorted(plants), grid, ms
+
+
 CAPTURES = {
     "b1i_nh20": lambda rng: _b1i_nh20_capture(rng),
+    # 65536 padded (n_valid 30690), NH20 shared, the einsum combine
+    "gps_l5q": lambda rng: _catalog_capture(
+        rng, "gps-l5q", {7: (25.0, 3210.0), 30: (-25.0, 8000.5)}, 20,
+        (-25.0, 26.0, 25.0)),
+    # 65536 = 2n linear, CS25 shared, the FFT combine
+    "galileo_e1c": lambda rng: _catalog_capture(
+        rng, "galileo-e1c", {11: (5.0, 1000.0)}, 100, (-5.0, 6.0, 5.0)),
+    # 32768 padded (n_valid 15345), CS100 per PRN: one K5 call a PRN
+    "galileo_e6c": lambda rng: _catalog_capture(
+        rng, "galileo-e6c", {3: (5.0, 700.0), 19: (-5.0, 4100.0)}, 100,
+        (-5.0, 6.0, 5.0)),
     "per_prn_overlays": lambda rng: _per_prn_capture(
         rng, 20, 40, (-40.0, 41.0, 20.0),
         {5: (20.0, 500.0), 34: (-20.0, 1200.0)}),
@@ -471,15 +521,19 @@ def test_xla_engine_matches_jax(case):
 
 def test_fused_route_outside_the_kernels_is_refused_on_cuda(monkeypatch):
     """A fused window the CUDA kernels do not take raises, naming the
-    signal and W, before any work (the device check is the tensor's)."""
+    signal and W, before any work (the device check is the tensor's):
+    gps-l5i at 12.288 MHz routes to K6 ("blk") at 24576, which K6 (powers
+    of two up to 16384) does not take (tests/test_coherent.py's shape)."""
     from gnss_dsp_tpu.models import get_signal
     from gnss_dsp_tpu_torch.acquire import coherent as tcoh
+    from gnss_dsp_tpu_torch.acquire.plan import coh_plan
 
     class CudaLike:
         device = torch.device("cuda")
 
-    sig = get_signal("galileo-e1c")
-    with pytest.raises(NotImplementedError, match="galileo-e1c.*65536"):
+    sig = dataclasses.replace(get_signal("gps-l5i"), acq_fs=12.288e6)
+    assert coh_plan(sig, 12288, 10, 10)[:2] == ("blk", 24576)
+    with pytest.raises(NotImplementedError, match="gps-l5i.*24576"):
         tcoh.acquire_signal_coherent(sig, CudaLike(), [1], (-50, 50, 25))
 
 
@@ -498,6 +552,20 @@ def test_fused_engine_names_the_divisibility_blocker_first():
     with pytest.raises(ValueError, match="m_coh % overlay_len"):
         tcoh.acquire_signal_coherent(sig, x, [5, 34], (-20, 21, 20),
                                      m_coh=7, engine="fused")
+
+
+def test_short_capture_names_the_time_it_needs():
+    """Galileo E1C's 25 linear windows of 2n reach one 4 ms code period
+    past the 100 ms span: a capture of 102 ms (the CLI's --time 100 + 2)
+    is refused with the samples it needs, before any work (the reference
+    fails in its reshape)."""
+    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu_torch.acquire import coherent as tcoh
+
+    sig = get_signal("galileo-e1c")
+    x = torch.zeros(int(sig.acq_fs * 0.102), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="851968 samples.*one code period"):
+        tcoh.acquire_signal_coherent(sig, x, [1], (-5, 6, 5), ms=100)
 
 
 # ------------------------------------------------------------------ CLI

@@ -13,7 +13,10 @@ every subcarrier kind, sub-block count, long code and coherent (the kernel
 and the plain version pin the same roundings, and sum the correlators in
 float64); K5 and K6
 idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
-sums each group's blocks before the IDFT, its plain version after); K3
+sums each group's blocks before the IDFT, its plain version after), K5
+at every window the coherent route sends it, two launches bit-equal, and
+an exact tie across ranks and alignments to the lowest lag, then the
+lowest alignment; K3
 and K4 equal to their plain version to one float32 ulp of the channel's
 largest sum (both sum exact float64 products and round once; a sum within
 2^-29 of a rounding tie may round the other way), two launches bit-equal.
@@ -230,11 +233,11 @@ def test_k7_refuses_cpu_tensors_and_unsupported_w(dev):
     assert acquire.LAUNCHES == n0
 
 
-def _coh_inputs(dev, P, DC, B, W, A, n_valid, seed):
+def _coh_inputs(dev, P, DC, B, W, A, n_valid, seed, sec=None):
     """Unit-modulus code spectra, noise spectra F [DC, B, W], rotations
-    and overlay signs; PRN p planted at doppler p % DC, alignment
-    (3p + 1) % A and lag j = lo + (997p + 13) % (W - lo) among the
-    searched lags j >= lo = W - n_valid, coherent across blocks (F_m
+    and overlay signs (random, or `sec`); PRN p planted at doppler p %
+    DC, alignment (3p + 1) % A and lag j = lo + (997p + 13) % (W - lo)
+    among the searched lags j >= lo = W - n_valid, coherent across blocks (F_m
     carries sec[a, m] rot[d, m] code e^{+2 pi i k j/W})."""
     g = torch.Generator(device=dev).manual_seed(seed)
     code = torch.exp(2j * np.pi * torch.rand((P, W), generator=g, device=dev)
@@ -242,8 +245,8 @@ def _coh_inputs(dev, P, DC, B, W, A, n_valid, seed):
     F = 0.3 * torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
                             torch.randn((DC, B, W), generator=g, device=dev))
     ang = 2 * np.pi * torch.rand((DC, B), generator=g, device=dev)
-    rng = np.random.default_rng(seed)
-    sec = rng.choice([-1.0, 1.0], A)
+    sec = (np.random.default_rng(seed).choice([-1.0, 1.0], A)
+           if sec is None else np.asarray(sec))
     sec_mat = torch.from_numpy(
         sec[(np.arange(A)[:, None] + np.arange(B)[None, :]) % A]
         .astype(np.float32)).to(dev)
@@ -341,12 +344,104 @@ def test_k5_cluster_keeps_the_lowest_alignment_on_a_tie(dev):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
 
 
-def test_coh_kernels_reject_unsupported_w(dev):
+# K5 at the windows the coherent route sends it past 16384, with and
+# without n_valid, on every cluster size built there and the run-time
+# core (81920 on 8 CTAs, 163840)
+K5_WIDE = [(32768, 15345, 8), (32768, 0, 16), (65536, 30690, 8),
+           (65536, 30690, 16), (65536, 0, 8), (81920, 0, 16), (81920, 0, 8),
+           (163840, 0, 0)]
+
+
+@pytest.mark.parametrize("W,n_valid,cluster", K5_WIDE)
+def test_k5_wide_matches_plain(dev, W, n_valid, cluster):
+    """K5 at P 2, DC 2, G 2, A 3 on its core at each wide window: the
+    planted (lag, alignment) exact, peak rtol 1e-4, two launches
+    bit-equal, one launch a call; the rows walked alignment-major (g*A +
+    a) on both cores."""
     from gnss_dsp_tpu_torch.ops import acquire_coh
 
-    F = torch.zeros((1, 2, 32768), dtype=torch.complex64, device=dev)
-    with pytest.raises(NotImplementedError):
+    info = acquire_coh.spec_launch_info(W, dev.index or 0, cluster)
+    assert (info["core"], info["n1"], info["n2"], info["cluster"]) == \
+        acquire_coh.spec_core_plan(W, cluster)
+    P, DC, A, G = 2, 2, 3, 2
+    # an overlay whose cyclic shifts differ (a constant one would tie
+    # every alignment)
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, P, DC, G * A, W, A,
+                                                 n_valid, W + cluster,
+                                                 sec=[1.0, 1.0, -1.0])
+    wc = sec_mat[None] * torch.complex(c, -s)[:, None, :]      # [DC, A, B]
+    F2 = torch.einsum("dagm,dgmw->dgaw", wc.reshape(DC, A, G, A),
+                      F.reshape(DC, G, A, W)).reshape(DC, G * A, W)
+    n0 = acquire_coh.LAUNCHES_SPEC
+    got = acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid,
+                                            cluster=cluster)
+    assert acquire_coh.LAUNCHES_SPEC == n0 + 1
+    plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A, n_valid)
+    _check_planted(got, plain, plants, W, n_valid)
+    again = acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid,
+                                              cluster=cluster)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W,cluster", [(32768, 8), (32768, 16), (65536, 8),
+                                       (65536, 16), (81920, 16), (81920, 8),
+                                       (163840, 0)])
+def test_k5_tie_takes_the_lowest_lag_then_alignment(dev, W, cluster):
+    """K5 on rows whose surface ties exactly at every lag with an even row
+    index j mod n1 (k1_tie's rows), alignment 0 at half of them and
+    alignments 1 and 2 equal: from lag 0 it reports (lag 0, alignment 1),
+    from lo = nr - 1 lag nr, made by rank 1 while rank 0 makes the tied
+    lag n1: (idx 1, alignment 1)."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    _, n1, n2, C = acquire_coh.spec_core_plan(W, cluster)
+    nr = -(-n1 // C)
+    A, G = 3, 2
+    code = torch.ones((1, W), dtype=torch.complex64, device=dev)
+    F2 = torch.zeros((1, G * A, W), dtype=torch.complex64, device=dev)
+    F2[:, :, 0] = 1.0
+    F2[:, :, (n1 // 2) * n2] = 1.0
+    F2[:, 0::A] *= 0.5
+    cells = []
+    for n_valid in (0, W - (nr - 1)):
+        got = acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid,
+                                                cluster=cluster)
+        cells.append((int(got[1][0, 0]), int(got[2][0, 0])))
+        if not n_valid:
+            plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A)
+            torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+    assert cells == [(0, 1), (1, 1)]
+
+
+def test_k1_runtime_core_launches_are_bit_equal(dev):
+    """K1 at 163840 on the run-time core (wide_rows, shared with K5):
+    P 2, DC 3, B 5, with and without n_valid, two launches bit-equal and
+    the planted lags exact."""
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    W = 163840
+    assert acquire2.core_plan(W)[0] == "wide"
+    for n_valid in (0, 81920):
+        lo = W - n_valid if n_valid else 0
+        code, F, lags = _planted(dev, 2, 3, 5, W, lo, 11 + n_valid)
+        got = acquire2.corr_surface2(F, code, n_valid)
+        again = acquire2.corr_surface2(F, code, n_valid)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for p in range(2):
+            assert int(got[1][p, p % 3]) == lags[p] - lo
+
+
+def test_coh_kernels_reject_unsupported_w(dev):
+    """K5 refuses a window with no split into the passes' radices, K6
+    any window past 16384."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    F = torch.zeros((1, 2, 7 * 13 * 64), dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match="5824"):
         acquire_coh.corr_surface_coh_spec(F, F[0], 1)
+    F = torch.zeros((1, 2, 32768), dtype=torch.complex64, device=dev)
     one = torch.ones((1, 2), device=dev)
     with pytest.raises(NotImplementedError):
         acquire_coh.corr_surface_coh(F, F[0], one, one, one, 2)
