@@ -47,7 +47,10 @@ Runs every phase, in this order:
           M = 20) and the GPS L5Q one (4 channels at 30.69 MHz, M = 20),
           each over two launches whose chunk boundary falls
           mid-run (mid-period when coherent): int rows and state equal,
-          float rows bit-equal, with timings and bounds; then at the main
+          float rows bit-equal, with timings and bounds; at each shape
+          the launch plan (cluster size, staging, registers, clusters at
+          once), microseconds a block and the time on one CTA a channel
+          (S = 1, rows and state bit-equal to the plan's); then at the main
           path's shape (the e2e capture's 8 channels at 8.184 MHz, int8
           ingest on the card) across a chunk that ends mid-run, the stall,
           and the driver's refill with pointer rebase
@@ -193,7 +196,7 @@ K7_CLUSTERS = (6, 8)
 K1_CLUSTERS = {4096: (1, 4, 8), 32768: (16,), 65536: (16,), 81920: (8,)}
 # the cluster kernels' entry functions in nvcc's -Xptxas -v output
 CLUSTER_KERNELS = (r"coh_spec_kernel|coh_wide_kernel|full_kernel"
-                   r"|acq2_split_kernel|acq2_wide_kernel")
+                   r"|acq2_split_kernel|acq2_wide_kernel|track_fused_kernel")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory and
 # float32 outside the tensor cores
@@ -991,12 +994,22 @@ def phase_k2(dev, card, results):
         f"rows_f max|d| = {err:.3g}; {same_rows}/{NB * C} rows bit-equal; "
         f"after: max|dcarrier_f| {np.nanmax(dcf):.3g} Hz, "
         f"max|dcode_p| {np.nanmax(dcp):.3g} chip")
-    log(f"[k2] kernel {ms:.3f} ms ({samples / ms / 1e3:.4g} Msamples/s), "
-        f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms by {by}  [{card}]")
+    plan, direct_ms, s1_ms = _k2_plan_ablation(
+        "bench", (xd, torch.full((C,), n, dtype=torch.int32, device=dev), tab,
+                  st0(), params, NB, torch.full((C,), 1540.0, device=dev),
+                  torch.zeros(C, dtype=torch.int32, device=dev),
+                  sigp_from_params(params, C, dev)), "none", ms, NB)
+    log(f"[k2] kernel {ms:.3f} ms ({samples / ms / 1e3:.4g} Msamples/s, "
+        f"{ms * 1e3 / NB:.3f} us a block), plain {plain_ms:.3f} ms, bound "
+        f"{bms:.4f} ms by {by}  [{card}]")
     CHECKED["track_fused"].append(fused_key("track_fused", xd, n, tab, None,
                                             params))
     results["track_fused"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bms, bound_by=by)
+    bench = dict(name="gps-l1 bench", channels=C, fs=fs, coherent=1,
+                 blocks=NB, ms=ms, us_a_block=ms * 1e3 / NB,
+                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, plan=plan,
+                 direct_ms=direct_ms, s1_ms=s1_ms)
     fams = [_k2_family(dev, card, name, C, get_signal(name).acq_fs, 1, 60 + i)
             for i, (name, C) in enumerate(E2E_TRACK)]
     # e2e_coherent_track's shapes (tools/main_path.synth_coherent_track)
@@ -1005,6 +1018,52 @@ def phase_k2(dev, card, results):
     fams.append(_k2_family(dev, card, "gps-l5q", len(L5Q_PRNS), L5Q_FS, 20,
                            67))
     log("[k2] families " + json.dumps(fams))
+    results["track_fused"]["shapes"] = [bench] + fams
+
+
+def _k2_plan_ablation(tag, args, kind, ms, nb):
+    """Logs K2's launch plan at track_scan_fused's arguments `args` (the
+    card's view: launch_info) and times the same launch on one CTA a
+    channel (S = 1), whose rows and state must equal the plan's bit for
+    bit.  Returns (the plan with the card's registers, spills and
+    clusters at once, the milliseconds of track_scan_fused on the plan's
+    S and on S = 1: the kernel and its state packing, without
+    track_scan's checks, which wait for the card)."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import track_fused
+
+    C, L = args[2].shape
+    nmax = args[4].nmax
+    plan = track_fused.cluster_plan(C, nmax)
+    info = track_fused.launch_info(nmax, plan["cluster"], kind,
+                                   L > track_fused.MAX_CODE)
+    plan.update(regs=info["regs"], spill_bytes=info["spill_bytes"],
+                active=info["active"], threads=info["threads"])
+    log(f"[k2] {tag}: plan: cluster of {plan['cluster']} CTAs a channel "
+        f"(grid {C * plan['cluster']}), {plan['threads']} threads, window "
+        f"{plan['tiles']} tiles of {track_fused.TILE} samples, {plan['tpc']} "
+        f"a CTA in {plan['batches']} batch(es), two stages of "
+        f"{plan['stage_bytes']} bytes, {plan['smem']} bytes of shared memory "
+        f"a CTA, {plan['regs']} registers and {plan['spill_bytes']} local "
+        f"bytes a thread, {plan['active']} clusters at once")
+    got = track_fused.track_scan_fused(*args)
+    one = track_fused.track_scan_fused(*args, cluster=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(one[1], got[1], rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(one[2], got[2], rtol=0, atol=0)
+    for a, b in zip(one[0], got[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    s_ms = cuda_ms(lambda: track_fused.track_scan_fused(*args), 3)
+    s1_ms = cuda_ms(lambda: track_fused.track_scan_fused(*args, cluster=1),
+                    3)
+    log(f"[k2] {tag}: ablation, 1 CTA a channel: {s1_ms:.3f} ms "
+        f"({s1_ms * 1e3 / nb:.3f} us a block) against {s_ms:.3f} ms "
+        f"({s_ms * 1e3 / nb:.3f}) on {plan['cluster']} (both by "
+        f"track_scan_fused; through track_scan {ms:.3f}); rows and state "
+        f"bit-equal")
+    return plan, s_ms, s1_ms
 
 
 def sample_ops(kind):
@@ -1079,6 +1138,9 @@ def _k2_family(dev, card, name, C, fs, coh, seed, seconds=0.3,
     ms = cuda_ms(run_kernel, 3)
     plain_ms = cuda_ms(lambda: track_scan_plain(
         d["x"], full, d["tab"], d["st"], p, nb, *extra), 1)
+    plan, direct_ms, s1_ms = _k2_plan_ablation(
+        name, (d["x"], full, d["tab"], d["st"], p, nb, *extra),
+        subc_kind(sig.subcarrier), ms, nb)
     ri = run_kernel()[2][..., 0].to(torch.float64)
     ns = ri.sum(0).cpu().numpy()
     cf = sig.chip_rate / fs
@@ -1090,11 +1152,13 @@ def _k2_family(dev, card, name, C, fs, coh, seed, seconds=0.3,
         f"{sig.code_length}{', M ' + str(coh) if coh > 1 else ''}) C={C} "
         f"fs={fs:g} nmax={p.nmax}: two launches across a stall, rows_i "
         f"and state exact, rows_f bit-equal; {rows} rows in {nb} blocks; "
-        f"kernel {ms:.3f} ms ({ns.sum() / ms / 1e3:.4g} Msamples/s), plain "
-        f"{plain_ms:.3f} ms, bound {bms:.4f} ms by {by}  [{card}]")
+        f"kernel {ms:.3f} ms ({ns.sum() / ms / 1e3:.4g} Msamples/s, "
+        f"{ms * 1e3 / nb:.3f} us a block), plain {plain_ms:.3f} ms, bound "
+        f"{bms:.4f} ms by {by}  [{card}]")
     return dict(name=name, channels=C, fs=fs, coherent=coh, blocks=nb,
-                rows=rows, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+                rows=rows, max_abs_err=0.0, ms=ms, us_a_block=ms * 1e3 / nb,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, plan=plan,
+                direct_ms=direct_ms, s1_ms=s1_ms)
 
 
 # ---------------------------------------------------------- phase k2, main

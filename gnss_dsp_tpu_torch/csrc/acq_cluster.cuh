@@ -14,7 +14,8 @@
 // and wide_rows at the end of the file: K1 and K5 at 163840), and Split,
 // power-of-two and 320-point sub-transforms with compile-time sizes and
 // the values in registers (surface_rows: K1 and K5 at 4096 to 81920).
-// The cluster's reduction (cluster_best) and launch helpers follow.
+// The cluster's reduction (cluster_best) follows; the launch helpers
+// are cluster_launch.cuh's.
 // row_transform:
 //
 //   k = k2 + n2*k1, j = j1 + n1*j2, w = e^{+2 pi i / W}
@@ -58,9 +59,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
+
 namespace acqc {
 namespace cg = cooperative_groups;
 namespace {   // each translation unit keeps its own instantiations
+
+using clusterk::cluster_arrive;
+using clusterk::cluster_info;
+using clusterk::cluster_wait;
+using clusterk::kMaxSmem;
+using clusterk::launch_cluster;
 
 constexpr int kMaxPasses = 12;
 // twiddle header of ops/acquire2.wide_twiddle_table: e^{2 pi i k/16}, then
@@ -430,14 +439,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // kBatch values into registers, then stores them, so one latency of
 // device or distributed shared memory covers kBatch values.
 constexpr int kBatch = 8;
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // Shared memory of one CTA: the two buffers, then `extra` float2 of the
 // kernel's own, then the twiddle table.
@@ -1025,88 +1026,6 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
     if constexpr (kAlign) s.al[o] = b.a;
     if constexpr (kSum) s.sum[o] = b.s / (float)W;
   }
-}
-
-// ---- Launching a cluster kernel ------------------------------------------
-
-constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kMaxPortable = 8;   // larger clusters are non-portable (16)
-
-inline cudaLaunchConfig_t cluster_config(int grid, int T, int C, size_t smem,
-                                         cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid, 1, 1);
-  cfg.blockDim = dim3((unsigned)T, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The attributes a cluster kernel needs before a launch: its dynamic
-// shared memory, and above 8 CTAs the non-portable cluster size.
-template <typename Kernel>
-inline cudaError_t prepare(Kernel kernel, int C, size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess && C > kMaxPortable)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return e;
-}
-
-// A cluster kernel's launch plan: info[0] C, [1] dynamic shared memory
-// bytes a CTA, [2] registers a thread, [3] local (spilled) bytes a thread,
-// [4] clusters the card holds at once (cudaOccupancyMaxActiveClusters),
-// [5] threads a CTA.
-template <typename Kernel>
-inline cudaError_t cluster_info(Kernel kernel, int T, int C, size_t smem,
-                                int* info) {
-  cudaError_t e = prepare(kernel, C, smem);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, kernel);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(C, T, C, smem, 0, attr);
-  int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-  if (e != cudaSuccess) return e;
-  info[0] = C;
-  info[1] = (int)smem;
-  info[2] = fa.numRegs;
-  info[3] = (int)fa.localSizeBytes;
-  info[4] = active;
-  info[5] = T;
-  return cudaSuccess;
-}
-
-// Launch a cluster kernel over `grid` CTAs; above 8 CTAs a cluster only
-// where the card holds one such cluster at once.  Returns the launch's
-// cudaError_t.
-template <typename Kernel, typename Args>
-inline cudaError_t launch_cluster(Kernel kernel, int grid, int T, int C,
-                                  size_t smem, cudaStream_t stream,
-                                  const Args& args) {
-  cudaError_t e = prepare(kernel, C, smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(grid, T, C, smem, stream, attr);
-  if (C > kMaxPortable) {
-    int active = 0;
-    e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-    if (e != cudaSuccess) return e;
-    if (active < 1) return cudaErrorLaunchOutOfResources;
-  }
-  e = cudaLaunchKernelEx(&cfg, kernel, args);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
 }
 
 // ---- The surface over run-time rows (K1 and K5 at 163840) ---------------

@@ -5,61 +5,100 @@
 // :616, body _kernel :118), including the early/prompt/late math it takes
 // from ops/pallas_track2.py (tile_contrib :107, finalize_contrib :278).
 //
-// One CTA of 256 threads per channel loops over the B blocks: the loop
-// filter closes over each block's correlators, so blocks are sequential and
-// the parallelism is the channel count.  Per block:
-//   1. thread 0 computes the geometry: the adaptive block length n (the
-//      sub-block's share of the code period, the q/r split of
-//      track/engine._sub_block_len), whether the chunk still holds the
-//      block (ok), the integer and fractional code phase of the three
-//      lags, and the two DDS phases/increments (track/engine.py
-//      _geometry);
-//   2. every thread strides over the samples i < n: the fused double-LUT
-//      carrier wipe, three chip reads, the subcarrier factor of K3's
-//      runtime kind (template K: "none", "subc" = a0 + a1 boc + a6 boc6,
-//      "tmboc" adds tm times the TMBOC blend at the absolute chip index),
-//      and six partial sums (float64: each product of a float32 sample and
-//      a float32 factor is exact); this body is track_corr.cuh's
-//      epl_samples, shared with K3 and K4;
-//   3. warp shuffles and shared memory reduce the sums;
-//   4. thread 0 runs the loop filter and bookkeeping (_post_block), writes
-//      the block's rows and keeps the state in registers.  With coh set
-//      (extended-coherent tracking, M = the sigp COH lane), it first wipes
-//      the block's E/P/L by the channel's overlay chip
-//      overlay[c, block % nov_c], adds them into the six cacc sums, lets
-//      the filters see the sums and advance only where (block + 1) % M ==
-//      0, and resets cacc there; the row keeps the block's wiped values.
+// The loop filter closes over each block's correlators, so one channel's
+// blocks are sequential.  Each channel runs on a thread-block cluster of S
+// CTAs (S a power of two up to 16, ops/track_fused.cluster_plan: the
+// largest with C x S <= 132 SMs), grid C x S.  Every CTA keeps the whole
+// channel state in the registers of its warp 0 and runs the serial part
+// itself, from the same inputs, so every CTA holds the same bits:
+//   1. warp 0 runs filter(b - 1) and geometry(b) as one serial section
+//      (track/engine._post_block, then _geometry): the adaptive block
+//      length n (the q/r split of _sub_block_len), whether the chunk still
+//      holds the block (ok), the three lags' integer and fractional chip
+//      phases, the two DDS phases and increments; with coh set
+//      (extended-coherent tracking, M = the sigp COH lane) the filter first
+//      wipes the block's E/P/L by the overlay chip overlay[c, block %
+//      nov_c], adds them into the six cacc sums, lets the filters see the
+//      sums and advance only where (block + 1) % M == 0, and resets cacc
+//      there; the row keeps the block's wiped values.  It hands the
+//      geometry to the CTA through shared memory (Geo, by b & 1) before
+//      the block's one __syncthreads;
+//   2. a producer warp beside the 256 workers issues the bulk copies
+//      (cp.async.bulk, TMA), one a lane, of the NEXT block's sample window into the other of two stage buffers: its
+//      start, ptr + n, is known at this block's geometry (clamped into x as
+//      the engine clamps it, engine.py:257), its length nmax + 2 from the
+//      even sample below the start (16-byte copies), dealt round-robin to
+//      the S CTAs in tiles of kTile samples, so any n spreads evenly;
+//   3. the CTA waits on this block's stage mbarrier and correlates the
+//      samples of its own tiles with track_corr.cuh's epl_sample (the
+//      fused double-LUT carrier wipe, three chip reads, the subcarrier
+//      factor of K3's runtime kind K, six float64 sums: each product of a
+//      float32 sample and a float32 factor is exact); it reads samples only
+//      from the stage;
+//   4. warp shuffles and the warps in order reduce the CTA's six sums, and
+//      the CTA writes them into slot [b & 1][rank] of every CTA's shared
+//      memory (cluster.map_shared_rank);
+//   5. one split cluster barrier (arrive.release, wait.acquire); warp 0
+//      of every CTA then sums the S partials in rank order, so all hold
+//      the same bits, and goes on to 1.  Rank 0 writes the rows and the
+//      final state.
+// Why one cluster barrier a block is enough: CTA X writes slot [b & 1] of
+// CTA Y before barrier b, and Y reads it after barrier b and before it
+// arrives at barrier b + 1.  X writes that slot again only at block b + 2,
+// after it has passed barrier b + 1, which Y reached only after its read.
+// The stage buffer block b + 1 fills was last read in block b - 1, before
+// every thread of the CTA arrived at barrier b - 1, which the producer
+// has passed when it issues the copy.  Where a CTA's share of the window does
+// not fit two stages (L5-class rates on many channels: the plan's batches
+// m > 1), the share streams through the two buffers in m batches, each
+// issued while the one before is correlated, with a __syncthreads between
+// the batches of a block.
 // Codes of <= kMaxCode chips are copied to shared memory once (template
 // kSmemCode); longer ones (GPS L2CL 767,250 chips, GLONASS P 5,110,000)
 // are read with __ldg straight from the int8 [C, L] table in device
-// memory: a block's three lags touch a window of about n cf + 2 chips
-// (~1,000 for L2CL's 1 ms sub-block, ~5,100 for GLONASS P), neighbouring
-// threads read the same or the next chip, and the window stays in L1/L2,
-// so a copy into shared memory would add a barrier a block and save
-// little.  This is the port's form of the TPU kernel's streamed code
-// window (:264-304).  The overlay rows (<= kMaxOverlay chips) are staged
-// in shared memory.
-// None of the TPU machinery carries over: no one-hot MXU routing, no
-// 128-lane packing, no scalar prefetch, no window DMA, no tile padding.
+// memory: a block's three lags touch a window of about n cf + 2 chips,
+// neighbouring threads read the same or the next chip, and the window
+// stays in L1/L2.  The overlay rows (<= kMaxOverlay chips) are staged in
+// shared memory.  None of the TPU machinery carries over: no one-hot MXU
+// routing, no 128-lane packing, no scalar prefetch, no tile padding; the
+// TPU kernel's double-buffered window DMA (:137-161, :185-193) becomes
+// step 2.
 //
-// What bounds it on the card: latency of the per-block chain (three
-// barriers and the scalar loop filter), not bandwidth: each block reads n
-// samples once.  State lives in registers and shared memory across blocks,
-// so there is no launch per block.
+// What bounds it on the card: latency of the per-block chain (the serial
+// filter and geometry, two __syncthreads and one cluster barrier), not
+// bandwidth: each block reads about nmax samples once.
 //
 // Rounding is pinned down to match the plain version (ops/track_fused.py):
 // built with --fmad=false; the multiply-adds the reference rounds once are
 // __fmaf_rn here; division by fs is a multiply by inv_fs.
 
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "cluster_launch.cuh"
 #include "track_corr.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using gnss_track::kLut;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;         // the workers of a CTA
+constexpr int kBlock = kThreads + 32;  // and one producer warp
+// CTAs an SM must hold: two keep a 16-CTA cluster of every channel of the
+// 8-channel shapes resident at once (one CTA an SM holds 7 such clusters)
+constexpr int kMinBlocks = 2;
 constexpr int kMaxCode = 10230;
 constexpr int kMaxOverlay = 1024;
+constexpr int kMaxCluster = 16;
+constexpr int kTile = 128;            // samples a bulk copy (1 KiB)
+constexpr int kFixedBytes = 32768;    // shared memory before the stages
+
+// Hooks of tools/k2_variants' stamps variant (empty here)
+#define K2_MARK_INIT
+#define K2_MARK(k)
+#define K2_MARK_END(rank0, c, blocks)
 
 // int32 state lanes (ops/track_fused.py I_*)
 enum { I_PTR, I_BLOCK, I_COFF_P, I_COFF_DF, I_STALLED, I_CHUNKLEN, I_NFULL,
@@ -79,6 +118,72 @@ struct Loop {
   float fs_inv;
   int fll_wide, fll_narrow;
   float fll_wide_k, fll_narrow_k, pll_k1, pll_k2, dll_k1, dll_k2;
+};
+
+// The staging plan (ops/track_fused.cluster_plan mirrors it): the window
+// of nmax + 2 samples in `tiles` tiles of kTile, tile t on rank t % S, tpc
+// tiles a CTA, in m batches of k tiles; each of the two stage buffers
+// holds k tiles.
+struct Plan {
+  int S, tiles, tpc, k, m;
+  int stage;       // samples a stage buffer (k * kTile)
+  int smem;        // dynamic shared memory bytes a CTA
+};
+
+bool make_plan(int nmax, int S, Plan& p) {
+  if (S < 1 || S > kMaxCluster || (S & (S - 1)) || nmax < 1) return false;
+  p.S = S;
+  p.tiles = (nmax + 2 + kTile - 1) / kTile;
+  p.tpc = (p.tiles + S - 1) / S;
+  const int kmax =
+      (int)((clusterk::kMaxSmem - kFixedBytes) / (2 * kTile * sizeof(float2)));
+  p.m = (p.tpc + kmax - 1) / kmax;
+  p.k = (p.tpc + p.m - 1) / p.m;
+  p.stage = p.k * kTile;
+  p.smem = kFixedBytes + 2 * p.stage * (int)sizeof(float2);
+  return true;
+}
+
+// A block's geometry as warp 0 hands it to the CTA.
+struct Geo {
+  gnss_track::Block g;
+  int start;     // the window's start, clamped into x
+  int ok;        // the chunk holds the block
+  int nloop;     // samples to correlate, min(n, nmax)
+  int next;      // the next block's window start (-1: none is staged)
+  int waited;    // batches waited before this block
+  int drain;     // not ok, but a window was staged for it: wait once
+};
+
+// Shared memory before the stage buffers.
+struct Fixed {
+  double part[2][kMaxCluster][6];   // the ranks' partial sums, by b & 1
+  double red[kThreads / 32][6];     // the warps' sums
+  unsigned long long full[2];       // the stage buffers' mbarriers
+  Geo geo[2];                       // by b & 1
+  float2 lut[kLut];
+  float ovl[kMaxOverlay];
+  int8_t chips[kMaxCode];
+};
+static_assert(sizeof(Fixed) <= kFixedBytes, "fixed shared memory too large");
+
+struct Args {
+  const float2* x;
+  int nx;
+  const int8_t* code;
+  int code_stride;
+  const int* s_i32;
+  const float* s_f32;
+  const float* ovl;
+  int nov;
+  const float2* lut;
+  float* rows_f;
+  int* rows_i;
+  int* sti_out;
+  float* stf_out;
+  int C, B, coh, nmax;
+  Plan pl;
+  Loop lp;
 };
 
 // ---- two-float arithmetic (utils/twofloat.py), no contraction
@@ -126,9 +231,11 @@ __device__ __forceinline__ TF tf_mod(TF x, float m, float& k) {
   return tf_add_f(r, (under ? m : 0.0f) - (over ? m : 0.0f));
 }
 
-// floor-mod by 1 (torch.remainder / jnp.mod)
+// floor-mod by 1 (torch.remainder / jnp.mod).  fmodf(a, 1) exactly, zero's
+// sign included: a - truncf(a) is exact (Sterbenz for |a| >= 1), and
+// cheaper than fmodf in the serial section.
 __device__ __forceinline__ float mod1(float a) {
-  float m = fmodf(a, 1.0f);
+  float m = copysignf(a - truncf(a), a);
   if (m != 0.0f && m < 0.0f) m += 1.0f;
   return m;
 }
@@ -156,43 +263,112 @@ __device__ __forceinline__ float pll_costas(float re, float im) {
   return atan2f(flip * im, flip * re);
 }
 
-template <int K, bool kSmemCode>
-__global__ void __launch_bounds__(kThreads)
-track_fused_kernel(const float2* __restrict__ x,
-                   const int8_t* __restrict__ code, int code_stride,
-                   const int* __restrict__ s_i32,
-                   const float* __restrict__ s_f32,
-                   const float* __restrict__ ovl_g, int nov,
-                   const float2* __restrict__ lut_g,
-                   float* __restrict__ rows_f, int* __restrict__ rows_i,
-                   int* __restrict__ sti_out, float* __restrict__ stf_out,
-                   int C, int B, int coh, Loop lp) {
-  __shared__ float2 lut[kLut];
-  __shared__ int8_t chips[kSmemCode ? kMaxCode : 1];
-  __shared__ float ovl[kMaxOverlay];
-  __shared__ double red[kThreads / 32][6];
-  // block geometry, broadcast from thread 0
-  __shared__ int g_n, g_ok, g_ptr;
-  __shared__ int g_vint[3];
-  __shared__ float g_fr[3];
-  __shared__ float g_cf;
-  __shared__ uint32_t g_coff_p, g_coff_df, g_carr_p0, g_carr_df;
+// ---- mbarriers and bulk copies (PTX)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this CTA's shared memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
-  const int c = blockIdx.x;
+// Issue batch q of this rank's share of the window that starts at `start`
+// into stage buffer `buf` (every lane of one warp: lane 0 sets the
+// expected bytes, then the lanes issue a tile each).  Copies stop at the
+// even sample below nx: no block reads past chunk_len <= nx - nmax.
+__device__ __forceinline__ void issue_batch(const Args& a, int rank, int q,
+                                            int start, float2* buf,
+                                            unsigned long long* bar,
+                                            int lane) {
+  const Plan& p = a.pl;
+  const int w0 = start & ~1;
+  const int nxe = a.nx & ~1;
+  const int u0 = q * p.k, u1 = min(u0 + p.k, p.tpc);
+  if (lane == 0) {
+    uint32_t bytes = 0;
+    for (int u = u0; u < u1; ++u) {
+      const int ts = w0 + (rank + p.S * u) * kTile;
+      if (rank + p.S * u >= p.tiles || ts >= nxe) break;
+      bytes += (uint32_t)min(kTile, nxe - ts) * (uint32_t)sizeof(float2);
+    }
+    mbar_expect_tx(bar, bytes);
+  }
+  __syncwarp();
+  for (int u = u0 + lane; u < u1; u += 32) {
+    const int ts = w0 + (rank + p.S * u) * kTile;
+    if (rank + p.S * u >= p.tiles || ts >= nxe) break;
+    bulk_copy(buf + (u - u0) * kTile, a.x + ts,
+              (uint32_t)min(kTile, nxe - ts) * (uint32_t)sizeof(float2), bar);
+  }
+}
+
+template <int K, bool kSmemCode>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+track_fused_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Fixed& fx = *reinterpret_cast<Fixed*>(smem);
+  float2* stage = reinterpret_cast<float2*>(smem + kFixedBytes);
+  cg::cluster_group cluster = cg::this_cluster();
+  const Plan& pl = a.pl;
+  const int S = pl.S;
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / S;
   const int tid = threadIdx.x;
-  const int* si = s_i32 + (size_t)c * NI;
-  const float* sf = s_f32 + (size_t)c * NF;
+  const int warp = tid >> 5, lane = tid & 31;
+  const bool producer = warp == kThreads / 32;   // issues the bulk copies
+  const bool writer = rank == 0 && tid == 0;
+  const int* si = a.s_i32 + (size_t)c * NI;
+  const float* sf = a.s_f32 + (size_t)c * NF;
   const float* sp = sf + F_SIGP;
   const int L = (int)sp[S_L];
   const float Lf = sp[S_L];
-  const int8_t* row = code + (size_t)c * code_stride;
+  const int8_t* row = a.code + (size_t)c * a.code_stride;
+  const Loop& lp = a.lp;
+  auto buffer = [&](int i) { return stage + (i & 1) * pl.stage; };
+  auto full = [&](int i) { return &fx.full[i & 1]; };
 
-  for (int i = tid; i < kLut; i += blockDim.x) lut[i] = lut_g[i];
+  for (int i = tid; i < kLut; i += kBlock) fx.lut[i] = a.lut[i];
   if constexpr (kSmemCode) {
-    for (int i = tid; i < L; i += blockDim.x) chips[i] = row[i];
+    for (int i = tid; i < L; i += kBlock) fx.chips[i] = row[i];
   }
-  for (int i = tid; i < nov; i += blockDim.x)
-    ovl[i] = ovl_g[(size_t)c * nov + i];
+  for (int i = tid; i < a.nov; i += kBlock)
+    fx.ovl[i] = a.ovl[(size_t)c * a.nov + i];
+  if (tid == 0) {
+    mbar_init(&fx.full[0]);
+    mbar_init(&fx.full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   gnss_track::Coef coef{0.0f, 0.0f, 0.0f, 0.0f};
   if constexpr (K == gnss_track::SUB_AFFINE ||
                 K == gnss_track::SUB_AFFINE_TMBOC)
@@ -200,7 +376,7 @@ track_fused_kernel(const float2* __restrict__ x,
                             K == gnss_track::SUB_AFFINE_TMBOC ? sp[S_TM]
                                                               : 0.0f};
 
-  // loop state (meaningful in thread 0)
+  // the loop state, meaningful in warp 0 (its lanes hold the same bits)
   int ptr = si[I_PTR], block = si[I_BLOCK], stalled = si[I_STALLED];
   const int chunk_len = si[I_CHUNKLEN];
   int n_full_s = si[I_NFULL], sub_j = si[I_SUBJ];
@@ -219,120 +395,207 @@ track_fused_kernel(const float2* __restrict__ x,
   const int sub = (int)sp[S_SUB];
   // coherent span M and the overlay period (0 in the lane: the table's)
   const int M = max((int)sp[S_COH], 1);
-  const int nov_c = ((int)sp[S_NOV] > 0) ? (int)sp[S_NOV] : nov;
-  // per-block values carried from the geometry to the loop filter
+  const int nov_c = ((int)sp[S_NOV] > 0) ? (int)sp[S_NOV] : a.nov;
+  // the block's geometry, carried from the geometry to the loop filter
   int n = 0, n_full = 0, sub_j_next = 0;
   bool ok = false;
   float cf_dyn = 0.0f;
+  gnss_track::Block g{};
+  // batches waited before this block; whether one was issued for it
+  int n_waited = 0;
+  bool pending = false;
 
-  for (int b = 0; b < B; ++b) {
-    if (tid == 0) {
-      // adaptive block length targeting the next code boundary
-      const float code_p = cp_hi + cp_lo;
-      const float n_f0 = (code_p < Lf / 2.0f) ? spp * (Lf - code_p) / Lf
-                                              : spp * (2.0f * Lf - code_p) / Lf;
-      n_full = (sub_j == 0) ? (int)n_f0 : n_full_s;
-      const int q = n_full / sub;
-      const int r = n_full - q * sub;
-      n = q + ((sub_j + 1) * r) / sub - (sub_j * r) / sub;
-      sub_j_next = (sub_j + 1 == sub) ? 0 : sub_j + 1;
-      ok = (stalled == 0) && (ptr + n <= chunk_len);
+  auto geometry = [&]() {
+    // adaptive block length targeting the next code boundary
+    const float code_p = cp_hi + cp_lo;
+    const float n_f0 = (code_p < Lf / 2.0f) ? spp * (Lf - code_p) / Lf
+                                            : spp * (2.0f * Lf - code_p) / Lf;
+    n_full = (sub_j == 0) ? (int)n_f0 : n_full_s;
+    const int q = n_full / sub;
+    const int r = n_full - q * sub;
+    n = q + ((sub_j + 1) * r) / sub - (sub_j * r) / sub;
+    sub_j_next = (sub_j + 1 == sub) ? 0 : sub_j + 1;
+    ok = (stalled == 0) && (ptr + n <= chunk_len);
 
-      cf_dyn = (cfo + carr_f / ratio) * lp.fs_inv;
-      const float cf = cf_hi + cf_dyn;
-      const float lags[3] = {-el, 0.0f, el};
+    cf_dyn = (cfo + carr_f / ratio) * lp.fs_inv;
+    g.cf = cf_hi + cf_dyn;
+    const float lags[3] = {-el, 0.0f, el};
 #pragma unroll
-      for (int l = 0; l < 3; ++l) {
-        const TF v = tf_add_f({cp_hi, cp_lo}, lags[l]);
-        const float vint = floorf(v.hi + v.lo);
-        const TF f = tf_add_f(v, -vint);
-        g_vint[l] = (int)vint;
-        g_fr[l] = f.hi + f.lo;
-      }
-      g_cf = cf;
-      g_n = n;
-      g_ok = ok ? 1 : 0;
-      g_ptr = ptr;
-      g_coff_p = coff_p;
-      g_coff_df = coff_df;
-      const uint32_t df = fixed_u32(mod1(-carr_f * lp.fs_inv));
-      g_carr_df = df;   // int32 bits of freq_to_fixed
-      g_carr_p0 = fixed_u32(mod1(carr_p));
+    for (int l = 0; l < 3; ++l) {
+      const TF v = tf_add_f({cp_hi, cp_lo}, lags[l]);
+      const float vint = floorf(v.hi + v.lo);
+      const TF f = tf_add_f(v, -vint);
+      g.vint[l] = (int)vint;
+      g.fr[l] = f.hi + f.lo;
     }
-    __syncthreads();
-
-    double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-    if (g_ok) {
-      const gnss_track::Block g{g_coff_p, g_coff_df, g_carr_p0, g_carr_df,
-                                g_cf, {g_vint[0], g_vint[1], g_vint[2]},
-                                {g_fr[0], g_fr[1], g_fr[2]}};
-      gnss_track::epl_samples<K>(
-          x + g_ptr, lut, g, L, coef,
-          [&](int k) {
-            if constexpr (kSmemCode) return (float)chips[k];
-            else return (float)__ldg(row + k);
-          },
-          tid, g_n, blockDim.x, acc);
+    g.coff_p = coff_p;
+    g.coff_df = coff_df;
+    g.carr_df = fixed_u32(mod1(-carr_f * lp.fs_inv));  // freq_to_fixed bits
+    g.carr_p = fixed_u32(mod1(carr_p));
+    g.cmp = gnss_track::compare_wrap_ok(g, min(n, a.nmax), L);
+  };
+  // the window start of a block at pointer p, clamped into x
+  auto window = [&](int p) { return max(0, min(p, a.nx - a.nmax)); };
+  // block b's geometry for the CTA (warp 0, after geometry())
+  auto publish = [&](int b) {
+    if (lane == 0) {
+      Geo& G = fx.geo[b & 1];
+      G.g = g;
+      G.start = window(ptr);
+      G.ok = ok ? 1 : 0;
+      G.nloop = min(n, a.nmax);
+      G.next = (ok && b + 1 < a.B) ? window(ptr + n) : -1;
+      G.waited = n_waited;
+      G.drain = (!ok && pending) ? 1 : 0;
     }
-#pragma unroll
-    for (int j = 0; j < 6; ++j) acc[j] = gnss_track::warp_sum(acc[j]);
-    if ((tid & 31) == 0) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) red[tid >> 5][j] = acc[j];
-    }
-    __syncthreads();
+  };
 
-    if (tid == 0) {
-      // w: the block's correlators (overlay-wiped when coherent); f: what
-      // the loop filters see (the M-period sums when coherent)
-      float w[6], f[6];
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        double s = 0.0;
-        for (int k = 0; k < kThreads / 32; ++k) s += red[k][j];
-        w[j] = (float)s;
-      }
-      bool u = true;
-      if (coh) {
-        const float s_ovl = ovl[block % nov_c];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          w[j] = s_ovl * w[j];
-          f[j] = cacc[j] + w[j];
+  if (warp == 0) {
+    geometry();
+    pending = ok;
+    publish(0);
+  }
+  // every CTA of the cluster runs (distributed shared memory may be
+  // written), the mbarriers are initialised and block 0's geometry is out
+  clusterk::cluster_arrive();
+  clusterk::cluster_wait();
+  if (producer && fx.geo[0].ok)
+    issue_batch(a, rank, 0, fx.geo[0].start, buffer(0), full(0), lane);
+  K2_MARK_INIT
+
+  for (int b = 0; b < a.B; ++b) {
+    // warp 0 rewrites geo[b & 1] for block b + 2, after every thread has
+    // passed this block's closing __syncthreads
+    const Geo& G = fx.geo[b & 1];
+    float w[6];
+    if (G.ok) {
+      const gnss_track::Block gb = G.g;
+      const int start = G.start, next = G.next, waited = G.waited;
+      const int nloop = G.nloop;
+      const int off = start & 1;
+      // this rank's tiles among those that hold samples below nloop
+      const int need = (nloop + off + kTile - 1) / kTile;
+      const int mine = need > rank ? (need - rank + S - 1) / S : 0;
+      double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int q = 0; q < pl.m; ++q) {
+        // stage the batch after this one (this block's next, or the next
+        // block's first) into the buffer batch q - 1 has left
+        const int i = waited + q;
+        if (producer) {
+          if (q + 1 < pl.m)
+            issue_batch(a, rank, q + 1, start, buffer(i + 1), full(i + 1),
+                        lane);
+          else if (next >= 0)
+            issue_batch(a, rank, 0, next, buffer(i + 1), full(i + 1), lane);
+        } else {
+          mbar_wait(full(i), (uint32_t)((i >> 1) & 1));
         }
-        u = ((block + 1) % M) == 0;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 6; ++j) f[j] = w[j];
+        K2_MARK(1);
+        const float2* buf = buffer(i);
+        const int e0 = producer ? pl.stage : tid;   // workers only
+        const int e1 = min(pl.stage, max(0, (mine - q * pl.k) * kTile));
+        auto correlate = [&](auto cmp) {
+#pragma unroll 2
+          for (int e = e0; e < e1; e += kThreads) {
+            const int t = rank + S * (q * pl.k + e / kTile);
+            const int s = t * kTile + (e & (kTile - 1)) - off;
+            if (s >= 0 && s < nloop)
+              gnss_track::epl_sample<K, decltype(cmp)::value>(
+                  buf[e], s, fx.lut, gb, L, coef,
+                  [&](int k) {
+                    if constexpr (kSmemCode) return (int)fx.chips[k];
+                    else return (int)__ldg(row + k);
+                  },
+                  acc);
+          }
+        };
+        if (gb.cmp) correlate(std::true_type{});
+        else correlate(std::false_type{});
+        K2_MARK(2);
+        if (q + 1 < pl.m) __syncthreads();
       }
-      float* rf = rows_f + ((size_t)b * C + c) * 11;
-      int* ri = rows_i + ((size_t)b * C + c) * 3;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) acc[j] = gnss_track::warp_sum(acc[j]);
+      if (lane == 0 && !producer) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) fx.red[warp][j] = acc[j];
+      }
+      __syncthreads();
+      K2_MARK(3);
+      if (tid < 6 * S) {
+        const int j = tid % 6;
+        double v = 0.0;
+        for (int k = 0; k < kThreads / 32; ++k) v += fx.red[k][j];
+        *cluster.map_shared_rank(&fx.part[b & 1][rank][j], tid / 6) = v;
+      }
+      K2_MARK(4);
+      clusterk::cluster_arrive();
+      clusterk::cluster_wait();
+      K2_MARK(5);
+      if (warp == 0) {
+        double v = 0.0;
+        if (lane < 6)
+          for (int r = 0; r < S; ++r) v += fx.part[b & 1][r][lane];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) w[j] = (float)__shfl_sync(~0u, v, j);
+      }
+      K2_MARK(6);
+    } else if (G.drain) {
+      // the chunk ran dry: drain the window issued for this block
+      mbar_wait(full(G.waited), (uint32_t)((G.waited >> 1) & 1));
+    }
+
+    if (warp == 0) {
+      n_waited += ok ? pl.m : (pending ? 1 : 0);
+      pending = ok && b + 1 < a.B;
+      // the loop filter and bookkeeping (_post_block); f: what the
+      // filters see (the M-period sums when coherent), w the block's
+      // correlators (overlay-wiped when coherent)
+      float* rf = a.rows_f + ((size_t)b * a.C + c) * 11;
+      int* ri = a.rows_i + ((size_t)b * a.C + c) * 3;
       if (!ok) {
-        for (int j = 0; j < 11; ++j) rf[j] = __int_as_float(0x7fc00000);
-        ri[0] = ri[1] = ri[2] = 0;
+        if (writer) {
+          for (int j = 0; j < 11; ++j) rf[j] = __int_as_float(0x7fc00000);
+          ri[0] = ri[1] = ri[2] = 0;
+        }
         stalled = 1;
       } else {
+        float f[6];
+        bool u = true;
+        if (a.coh) {
+          const float s_ovl = fx.ovl[block % nov_c];
+#pragma unroll
+          for (int j = 0; j < 6; ++j) {
+            w[j] = s_ovl * w[j];
+            f[j] = cacc[j] + w[j];
+          }
+          u = ((block + 1) % M) == 0;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) f[j] = w[j];
+        }
         // carrier phase bookkeeping; dcyc counts whole cycles
         const float n_f = (float)n;
-        const float carr_p_new = __fmaf_rn(-(n_f * carr_f), lp.fs_inv, carr_p);
+        const float carr_p_new =
+            __fmaf_rn(-(n_f * carr_f), lp.fs_inv, carr_p);
         const float t = mod1(carr_p_new);
-        const int carrier_dcyc = (int)rintf(carr_p_new - t);
         const uint32_t coff_p_new = coff_p + (uint32_t)n * coff_df;
 
-        // carrier loop; prompt1 only refreshed in FLL modes
+        // carrier loop; prompt1 only refreshed in FLL modes; each mode
+        // computes only its own discriminator
         int mode = (block >= lp.fll_wide) ? 1 : 0;
         if (block >= lp.fll_wide + lp.fll_narrow) mode = 2;
-        const float e_fll = fll_atan(f[2], f[3], p1re, p1im);
-        const float e_pll = pll_costas(f[2], f[3]);
-        const float fll_k = (mode == 0) ? lp.fll_wide_k : lp.fll_narrow_k;
         float carr_f_new, ce1_new, p1re_new, p1im_new;
         if (mode == 2) {
+          const float e_pll = pll_costas(f[2], f[3]);
           carr_f_new = __fmaf_rn(lp.pll_k2, e_pll - ce1,
                                  __fmaf_rn(lp.pll_k1, e_pll, carr_f));
           ce1_new = e_pll;
           p1re_new = p1re;
           p1im_new = p1im;
         } else {
+          const float e_fll = fll_atan(f[2], f[3], p1re, p1im);
+          const float fll_k = (mode == 0) ? lp.fll_wide_k : lp.fll_narrow_k;
           carr_f_new = __fmaf_rn(fll_k, e_fll, carr_f);
           ce1_new = ce1;
           p1re_new = f[2];
@@ -341,10 +604,9 @@ track_fused_kernel(const float2* __restrict__ x,
 
         // code loop: normalized-envelope EML DLL on the filters' sums
         const float early = sqrtf(w[0] * w[0] + w[1] * w[1]);
-        const float prompt = sqrtf(w[2] * w[2] + w[3] * w[3]);
         const float late = sqrtf(w[4] * w[4] + w[5] * w[5]);
-        const float f_e = coh ? sqrtf(f[0] * f[0] + f[1] * f[1]) : early;
-        const float f_l = coh ? sqrtf(f[4] * f[4] + f[5] * f[5]) : late;
+        const float f_e = a.coh ? sqrtf(f[0] * f[0] + f[1] * f[1]) : early;
+        const float f_l = a.coh ? sqrtf(f[4] * f[4] + f[5] * f[5]) : late;
         const float denom = f_l + f_e;
         float e_dll = (denom == 0.0f) ? 0.0f : (f_l - f_e) / denom;
         float cfo_new = __fmaf_rn(lp.dll_k2, e_dll - de1,
@@ -365,23 +627,23 @@ track_fused_kernel(const float2* __restrict__ x,
         const TF cp_new = tf_add({cp_hi, cp_lo}, adv);
         float wraps;
         const TF cpm = tf_mod(cp_new, Lf, wraps);
-        const float tc = cpm.hi + cpm.lo;
-        const int code_dcyc = (int)(wraps * Lf);
 
-        rf[0] = (float)block;
-        rf[1] = w[2];
-        rf[2] = w[3];
-        rf[3] = carr_f_new;
-        rf[4] = cfo_new;
-        rf[5] = kRadToDeg * atan2f(w[3], w[2]);
-        rf[6] = early;
-        rf[7] = prompt;
-        rf[8] = late;
-        rf[9] = tc;
-        rf[10] = t;
-        ri[0] = n;
-        ri[1] = carrier_dcyc;
-        ri[2] = code_dcyc;
+        if (writer) {
+          rf[0] = (float)block;
+          rf[1] = w[2];
+          rf[2] = w[3];
+          rf[3] = carr_f_new;
+          rf[4] = cfo_new;
+          rf[5] = kRadToDeg * atan2f(w[3], w[2]);
+          rf[6] = early;
+          rf[7] = sqrtf(w[2] * w[2] + w[3] * w[3]);
+          rf[8] = late;
+          rf[9] = cpm.hi + cpm.lo;
+          rf[10] = t;
+          ri[0] = n;
+          ri[1] = (int)rintf(carr_p_new - t);
+          ri[2] = (int)(wraps * Lf);
+        }
 
         ptr += n;
         cp_hi = cpm.hi;
@@ -394,7 +656,7 @@ track_fused_kernel(const float2* __restrict__ x,
         p1im = p1im_new;
         ce1 = ce1_new;
         de1 = e_dll;
-        if (coh) {
+        if (a.coh) {
 #pragma unroll
           for (int j = 0; j < 6; ++j) cacc[j] = u ? 0.0f : f[j];
         }
@@ -403,13 +665,19 @@ track_fused_kernel(const float2* __restrict__ x,
         sub_j = sub_j_next;
         stalled = 0;
       }
+      if (b + 1 < a.B) {
+        geometry();
+        publish(b + 1);
+      }
     }
     __syncthreads();
+    K2_MARK(0);
   }
+  K2_MARK_END(rank == 0, c, block - si[I_BLOCK]);
 
-  if (tid == 0) {
-    int* so = sti_out + (size_t)c * NI;
-    float* fo = stf_out + (size_t)c * NF;
+  if (writer) {
+    int* so = a.sti_out + (size_t)c * NI;
+    float* fo = a.stf_out + (size_t)c * NF;
     so[I_PTR] = ptr;
     so[I_BLOCK] = block;
     so[I_COFF_P] = (int)coff_p;
@@ -433,28 +701,34 @@ track_fused_kernel(const float2* __restrict__ x,
   }
 }
 
-template <int K, bool kSmemCode>
-int launch(const void* x, const void* code, int code_stride,
-           const void* s_i32, const void* s_f32, const void* ovl, int nov,
-           const void* lut, void* rows_f, void* rows_i, void* sti_out,
-           void* stf_out, int C, int B, int coh, const Loop& lp,
-           cudaStream_t st) {
-  track_fused_kernel<K, kSmemCode><<<C, kThreads, 0, st>>>(
-      (const float2*)x, (const int8_t*)code, code_stride, (const int*)s_i32,
-      (const float*)s_f32, (const float*)ovl, nov, (const float2*)lut,
-      (float*)rows_f, (int*)rows_i, (int*)sti_out, (float*)stf_out, C, B,
-      coh, lp);
-  return (int)cudaGetLastError();
+using Kernel = void (*)(Args);
+
+Kernel kernel_of(int kind, bool smem_code) {
+  using namespace gnss_track;
+  switch (kind) {
+    case 0:
+      return smem_code ? track_fused_kernel<SUB_BPSK, true>
+                       : track_fused_kernel<SUB_BPSK, false>;
+    case 1:
+      return smem_code ? track_fused_kernel<SUB_AFFINE, true>
+                       : track_fused_kernel<SUB_AFFINE, false>;
+    default:
+      return smem_code ? track_fused_kernel<SUB_AFFINE_TMBOC, true>
+                       : track_fused_kernel<SUB_AFFINE_TMBOC, false>;
+  }
 }
 
 }  // namespace
 
-// x: complex64 [nx]; code: int8 [C, code_stride] (code_stride = L, every
-// channel's code length); s_i32/s_f32: packed state [C, 8] / [C, 28];
-// ovl: float32 [C, nov] overlay chips (read when coh != 0); lut: f32
-// [1024, 2]; kind: K3's subcarrier kind, 0 "none", 1 "subc", 2 "tmboc";
-// outputs rows_f [B, C, 11], rows_i [B, C, 3], sti_out [C, 8], stf_out
-// [C, 28].  Returns the cudaError_t of the launch (0 = launched).
+// x: complex64 [nx], 16-byte aligned; code: int8 [C, code_stride]
+// (code_stride = L, every channel's code length); s_i32/s_f32: packed
+// state [C, 8] / [C, 28]; ovl: float32 [C, nov] overlay chips (read when
+// coh != 0); lut: f32 [1024, 2]; kind: K3's subcarrier kind, 0 "none", 1
+// "subc", 2 "tmboc"; nmax: the longest block (params.nmax; nx >= nmax);
+// cluster: the CTAs a channel (cluster_plan's S); outputs rows_f [B,
+// C, 11], rows_i [B, C, 3], sti_out [C, 8], stf_out [C, 28].  Returns the
+// cudaError_t of the launch (0 = launched); a cluster the card cannot
+// hold is refused, never run on fewer CTAs.
 extern "C" int track_fused(const void* x, int nx, const void* code,
                            int code_stride, const void* s_i32,
                            const void* s_f32, const void* ovl, int nov,
@@ -463,28 +737,49 @@ extern "C" int track_fused(const void* x, int nx, const void* code,
                            int kind, int coh, float fs_inv, int fll_wide,
                            int fll_narrow, float fll_wide_k,
                            float fll_narrow_k, float pll_k1, float pll_k2,
-                           float dll_k1, float dll_k2, void* stream) {
-  if (C < 1 || B < 0 || nx < 1 || code_stride < 1 || nov < 1 ||
-      nov > kMaxOverlay || kind < 0 || kind > 2)
+                           float dll_k1, float dll_k2, int nmax, int cluster,
+                           void* stream) {
+  Plan pl;
+  if (C < 1 || B < 0 || code_stride < 1 || nov < 1 || nov > kMaxOverlay ||
+      kind < 0 || kind > 2 || !make_plan(nmax, cluster, pl) ||
+      nx < nmax || (long long)C * cluster > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const Loop lp{fs_inv, fll_wide, fll_narrow, fll_wide_k, fll_narrow_k,
-                pll_k1, pll_k2, dll_k1, dll_k2};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const bool smem = code_stride <= kMaxCode;
-#define K2_ARGS x, code, code_stride, s_i32, s_f32, ovl, nov, lut, rows_f, \
-                rows_i, sti_out, stf_out, C, B, coh, lp, st
-  using namespace gnss_track;
-  switch (kind) {
-    case 0:
-      return smem ? launch<SUB_BPSK, true>(K2_ARGS)
-                  : launch<SUB_BPSK, false>(K2_ARGS);
-    case 1:
-      return smem ? launch<SUB_AFFINE, true>(K2_ARGS)
-                  : launch<SUB_AFFINE, false>(K2_ARGS);
-    default:
-      return smem ? launch<SUB_AFFINE_TMBOC, true>(K2_ARGS)
-                  : launch<SUB_AFFINE_TMBOC, false>(K2_ARGS);
-  }
-#undef K2_ARGS
+  const Args args{(const float2*)x, nx, (const int8_t*)code, code_stride,
+                  (const int*)s_i32, (const float*)s_f32, (const float*)ovl,
+                  nov, (const float2*)lut, (float*)rows_f, (int*)rows_i,
+                  (int*)sti_out, (float*)stf_out, C, B, coh, nmax, pl,
+                  Loop{fs_inv, fll_wide, fll_narrow, fll_wide_k, fll_narrow_k,
+                       pll_k1, pll_k2, dll_k1, dll_k2}};
+  return (int)clusterk::launch_cluster(
+      kernel_of(kind, code_stride <= kMaxCode), C * cluster, kBlock,
+      cluster, (size_t)pl.smem, (cudaStream_t)stream, args);
+}
+
+// K2's launch plan for nmax on `cluster` CTAs: info[0] S, [1] tiles, [2]
+// tiles a CTA, [3] tiles a batch, [4] batches, [5] dynamic shared memory
+// bytes a CTA, [6] registers a thread, [7] local (spilled) bytes a thread,
+// [8] clusters the card holds at once, [9] threads a CTA.
+extern "C" int track_fused_info(int nmax, int cluster, int kind,
+                                int smem_code, void* info) {
+  Plan pl;
+  if (kind < 0 || kind > 2 || !make_plan(nmax, cluster, pl))
+    return (int)cudaErrorInvalidValue;
+  int ci[6];
+  const cudaError_t e = clusterk::cluster_info(
+      kernel_of(kind, smem_code != 0), kBlock, cluster, (size_t)pl.smem,
+      ci);
+  if (e != cudaSuccess) return (int)e;
+  int* o = (int*)info;
+  o[0] = pl.S;
+  o[1] = pl.tiles;
+  o[2] = pl.tpc;
+  o[3] = pl.k;
+  o[4] = pl.m;
+  o[5] = pl.smem;
+  o[6] = ci[2];
+  o[7] = ci[3];
+  o[8] = ci[4];
+  o[9] = kBlock;
+  return 0;
 }

@@ -69,18 +69,23 @@ epl_tiles(const float2* __restrict__ x, int nx,
   const int end = min(min(s[SI_N], begin + kTile), nx - start);
   double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   if (begin < end) {
-    const Block g{(uint32_t)s[SI_COFF_P], (uint32_t)s[SI_COFF_DF],
-                  (uint32_t)s[SI_CARR_P], (uint32_t)s[SI_CARR_DF], f[SF_CF],
-                  {s[SI_VINT_E], s[SI_VINT_P], s[SI_VINT_L]},
-                  {f[SF_FR_E], f[SF_FR_P], f[SF_FR_L]}};
+    Block g{(uint32_t)s[SI_COFF_P], (uint32_t)s[SI_COFF_DF],
+            (uint32_t)s[SI_CARR_P], (uint32_t)s[SI_CARR_DF], f[SF_CF],
+            {s[SI_VINT_E], s[SI_VINT_P], s[SI_VINT_L]},
+            {f[SF_FR_E], f[SF_FR_P], f[SF_FR_L]}, false};
+    g.cmp = compare_wrap_ok(g, end, L);
     Coef coef{0.0f, 0.0f, 0.0f, 0.0f};
     if constexpr (K == SUB_AFFINE || K == SUB_AFFINE_TMBOC)
       coef = Coef{f[SF_A0], f[SF_A1], f[SF_A6],
                   K == SUB_AFFINE_TMBOC ? f[SF_TM] : 0.0f};
     const int8_t* row = code + (size_t)c * L;
-    epl_samples<K>(x + start, lut, g, L, coef,
-                   [&](int k) { return (float)__ldg(row + k); },
-                   begin + tid, end, kThreads, acc);
+    auto chip_at = [&](int k) { return (int)__ldg(row + k); };
+    if (g.cmp)
+      epl_samples<K, true>(x + start, lut, g, L, coef, chip_at, begin + tid,
+                           end, kThreads, acc);
+    else
+      epl_samples<K, false>(x + start, lut, g, L, coef, chip_at, begin + tid,
+                            end, kThreads, acc);
   }
 #pragma unroll
   for (int j = 0; j < 6; ++j) acc[j] = warp_sum(acc[j]);

@@ -62,7 +62,9 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_full_info": [_I, _I, _I, _I, _I, _I, _I, _P],
     "track_fused": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+                    _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F,
+                    _I, _I, _P],
+    "track_fused_info": [_I, _I, _I, _I, _P],
     "acq_coh_spec": [_P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_coh_spec_info": [_I, _I, _P],

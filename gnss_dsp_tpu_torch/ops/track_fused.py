@@ -6,11 +6,15 @@ ops/pallas_track2.py:107-316.  Kernel: csrc/track_fused.cu.
 
 The loop's dependence from block to block is real (the loop filter
 closes over each block's correlators), so the kernel runs all blocks of
-one channel inside one CTA and the parallelism comes from the channels.
-Its plain version is track/engine.track_scan_plain, a Python loop over
-blocks vectorised over channels; track/engine.track_scan picks between
-the two by the chunk's device, and takes K2 where params.fused_scan holds
-(track/driver.make_params sets it as the reference's router does).
+one channel on one thread-block cluster of S CTAs (cluster_plan), each
+holding the channel's whole state and running the loop filter itself;
+the CTAs split each block's samples, staged ahead in shared memory by
+bulk copies, and exchange their partial sums through distributed shared
+memory.  Its plain version is track/engine.track_scan_plain, a Python
+loop over blocks vectorised over channels; track/engine.track_scan picks
+between the two by the chunk's device, and takes K2 where
+params.fused_scan holds (track/driver.make_params sets it as the
+reference's router does).
 
 The kernel covers the reference's scope but recovery and the mesh: the
 subcarrier kinds of K3 ("none", "subc", "tmboc", their coefficients in
@@ -19,9 +23,9 @@ are staged in shared memory, longer ones read from device memory) and
 the extended-coherent lanes (cacc, the overlay table staged in shared
 memory, at most MAX_OVERLAY chips a channel).
 
-This module holds the ctypes wrapper and the state packing only.  The
-wrapper takes CUDA tensors and nothing else.  LAUNCHES counts kernel
-launches.
+This module holds the ctypes wrapper, the launch plan and the state
+packing only.  The wrapper takes CUDA tensors and nothing else.
+LAUNCHES counts kernel launches.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ MAX_CODE = 10230          # longest code staged in shared memory
 MAX_OVERLAY = 1024        # longest overlay row staged in shared memory
 LAUNCHES = 0
 
+# the launch plan (csrc/track_fused.cu make_plan mirrors it)
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+THREADS = 256             # worker threads a CTA (a 9th warp issues copies)
+MAX_CLUSTER = 16          # CTAs a cluster (above 8 non-portable)
+TILE = 128                # samples a bulk copy (1 KiB)
+SMEM_BYTES = 227 * 1024   # shared memory a CTA may use
+FIXED_BYTES = 32768       # shared memory before the two stage buffers
+
 # int32 state lanes per channel
 (I_PTR, I_BLOCK, I_COFF_P, I_COFF_DF, I_STALLED, I_CHUNKLEN,
  I_NFULL, I_SUBJ) = range(8)
@@ -45,6 +57,56 @@ NI = 8
 F_SIGP = 10
 F_CACC = 22
 NF = 28
+
+
+def cluster_plan(C: int, nmax: int, cluster: int | None = None) -> dict:
+    """K2's launch plan for C channels whose blocks are at most nmax
+    samples: S CTAs a channel (cluster, or the largest power of two <= 16
+    with C x S <= 132, 1 past 132 channels), the window of nmax + 2
+    samples from the even sample below a block's start in `tiles` tiles
+    of TILE samples, tile t on rank t % S, `tpc` tiles a CTA, staged in
+    `batches` batches of `k` tiles through two buffers of `stage_bytes`
+    each (batches 1: the whole share, the next block's staged while this
+    one runs; more where two shares do not fit the shared memory)."""
+    if cluster is None:
+        S = 1
+        while 2 * S <= MAX_CLUSTER and C * 2 * S <= SMS:
+            S *= 2
+    else:
+        S = int(cluster)
+    if not 1 <= S <= MAX_CLUSTER or S & (S - 1) or nmax < 1:
+        raise ValueError(f"cluster size must be a power of two <= "
+                         f"{MAX_CLUSTER} and nmax >= 1, got {S}, {nmax}")
+    tiles = -(-(int(nmax) + 2) // TILE)
+    tpc = -(-tiles // S)
+    kmax = (SMEM_BYTES - FIXED_BYTES) // (2 * TILE * 8)
+    m = -(-tpc // kmax)
+    k = -(-tpc // m)
+    return dict(cluster=S, tiles=tiles, tpc=tpc, k=k, batches=m,
+                stage_bytes=k * TILE * 8,
+                smem=FIXED_BYTES + 2 * k * TILE * 8)
+
+
+def launch_info(nmax: int, cluster: int, kind: str = "none",
+                long_code: bool = False) -> dict:
+    """The card's view of a K2 plan (track_fused_info): the plan's
+    numbers, registers and local bytes a thread, clusters the card holds
+    at once, threads a CTA; raises where it differs from cluster_plan."""
+    import ctypes
+
+    lib = _build.load()
+    info = (ctypes.c_int * 10)()
+    _build.check(lib.track_fused_info(
+        int(nmax), int(cluster), track_step.KINDS.index(kind),
+        int(not long_code), ctypes.addressof(info)), "track_fused_info")
+    got = dict(zip(("cluster", "tiles", "tpc", "k", "batches", "smem",
+                    "regs", "spill_bytes", "active", "threads"), info))
+    want = cluster_plan(1, nmax, cluster)
+    for key in ("cluster", "tiles", "tpc", "k", "batches", "smem"):
+        if got[key] != want[key]:
+            raise RuntimeError(f"K2 plan mismatch at nmax {nmax}, cluster "
+                               f"{cluster}: {key} {got[key]} != {want[key]}")
+    return got
 
 
 def _pack_state(state, chunk_len, ratios, coffset_df, sigp):
@@ -85,12 +147,15 @@ def _unpack_state(state, sti, stf):
 
 
 def track_scan_fused(x, chunk_len, code_tab, state, params, n_blocks: int,
-                     ratios, coffset_df, sigp, overlay=None):
+                     ratios, coffset_df, sigp, overlay=None, *,
+                     cluster: int | None = None):
     """(state', rows_f f32 [B, C, 11], rows_i i32 [B, C, 3]) with
-    track/engine.track_scan semantics.  x complex64 [N]; chunk_len i32
-    [C]; code_tab int8 [C, L]; ratios f32 [C]; coffset_df i32 [C]; sigp
-    f32 [C, 12]; overlay f32 [C, nov] (params.coh_blocks > 1; None: all
-    ones); every tensor on one CUDA device."""
+    track/engine.track_scan semantics.  x complex64 [N], N >= params.nmax;
+    chunk_len i32 [C]; code_tab int8 [C, L]; ratios f32 [C];
+    coffset_df i32 [C]; sigp f32 [C, 12]; overlay f32 [C, nov]
+    (params.coh_blocks > 1; None: all ones); every tensor on one CUDA
+    device.  cluster: CTAs a channel in place of cluster_plan's choice
+    (tests and chip_smoke.py only)."""
     global LAUNCHES
     if x.dtype != torch.complex64 or code_tab.dtype != torch.int8:
         raise TypeError("x must be complex64 and code_tab int8")
@@ -111,9 +176,15 @@ def track_scan_fused(x, chunk_len, code_tab, state, params, n_blocks: int,
         if t.device != x.device:
             raise ValueError("all track_scan_fused tensors must share a device")
     B = int(n_blocks)
+    if x.shape[0] < params.nmax:
+        raise ValueError(f"x must hold nmax = {params.nmax} samples, got "
+                         f"{x.shape[0]}")
+    plan = cluster_plan(C, params.nmax, cluster)
     lib = _build.load()
     s_i32, s_f32 = _pack_state(state, chunk_len, ratios, coffset_df, sigp)
     x = x.contiguous()
+    if x.data_ptr() % 16:           # the bulk copies read 16-byte units
+        x = x.clone()
     code = code_tab.contiguous()
     ovl = overlay.to(torch.float32).contiguous()
     lut = nco.lut_cos_sin(x.device)
@@ -132,7 +203,8 @@ def track_scan_fused(x, chunk_len, code_tab, state, params, n_blocks: int,
             int(coh), nco.inv_fs(p.fs), int(p.fll_wide_blocks),
             int(p.fll_narrow_blocks), float(p.fll_wide_k),
             float(p.fll_narrow_k), float(p.pll_k1), float(p.pll_k2),
-            float(p.dll_k1), float(p.dll_k2), stream)
+            float(p.dll_k1), float(p.dll_k2), int(p.nmax), plan["cluster"],
+            stream)
     _build.check(err, "track_fused launch")
     LAUNCHES += 1
     return _unpack_state(state, sti, stf), rows_f, rows_i

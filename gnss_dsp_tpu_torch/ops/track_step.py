@@ -118,6 +118,16 @@ def epl_correlate_plain(si, sf, x, code, nmax: int, sub: str = "none",
     """The plain version of K3 (v1=False, sub a kind of KINDS) and of K4
     (v1=True, sub a family of FAMILIES): the same sums as a gather over
     an [C, nmax] window, on any device."""
+    # each product is exact in float64: the rounded sum does not depend on
+    # the order of summation
+    return torch.stack([t.sum(-1) for t in _epl_terms(
+        si, sf, x, code, nmax, sub, v1)], dim=1).to(torch.float32)
+
+
+def _epl_terms(si, sf, x, code, nmax, sub, v1):
+    """The terms epl_correlate_plain sums, [E re, E im, P re, P im, L re,
+    L im], each float64 [C, nmax]: sample i of the block (0 past its n)
+    times the lag's chip and factor, exact in float64."""
     dev = x.device
     C, L = code.shape
     i = torch.arange(int(nmax), dtype=torch.int64, device=dev)
@@ -158,10 +168,8 @@ def epl_correlate_plain(si, sf, x, code, nmax: int, sub: str = "none",
         if f is not None:
             chips = chips * f
         chips = torch.where(mask, chips, 0.0).to(torch.float64)
-        # each product is exact in float64: the rounded sum does not
-        # depend on the order of summation
-        out += [(m_re * chips).sum(-1), (m_im * chips).sum(-1)]
-    return torch.stack(out, dim=1).to(torch.float32)
+        out += [m_re * chips, m_im * chips]
+    return out
 
 
 def _launch(entry, sel, si, sf, x, code, nmax, lanes):

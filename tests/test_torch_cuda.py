@@ -447,16 +447,41 @@ def test_coh_kernels_reject_unsupported_w(dev):
         acquire_coh.corr_surface_coh(F, F[0], one, one, one, 2)
 
 
-def test_k2_matches_plain_bit_for_bit(dev):
+def _k2_both(dev, x, tab, st, params, chunk_len, nblocks, extra, cluster):
+    """K2 on `cluster` CTAs a channel, twice (bit-equal launches, one
+    count each), against its plain version bit for bit; returns K2's
+    result."""
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.track.engine import track_scan_plain
+
+    cl = torch.as_tensor(chunk_len, dtype=torch.int32, device=dev)
+    cl = torch.broadcast_to(cl, (tab.shape[0],)).contiguous()
+    n0 = track_fused.LAUNCHES
+    k = track_fused.track_scan_fused(x, cl, tab, st, params, nblocks, *extra,
+                                     cluster=cluster)
+    k2 = track_fused.track_scan_fused(x, cl, tab, st, params, nblocks,
+                                      *extra, cluster=cluster)
+    assert track_fused.LAUNCHES == n0 + 2
+    p = track_scan_plain(x, cl, tab, st, params, nblocks, *extra)
+    torch.testing.assert_close(k[2], p[2], rtol=0, atol=0)
+    torch.testing.assert_close(k[1], p[1], rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(k[0], p[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(k2[1], k[1], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(k2[2], k[2], rtol=0, atol=0)
+    for a, b in zip(k2[0], k[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    return k
+
+
+def _k2_gps_l1(dev, extra_samples=1024):
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.utils.synth import synth_iq
-    from gnss_dsp_tpu_torch.ops import track_fused
     from gnss_dsp_tpu_torch.track.driver import make_params
-    from gnss_dsp_tpu_torch.track.engine import (
-        init_state, sigp_from_params, track_scan, track_scan_plain)
+    from gnss_dsp_tpu_torch.track.engine import init_state, sigp_from_params
 
     sig = get_signal("gps-l1")
-    fs, nb = 2.048e6, 60
+    fs = 2.048e6
     prns, dops, phases = [7, 13, 21], [900.0, -2200.0, 350.0], [0.01, 417.25,
                                                                  1010.5]
     n = int(fs * 0.07)
@@ -465,33 +490,51 @@ def test_k2_matches_plain_bit_for_bit(dev):
                      cn0_dbhz=None, carrier_ratio=1540.0)
             for p, d, c in zip(prns, dops, phases)).astype(np.complex64)
     params = make_params(sig, fs, coffset=1250.0, loop_dwells=(8, 8))
-    xp = np.concatenate([x, np.zeros(params.nmax + 1024, np.complex64)])
-    xd = torch.from_numpy(xp).to(dev)
+    xp = np.concatenate([x, np.zeros(params.nmax + extra_samples,
+                                     np.complex64)])
     tab = torch.from_numpy(sig.code_table(tuple(prns)).astype(np.int8)).to(dev)
     extra = (torch.full((3,), 1540.0, device=dev),
              torch.full((3,), params.coffset_df_fixed, dtype=torch.int32,
                         device=dev),
              sigp_from_params(params, 3, dev))
+    st = init_state(phases, [0.0] * 3, [0.0] * 3, dops, device=dev)
+    return xp, n, fs, tab, params, extra, st
 
-    def both(st, chunk_len, nblocks):
-        n0 = track_fused.LAUNCHES
-        k = track_scan(xd, chunk_len, tab, st, params, nblocks)
-        assert track_fused.LAUNCHES == n0 + 1
-        cl = torch.full((3,), chunk_len, dtype=torch.int32, device=dev)
-        p = track_scan_plain(xd, cl, tab, st, params, nblocks, *extra)
-        torch.testing.assert_close(k[2], p[2], rtol=0, atol=0)
-        torch.testing.assert_close(k[1], p[1], rtol=0, atol=0,
-                                   equal_nan=True)
-        for a, b in zip(k[0], p[0]):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
-        return k[0]
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 16])
+def test_k2_matches_plain_bit_for_bit(dev, cluster):
+    xp, n, fs, tab, params, extra, st = _k2_gps_l1(dev)
+    xd = torch.from_numpy(xp).to(dev)
     # the chunk ends mid-run: every channel stalls, then a refill
-    st = both(init_state(phases, [0.0] * 3, [0.0] * 3, dops, device=dev),
-              int(fs * 0.030), nb)
+    st = _k2_both(dev, xd, tab, st, params, int(fs * 0.030), 60, extra,
+                  cluster)[0]
     assert bool(st.stalled.all())
-    st = both(st._replace(stalled=torch.zeros_like(st.stalled)), n, 30)
+    st = _k2_both(dev, xd, tab, st._replace(stalled=torch.zeros_like(
+        st.stalled)), params, n, 30, extra, cluster)[0]
     assert not bool(st.stalled.any())
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 16])
+def test_k2_prefetch_clamped_at_the_end_of_x(dev, cluster):
+    """A chunk that ends nmax samples before the end of an odd-length x,
+    handed to the kernel as a view 8 bytes into its storage: the windows
+    staged for the blocks past the chunk's end are clamped into x (and
+    stop at its even length), the channels stall there, and a refill
+    runs on; all bit-equal to the plain version."""
+    xp, n, fs, tab, params, extra, st = _k2_gps_l1(dev, extra_samples=1)
+    store = torch.from_numpy(np.concatenate([np.zeros(1, np.complex64), xp])
+                             ).to(dev)
+    xd = store[1:]
+    assert xd.shape[0] % 2 == 1 and xd.data_ptr() % 16 == 8
+    k = _k2_both(dev, xd, tab, st, params, int(fs * 0.030), 60, extra,
+                 cluster)
+    st = k[0]
+    assert bool(st.stalled.all())
+    last = xd.shape[0] - params.nmax
+    k = _k2_both(dev, xd, tab, st._replace(stalled=torch.zeros_like(
+        st.stalled)), params, last, 60, extra, cluster)
+    assert bool(k[0].stalled.all())
+    assert bool((k[0].ptr > last - params.nmax).all())
 
 
 # K2 at each subcarrier kind and sub-block count, across the long codes'
@@ -502,17 +545,16 @@ _K2_CASES = [("galileo-e1b", 3, 4.096e6, 1), ("gps-l1cp", 2, 4.096e6, 1),
              ("glonass-l1-p", 2, 4.096e6, 1), ("beidou-b1i", 3, 4.096e6, 20)]
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 16])
 @pytest.mark.parametrize("name,C,fs,coh", _K2_CASES)
-def test_k2_families_match_plain_bit_for_bit(dev, name, C, fs, coh):
+def test_k2_families_match_plain_bit_for_bit(dev, name, C, fs, coh, cluster):
     """As test_k2_matches_plain_bit_for_bit, on scan_inputs' capture (45
     dB-Hz, each code 2-40 ms before its end): a first launch whose chunk
     ends at 45 ms (coherent: 24.5 periods after each channel's start, 4
     blocks into a period), so that every channel stalls, then the
     refill."""
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.ops import track_fused
     from gnss_dsp_tpu_torch.tools.track_all import scan_inputs
-    from gnss_dsp_tpu_torch.track.engine import track_scan, track_scan_plain
 
     d = scan_inputs(name, C, fs, 0.08, 5, dev, coherent_blocks=coh)
     p = d["params"]
@@ -523,15 +565,7 @@ def test_k2_families_match_plain_bit_for_bit(dev, name, C, fs, coh):
     first = (d["st"].ptr + int(24.5 * fs * 1e-3) if coh > 1
              else torch.full_like(full, int(fs * 0.045)))
     for cl, nb in ((first, 60), (full, 60)):
-        n0 = track_fused.LAUNCHES
-        k = track_scan(d["x"], cl, d["tab"], st, p, nb, *extra)
-        assert track_fused.LAUNCHES == n0 + 1
-        pl = track_scan_plain(d["x"], cl, d["tab"], st, p, nb, *extra)
-        torch.testing.assert_close(k[2], pl[2], rtol=0, atol=0)
-        torch.testing.assert_close(k[1], pl[1], rtol=0, atol=0,
-                                   equal_nan=True)
-        for a, b in zip(k[0], pl[0]):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        k = _k2_both(dev, d["x"], d["tab"], st, p, cl, nb, extra, cluster)
         assert bool(k[0].stalled.all())
         if len(rows) == 0 and coh > 1:
             assert bool((k[0].block % coh == 4).all())

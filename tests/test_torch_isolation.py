@@ -204,8 +204,8 @@ def test_build_hash_follows_the_sources():
 
     srcs = [os.path.basename(p) for p in _build._sources()]
     assert srcs == ["acq_cluster.cuh", "acq_surface.cuh", "acquire.cu", "acquire2.cu", "acquire_coh.cu",
-                    "acquire_coh_spec.cu", "track_corr.cuh", "track_fused.cu",
-                    "track_step.cu"]
+                    "acquire_coh_spec.cu", "cluster_launch.cuh",
+                    "track_corr.cuh", "track_fused.cu", "track_step.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
     assert path == _build.lib_path()
