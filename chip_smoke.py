@@ -18,10 +18,20 @@ Runs every phase, in this order:
           at once, registers, spills) and the times at the other cluster
           sizes built; then a planted exact tie across cluster ranks at
           each window, which must report the lower lag
+  k1s     the same kernel's natural-order surface (reduce=False) vs its
+          plain version at every launch shape of e2e_mesh: GPS L1 on one
+          shard of the 2 x 2 mesh (16 PRN x 70 doppler x 40 blocks x
+          4096), on the 1 x 1 mesh of acquire --mesh 1 (32 x 70 x 80) and
+          on the 1 x 2 mesh of the two gloo ranks (32 x 70 x 40), GPS L2CM
+          on one shard of the 2 x 2 mesh (16 x 28 x 2 x 163840, the
+          run-time core), with its plan, its time beside K7's at the same
+          shape and one library ifft, and the bound
   k7      full-surface kernel vs its plain version at the Xona X5 launch
-          shape (1 PRN x 54 doppler x 80 blocks x 30690), with timings, its
-          cluster plan (cluster size, clusters the card holds at once,
-          registers, spills) and the times at other cluster sizes
+          shape (1 PRN x 54 doppler x 80 blocks x 30690) and at the
+          sharded search's GPS L5I shard shape (16 x 70 x 40 x 61380 =
+          220 x 279), with timings, its cluster plan (cluster size,
+          clusters the card holds at once, registers, spills) and the
+          times at other cluster sizes
   k5      spectral-combine coherent kernel vs its plain version at the
           BeiDou B1I --coherent 20 shape (63 PRN x 51 doppler x 2 groups x
           20 alignments x 16384) and at the launch shape of every search of
@@ -45,6 +55,8 @@ Runs every phase, in this order:
           FDMA channels of glonass-l1-p with 5.11 M chips) and the
           e2e_coherent_track shape (6 BeiDou B1I channels at 16.368 MHz,
           M = 20) and the GPS L5Q one (4 channels at 30.69 MHz, M = 20),
+          and e2e_mesh's shard shapes (4 GPS L1 channels at 8.184 MHz, 3
+          B1I channels at M = 20),
           each over two launches whose chunk boundary falls
           mid-run (mid-period when coherent): int rows and state equal,
           float rows bit-equal, with timings and bounds; at each shape
@@ -121,10 +133,27 @@ Runs every phase, in this order:
           4 satellites at 45 dB-Hz with no data-bit change: every planted
           PRN within one bin and one chip with the truth's alignment and
           above every absent PRN; the launch counters must show K5 on each
+  e2e_mesh
+          the sharded paths (gnss_dsp_tpu_torch.parallel): (a) acquire
+          --mesh 1 on the e2e GPS L1 capture (a 1 x 1 mesh: K1's surface
+          and the torch reduction): its rows text for text the single-card
+          CLI's, or, where the metric's last digit differs, the winners
+          equal and the metric within rtol 1e-5; (b) acquire_signal_sharded
+          on a 2 x 2 mesh over the one card for GPS L1 (K1's surface),
+          GPS L5I (K7 at 61380) and GPS L2CM (K1's surface at 163840), one
+          85 ms capture each: every planted PRN within one doppler bin and
+          one chip, above every absent PRN; (c) track --mesh 2 over two
+          sat shards of the card (shards of 4 channels, K2 at the shard's
+          cluster size) on the e2e channels, and with --coherent 20 on the
+          six B1I ones of e2e_coherent_track: rows byte-equal to the
+          single-card CLI's; (d) the GPS L1 search as two
+          tools/multihost_worker ranks sharing the card over gloo on a 1 x 2
+          mesh (the sum over time shards crosses the ranks): winners equal
+          to (a)'s, metric within rtol 1e-5
 
 In the e2e phases every surface-kernel, per-step correlator and K2 call
 is recorded with its shape, and each must have been held against its
-plain version at that shape in k1, k2, k3, k4, k5, k6 or k7 (a surface
+plain version at that shape in k1, k1s, k2, k3, k4, k5, k6 or k7 (a surface
 launch's doppler count may be smaller; K2's shape is its subcarrier kind,
 channels, nmax, code length and coherent span, its block count a loop
 bound).
@@ -164,6 +193,13 @@ KERNELS = {
         replaces="gnss_dsp_tpu/ops/pallas_acquire_coh.py:467"),
     "acquire": dict(route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire.cu",
                     replaces="gnss_dsp_tpu/ops/pallas_acquire.py:183"),
+    # K1 with reduce=False and K7 at 61380, the sharded search's kernels
+    "acquire2_surface": dict(
+        route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire2.cu",
+        replaces="gnss_dsp_tpu/ops/pallas_acquire2.py:285"),
+    "acquire_61380": dict(
+        route="cuda", source="gnss_dsp_tpu_torch/csrc/acquire.cu",
+        replaces="gnss_dsp_tpu/ops/pallas_acquire.py:183"),
     "track_step_v2": dict(route="cuda",
                           source="gnss_dsp_tpu_torch/csrc/track_step.cu",
                           replaces="gnss_dsp_tpu/ops/pallas_track2.py:386"),
@@ -192,7 +228,9 @@ E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
 # run-time core on 8 CTAs, its core before the 320-point register
 # transform)
 K5_CLUSTERS = {16384: (4,), 32768: (8,), 65536: (16,), 81920: (8,)}
-K7_CLUSTERS = (6, 8)
+# K7's cluster sizes up to 8 that hold the row (the ablation runs those
+# the kernel does not choose)
+K7_CLUSTERS = {30690: (4, 5, 6, 7, 8), 61380: (7, 8)}
 K1_CLUSTERS = {4096: (1, 4, 8), 32768: (16,), 65536: (16,), 81920: (8,)}
 # the cluster kernels' entry functions in nvcc's -Xptxas -v output
 CLUSTER_KERNELS = (r"coh_spec_kernel|coh_wide_kernel|full_kernel"
@@ -246,22 +284,34 @@ def surface_bound(P, DC, rows, W, out_bytes):
 
 
 def library_ms(code_f, F, reps=2):
-    """(ms, dopplers): milliseconds of one torch.fft.ifft over the
-    [P, d, rows, W] product code_f[p] * conj(F[d, r]) (formed outside the
-    timing), over all DC dopplers of F where the product, its transform
-    and cuFFT's workspace (about three products) fit in four fifths of
-    free memory, else over the most that do."""
+    """(ms, calls): milliseconds of torch.fft.ifft over the [DC, P, rows,
+    W] product code_f[p] * conj(F[d, r]) of all DC dopplers of F, formed
+    outside the timing.  One call where the product, its transform and
+    cuFFT's workspace (about three products) fit in four fifths of free
+    memory; else consecutive calls over slices of the dopplers, each
+    transform and its workspace beside the whole product, in one timed
+    window.  (None, 0) where not even one doppler's transform fits."""
     import torch
 
+    DC = F.shape[0]
     per_d = code_f.shape[0] * F[0].numel() * 8
-    d = min(F.shape[0], int(0.8 * torch.cuda.mem_get_info()[0] / 3 // per_d))
+    free = 0.8 * torch.cuda.mem_get_info()[0]
+    d = DC if 3 * DC * per_d <= free else int((free - DC * per_d)
+                                              // (2 * per_d))
     if d < 1:
         return None, 0
-    prod = code_f[:, None, None, :] * torch.conj(F[:d])[None]
-    ms = cuda_ms(lambda: torch.fft.ifft(prod, dim=-1), reps)
-    del prod
+    prod = code_f[None, :, None, :] * torch.conj(F)[:, None]
+    slices = [prod[d0:d0 + d] for d0 in range(0, DC, d)]
+
+    def run():
+        for sl in slices:
+            torch.fft.ifft(sl, dim=-1)
+
+    ms = cuda_ms(run, reps)
+    calls = len(slices)
+    del prod, slices
     torch.cuda.empty_cache()
-    return ms, d
+    return ms, calls
 
 
 def plan_text(info, sms):
@@ -276,17 +326,15 @@ def plan_text(info, sms):
             f"a thread, {info['smem']} bytes of shared memory a CTA")
 
 
-def library_text(lib, DC):
-    ms, d = lib
-    if d == DC:
-        return f"{ms:.3f} ms"
-    return (f"{ms:.3f} ms over {d} of the {DC} dopplers (the whole product "
-            f"does not fit)" if d else "not run (no doppler fits)")
-
-
-def library_full(lib, DC):
-    """library_ms's time where it covered all DC dopplers, else None."""
-    return lib[0] if lib[1] == DC else None
+def library_text(lib, ms=None) -> str:
+    """library_ms's time, its calls, and the kernel's ms over it."""
+    t, calls = lib
+    if t is None:
+        return "not run (no doppler's transform fits)"
+    return (f"{t:.3f} ms" + (f" in {calls} calls over doppler slices (the "
+                             f"whole transform does not fit at once)"
+                             if calls > 1 else "")
+            + (f" (kernel / library {ms / t:.3f})" if ms else ""))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -317,15 +365,21 @@ def device_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    # the profiler's trace came back empty three times (it does so now
+    # and then on the card): CUDA events, which also time the host side
+    log("device_ms: the profiler saw no device time in three tries; "
+        "this time is from CUDA events")
+    return cuda_ms(fn, reps)
 
 
 # --------------------------------------------- shapes checked vs main path
@@ -347,11 +401,12 @@ CHECKED = {name: [] for name in (*SURFACE_WRAPPERS, *STEP_WRAPPERS,
 
 def shape_key(name, F, code_f, *rest):
     """(doppler count, the rest of the shape) of a wrapper call: P, the
-    spectra's rows and W, then K1's n_valid, K5's A and n_valid or K6's
-    A, m_coh and n_valid (n_valid defaults to 0)."""
+    spectra's rows and W, then K1's n_valid and reduce, K5's A and n_valid
+    or K6's A, m_coh and n_valid (n_valid defaults to 0, reduce to
+    True)."""
     key = (code_f.shape[0], *F.shape[1:])
-    if name == "acquire2":               # n_valid
-        key += (rest[0] if rest else 0,)
+    if name == "acquire2":               # n_valid, reduce
+        key += (rest[0] if rest else 0, rest[1] if len(rest) > 1 else True)
     elif name == "acquire_coh_spec":     # A, n_valid
         key += (rest[0], rest[1] if len(rest) > 1 else 0)
     elif name == "acquire_coh":          # cos, sin, sec_mat, m_coh, n_valid
@@ -488,13 +543,9 @@ def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed, n_valid=0,
         f"exact on planted cells, {len(diff)} near-tie argmax differences "
         f"elsewhere, max|dpeak|,|dsum| = {err:.3g}, two launches bit-equal")
     log(f"[k1] {tag}: plan: {plan_text(info, sms)}")
-    scaled = lib[0] * DC / lib[1] if lib[1] else None
     log(f"[k1] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
         f"Gcells/s), plain {plain_ms:.3f} ms, library ifft "
-        f"{library_text(lib, DC)}"
-        + (f" ({scaled:.3f} ms scaled to {DC}; kernel / library "
-           f"{ms / scaled:.3f})" if scaled else "")
-        + f", bound {bms:.3f} ms by {by}  [{card}]")
+        f"{library_text(lib, ms)}, bound {bms:.3f} ms by {by}  [{card}]")
     for c in K1_CLUSTERS.get(W, ()):
         got = acquire2.corr_surface2(*args, cluster=c)
         torch.cuda.synchronize()
@@ -511,10 +562,10 @@ def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed, n_valid=0,
     torch.cuda.empty_cache()
     shape = dict(shape=f"{P} x {DC} x {B} x {W}" + (
         f", n_valid {n_valid}" if n_valid else ""), signal=tag, ms=ms,
-        library_ms=scaled, library_dopplers=lib[1], bound_ms=bms,
-        k1_over_library=ms / scaled if scaled else None)
+        library_ms=lib[0], library_calls=lib[1], bound_ms=bms,
+        k1_over_library=ms / lib[0] if lib[0] else None)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by,
+                library_ms=lib[0], bound_ms=bms, bound_by=by,
                 shape=shape)
 
 
@@ -591,19 +642,35 @@ def phase_k1(dev, card, results):
 
 # ---------------------------------------------------------------- phase k7
 
-def phase_k7(dev, card, results):
+def mesh_launch(name, nsat, ntime, ms=80):
+    """(route, P, DC, B, W) of the first surface-kernel launch of one
+    shard of acquire_signal_sharded on `name` at its default PRNs and
+    doppler grid over an nsat x ntime mesh, as parallel/acquire plans it."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.acquire.plan import mesh_plan
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.parallel.acquire import mesh_dop_chunk
+
+    sig = get_signal(name)
+    route, W = mesh_plan(sig)
+    P = -(-len(sig.prns()) // nsat)
+    B = -(-engine._block_count(sig, ms) // ntime)
+    D = len(engine.doppler_grid(sig, sig.doppler_default)[0])
+    return route, P, mesh_dop_chunk(P, W, D), B, W
+
+
+def _planted_surface(dev, P, DC, B, W, seed, plant_seed):
+    """Random code spectra and data spectra F [DC, B, W] with one
+    correlation peak per PRN at a random doppler and lag: (code_f, F,
+    dopplers, lags)."""
     import torch
 
-    from gnss_dsp_tpu_torch.ops import acquire
-
-    route, P, DC, B, W, _ = wide_launch("xona-x5d")
-    check(route == "v1", ("xona-x5d route", route))
-    g = torch.Generator(device=dev).manual_seed(3069)
+    g = torch.Generator(device=dev).manual_seed(seed)
     code_f = torch.exp(1j * 2 * np.pi * torch.rand(
         (P, W), generator=g, device=dev)).to(torch.complex64)
     F = torch.complex(torch.randn((DC, B, W), generator=g, device=dev),
                       torch.randn((DC, B, W), generator=g, device=dev))
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(plant_seed)
     dops = rng.integers(0, DC, P)
     want = rng.integers(0, W, P)           # where each PRN's surface peaks
     k = torch.arange(W, device=dev, dtype=torch.float64)
@@ -611,43 +678,155 @@ def phase_k7(dev, card, results):
         ramp = torch.exp(2j * np.pi * k * float(want[p]) / W)
         F[int(dops[p])] += 0.5 * (code_f[p].to(torch.complex128)
                                   * ramp).to(torch.complex64)[None, :]
+    return code_f, F, dops, want
+
+
+def _k7_case(dev, card, tag, P, DC, B, W, seed, plant_seed, clusters,
+             reps=3):
+    """K7 against its plain version on a planted surface: planted lags
+    exact, the surface within rtol 1e-4 plus 2e-5 of its maximum, two
+    launches bit-equal; times, plan and the other cluster sizes."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire
+
+    code_f, F, dops, want = _planted_surface(dev, P, DC, B, W, seed,
+                                             plant_seed)
     CHECKED["acquire"].append(shape_key("acquire", F, code_f))
     q_k = acquire.corr_surface(F, code_f)
     q_p = acquire.corr_surface_plain(F, code_f)
     same = torch.equal(q_k, acquire.corr_surface(F, code_f))
     torch.cuda.synchronize()
-    check(same, "k7: two launches differ")
+    check(same, f"k7 {tag}: two launches differ")
     got = q_k.argmax(dim=-1).cpu().numpy()[np.arange(P), dops]
-    check((got == want).all(), ("k7 planted lag", got, want))
+    check((got == want).all(), ("k7 planted lag", tag, got, want))
     scale = float(q_p.max())
     err = float((q_k - q_p).abs().max())
     torch.testing.assert_close(q_k, q_p, rtol=1e-4, atol=2e-5 * scale)
-    ms = cuda_ms(lambda: acquire.corr_surface(F, code_f), 3)
+    ms = cuda_ms(lambda: acquire.corr_surface(F, code_f), reps)
     plain_ms = cuda_ms(lambda: acquire.corr_surface_plain(F, code_f), 1)
     lib = library_ms(code_f, F)
     bms, by = surface_bound(P, DC, B, W, P * DC * W * 4)
     cells = P * DC * B * W
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     info = acquire.launch_info(P, DC, B, W, dev.index or 0)
-    log(f"[k7] xona-x5d: P={P} DC={DC} B={B} W={W}: planted lags exact, "
+    log(f"[k7] {tag}: P={P} DC={DC} B={B} W={W}: planted lags exact, "
         f"surface within rtol 1e-4 + 2e-5 of its max ({scale:.4g}), "
         f"max|dq| = {err:.3g}, two launches bit-equal")
-    log(f"[k7] kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), plain "
-        f"{plain_ms:.3f} ms, library ifft {library_text(lib, DC)}, bound "
-        f"{bms:.3f} ms by {by}  [{card}]")
-    log(f"[k7] plan: {plan_text(info, sms)}, {info['nseg']} block segments "
-        f"per (PRN, doppler)")
-    for c in K7_CLUSTERS:
+    log(f"[k7] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
+        f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, ms)}, "
+        f"bound {bms:.3f} ms by {by}  [{card}]")
+    log(f"[k7] {tag}: plan: {info['n1']} x {info['n2']}, "
+        f"{plan_text(info, sms)}, {info['nseg']} block segments per (PRN, "
+        f"doppler)")
+    for c in clusters:
+        if c == info["cluster"]:
+            continue
         other = acquire.launch_info(P, DC, B, W, dev.index or 0, c)
         q_c = acquire.corr_surface(F, code_f, cluster=c)
         torch.testing.assert_close(q_c, q_p, rtol=1e-4, atol=2e-5 * scale)
-        ms_c = cuda_ms(lambda: acquire.corr_surface(F, code_f, cluster=c), 3)
-        log(f"[k7] ablation, {c} CTAs a cluster: {ms_c:.3f} ms against "
-            f"{ms:.3f}; {plan_text(other, sms)}, {other['nseg']} segments; "
-            f"surface within rtol 1e-4 of the plain version  [{card}]")
-    results["acquire"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_full(lib, DC), bound_ms=bms,
-                              bound_by=by)
+        ms_c = cuda_ms(lambda: acquire.corr_surface(F, code_f, cluster=c),
+                       reps)
+        log(f"[k7] {tag}: ablation, {c} CTAs a cluster: {ms_c:.3f} ms "
+            f"against {ms:.3f}; {plan_text(other, sms)}, {other['nseg']} "
+            f"segments; surface within rtol 1e-4 of the plain version  "
+            f"[{card}]")
+    del F, q_k, q_p
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib[0], library_calls=lib[1], bound_ms=bms,
+                bound_by=by)
+
+
+def phase_k7(dev, card, results):
+    """K7 at Xona X5's launch shape (the single-card route) and at the
+    sharded search's GPS L5I shard shape (61380, mesh_launch on 2 x 2)."""
+    route, P, DC, B, W, _ = wide_launch("xona-x5d")
+    check(route == "v1", ("xona-x5d route", route))
+    results["acquire"].update(_k7_case(dev, card, "xona-x5d", P, DC, B, W,
+                                       3069, 9, K7_CLUSTERS[W]))
+    route, P, DC, B, W = mesh_launch("gps-l5i", 2, 2)
+    check(route == "v1" and W == 61380, ("gps-l5i sharded route", route, W))
+    results["acquire_61380"].update(_k7_case(
+        dev, card, "gps-l5i 2 x 2 shard", P, DC, B, W, 6138, 10,
+        K7_CLUSTERS[W], reps=2))
+
+
+# --------------------------------------------------------------- phase k1s
+
+def _k1s_case(dev, card, tag, P, DC, B, W, seed, reps=3):
+    """K1's surface (reduce=False) against its plain version on a planted
+    surface: planted lags exact, the surface within rtol 1e-4 plus 2e-5 of
+    its maximum (K7's tolerance: float32 FFTs in another order), two
+    launches bit-equal; its time beside K7's at the same shape (where K7
+    takes W) and one library ifft over the product, and its plan."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire, acquire2
+
+    code_f, F, dops, want = _planted_surface(dev, P, DC, B, W, seed,
+                                             seed + 1)
+    args = (F, code_f, 0, False)
+    CHECKED["acquire2"].append(shape_key("acquire2", *args))
+    q_k = acquire2.corr_surface2(*args)
+    q_p = acquire2.corr_surface_plain(F, code_f)
+    same = torch.equal(q_k, acquire2.corr_surface2(*args))
+    torch.cuda.synchronize()
+    check(same, f"k1s {tag}: two launches differ")
+    got = q_k.argmax(dim=-1).cpu().numpy()[np.arange(P), dops]
+    check((got == want).all(), ("k1s planted lag", tag, got, want))
+    scale = float(q_p.max())
+    err = float((q_k - q_p).abs().max())
+    torch.testing.assert_close(q_k, q_p, rtol=1e-4, atol=2e-5 * scale)
+    del q_k, q_p
+    ms = cuda_ms(lambda: acquire2.corr_surface2(*args), reps)
+    plain_ms = cuda_ms(lambda: acquire2.corr_surface_plain(F, code_f), 1)
+    try:
+        acquire.launch_info(P, DC, B, W, dev.index or 0)
+        k7 = f"{cuda_ms(lambda: acquire.corr_surface(F, code_f), reps):.3f} ms"
+    except NotImplementedError:
+        k7 = "not run (no cluster of up to 8 CTAs holds the row)"
+    lib = library_ms(code_f, F)
+    bms, by = surface_bound(P, DC, B, W, P * DC * W * 4)
+    cells = P * DC * B * W
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = acquire2.launch_info(W, dev.index or 0, 0, False)
+    log(f"[k1s] {tag}: P={P} DC={DC} B={B} W={W}: planted lags exact, "
+        f"surface within rtol 1e-4 + 2e-5 of its max ({scale:.4g}), "
+        f"max|dq| = {err:.3g}, two launches bit-equal")
+    log(f"[k1s] {tag}: plan: {plan_text(info, sms)}")
+    log(f"[k1s] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
+        f"Gcells/s), K7 at the same shape {k7}, plain {plain_ms:.3f} ms, "
+        f"library ifft {library_text(lib, ms)}, bound {bms:.3f} ms by {by}  "
+        f"[{card}]")
+    del F, args
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib[0], bound_ms=bms, bound_by=by,
+                shape=dict(shape=f"{P} x {DC} x {B} x {W}", case=tag, ms=ms,
+                           k7=k7, library_ms=lib[0], bound_ms=bms))
+
+
+def phase_k1s(dev, card, results):
+    """K1's surface at every launch shape of e2e_mesh: GPS L1 on one shard
+    of the 2 x 2 mesh (the kernels line's case), on the 1 x 1 mesh of
+    acquire --mesh 1 and on the 1 x 2 mesh of the two gloo ranks, and GPS
+    L2CM on one shard of the 2 x 2 mesh (the run-time core at 163840)."""
+    cases = (("gps-l1 2 x 2 shard", "gps-l1", 2, 2),
+             ("gps-l1 1 x 1", "gps-l1", 1, 1),
+             ("gps-l1 1 x 2 shard", "gps-l1", 1, 2),
+             ("gps-l2cm 2 x 2 shard", "gps-l2cm", 2, 2))
+    shapes, errs = [], []
+    for i, (tag, name, nsat, ntime) in enumerate(cases):
+        route, P, DC, B, W = mesh_launch(name, nsat, ntime)
+        check(route == "v2", (tag, "route", route))
+        r = _k1s_case(dev, card, tag, P, DC, B, W, 700 + i)
+        shapes.append(r.pop("shape"))
+        errs.append(r["max_abs_err"])
+        if i == 0:
+            results["acquire2_surface"].update(r)
+    results["acquire2_surface"]["max_abs_err"] = max(errs)
+    results["acquire2_surface"]["shapes"] = shapes
 
 
 # ----------------------------------------------------------- phases k5, k6
@@ -765,12 +944,9 @@ def _k5_case(dev, card, tag, P, DC, G, A, W, n_valid, seed, reps=3):
         + (", the stronger cells below lo lost" if lo else "")
         + f", {nd} near-tie differences elsewhere, max|dpeak| = {err:.3g}, "
         f"two launches bit-equal")
-    scaled = lib[0] * DC / lib[1] if lib[1] else None
     log(f"[k5] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} Gcells/s), "
-        f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, DC)}"
-        + (f" ({scaled:.3f} ms scaled to {DC}; kernel / library "
-           f"{ms / scaled:.3f})" if scaled else "")
-        + f", bound {bms:.3f} ms by {by}  [{card}]")
+        f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, ms)}, "
+        f"bound {bms:.3f} ms by {by}  [{card}]")
     log(f"[k5] {tag}: plan: {plan_text(info, sms)}")
     for c in K5_CLUSTERS.get(W, ()):
         other = acquire_coh.spec_launch_info(W, dev.index or 0, c)
@@ -785,10 +961,10 @@ def _k5_case(dev, card, tag, P, DC, G, A, W, n_valid, seed, reps=3):
     torch.cuda.empty_cache()
     shape = dict(shape=f"{P} x {DC} x {G}x{A} rows x {W}" + (
         f", n_valid {n_valid}" if n_valid else ""), signal=tag, ms=ms,
-        library_ms=scaled, library_dopplers=lib[1], bound_ms=bms,
-        k5_over_library=ms / scaled if scaled else None)
+        library_ms=lib[0], library_calls=lib[1], bound_ms=bms,
+        k5_over_library=ms / lib[0] if lib[0] else None)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by,
+                library_ms=lib[0], bound_ms=bms, bound_by=by,
                 shape=shape)
 
 
@@ -897,10 +1073,10 @@ def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
         f"elsewhere, max|dpeak| = {err:.3g}")
     log(f"[k6] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
         f"Gcells/s as block x alignment cells), plain {plain_ms:.3f} ms, "
-        f"library ifft {library_text(lib, DC)}, bound {bms:.3f} ms by {by}  "
+        f"library ifft {library_text(lib)}, bound {bms:.3f} ms by {by}  "
         f"[{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_full(lib, DC), bound_ms=bms, bound_by=by)
+                library_ms=lib[0], bound_ms=bms, bound_by=by)
 
 
 def phase_k6(dev, card, results):
@@ -1017,6 +1193,11 @@ def phase_k2(dev, card, results):
                            20, 66))
     fams.append(_k2_family(dev, card, "gps-l5q", len(L5Q_PRNS), L5Q_FS, 20,
                            67))
+    # e2e_mesh's shard shapes: the e2e channels over two sat shards (4 a
+    # shard at 8.184 MHz) and the coherent B1I ones (3 a shard)
+    fams.append(_k2_family(dev, card, "gps-l1", 4, 8.184e6, 1, 68))
+    fams.append(_k2_family(dev, card, "beidou-b1i", len(B1I_PRNS) // 2,
+                           B1I_FS, 20, 69))
     log("[k2] families " + json.dumps(fams))
     results["track_fused"]["shapes"] = [bench] + fams
 
@@ -1676,7 +1857,7 @@ def phase_e2e_coherent(dev, card, results, work):
     t0 = time.perf_counter()
     truth = synth_b1i(b1i, fs, 0.050)
     t_synth = time.perf_counter() - t0
-    l1 = os.path.join(work, "e2e_gps_l1.iq")
+    l1 = os.path.join(work, "e2e_coherent_gps_l1.iq")
     l1_truth = synth_capture(l1, 8.184e6, 0.2)
     l1_truth["code_length"] = 1023
 
@@ -1743,22 +1924,26 @@ def phase_e2e_coherent(dev, card, results, work):
 def phase_e2e_coherent_track(dev, card, work, seconds=1.2):
     """tests/test_coherent.py::test_acquire_to_track_overlay_handoff at
     full size, on BeiDou B1I and on GPS L5Q (_coherent_track).  Returns
-    K2's launches by signal."""
+    K2's and K5's launches by signal, and B1I's track CLI call (its
+    arguments, rows and capture, which e2e_mesh runs again through a
+    mesh and then removes)."""
     from gnss_dsp_tpu_torch.tools.main_path import (
         B1I_FS, B1I_PRNS, L5Q_FS, L5Q_PRNS, synth_coherent_track)
 
-    return {
-        "beidou-b1i --coherent 20": _coherent_track(
-            dev, card, work, "beidou-b1i", B1I_FS, seconds,
-            lambda path: synth_coherent_track(
-                path, "beidou-b1i", B1I_PRNS, B1I_FS, seconds, device=dev),
-            (-2500.0, 2500.0, 25.0)),
-        "gps-l5q --coherent 20": _coherent_track(
-            dev, card, work, "gps-l5q", L5Q_FS, seconds,
-            lambda path: synth_coherent_track(
-                path, "gps-l5q", L5Q_PRNS, L5Q_FS, seconds, device=dev,
-                dmax=400.0, seed=17),
-            (-500.0, 500.0, 25.0))}
+    *b1i, b1i_track = _coherent_track(
+        dev, card, work, "beidou-b1i", B1I_FS, seconds,
+        lambda path: synth_coherent_track(
+            path, "beidou-b1i", B1I_PRNS, B1I_FS, seconds, device=dev),
+        (-2500.0, 2500.0, 25.0))
+    *l5q, l5q_track = _coherent_track(
+        dev, card, work, "gps-l5q", L5Q_FS, seconds,
+        lambda path: synth_coherent_track(
+            path, "gps-l5q", L5Q_PRNS, L5Q_FS, seconds, device=dev,
+            dmax=400.0, seed=17),
+        (-500.0, 500.0, 25.0))
+    os.remove(l5q_track[2])
+    return ({"beidou-b1i --coherent 20": tuple(b1i),
+             "gps-l5q --coherent 20": tuple(l5q)}, b1i_track)
 
 
 def _coherent_track(dev, card, work, name, fs, seconds, synth, grid):
@@ -1772,7 +1957,8 @@ def _coherent_track(dev, card, work, name, fs, seconds, synth, grid):
     truth; over the last 200 rows the mean carrier_f within 1 Hz of the
     truth and its spread under 1 Hz (the handoff test's bounds); C/N0 of
     the last 500 rows within 3 dB of the planted 32 dB-Hz.  Returns K2's
-    launches."""
+    and K5's launches and (the track CLI's arguments, its rows, the
+    capture's path): the caller removes the capture."""
     import torch
 
     from gnss_dsp_tpu_torch.cli import cn0 as cn0_cli
@@ -1811,12 +1997,11 @@ def _coherent_track(dev, card, work, name, fs, seconds, synth, grid):
     track_fused.LAUNCHES = 0
     track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
     t0 = time.perf_counter()
+    trk_args = coherent_track_args(name, hits, truth["prns"], path, fs, dev)
     with recording() as calls:
-        out = run_cli(trk_cli.main, name, coherent_track_args(
-            name, hits, truth["prns"], path, fs, dev))
+        out = run_cli(trk_cli.main, name, trk_args)
     torch.cuda.synchronize()
     t_trk = time.perf_counter() - t0
-    os.remove(path)
     check_covered(tag, calls)
     lt = track_fused.LAUNCHES
     check(lt > 0 and track_step.LAUNCHES_V2 == track_step.LAUNCHES_V1 == 0,
@@ -1839,7 +2024,7 @@ def _coherent_track(dev, card, work, name, fs, seconds, synth, grid):
         f"{t_acq:.2f} s (K5 launches {k5}), track --coherent 20 "
         f"{len(truth['prns'])} ch x {seconds} s at {fs:g} Hz {t_trk:.2f} s, "
         f"K2 launches {lt}  [{card}]")
-    return lt, k5
+    return lt, k5, (trk_args, out, path)
 
 
 # ---------------------------------------------------------- phase e2e_wide
@@ -1953,6 +2138,203 @@ def phase_e2e_coherent_wide(dev, card, work):
     return k5
 
 
+# ---------------------------------------------------------- phase e2e_mesh
+
+def _workers(args, timeout=600):
+    """Run the multihost_worker command lines `args` together from the
+    repo root; every process is stopped before this returns.  Returns
+    their outputs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gnss_dsp_tpu_torch.tools.multihost_worker",
+         *a], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for a in args]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, ("multihost_worker failed", out[-3000:]))
+    return outs
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_e2e_mesh(dev, card, results, work, e2e, b1i_track):
+    """The sharded paths on the card: (a) acquire --mesh 1 on the e2e
+    capture against the single-card CLI; (b) acquire_signal_sharded on a
+    2 x 2 mesh over the one card for GPS L1 (K1's surface), GPS L5I (K7 at
+    61380) and GPS L2CM (K1's surface at 163840); (c) track --mesh over two
+    sat shards of the card, on the e2e channels and on the coherent B1I
+    ones, against the single-card rows; (d) the GPS L1 search as two gloo
+    ranks sharing the card on a 1 x 2 mesh, against (a).  Returns the
+    capture paths it is done with."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire, acquire2, track_fused
+    from gnss_dsp_tpu_torch.ops.frontend import prepare_baseband
+    from gnss_dsp_tpu_torch.parallel.acquire import (
+        acquire_signal_sharded, mesh_dop_chunk)
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        returns_of, run_cli, synth_at_acq_fs)
+
+    tag = "e2e_mesh"
+    path, fs, specs, track_out, truth = e2e
+    truth = dict(truth, code_length=1023)
+
+    # (a) acquire --mesh 1: the CLI's sharded path on a 1 x 1 mesh
+    args = [path, str(fs), "0", "--device", str(dev)]
+    with returns_of(acq_cli, "acquire_signal") as one:
+        single = run_cli(acq_cli.main, "gps-l1", args)
+    acquire2.LAUNCHES_SURFACE = 0
+    t0 = time.perf_counter()
+    with recording() as calls, \
+            returns_of(acq_cli, "acquire_signal_sharded") as res:
+        meshed = run_cli(acq_cli.main, "gps-l1", ["--mesh", "1"] + args)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+    check_covered(tag, calls)
+    surface = acquire2.LAUNCHES_SURFACE
+    check(surface > 0, "(a): K1's surface not on the path")
+    a_res = res[0]
+    digits = 0
+    for r1, rm in zip(one[0], a_res):
+        check((r1.prn, r1.doppler, r1.code_offset)
+              == (rm.prn, rm.doppler, rm.code_offset), ("(a)", r1, rm))
+        check(abs(rm.metric - r1.metric) <= 1e-5 * abs(r1.metric),
+              ("(a) metric", r1, rm))
+    for l1, lm in zip(single.splitlines(), meshed.splitlines()):
+        digits += l1 != lm
+    check(len(single.splitlines()) == len(meshed.splitlines()) == 32)
+    log(f"[{tag}] (a) acquire --mesh 1: 32 rows, {32 - digits} text for "
+        f"text equal to the single-card CLI's, {digits} differing in the "
+        f"metric's last digit (winners equal, metric within rtol 1e-5); "
+        f"K1 surface launches {surface}, {t_a:.2f} s  [{card}]")
+
+    # (b) a 2 x 2 mesh over the one card
+    mesh = make_mesh(devices=[dev] * 4)
+    check(mesh.shape == {"sat": 2, "time": 2}, mesh)
+    k7 = 0
+    xb_l1 = None
+    for i, name in enumerate(("gps-l1", "gps-l5i", "gps-l2cm")):
+        sig = get_signal(name)
+        if name == "gps-l1":
+            cpath, cfs, ctruth = path, fs, truth
+        else:
+            cpath = os.path.join(work, f"e2e_mesh_{name}.iq")
+            ctruth = synth_at_acq_fs(cpath, name, 0.085, seed=50 + i)
+            cfs = ctruth["fs"]
+        x = acq_cli.read_samples(cpath, int(85 * cfs / 1000), dev)
+        xb = prepare_baseband(x, cfs, 0.0, sig.acq_fs, sig.acq_lowpass_hz,
+                              82)
+        if name == "gps-l1":
+            xb_l1 = xb
+        else:
+            os.remove(cpath)
+        acquire.LAUNCHES = 0
+        acquire2.LAUNCHES_SURFACE = 0
+        t0 = time.perf_counter()
+        with recording() as calls:
+            got = acquire_signal_sharded(sig, xb, sig.prns(), mesh, ms=80)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_covered(tag, calls)
+        l7, l1s = acquire.LAUNCHES, acquire2.LAUNCHES_SURFACE
+        if name == "gps-l5i":
+            check(l7 > 0 and l1s == 0, (name, "K7 not on the path", l7, l1s))
+            k7 += l7
+        else:
+            check(l1s > 0 and l7 == 0, (name, "K1 not on the path", l7, l1s))
+            surface += l1s
+        hits = {r.prn: dict(doppler=r.doppler, metric=r.metric,
+                            code=r.code_offset) for r in got}
+        check(sorted(hits) == sorted(sig.prns()), (name, sorted(hits)))
+        check_hits(f"{name} 2 x 2", hits, ctruth, sig.doppler_default[2],
+                   phase=tag)
+        log(f"[{tag}] (b) {name} on a 2 x 2 mesh over the card: launches "
+            f"K7 {l7}, K1 surface {l1s}; search {wall:.2f} s  [{card}]")
+
+    # (c) track --mesh over two sat shards of the card (the track CLI's
+    # meshes have one time shard, as the reference's: a 2 x 2 grid tracks
+    # on its two sat rows)
+    shards = trk_cli.cli_devices
+    trk_cli.cli_devices = lambda device, n: [dev] * 2
+    try:
+        track_fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with recording() as calls:
+            out = run_cli(trk_cli.main, "gps-l1",
+                          ["--mesh", "2", "--blocks", "2150", "--device",
+                           str(dev), path, str(fs), "0", specs])
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - t0
+        check_covered(tag, calls)
+        check(out == track_out, "(c): track --mesh rows differ")
+        lt = track_fused.LAUNCHES
+        b_args, b_out, b_path = b1i_track
+        with recording() as calls:
+            out = run_cli(trk_cli.main, "beidou-b1i", ["--mesh", "2"] + b_args)
+        torch.cuda.synchronize()
+        check_covered(tag, calls)
+        check(out == b_out, "(c): track --mesh --coherent 20 rows differ")
+        lc = track_fused.LAUNCHES - lt
+    finally:
+        trk_cli.cli_devices = shards
+    check(lt > 0 and lc > 0, ("(c): K2 not on the path", lt, lc))
+    results["track_fused"]["launches"] += lt + lc
+    log(f"[{tag}] (c) track --mesh 2 (shards of 4 channels), 8 ch x 2150 "
+        f"blocks: rows byte-equal to the single-card CLI's, K2 launches "
+        f"{lt}, {t_c:.2f} s; track --mesh 2 --coherent 20, 6 B1I ch: rows "
+        f"byte-equal, K2 launches {lc}  [{card}]")
+
+    # (d) two gloo ranks sharing the card, the sum over time shards
+    # crossing the ranks
+    sig = get_signal("gps-l1")
+    dops = np.arange(*sig.doppler_default)
+    in_npz = os.path.join(work, "e2e_mesh_in.npz")
+    out_npz = os.path.join(work, "e2e_mesh_out.npz")
+    np.savez(in_npz, sig="gps-l1", acq_fs=sig.acq_fs,
+             x=xb_l1.cpu().numpy(), prns=list(sig.prns()),
+             dop_search=sig.doppler_default, ms=80,
+             dop_chunk=mesh_dop_chunk(len(sig.prns()), 4096, len(dops)))
+    port = _free_port()
+    t0 = time.perf_counter()
+    outs = _workers([[str(pid), "2", str(port), in_npz, out_npz, "--device",
+                      "cuda", "--shards", "1", "--time-shards", "2"]
+                     for pid in (0, 1)])
+    t_d = time.perf_counter() - t0
+    got = np.load(out_npz)
+    for i, r in enumerate(a_res):
+        check((int(got["prn"][i]), float(got["doppler"][i]),
+               float(got["code_offset"][i]))
+              == (r.prn, r.doppler, r.code_offset), ("(d)", i, r))
+        check(abs(float(got["metric"][i]) - r.metric) <= 1e-5 * r.metric,
+              ("(d) metric", i, r, float(got["metric"][i])))
+    os.remove(in_npz)
+    os.remove(out_npz)
+    log(f"[{tag}] (d) two gloo ranks on one card, 1 x 2 mesh: 32 winners "
+        f"equal to (a)'s, metric within rtol 1e-5; {t_d:.2f} s with the "
+        f"processes' start ({outs[0].strip().splitlines()[-1]})  [{card}]")
+    results["acquire2_surface"]["launches"] = surface
+    results["acquire_61380"]["launches"] = k7
+    return b_path
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1992,6 +2374,7 @@ def main(argv=None) -> int:
         log(f"[build] cluster kernel {name}: {v}")
     os.makedirs(args.out, exist_ok=True)
     phase_k1(dev, card, results)
+    phase_k1s(dev, card, results)
     phase_k7(dev, card, results)
     phase_k5(dev, card, results)
     phase_k6(dev, card, results)
@@ -2001,15 +2384,16 @@ def main(argv=None) -> int:
     phase_k4(dev, card, results)
     e2e = phase_e2e(dev, card, results, args.out)
     phase_gps_l1_routes(dev, card, results, e2e)
-    os.remove(e2e[0])
     k2_fams, k3 = phase_e2e_track(dev, card, args.out)
     results["track_step_v2"]["launches"] += k3
     phase_e2e_coherent(dev, card, results, args.out)
-    coh = phase_e2e_coherent_track(dev, card, args.out)
+    coh, b1i_track = phase_e2e_coherent_track(dev, card, args.out)
     k2_fams.update((k, v[0]) for k, v in coh.items())
     log(f"[k2] launches: e2e {results['track_fused']['launches']}, "
         f"e2e_track and e2e_coherent_track {json.dumps(k2_fams)}")
     results["track_fused"]["launches"] += sum(k2_fams.values())
+    os.remove(phase_e2e_mesh(dev, card, results, args.out, e2e, b1i_track))
+    os.remove(e2e[0])
     k1_wide = phase_e2e_wide(dev, card, results, args.out)
     log(f"[e2e_wide] acquire2 launches: e2e {results['acquire2']['launches']}"
         f", e2e_wide {k1_wide}")

@@ -24,6 +24,12 @@ package), then the surface kernel.  Across chunks a strict `>` keeps
 the earliest best doppler, and inside a chunk argmax takes the first
 maximum, so the winning cell does not depend on the chunking.
 
+The sharded search (parallel/acquire) takes its parts from here: the
+block windows of one time shard (shard_block_windows, the reference's
+parallel/acquire.py:76-82), the surface route (surface, the counterpart
+of chunk_q_fused :120-144: K1's natural-order surface on v2, K7 on v1)
+and the reduction over the lags (surface_metric).
+
 Not ported here: FDMA (acquire_signal_fdma), serial searches and
 per-chunk results.  The extended-coherent search is in coherent.py and
 shares block_windows, mix_fft and the code-spectra LRU.
@@ -81,6 +87,18 @@ def block_windows(x: torch.Tensor, n: int, window: int, blocks: int,
     return xb
 
 
+def shard_block_windows(x: torch.Tensor, n: int, window: int, blocks: int,
+                        t: int, ntime: int) -> torch.Tensor:
+    """Time shard t of ntime's block windows: ceil(blocks / ntime) rows
+    from block t * that on, rows past the global block count zero (their
+    |.| adds exactly nothing to the block sum)."""
+    bl = -(-blocks // ntime)
+    xb = block_windows(x, n, window, blocks)[t * bl:(t + 1) * bl]
+    if xb.shape[0] < bl:
+        xb = torch.nn.functional.pad(xb, (0, 0, 0, bl - xb.shape[0]))
+    return xb
+
+
 def mix_fft(xb: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     """Doppler-mix the [B, W] block windows with each increment of df
     (int64 [dc]) and forward-FFT them: complex64 [dc, B, W] spectra."""
@@ -129,6 +147,25 @@ def surface_v1(F: torch.Tensor, code_ffts: torch.Tensor) -> torch.Tensor:
     return acquire.corr_surface(F, code_ffts)
 
 
+def surface(F: torch.Tensor, code_ffts: torch.Tensor,
+            route: str) -> torch.Tensor:
+    """q f32 [P, dc, W], natural lag order: on route "v2" K1's surface
+    (reduce=False), on "v1" K7's; on a CPU tensor their plain version (the
+    same function)."""
+    if route == "v2":
+        return acquire2.corr_surface2(F, code_ffts, 0, False)
+    return surface_v1(F, code_ffts)
+
+
+def surface_metric(q: torch.Tensor, peak_mean: bool):
+    """(metric f32 [P, dc], code_idx i32 [P, dc]) of surfaces q [P, dc, W]:
+    the first maximum over the lags, divided by the mean when peak_mean."""
+    code_idx = torch.argmax(q, dim=-1)                         # first max
+    peak = torch.gather(q, -1, code_idx[..., None])[..., 0]
+    metric = peak / q.mean(dim=-1) if peak_mean else peak
+    return metric, code_idx.to(torch.int32)
+
+
 def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
                 dopp_fixed: torch.Tensor, n: int, window: int, blocks: int,
                 peak_mean: bool, dop_chunk: int | None = None,
@@ -162,11 +199,8 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
         df = dopp_fixed[d0:d0 + dop_chunk].to(dev, torch.int64)
         F = mix_fft(xb, df)
         if route == "v1":
-            q = surface_v1(F, code_ffts)                        # [P, dc, W]
-            code_idx = torch.argmax(q, dim=-1)                  # first max
-            peak = torch.gather(q, -1, code_idx[..., None])[..., 0]
-            code_idx = code_idx.to(torch.int32)
-            metric = peak / q.mean(dim=-1) if peak_mean else peak
+            metric, code_idx = surface_metric(surface_v1(F, code_ffts),
+                                              peak_mean)
         else:
             peak, code_idx, sm = acquire2.corr_surface2(F, code_ffts,
                                                         n_valid)  # [P, dc]

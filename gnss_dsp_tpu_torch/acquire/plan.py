@@ -30,6 +30,15 @@ between two computations of the same circular surface, so the port
 does not carry it: every window left over is "v1" (the kernels' own
 split is ops/acquire2.wide_split).
 
+mesh_plan, the sharded search.  Counterpart: the plan
+gnss_dsp_tpu/parallel/acquire.py:181-183 takes, _fused_plan(window) with
+no pad2_n (engine.py:293-333): at the 2n window of the pad2 and sliding
+signals (n for the others), "v2" where plan_aligned(window) holds, else
+"v1".  The sharded search has no padded route: the pad2 windows with no
+aligned split (61380, 30690) take v1, the circular search at 2n lags
+(kernel K7).  It returns (route, window); the port's kernels choose
+their own split (acquire2.core_plan, acquire2.wide_split).
+
 coh_plan, the extended-coherent search.  Counterpart:
 gnss_dsp_tpu/acquire/coherent.py::_coh_fast_plan (:346-385) and the
 integer planning it calls, pallas_acquire2.plan_aligned / plan_padded /
@@ -56,6 +65,7 @@ result and is not carried over.
 """
 
 from __future__ import annotations
+
 
 MAX_N1 = 512          # pallas_acquire2.MAX_N1
 MATS_BUDGET = 4.0e6   # pallas_acquire2.MATS_BUDGET
@@ -115,6 +125,20 @@ def acq_plan(sig):
         except ValueError:
             pass
     return ("v1", dw, dw, 0)
+
+
+def mesh_plan(sig):
+    """(route, window) of the sharded search of `sig`, as
+    _fused_plan(window) with the Pallas kernels enabled and no pad2_n:
+    "v2" (K1) where plan_aligned(window) holds, else "v1" (K7); each
+    kernel picks its own split of the window."""
+    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
+    window = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
+    try:
+        plan_aligned(window)
+        return ("v2", window)
+    except ValueError:
+        return ("v1", window)
 
 
 def pick_g(n1: int) -> int:

@@ -1,8 +1,8 @@
 """Acquisition CLI.
 
 Counterpart: gnss_dsp_tpu/cli/acquire.py:26-180 (`read_samples`,
-`_fmt_row`, and `main` on the single-signal branches, non-coherent and
---coherent).
+`_fmt_row`, and `main` on the single-signal branches, non-coherent,
+--coherent and --mesh).
 
   python -m gnss_dsp_tpu_torch.cli.acquire SIGNAL [options] input_file sample_rate carrier_offset
 
@@ -11,9 +11,13 @@ Output rows are the reference workers' (acquire-gps-l1.py:102).  Adds
 never a silent CPU run.  --coherent M runs the extended-coherent search
 (acquire/coherent.py; M = -1: the full overlay length) on every CDMA
 signal with an FFT search, on the card through kernel K5 or K6 where the
-route takes one (K5 at every window up to GPS L2CM's 163840).  Not ported
-here: FDMA and serial searches (they raise NotImplementedError) and the
-sharded --mesh search (the option is unknown here).
+route takes one (K5 at every window up to GPS L2CM's 163840).  --mesh N
+runs the sharded search (parallel/acquire.acquire_signal_sharded) over a
+mesh of N devices (N < 0: all), time_shards 2 where N is even: on the
+card, the cards torch sees (one card: a 1 x 1 mesh, as in the JAX
+package), on the CPU N shards of it (parallel/mesh.cli_devices).
+--mesh and --coherent are mutually exclusive, as in the reference.  Not
+ported here: FDMA and serial searches (they raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from gnss_dsp_tpu_torch.acquire.engine import acquire_signal
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx
 from gnss_dsp_tpu_torch.ops.frontend import prepare_baseband
+from gnss_dsp_tpu_torch.parallel.acquire import acquire_signal_sharded
+from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 
 
 def read_samples(filename, n: int, device):
@@ -71,6 +77,9 @@ def main(signal: str, argv=None) -> int:
                       "periods coherently with the secondary overlay "
                       "wiped off (M=-1: full overlay length); needs a "
                       "correspondingly finer --doppler-search grid")
+    parser.add_option("--mesh", type="int", default=0, metavar="N",
+                      help="shard the search over an N-device mesh (0 = "
+                      "single device, -1 = all devices)")
     # --device is taken out of argv by pop_device_arg before parsing, so
     # that it may follow the positionals; the option is here for --help
     parser.add_option("--device", default="cuda",
@@ -80,6 +89,8 @@ def main(signal: str, argv=None) -> int:
     options, args = parser.parse_args(argv)
     if len(args) != 3:
         parser.error("expected input_filename sample_rate carrier_offset")
+    if options.mesh and options.coherent:
+        parser.error("--mesh and --coherent are mutually exclusive")
     dev = resolve_device(device)
     filename, fs, coffset = args[0], float(args[1]), float(args[2])
     ms = options.time
@@ -92,6 +103,13 @@ def main(signal: str, argv=None) -> int:
         return 1
     xb = prepare_baseband(x, fs, coffset, sig.acq_fs, sig.acq_lowpass_hz,
                           ms + 2)
+    if options.mesh:
+        mesh = make_mesh(None if options.mesh < 0 else options.mesh,
+                         devices=cli_devices(dev, options.mesh))
+        for r in acquire_signal_sharded(sig, xb, prns, mesh,
+                                        doppler_search=dops, ms=ms):
+            print(_fmt_row(sig, r))
+        return 0
     if options.coherent:
         m = None if options.coherent < 0 else options.coherent
         for r in acquire_signal_coherent(sig, xb, prns, dops, m_coh=m,

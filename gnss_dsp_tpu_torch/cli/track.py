@@ -18,9 +18,13 @@ GNSS_DSP_PALLAS_V1; --device cpu runs the plain versions.
 M-period extended-coherent integration on every route, --overlay-phase
 the overlay chip of the first tracked code period (from coherent
 acquisition); sub-divided signals refuse it, as in the reference.
+--mesh N shards the channels over an N-device mesh (N < 0: all devices;
+time_shards 1), padding them to a multiple of it: on the card, the cards
+torch sees (one card: a 1 x 1 mesh), on the CPU N shards of it
+(parallel/mesh.cli_devices); it composes with --coherent on K2.
 Not ported here: unknown-code recovery (beidou-b2bi/b2bq raise
-NotImplementedError), checkpoint/resume, mesh and the mixed-signal
-`multi` mode.
+NotImplementedError), checkpoint/resume and the mixed-signal `multi`
+mode.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import sys
 
 from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
+from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 from gnss_dsp_tpu_torch.track.driver import (
     TrackChannel, format_row_9, format_row_14, track_file,
 )
@@ -60,6 +65,10 @@ def main(signal: str, argv=None) -> int:
                            "acquisition; default %default)")
     parser.add_option("--chunk-ms", type="float", default=2000.0,
                       help="device chunk length in ms (default %default)")
+    parser.add_option("--mesh", type="int", default=0, metavar="N",
+                      help="shard channels over an N-device mesh (0 = "
+                      "single device, -1 = all devices; channel count "
+                      "padded up to the mesh)")
     # --device is taken out of argv by pop_device_arg before parsing, so
     # that it may follow the positionals; the option is here for --help
     parser.add_option("--device", default="cuda",
@@ -95,6 +104,11 @@ def main(signal: str, argv=None) -> int:
         parser.error(f"--coherent needs a whole-period signal; "
                      f"{signal} tracks in {sig.sub_blocks} sub-blocks")
     dev = resolve_device(device)
+    mesh = None
+    if options.mesh:
+        mesh = make_mesh(None if options.mesh < 0 else options.mesh,
+                         time_shards=1,
+                         devices=cli_devices(dev, options.mesh))
 
     fmt = format_row_14 if sig.row_format == 14 else format_row_9
     multi = len(channels) > 1
@@ -108,7 +122,7 @@ def main(signal: str, argv=None) -> int:
     track_file(sig, fp, fs, coffset, channels, loop_dwells=dwells,
                chunk_ms=options.chunk_ms,
                max_blocks=options.blocks or None, emit=emit, device=dev,
-               coherent_blocks=options.coherent)
+               coherent_blocks=options.coherent, mesh=mesh)
     return 0
 
 

@@ -761,7 +761,10 @@ __device__ __forceinline__ bool cluster_best(Best& b) {
 // across the G groups of one alignment, keeping per lag the running (peak,
 // lowest alignment) over the A alignments, kAlign).  The cluster then
 // reduces (peak, lowest lag >= lo, its alignment) and, with kSum, the sum
-// over the lags >= lo (cluster_best), and writes them scaled by 1/W.
+// over the lags >= lo (cluster_best), and writes them scaled by 1/W; with
+// kStore (K1's natural-order surface) each thread instead writes its lags'
+// sums, scaled by 1/W, to q[p, d, lag]: the NR threads of one transform
+// step hold NR consecutive lags, so each store is NR floats in a row.
 // Clusters d*P + p: the P clusters of one doppler run side by side and
 // read its rows from L2.  All sizes are compile-time: one kernel per
 // (n1, n2, C).
@@ -773,6 +776,7 @@ struct SurfaceArgs {
   int* idx;               // [P, DC], lag - lo
   int* al;                // [P, DC]: the alignment (kAlign)
   float* sum;             // [P, DC]: the sum over the lags >= lo (kSum)
+  float* q;               // [P, DC, W]: the surface, natural lags (kStore)
   int P, DC, rows, A, lo;
 };
 
@@ -825,7 +829,7 @@ __device__ __forceinline__ int umod(int x, int d) {
   return (int)((unsigned)x % (unsigned)d);
 }
 
-template <class K, bool kAlign, bool kSum>
+template <class K, bool kAlign, bool kSum, bool kStore = false>
 __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
   using S1 = typename K::S1;
   using S2 = typename K::S2;
@@ -998,6 +1002,17 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
   }
   cluster_wait();             // nobody reads this CTA's yb any more
 
+  if constexpr (kStore) {
+    static_assert(!kAlign, "the stored surface has one alignment");
+    if (tid < K::TRC) {
+      float* o = s.q + ((size_t)p * s.DC + d) * W + j1;
+#pragma unroll
+      for (int o2 = 0; o2 < RO2; ++o2)
+        o[N1 * split_index<N2>(o2, t2)] = acc[o2] / (float)W;
+    }
+    return;
+  }
+
   // (peak, lowest lag >= lo reaching it, its alignment, sum) over the
   // thread's lags, then the cluster
   Best b = {-INFINITY, W, 0, 0.f};
@@ -1041,6 +1056,10 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
 // row layout in registers across the rows (K5: the G groups of one
 // alignment, then folds the sums into its running per-lag (peak, lowest
 // alignment), kAlign); the cluster then reduces as surface_rows does.
+// With kStore (K1's natural-order surface) consecutive threads take
+// consecutive local rows t of one j2 (lag j10 + t + n1*j2), so that each
+// thread's sums, scaled by 1/W, are stored to q[p, d, lag] in runs of nr
+// floats; otherwise consecutive j2 of one row.
 
 constexpr int kWT = 384;                // threads a CTA
 constexpr int kWPer = 27;               // lags a thread
@@ -1055,11 +1074,12 @@ struct WideArgs {
   int* idx;               // [P, DC], lag - lo
   int* al;                // [P, DC]: the alignment (kAlign)
   float* sum;             // [P, DC]: the sum over the lags >= lo (kSum)
+  float* q;               // [P, DC, W]: the surface, natural lags (kStore)
   int P, DC, rows, A, lo;
   Plan plan;
 };
 
-template <bool kAlign, bool kSum>
+template <bool kAlign, bool kSum, bool kStore = false>
 __device__ __forceinline__ void wide_rows(const WideArgs& s) {
   extern __shared__ __align__(16) float2 smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -1079,6 +1099,17 @@ __device__ __forceinline__ void wide_rows(const WideArgs& s) {
   const float2* cf = s.code_f + (size_t)p * W + h.c0;
   const int A = kAlign ? s.A : 1;
   const int G = s.rows / A;
+  // element e of the thread's lags: local row t, column j2 (lag j10 + t +
+  // n1*j2) of the row-pass result
+  auto cell = [&](int e, int& t, int& j2) {
+    if constexpr (kStore) {
+      j2 = fdiv(e, h.nrd);
+      t = e - j2 * h.nr;
+    } else {
+      t = fdiv(e, pl.n2_d);
+      j2 = e - t * n2;
+    }
+  };
 
   // per lag: the sum over the rows (of one alignment), and with kAlign the
   // best such sum over the alignments so far and its alignment (16 bits,
@@ -1125,8 +1156,9 @@ __device__ __forceinline__ void wide_rows(const WideArgs& s) {
       for (int i = 0; i < kWPer; ++i) {
         const int e = tid + i * kWT;
         if (e < Ea) {
-          const int t = fdiv(e, pl.n2_d);
-          acc[i] += cabs_approx(z[at(t, pl.row.S, e - t * n2)]);
+          int t, j2;
+          cell(e, t, j2);
+          acc[i] += cabs_approx(z[at(t, pl.row.S, j2)]);
         }
       }
     }
@@ -1143,6 +1175,22 @@ __device__ __forceinline__ void wide_rows(const WideArgs& s) {
     }
   }
 
+  if constexpr (kStore) {
+    static_assert(!kAlign, "the stored surface has one alignment");
+    float* o = s.q + ((size_t)p * s.DC + d) * W + h.j10;
+    const float fw = (float)W;
+#pragma unroll
+    for (int i = 0; i < kWPer; ++i) {
+      const int e = tid + i * kWT;
+      if (e < Ea) {
+        int t, j2;
+        cell(e, t, j2);
+        o[t + n1 * j2] = acc[i] / fw;
+      }
+    }
+    return;   // row_transform's last cluster barrier: no CTA reads ours
+  }
+
   // (peak, lowest lag >= lo reaching it, its alignment, sum) over the
   // thread's lags (element e of the row layout is lag j10 + t + n1*j2),
   // then the cluster
@@ -1151,8 +1199,9 @@ __device__ __forceinline__ void wide_rows(const WideArgs& s) {
   for (int i = 0; i < kWPer; ++i) {
     const int e = tid + i * kWT;
     if (e < Ea) {
-      const int t = fdiv(e, pl.n2_d);
-      const int j = h.j10 + t + n1 * (e - t * n2);
+      int t, j2;
+      cell(e, t, j2);
+      const int j = h.j10 + t + n1 * j2;
       float val;
       if constexpr (kAlign) val = best[i];
       else val = acc[i];

@@ -20,8 +20,14 @@
 // (W = 30690 = 165 * 186 = (3*5*11) * (2*3*31)) the fewest CTAs whose
 // shares and stage fit are C = 4: 47 columns and 42 rows each (the last
 // CTA 45 and 39), radix 3, 5, 11 over the columns and 2, 3, 31 over the
-// rows.  384 threads keep 168 registers (at 512 the 128-register cap
-// spilled the radix-31 butterflies).  With one PRN (Xona X5) the (p, d)
+// rows.  The sharded search's pad2 windows (W = 61380 = 220 * 279 =
+// (4*5*11) * (9*31)) fit C = 7 at the least: 40 columns and 32 rows each,
+// 231,264 bytes of shared memory a CTA (C = 6 would need 267,344).  The
+// cluster size is the one whose clusters keep the most CTAs busy at once
+// (choose_cluster): 4 at 30690 (30 clusters, as 8's 15), 8 at 61380 (15
+// clusters, as 7's, which leave 15 CTAs idle).  384 threads keep
+// 168 registers (at 512 the 128-register cap spilled the radix-31
+// butterflies).  With one PRN (Xona X5) the (p, d)
 // alone would not fill the card, so each (p, d)'s blocks are split into
 // nseg segments, one cluster each (nseg from the clusters the card holds
 // at once), and a second kernel sums the segments in a fixed order: two
@@ -156,15 +162,35 @@ size_t full_smem(const acqc::Plan& pl) {
   return acqc::cluster_smem(pl, pl.nc * pl.n1);
 }
 
-// K7's plan at W = n1 * n2 over C CTAs (0: the fewest, up to 8, whose
-// shares fit kMaxE values and the shared memory of a CTA)
+// K7's plan at W = n1 * n2 over C CTAs: false where the shares do not fit
+// kMaxE values or the shared memory of a CTA
 bool full_plan(acqc::Plan& pl, int W, int n1, int n2, int C) {
-  for (int c = C ? C : 1; c <= (C ? C : 8); ++c) {
-    if (acqc::make_plan(pl, W, n1, n2, c) && pl.nr * n2 <= kMaxE &&
-        full_smem(pl) <= acqc::kMaxSmem)
-      return true;
+  return C >= 1 && C <= 8 && acqc::make_plan(pl, W, n1, n2, C) &&
+         pl.nr * n2 <= kMaxE && full_smem(pl) <= acqc::kMaxSmem;
+}
+
+// The cluster size whose clusters keep the most CTAs busy at once
+// (clusters the card holds x C, the fewest CTAs on ties), among the sizes
+// up to 8 that hold the row; its plan in pl and its cluster_info in ci.
+// 0 where none holds it.
+int choose_cluster(acqc::Plan& pl, int W, int n1, int n2, int* ci,
+                   cudaError_t* err) {
+  int best = 0, busy = 0;
+  *err = cudaSuccess;
+  for (int c = 1; c <= 8; ++c) {
+    acqc::Plan p;
+    int info[6];
+    if (!full_plan(p, W, n1, n2, c)) continue;
+    *err = acqc::cluster_info(full_kernel, kT, c, full_smem(p), info);
+    if (*err != cudaSuccess) return 0;
+    if (info[4] * c > busy) {
+      busy = info[4] * c;
+      best = c;
+      pl = p;
+      for (int i = 0; i < 6; ++i) ci[i] = info[i];
+    }
   }
-  return false;
+  return best;
 }
 
 // segments per (p, d): the count up to min(B, 8) whose clusters fill the
@@ -189,23 +215,29 @@ int segments(long long items, int B, int active) {
 }  // namespace
 
 // The launch plan of K7 for P*DC items of B blocks at W = n1 * n2 over
-// `cluster` CTAs (0: the kernel's own choice): info[0] cluster size, [1]
-// segments per (p, d), [2] dynamic shared memory bytes a CTA, [3]
-// registers a thread, [4] local (spilled) bytes a thread, [5] clusters the
-// card holds at once (cudaOccupancyMaxActiveClusters).
+// `cluster` CTAs (0: the kernel's own choice, choose_cluster): info[0]
+// cluster size, [1] segments per (p, d), [2] dynamic shared memory bytes a
+// CTA, [3] registers a thread, [4] local (spilled) bytes a thread, [5]
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters).
 // Returns a cudaError_t (cudaErrorInvalidValue: no cluster holds the row).
 extern "C" int acq_full_info(int P, int DC, int B, int W, int n1, int n2,
                              int cluster, int* info) {
   acqc::Plan pl;
-  if (P < 1 || DC < 1 || B < 1 || !full_plan(pl, W, n1, n2, cluster))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = full_smem(pl);
   int ci[6];
-  const cudaError_t e = acqc::cluster_info(full_kernel, kT, pl.C, smem, ci);
-  if (e != cudaSuccess) return (int)e;
+  if (P < 1 || DC < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (cluster) {
+    if (!full_plan(pl, W, n1, n2, cluster)) return (int)cudaErrorInvalidValue;
+    const cudaError_t e =
+        acqc::cluster_info(full_kernel, kT, pl.C, full_smem(pl), ci);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    cudaError_t e;
+    if (!choose_cluster(pl, W, n1, n2, ci, &e))
+      return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  }
   info[0] = pl.C;
   info[1] = segments((long long)P * DC, B, ci[4]);
-  info[2] = (int)smem;
+  info[2] = (int)full_smem(pl);
   info[3] = ci[2];
   info[4] = ci[3];
   info[5] = ci[4];

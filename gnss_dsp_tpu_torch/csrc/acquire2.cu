@@ -49,6 +49,14 @@
 // index is reported as j - (W - n_valid).  n_valid = 0 searches all lags.
 // The block sums are divided by W once, where the plain version scales
 // each transform (exact at a power of two W).
+//
+// reduce=False (acq2_surface, pallas_acquire2.py:320-323, 350): the same
+// cores with the store epilogue (kStore) in place of the cluster's
+// reduction: each thread writes the 1/W-scaled block sums of its lags to
+// q[p, d, lag], f32 [P, DC, W] in natural lag order, for the sharded
+// search's sum over time shards (parallel/acquire.py).  The extra cost is
+// that write, 4 bytes a cell, against the 8 bytes a cell and block of F
+// read.
 
 #include "acq_cluster.cuh"
 
@@ -64,10 +72,10 @@ using acqc::wide_smem;
 
 // ---- the windows of the register core ------------------------------------
 
-template <class K>
+template <class K, bool kStore>
 __global__ void __launch_bounds__(K::T, K::kMinBlocks)
     acq2_split_kernel(const __grid_constant__ SurfaceArgs s) {
-  acqc::surface_rows<K, false, true>(s);
+  acqc::surface_rows<K, false, !kStore, kStore>(s);
 }
 
 using SplitKernel = void (*)(const SurfaceArgs);
@@ -78,9 +86,12 @@ struct SplitLaunch {
   size_t smem;
 };
 
+// the build of K for the reduction, or with kStore for the surface
 template <class K>
-SplitLaunch split_of() {
-  return {acq2_split_kernel<K>, K::N2 / K::NC, K::T, K::N1, K::N2, K::kSmem};
+SplitLaunch split_of(bool store) {
+  return {store ? &acq2_split_kernel<K, true>
+                : &acq2_split_kernel<K, false>,
+          K::N2 / K::NC, K::T, K::N1, K::N2, K::kSmem};
 }
 
 // The kernels built, (W, C), the choice first: 4096 on 2 CTAs (1, 4, 8);
@@ -90,33 +101,33 @@ SplitLaunch split_of() {
 // or two CTAs, the builds that keep more threads on an SM won on the
 // card, spills and all (PERF.md section 6).  Any other (W, C) runs the
 // run-time core.
-bool split_launch(SplitLaunch& l, int W, int C) {
+bool split_launch(SplitLaunch& l, int W, int C, bool store) {
   switch (W) {
     case 4096:
       switch (C) {
-        case 0: case 2: l = split_of<Spec<12, 2>>(); return true;
-        case 1: l = split_of<Spec<12, 1>>(); return true;
-        case 4: l = split_of<Spec<12, 4>>(); return true;
-        case 8: l = split_of<Spec<12, 8>>(); return true;
+        case 0: case 2: l = split_of<Spec<12, 2>>(store); return true;
+        case 1: l = split_of<Spec<12, 1>>(store); return true;
+        case 4: l = split_of<Spec<12, 4>>(store); return true;
+        case 8: l = split_of<Spec<12, 8>>(store); return true;
       }
       return false;
     case 16384:
       if (C != 0 && C != 8) return false;
-      l = split_of<Spec<14, 8>>();
+      l = split_of<Spec<14, 8>>(store);
       return true;
     case 32768:
-      if (C == 0 || C == 8) l = split_of<Spec<15, 8, true>>();
-      else if (C == 16) l = split_of<Spec<15, 16>>();
+      if (C == 0 || C == 8) l = split_of<Spec<15, 8, true>>(store);
+      else if (C == 16) l = split_of<Spec<15, 16>>(store);
       else return false;
       return true;
     case 65536:
-      if (C == 0 || C == 8) l = split_of<Spec<16, 8, true>>();
-      else if (C == 16) l = split_of<Spec<16, 16>>();
+      if (C == 0 || C == 8) l = split_of<Spec<16, 8, true>>(store);
+      else if (C == 16) l = split_of<Spec<16, 16>>(store);
       else return false;
       return true;
     case 81920:
       if (C != 0 && C != 16) return false;
-      l = split_of<SpecN<256, 320, 16>>();
+      l = split_of<SpecN<256, 320, 16>>(store);
       return true;
   }
   return false;
@@ -124,25 +135,17 @@ bool split_launch(SplitLaunch& l, int W, int C) {
 
 // ---- other W on the run-time core (acq_cluster.cuh wide_rows) -----------
 
+template <bool kStore>
 __global__ void __launch_bounds__(acqc::kWT, 1)
     acq2_wide_kernel(const __grid_constant__ WideArgs s) {
-  acqc::wide_rows<false, true>(s);
+  acqc::wide_rows<false, !kStore, kStore>(s);
 }
 
-}  // namespace
-
-// K1's launch plan at W with `cluster` CTAs (0: the kernel's own choice):
-// info[0] cluster size, [1] dynamic shared memory bytes a CTA, [2]
-// registers a thread, [3] local (spilled) bytes a thread, [4] clusters the
-// card holds at once (cudaOccupancyMaxActiveClusters), [5] threads a CTA,
-// [6] n1, [7] n2, [8] the core: 0 Split (registers, compile-time sizes),
-// 1 row_transform (run-time sizes; takes cluster_twiddle_table(n1, n2)).
-// Returns a cudaError_t (cudaErrorInvalidValue: K1 does not take W on
-// `cluster` CTAs).
-extern "C" int acq2_info(int W, int cluster, int* info) {
+// K1's plan at W on `cluster` CTAs, for the reduction or the surface
+int info_of(int W, int cluster, bool store, int* info) {
   SplitLaunch l;
   cudaError_t e;
-  if (split_launch(l, W, cluster)) {
+  if (split_launch(l, W, cluster, store)) {
     e = acqc::cluster_info(l.kernel, l.T, l.C, l.smem, info);
     info[6] = l.n1;
     info[7] = l.n2;
@@ -150,8 +153,9 @@ extern "C" int acq2_info(int W, int cluster, int* info) {
   } else {
     Plan pl;
     if (!wide_plan(pl, W, cluster)) return (int)cudaErrorInvalidValue;
-    e = acqc::cluster_info(acq2_wide_kernel, acqc::kWT, pl.C, wide_smem(pl),
-                           info);
+    e = acqc::cluster_info(store ? &acq2_wide_kernel<true>
+                                 : &acq2_wide_kernel<false>,
+                           acqc::kWT, pl.C, wide_smem(pl), info);
     info[6] = pl.n1;
     info[7] = pl.n2;
     info[8] = 1;
@@ -159,20 +163,18 @@ extern "C" int acq2_info(int W, int cluster, int* info) {
   return (int)e;
 }
 
-// K1.  F: complex64 [DC, B, W]; code_f: complex64 [P, W]; tw: complex64
-// cluster_twiddle_table(n1, n2) for the run-time core (unread by the Split
-// core, may be null there); outputs peak f32, idx i32 (lag - lo), sum f32
-// [P, DC].  cluster: as acq2_info.  Returns the cudaError_t of the launch
-// (0 = launched).
-extern "C" int acq2_reduce(const void* F, const void* code_f, const void* tw,
-                           void* peak, void* idx, void* sum, int P, int DC,
-                           int B, int W, int n_valid, int cluster,
-                           void* stream) {
-  if (P < 1 || DC < 1 || B < 1 || n_valid < 0 || n_valid > W)
+// One launch of K1: the reduction into peak, idx, sum (q null) or, with
+// q, the surface
+int launch(const void* F, const void* code_f, const void* tw, void* peak,
+           void* idx, void* sum, void* q, int P, int DC, int B, int W,
+           int n_valid, int cluster, void* stream) {
+  const bool store = q != nullptr;
+  if (P < 1 || DC < 1 || B < 1 || n_valid < 0 || n_valid > W ||
+      (store && n_valid != 0))
     return (int)cudaErrorInvalidValue;
   const int lo = n_valid ? W - n_valid : 0;
   SplitLaunch l;
-  if (split_launch(l, W, cluster)) {
+  if (split_launch(l, W, cluster, store)) {
     const long long grid = (long long)P * DC * l.C;
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     SurfaceArgs s = {};
@@ -181,6 +183,7 @@ extern "C" int acq2_reduce(const void* F, const void* code_f, const void* tw,
     s.peak = (float*)peak;
     s.idx = (int*)idx;
     s.sum = (float*)sum;
+    s.q = (float*)q;
     s.P = P;
     s.DC = DC;
     s.rows = B;
@@ -200,12 +203,55 @@ extern "C" int acq2_reduce(const void* F, const void* code_f, const void* tw,
   s.peak = (float*)peak;
   s.idx = (int*)idx;
   s.sum = (float*)sum;
+  s.q = (float*)q;
   s.P = P;
   s.DC = DC;
   s.rows = B;
   s.A = 1;
   s.lo = lo;
-  return (int)acqc::launch_cluster(acq2_wide_kernel, (int)grid, acqc::kWT,
-                                   s.plan.C, wide_smem(s.plan),
-                                   (cudaStream_t)stream, s);
+  return (int)acqc::launch_cluster(
+      store ? &acq2_wide_kernel<true> : &acq2_wide_kernel<false>, (int)grid,
+      acqc::kWT, s.plan.C, wide_smem(s.plan), (cudaStream_t)stream, s);
+}
+
+}  // namespace
+
+// K1's launch plan at W with `cluster` CTAs (0: the kernel's own choice):
+// info[0] cluster size, [1] dynamic shared memory bytes a CTA, [2]
+// registers a thread, [3] local (spilled) bytes a thread, [4] clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters), [5] threads a CTA,
+// [6] n1, [7] n2, [8] the core: 0 Split (registers, compile-time sizes),
+// 1 row_transform (run-time sizes; takes cluster_twiddle_table(n1, n2)).
+// Returns a cudaError_t (cudaErrorInvalidValue: K1 does not take W on
+// `cluster` CTAs).  acq2_surface_info: the same for the surface's build.
+extern "C" int acq2_info(int W, int cluster, int* info) {
+  return info_of(W, cluster, false, info);
+}
+
+extern "C" int acq2_surface_info(int W, int cluster, int* info) {
+  return info_of(W, cluster, true, info);
+}
+
+// K1.  F: complex64 [DC, B, W]; code_f: complex64 [P, W]; tw: complex64
+// cluster_twiddle_table(n1, n2) for the run-time core (unread by the Split
+// core, may be null there); outputs peak f32, idx i32 (lag - lo), sum f32
+// [P, DC].  cluster: as acq2_info.  Returns the cudaError_t of the launch
+// (0 = launched).
+extern "C" int acq2_reduce(const void* F, const void* code_f, const void* tw,
+                           void* peak, void* idx, void* sum, int P, int DC,
+                           int B, int W, int n_valid, int cluster,
+                           void* stream) {
+  return launch(F, code_f, tw, peak, idx, sum, nullptr, P, DC, B, W, n_valid,
+                cluster, stream);
+}
+
+// K1 with reduce=False: q f32 [P, DC, W], the 1/W-scaled block sums in
+// natural lag order; the other arguments as acq2_reduce's (every lag: no
+// n_valid).
+extern "C" int acq2_surface(const void* F, const void* code_f,
+                            const void* tw, void* q, int P, int DC, int B,
+                            int W, int cluster, void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(F, code_f, tw, nullptr, nullptr, nullptr, q, P, DC, B, W, 0,
+                cluster, stream);
 }

@@ -58,6 +58,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "acq2_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "acq2_info": [_I, _I, _P],
+    "acq2_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "acq2_surface_info": [_I, _I, _P],
     "acq_surface_full": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_full_info": [_I, _I, _I, _I, _I, _I, _I, _P],

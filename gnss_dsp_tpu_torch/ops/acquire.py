@@ -14,18 +14,22 @@ planes and returned q permuted (index j2*n1 + j1), a layout of its
 lag axis is natural and the engine needs no index conversion.
 
 It serves the circular route at windows with no aligned split
-(acquire/plan.acq_plan "v1": Xona X5 at W = 30690); the engine takes
-max, first argmax and mean over the lags in torch.  The kernel
-transforms each row across a thread-block cluster (csrc/acq_cluster.cuh)
-at any W that acquire2.wide_split factors and whose row a cluster of up
-to 8 CTAs holds (W = 30690 on 4 CTAs; NotImplementedError otherwise);
+(acquire/plan.acq_plan "v1": Xona X5 at W = 30690; acquire/plan.mesh_plan
+"v1", the sharded search: the 2n windows 30690 and 61380 of the pad2
+signals); the engine takes max, first argmax and mean over the lags in
+torch.  The kernel transforms each row across a thread-block cluster
+(csrc/acq_cluster.cuh) at any W that acquire2.wide_split factors and whose
+row a cluster of up to 8 CTAs holds (NotImplementedError otherwise), on
+the cluster size that keeps the most CTAs busy at once (W = 30690 = 165 x
+186 on 4 CTAs, 61380 = 220 x 279 on 8);
 it divides the block sum by W once where the plain version scales each
 inverse transform (float32 rounding apart, rtol 1e-4 in the card
 checks).  Where P*DC clusters do not fill the card, each (PRN, doppler)'s
 blocks are split into segments, summed in order by a second kernel.
 
 corr_surface is the CUDA wrapper: it refuses CPU tensors, and the
-engine takes corr_surface_plain for those.  LAUNCHES counts launches.
+engine takes corr_surface_plain for those (acquire2's, the plain version
+of K1's surface too).  LAUNCHES counts launches.
 """
 
 from __future__ import annotations
@@ -36,22 +40,11 @@ import functools
 import torch
 
 from gnss_dsp_tpu_torch.ops import _build
-from gnss_dsp_tpu_torch.ops.acquire2 import (
-    _check, cluster_twiddles, surface_plain, wide_split)
+from gnss_dsp_tpu_torch.ops.acquire2 import (  # noqa: F401 (re-export)
+    _check, cluster_twiddles, corr_surface_plain, wide_split)
 
 LAUNCHES = 0
 _INVALID = 1          # cudaErrorInvalidValue: no cluster holds the row
-
-
-def corr_surface_plain(F: torch.Tensor, code_f: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ifft, abs, block sum, f32 [P, DC, W]."""
-    _check(F, code_f)
-    DC, _, W = F.shape
-    q = torch.empty((code_f.shape[0], DC, W), dtype=torch.float32,
-                    device=F.device)
-    for p0, d0, qc in surface_plain(F, code_f):
-        q[p0:p0 + qc.shape[0], d0:d0 + qc.shape[1]] = qc
-    return q
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,8 +1,10 @@
-"""Non-coherent correlation surface with in-kernel (max, argmax, sum).
+"""Non-coherent correlation surface with in-kernel (max, argmax, sum),
+or the surface itself.
 
 Counterpart: gnss_dsp_tpu/ops/pallas_acquire2.py:173-350, the
-`corr_surface2(reduce=True)` contract with its `n_valid` mask
-(:254-264).  Kernel: csrc/acquire2.cu.
+`corr_surface2` contract: reduce=True with its `n_valid` mask (:254-264),
+and reduce=False, the natural-order surface (:320-323, 350) of the
+sharded search (parallel/acquire).  Kernel: csrc/acquire2.cu.
 
 For PRN p and doppler d:
 
@@ -12,6 +14,9 @@ For PRN p and doppler d:
     peak[p, d] = max_{j >= lo} s[j]
     idx[p, d]  = (lowest j >= lo with s[j] == peak) - lo   (jnp.argmax ties)
     sum[p, d]  = sum_{j >= lo} s[j]
+
+With reduce=False it returns s itself, q[p, d, j] = s[j], f32 [P, DC, W]
+over every lag (no n_valid).
 
 n_valid is the padded-window route (acquire/plan.acq_plan "v2p"): the
 n_valid last lags of a zero-padded window are the exact linear
@@ -33,8 +38,14 @@ by W once where the plain version scales each inverse transform: at a W
 that is not a power of two the two differ by float32 rounding (rtol 1e-4
 in the card checks).
 
+With reduce=False the kernel runs the same cores and, in place of the
+cluster's reduction, each thread stores its lags' sums to q (the store
+epilogue of acq_cluster.cuh); launch_info(..., reduce=False) gives that
+build's plan.
+
 corr_surface2 launches the CUDA kernel for CUDA tensors and takes the
-plain version only for CPU tensors.  LAUNCHES counts kernel launches.
+plain version only for CPU tensors.  LAUNCHES counts the launches with
+reduce=True, LAUNCHES_SURFACE those with reduce=False.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from gnss_dsp_tpu_torch.ops import _build
 
 MAX_W = 16384
 LAUNCHES = 0
+LAUNCHES_SURFACE = 0
 _PLAIN_CHUNK_BYTES = 1 << 28   # bound on the plain version's temporary
 _TW_CACHE: dict = {}
 
@@ -211,6 +223,18 @@ def surface_plain(F: torch.Tensor, code_f: torch.Tensor):
             yield p0, d0, torch.fft.ifft(prod, dim=-1).abs().sum(dim=2)
 
 
+def corr_surface_plain(F: torch.Tensor, code_f: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the surface (corr_surface2 with
+    reduce=False, and K7's): ifft, abs, block sum, f32 [P, DC, W]."""
+    _check(F, code_f)
+    DC, _, W = F.shape
+    q = torch.empty((code_f.shape[0], DC, W), dtype=torch.float32,
+                    device=F.device)
+    for p0, d0, qc in surface_plain(F, code_f):
+        q[p0:p0 + qc.shape[0], d0:d0 + qc.shape[1]] = qc
+    return q
+
+
 def corr_surface2_plain(F: torch.Tensor, code_f: torch.Tensor,
                         n_valid: int = 0):
     """Plain PyTorch version: ifft, abs, block sum, then max, first
@@ -281,13 +305,17 @@ def cluster_core_plan(W: int, cluster: int, built: tuple, what: str):
 
 
 @functools.lru_cache(maxsize=64)
-def launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
-    """K1's launch plan at W on the card `device_index` (acq2_info):
-    cluster size, dynamic shared memory bytes a CTA, registers and
-    spilled bytes a thread, clusters the card holds at once, threads a
-    CTA, n1, n2 and the core ("split" or "wide").  NotImplementedError
-    where core_plan has none."""
-    return read_launch_info(_build.load().acq2_info, W, device_index,
+def launch_info(W: int, device_index: int, cluster: int = 0,
+                reduce: bool = True) -> dict:
+    """K1's launch plan at W on the card `device_index` (acq2_info; with
+    reduce=False the surface's build, acq2_surface_info): cluster size,
+    dynamic shared memory bytes a CTA, registers and spilled bytes a
+    thread, clusters the card holds at once, threads a CTA, n1, n2 and the
+    core ("split" or "wide").  NotImplementedError where core_plan has
+    none."""
+    lib = _build.load()
+    return read_launch_info(lib.acq2_info if reduce else
+                            lib.acq2_surface_info, W, device_index,
                             cluster, core_plan(W, cluster), "K1")
 
 
@@ -310,29 +338,45 @@ def read_launch_info(info_fn, W: int, device_index: int, cluster: int,
 
 
 def corr_surface2(F: torch.Tensor, code_f: torch.Tensor, n_valid: int = 0,
-                  *, cluster: int = 0):
+                  reduce: bool = True, *, cluster: int = 0):
     """(peak f32 [P, DC], idx i32 [P, DC], sum f32 [P, DC]) for F
     complex64 [DC, B, W] and code_f complex64 [P, W], over the n_valid
-    last lags (all lags when 0); on the card `cluster` CTAs a cluster as
-    core_plan (0: the kernel's choice)."""
-    global LAUNCHES
+    last lags (all lags when 0); with reduce=False the surface q f32
+    [P, DC, W] instead (n_valid must be 0).  On the card `cluster` CTAs a
+    cluster as core_plan (0: the kernel's choice)."""
+    global LAUNCHES, LAUNCHES_SURFACE
     _check(F, code_f)
     DC, B, W = F.shape
     if not 0 <= n_valid <= W:
         raise ValueError(f"n_valid {n_valid} outside [0, {W}]")
+    if n_valid and not reduce:
+        raise ValueError("the surface (reduce=False) covers every lag: "
+                         "n_valid must be 0")
     if F.device.type == "cpu":
+        if not reduce:
+            return corr_surface_plain(F, code_f)
         return corr_surface2_plain(F, code_f, n_valid)
     if F.device.type != "cuda":
         raise ValueError(f"unsupported device {F.device}")
     P = code_f.shape[0]
     dev = F.device.index if F.device.index is not None \
         else torch.cuda.current_device()
-    info = launch_info(W, dev, cluster)
+    info = launch_info(W, dev, cluster, reduce)
     tw = (cluster_twiddles(info["n1"], info["n2"], F.device)
           if info["core"] == "wide" else None)
     lib = _build.load()
     F = F.contiguous()
     code_f = code_f.contiguous()
+    if not reduce:
+        q = torch.empty((P, DC, W), dtype=torch.float32, device=F.device)
+        with torch.cuda.device(F.device):
+            stream = torch.cuda.current_stream(F.device).cuda_stream
+            err = lib.acq2_surface(F.data_ptr(), code_f.data_ptr(),
+                                   None if tw is None else tw.data_ptr(),
+                                   q.data_ptr(), P, DC, B, W, cluster, stream)
+        _build.check(err, "acq2_surface launch")
+        LAUNCHES_SURFACE += 1
+        return q
     peak = torch.empty((P, DC), dtype=torch.float32, device=F.device)
     idx = torch.empty((P, DC), dtype=torch.int32, device=F.device)
     sm = torch.empty((P, DC), dtype=torch.float32, device=F.device)

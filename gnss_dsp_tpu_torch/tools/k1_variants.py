@@ -41,10 +41,11 @@ VARIANTS = ("base", "code_regs", "prns2")
 PATCHES = {
     "code_regs": (
         ("acquire2.cu",
-         "case 0: case 2: l = split_of<Spec<12, 2>>(); return true;",
-         "case 0: case 2: l = split_of<Spec<12, 2, true>>(); return true;"),
-        ("acquire2.cu", "      l = split_of<Spec<14, 8>>();",
-         "      l = split_of<Spec<14, 8, true>>();"),
+         "case 0: case 2: l = split_of<Spec<12, 2>>(store); return true;",
+         "case 0: case 2: l = split_of<Spec<12, 2, true>>(store); "
+         "return true;"),
+        ("acquire2.cu", "      l = split_of<Spec<14, 8>>(store);",
+         "      l = split_of<Spec<14, 8, true>>(store);"),
     ),
     "prns2": (
         ("acq_cluster.cuh", "  static constexpr int kOffCode = E;",

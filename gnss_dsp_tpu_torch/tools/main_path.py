@@ -22,7 +22,8 @@ coherent_track_args hands its results to the track CLI (--coherent M
 Run as a program on a CUDA card, this module drives the coherent acquire
 CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
 then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
-(2.2 s at 8.184 MHz, 2150 tracked blocks), then the acquire CLI on the
+(2.2 s at 8.184 MHz, 2150 tracked blocks), the same two with --mesh 1 (the
+sharded paths on a 1 x 1 mesh), then the acquire CLI on the
 wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
 --time 80), the coherent acquire CLI on the captures of COHERENT_WIDE
 (K5 at 32768-163840, as chip_smoke.py's e2e_coherent_wide), the coherent
@@ -418,6 +419,18 @@ def main(argv=None) -> int:
                            ("gps-l1", ["--blocks", str(blocks),
                                        "--device", "cuda", path, str(fs),
                                        "0", spec]), args.out)
+        # the same two calls through the sharded paths (--mesh 1: on one
+        # card a 1 x 1 mesh; K1's surface and the torch reduction in place
+        # of K1's reduction, K2 through track_scan_sharded)
+        _, acq_mesh = _profiled("acquire_mesh", acq_cli.main,
+                                ("gps-l1", ["--mesh", "1", path, str(fs),
+                                            "0", "--device", "cuda"]),
+                                args.out)
+        _, trk_mesh = _profiled("track_mesh", trk_cli.main,
+                                ("gps-l1", ["--mesh", "1", "--blocks",
+                                            str(blocks), "--device", "cuda",
+                                            path, str(fs), "0", spec]),
+                                args.out)
         wide = {}
         for name in WIDE_STAGES:
             wpath = os.path.join(args.out, f"main_path_{name}.iq")
@@ -508,7 +521,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(json.dumps(dict(acquire=acq, track=trk, acquire_coherent=coh,
+    print(json.dumps(dict(acquire=acq, track=trk, acquire_mesh=acq_mesh,
+                          track_mesh=trk_mesh, acquire_coherent=coh,
                           acquire_wide=wide, acquire_coherent_wide=coh_wide,
                           track_galileo_e1b=fam,
                           track_step_galileo_e1b=step,

@@ -21,7 +21,13 @@ channel's secondary code rolled by its TrackChannel.overlay_phase, the
 overlay period in the sigp NOV lane, M in the COH lane.  Only
 whole-period signals qualify (:299-306).
 
-Not ported here: mesh sharding, checkpoint/resume, mixed-signal (`multi`)
+With a mesh (parallel/mesh) the channels are padded to a multiple of its
+sat axis with clones of channel 0, whose rows are computed but never
+emitted (:311-331), and every chunk runs parallel/track.
+track_scan_sharded; coherent tracking under a mesh needs the fused
+kernel K2 (:318-324).
+
+Not ported here: checkpoint/resume, mixed-signal (`multi`)
 and preloaded chunks, the int4 front end (track_file refuses
 GNSS_DSP_UPLOAD_INT4, and the route switch GNSS_DSP_NO_PALLAS) and
 unknown-code recovery.  The kernels read the plain [C, L] int8 code
@@ -42,6 +48,7 @@ import torch
 
 from gnss_dsp_tpu_torch.device import refuse_switches, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx, nco
+from gnss_dsp_tpu_torch.parallel.track import track_scan_sharded
 from gnss_dsp_tpu_torch.track.engine import (
     SIGP_NOV, TrackParams, init_state, sigp_from_params, track_scan,
 )
@@ -177,11 +184,13 @@ def overlay_table(sig, channels, coherent_blocks: int):
 def track_file(sig, fp, fs: float, coffset: float, channels,
                loop_dwells=(500, 500), chunk_ms: float = 2000.0,
                max_blocks: int | None = None, emit=None, device="cuda",
-               coherent_blocks: int = 1):
+               coherent_blocks: int = 1, mesh=None):
     """Track `channels` (list[TrackChannel]) through the int8 I/Q stream
     `fp` on `device` (the card unless the caller asks for the CPU).
     coherent_blocks: the extended-coherent span M (1 = off, -1 = the
-    signal's overlay length; see overlay_table).
+    signal's overlay length; see overlay_table).  mesh: shard the
+    channels over its sat axis (parallel/track.track_scan_sharded; the
+    chunk and the state stay on `device`).
 
     emit(channel_index, row_dict) is called once per completed block, in
     block order per chunk.  Returns the channels (rows accumulated when
@@ -197,11 +206,24 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         raise NotImplementedError(
             f"{sig.name}: unknown-code recovery is not ported")
     dev = resolve_device(device)
+    n_emit = len(channels)
+    if mesh is not None:
+        # pad to a multiple of the sat axis with clones of channel 0
+        c0 = channels[0]
+        channels = list(channels) + [
+            TrackChannel(prn=c0.prn, doppler=c0.doppler,
+                         code_offset=c0.code_offset,
+                         carrier_phase=c0.carrier_phase,
+                         pll_from_start=c0.pll_from_start)
+            for _ in range((-len(channels)) % mesh.shape["sat"])]
     M, overlay, periods = overlay_table(sig, channels, coherent_blocks)
     params = make_params(sig, fs, coffset, loop_dwells,
                          pll_from_start=all(c.pll_from_start
                                             for c in channels),
                          coherent_blocks=M)
+    if mesh is not None and M > 1 and not params.fused_scan:
+        raise ValueError("coherent tracking under a mesh needs the fused "
+                         "kernel K2 (GNSS_DSP_NO_FUSED is set)")
     C = len(channels)
     # the signal's constants, subcarrier and coherent lanes, one row per
     # channel; each channel's overlay period in the NOV lane
@@ -249,6 +271,8 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
                 if nn == 0:
                     continue
                 any_row = True
+                if k >= n_emit:            # a mesh-padding clone
+                    continue
                 ch.samp += nn
                 ch.carrier_cyc += int(rows_i[b, k, 1])
                 ch.code_cyc += int(rows_i[b, k, 2])
@@ -296,9 +320,15 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         tail = pad_extra + (-(nbuf + pad_extra)) % 1024
         x_dev = cplx.from_int8_iq(buf, pad=tail, device=dev)
         state = state._replace(stalled=torch.zeros_like(state.stalled))
-        state, rows_f, rows_i = track_scan(
-            x_dev, nbuf, code_tab, state, params, nb, ratios=ratios,
-            coffset_df=coffset_df, sigp=sigp, overlay=overlay)
+        if mesh is not None:
+            state, rows_f, rows_i = track_scan_sharded(
+                mesh, x_dev, nbuf, code_tab, state, params, nb,
+                ratios=ratios, coffset_df=coffset_df, sigp=sigp,
+                overlay=overlay)
+        else:
+            state, rows_f, rows_i = track_scan(
+                x_dev, nbuf, code_tab, state, params, nb, ratios=ratios,
+                coffset_df=coffset_df, sigp=sigp, overlay=overlay)
         emitted_any = emit_rows(rows_f, rows_i, nb)
         total_blocks += nb
         if max_blocks is not None and total_blocks >= max_blocks:
@@ -316,7 +346,7 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
             # every channel is frozen at the data end and no samples can
             # arrive: rebasing cannot unstall them
             break
-    return channels
+    return channels[:n_emit]
 
 
 def format_row_14(row: dict) -> str:

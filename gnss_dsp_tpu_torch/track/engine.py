@@ -497,6 +497,20 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     rows are NaN/0 once a channel exhausts the chunk.  On a CUDA chunk
     this is one launch of kernel K2 (params.fused_scan) or one launch of
     K3 or K4 a block; on a CPU chunk, and only there, the plain loop."""
+    args, overlay = scan_args(x_chunk, chunk_len, code_tab, state, params,
+                              n_blocks, ratios, coffset_df, sigp, overlay)
+    if x_chunk.device.type == "cpu":
+        return track_scan_plain(*args, overlay)
+    if params.fused_scan:
+        return track_fused.track_scan_fused(*args, overlay)
+    return _scan(*args, kernel_correlate(params), overlay)
+
+
+def scan_args(x_chunk, chunk_len, code_tab, state, params, n_blocks,
+              ratios=None, coffset_df=None, sigp=None, overlay=None):
+    """track_scan's arguments checked, with their defaults, on x_chunk's
+    device: ((x_chunk, chunk_len i32 [C], code_tab, state, params,
+    n_blocks, ratios, coffset_df, sigp), overlay)."""
     check_supported(params)
     dev = x_chunk.device
     C = state.ptr.shape[0]
@@ -524,8 +538,4 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     args = (x_chunk, chunk_len, code_tab, state, params, int(n_blocks),
             ratios.to(dev, torch.float32), coffset_df.to(dev, torch.int32),
             sigp.to(dev, torch.float32))
-    if dev.type == "cpu":
-        return track_scan_plain(*args, overlay)
-    if params.fused_scan:
-        return track_fused.track_scan_fused(*args, overlay)
-    return _scan(*args, kernel_correlate(params), overlay)
+    return args, overlay

@@ -21,8 +21,8 @@ the JAX package, on the CPU.
     interpret mode) on a short GPS L1 capture: prn, doppler and
     code_offset fields identical, metric to rtol 3e-2 (bf16 IDFT);
   * a fused window the CUDA kernels do not take is refused on CUDA, and
-    the CLI refuses FDMA --coherent and the unknown --mesh option (not
-    ported).
+    the CLI refuses FDMA --coherent (not ported) and --coherent with
+    --mesh (as the reference).
 """
 
 import contextlib
@@ -571,11 +571,12 @@ def test_short_capture_names_the_time_it_needs():
 # ------------------------------------------------------------------ CLI
 
 @pytest.mark.parametrize("signal,opts,exc", [
-    ("gps-l1", ["--mesh", "2"], SystemExit),
+    ("gps-l1", ["--mesh", "2", "--coherent", "8"], SystemExit),
     ("glonass-l1", ["--coherent", "8"], NotImplementedError)],
     ids=["mesh", "fdma_coherent"])
 def test_cli_refuses_unported_modes(signal, opts, exc, tmp_path):
-    """--mesh is not an option of the port (optparse exits); FDMA raises."""
+    """--mesh with --coherent is a usage error (optparse exits), as in
+    the reference; FDMA raises."""
     from gnss_dsp_tpu_torch.cli import acquire as tcli
 
     iq = tmp_path / "x.iq"

@@ -7,7 +7,8 @@ of JAX, so on a machine without it run:
 Tolerances: K1 argmax exact on planted cells, peak/sum rtol 1e-4 (float32
 FFTs in another order, and at a W that is not a power of two one division
 by W of the block sum against a 1/W scale per transform), two launches
-bit-equal, and an exact tie across cluster ranks to the lowest lag; K7 planted lags
+bit-equal, and an exact tie across cluster ranks to the lowest lag; K1's
+surface (reduce=False) and K7 planted lags
 exact, the surface to rtol 1e-4 plus 2e-5 of its maximum; K2 bit-exact at
 every subcarrier kind, sub-block count, long code and coherent (the kernel
 and the plain version pin the same roundings, and sum the correlators in
@@ -218,6 +219,66 @@ def test_k7_cluster_at_x5_is_deterministic(dev):
     q6 = acquire.corr_surface(F, code, cluster=6)
     torch.testing.assert_close(q6, qp, rtol=1e-4,
                                atol=2e-5 * float(qp.max()))
+
+
+# the windows the sharded search's route (acquire/plan.mesh_plan) sends
+# K1's surface, at every cluster size built there (81920 on 8 CTAs: the
+# run-time core)
+K1_SURFACE_WINDOWS = [(4096, c) for c in (2, 1, 4, 8)] + [
+    (16384, 8), (32768, 8), (32768, 16), (65536, 8), (65536, 16),
+    (81920, 16), (81920, 8), (163840, 0)]
+
+
+@pytest.mark.parametrize("W,cluster", K1_SURFACE_WINDOWS)
+def test_k1_surface_matches_plain(dev, W, cluster):
+    """K1 with reduce=False (the natural-order surface) on its core and
+    cluster size (P 3, DC 2, B 2): planted lags exact, the surface to rtol
+    1e-4 plus 2e-5 of its maximum (K7's tolerance: float32 FFTs in another
+    order), its max and sum to the reduction's at rtol 1e-4, two launches
+    bit-equal, one launch a call on its own counter."""
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    info = acquire2.launch_info(W, dev.index or 0, cluster, False)
+    assert (info["core"], info["n1"], info["n2"], info["cluster"]) == \
+        acquire2.core_plan(W, cluster)
+    code, F, lags = _planted(dev, 3, 2, 2, W, 0, W + cluster + 1)
+    n0, n1 = acquire2.LAUNCHES_SURFACE, acquire2.LAUNCHES
+    q = acquire2.corr_surface2(F, code, 0, False, cluster=cluster)
+    assert (acquire2.LAUNCHES_SURFACE, acquire2.LAUNCHES) == (n0 + 1, n1)
+    assert q.shape == (3, 2, W) and q.dtype == torch.float32
+    qp = acquire2.corr_surface_plain(F, code)
+    for p in range(3):
+        assert int(q[p, p % 2].argmax()) == int(qp[p, p % 2].argmax()) \
+            == lags[p]
+    torch.testing.assert_close(q, qp, rtol=1e-4, atol=2e-5 * float(qp.max()))
+    peak, _, sm = acquire2.corr_surface2(F, code, cluster=cluster)
+    torch.testing.assert_close(q.amax(dim=-1), peak, rtol=1e-4, atol=0)
+    torch.testing.assert_close(q.sum(dim=-1), sm, rtol=1e-4, atol=0)
+    assert torch.equal(q, acquire2.corr_surface2(F, code, 0, False,
+                                                 cluster=cluster))
+
+
+def test_k7_at_the_sharded_pad2_window(dev):
+    """K7 at 61380 = 220 x 279, the sharded search's window of the pad2
+    signals (GPS L5, Galileo E5, BeiDou B2a/B2b/B3I, GLONASS L3OC): a
+    cluster of 8 CTAs by the kernel's choice (the most CTAs busy at once)
+    and 7, the fewest that hold the row, by request; planted
+    lags exact, the plain version to rtol 1e-4 plus 2e-5 of the maximum,
+    two launches bit-equal."""
+    from gnss_dsp_tpu_torch.ops import acquire
+
+    W, P, DC, B = 61380, 2, 3, 3
+    code, F, lags = _planted(dev, P, DC, B, W, 0, 6138)
+    info = acquire.launch_info(P, DC, B, W, dev.index or 0)
+    assert (info["n1"], info["n2"], info["cluster"]) == (220, 279, 8)
+    qp = acquire.corr_surface_plain(F, code)
+    for c in (0, 7):
+        qk = acquire.corr_surface(F, code, cluster=c)
+        for p in range(P):
+            assert int(qk[p, p % DC].argmax()) == lags[p]
+        torch.testing.assert_close(qk, qp, rtol=1e-4,
+                                   atol=2e-5 * float(qp.max()))
+        assert torch.equal(qk, acquire.corr_surface(F, code, cluster=c))
 
 
 def test_k7_refuses_cpu_tensors_and_unsupported_w(dev):
@@ -703,3 +764,42 @@ def test_step_scan_matches_plain(dev, name, v1):
         torch.testing.assert_close(k[1], p[1], rtol=2e-5, atol=2e-4,
                                    equal_nan=True)
         st = k[0]._replace(stalled=torch.zeros_like(k[0].stalled))
+
+
+def test_sharded_step_scan_on_the_card(dev):
+    """track_scan_sharded on the per-step route (K3, params that do not
+    take K2) over a 2 x 1 mesh of the card: one K3 launch a block for
+    each shard, rows and state equal to the unsharded scan's bit for
+    bit."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_step
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.parallel.track import track_scan_sharded
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+    from gnss_dsp_tpu_torch.track.driver import make_params
+    from gnss_dsp_tpu_torch.track.engine import init_state, track_scan
+
+    sig = get_signal("gps-l1")
+    fs, nb = 4.096e6, 30
+    prns, dops = sig.prns()[:4], [900.0, -2200.0, 150.0, 3100.0]
+    phases = [0.01, 417.25, 800.5, 3.75]
+    n = int(fs * 0.04)
+    x = sum(synth_iq_t(sig.code_table((p,))[0], sig.chip_rate, fs, n, d, c,
+                       sig.subcarrier, sig.carrier_ratio, device=dev)
+            for p, d, c in zip(prns, dops, phases))
+    params = make_params(sig, fs, 0.0, loop_dwells=(8, 8))._replace(
+        fused_scan=False)
+    xd = torch.cat([x, torch.zeros(params.nmax, dtype=x.dtype, device=dev)])
+    tab = torch.from_numpy(sig.code_table(tuple(prns)).astype(np.int8)
+                           ).to(dev)
+    st = init_state(phases, [0.0] * 4, [0.0] * 4, dops, device=dev)
+    want = track_scan(xd, n, tab, st, params, nb)
+    n0 = track_step.LAUNCHES_V2
+    got = track_scan_sharded(make_mesh(2, 1, devices=[dev] * 2), xd, n,
+                             tab, st, params, nb)
+    assert track_step.LAUNCHES_V2 == n0 + 2 * nb
+    assert (got[2][:, :, 0] > 0).all()
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[1].nan_to_num(7.0), want[1].nan_to_num(7.0))
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)

@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
     for m in ("ops.acquire_coh", "acquire.coherent", "acquire.plan",
               "ops.acquire", "models.catalog", "models.codes.selftest",
               "utils.synth", "utils.ranges", "cli.cn0", "ops.track_step",
-              "tools.track_all"):
+              "tools.track_all", "parallel.mesh", "parallel.acquire",
+              "parallel.track", "tools.multihost_worker"):
         assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
@@ -74,6 +75,16 @@ def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="is_available"):
         trk_cli.main("gps-l1", ["--device", "cuda", str(iq), "4096000", "0",
                                 "3", "1000", "10"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        acq_cli.main("gps-l1", ["--mesh", "2", str(iq), "4096000", "0"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        trk_cli.main("gps-l1", ["--mesh", "-1", str(iq), "4096000", "0",
+                                "3", "1000", "10"])
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_mesh()
+    assert make_mesh(devices=["cpu"] * 2).shape == {"sat": 1, "time": 2}
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -113,7 +124,7 @@ def test_cpu_run_launches_no_kernel():
         return (acquire2.LAUNCHES, track_fused.LAUNCHES,
                 acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK,
                 acquire.LAUNCHES, track_step.LAUNCHES_V2,
-                track_step.LAUNCHES_V1)
+                track_step.LAUNCHES_V1, acquire2.LAUNCHES_SURFACE)
 
     before = counters()
     g = torch.Generator().manual_seed(0)
@@ -124,6 +135,7 @@ def test_cpu_run_launches_no_kernel():
     peak, idx, sm = acquire2.corr_surface2(F, code, 32)
     assert int(idx.max()) < 32
     assert surface_v1(F, code).shape == (2, 2, 64)
+    assert acquire2.corr_surface2(F, code, 0, False).shape == (2, 2, 64)
     peak, idx, al = acquire_coh.corr_surface_coh_spec(F, code, 2)
     assert peak.shape == (2, 2) and al.dtype == torch.int32
     peak, idx, al = acquire_coh.corr_surface_coh(
@@ -146,7 +158,7 @@ def test_cpu_run_launches_no_kernel():
             _, rf, ri = track_scan(x, 30_000, tab, st,
                                    p._replace(fused_scan=fused), 3)
             assert (ri[:, 0, 0] > 0).all()
-    assert counters() == before == (0,) * 7
+    assert counters() == before == (0,) * 8
 
 
 def test_track_kernel_wrapper_refuses_cpu_tensors():
