@@ -70,9 +70,17 @@ Runs every phase, in this order:
           per-step scan on a 45 dB-Hz capture: the tracking bench shape
           (32 GPS L1 channels x 900 blocks at 4.096 MHz, the scan's rows
           against the plain loop too), the GPS L1 e2e shape and every
-          e2e_track shape (subc, tmboc, L2CL's and GLONASS P's long codes)
+          e2e_track shape (subc, tmboc, L2CL's and GLONASS P's long codes);
+          at each shape the cluster plan (CTAs a channel, CTAs, shared
+          memory, registers, spills, clusters at once), what a call
+          launches (a CUDA graph of one call: exactly one node, the step
+          kernel), its device time and the launch floor's (an empty
+          kernel on the same grid, cluster and shared memory), each from
+          torch.profiler with the events its trace kept a call, and from
+          CUDA events over replays of a graph of 50 calls
   k4      per-step correlator K4 vs its plain version for all six static
-          families (none, boc11, cboc, tmboc, rz_even, rz_odd)
+          families (none, boc11, cboc, tmboc, rz_even, rz_odd), with the
+          same plan, kernel and floor lines
   e2e     the main path through the CLIs: synthesize a 2.2 s GPS L1
           capture (8.184 MHz, 8 satellites, 45 dB-Hz), acquire it, track
           the hits for 2150 blocks (past the 2000 ms chunk refill and the
@@ -234,7 +242,8 @@ K7_CLUSTERS = {30690: (4, 5, 6, 7, 8), 61380: (7, 8)}
 K1_CLUSTERS = {4096: (1, 4, 8), 32768: (16,), 65536: (16,), 81920: (8,)}
 # the cluster kernels' entry functions in nvcc's -Xptxas -v output
 CLUSTER_KERNELS = (r"coh_spec_kernel|coh_wide_kernel|full_kernel"
-                   r"|acq2_split_kernel|acq2_wide_kernel|track_fused_kernel")
+                   r"|acq2_split_kernel|acq2_wide_kernel|track_fused_kernel"
+                   r"|step_kernel")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory and
 # float32 outside the tensor cores
@@ -1460,6 +1469,7 @@ def _step_case(dev, card, tag, name, C, fs, nb, v1, seed, sub=None,
 
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.ops import nco, track_step
+    from gnss_dsp_tpu_torch.tools import timing
     from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
     from gnss_dsp_tpu_torch.track import engine
     from gnss_dsp_tpu_torch.track.driver import make_params
@@ -1538,13 +1548,56 @@ def _step_case(dev, card, tag, name, C, fs, nb, v1, seed, sub=None,
                    sub)
     CHECKED[kernel].append(key)
     si, sf = stats["si"], stats["sf"]
-    # device time of the launches (the call is host-bound: CUDA events
-    # over back-to-back calls time the wrapper, logged as the call time)
-    ms = device_ms(lambda: kern(si, sf, xd, tab), 50)
+    call = lambda: kern(si, sf, xd, tab)
+    floor_call = lambda: track_step.launch_floor(C, dev)
+    # what a call launches, from a CUDA graph captured from one call (no
+    # profiler): one node, the step kernel
+    nodes = timing.graph_nodes(call)
+    check(len(nodes) == 1 and "step_kernel" in nodes[0][1],
+          (tag, name, "not one kernel a call in its CUDA graph", nodes))
+    # device time a launch and the floor's (an empty kernel on the same
+    # grid, cluster and shared memory): torch.profiler's events where its
+    # trace kept at least KEPT_SHARE of them a call, else CUDA events
+    # around replays of a graph of 50 calls, which are logged beside them
+    # (the call itself is host-bound: CUDA events over eager calls time
+    # the wrapper, logged as the call time)
+    prof = timing.profiled_kernels(call, 50)
+    check(all("step_kernel" in k for k in prof), (tag, name, "a kernel "
+                                                  "besides the step kernel",
+                                                  prof))
+    floor_prof = timing.profiled_kernels(floor_call, 50)
+    graph = timing.graph_ms(call, 50, 5)
+    floor_graph = timing.graph_ms(floor_call, 50, 5)
+    kept, prof_ms = _kept(prof)
+    floor_kept, floor_prof_ms = _kept(floor_prof)
+    ms = prof_ms if kept >= timing.KEPT_SHARE else graph
+    floor_ms = (floor_prof_ms if floor_kept >= timing.KEPT_SHARE
+                else floor_graph)
     plain_ms = device_ms(lambda: plain(si, sf, xd, tab), 5)
-    call_ms = cuda_ms(lambda: kern(si, sf, xd, tab), 50)
+    call_ms = cuda_ms(call, 50)
     ns = si[:, 4].cpu().numpy().tolist()
     bms, by = step_bound(sig, ns, sig.code_length, sub)
+    plan = track_step.step_plan(C)
+    info = track_step.launch_info(plan["cluster"], sub, v1, sig.code_length)
+    check(info["cluster"] == plan["cluster"], (tag, "plan", info, plan))
+    log(f"[{tag}] {name}: plan: S={plan['cluster']} CTAs a channel, "
+        f"{plan['ctas']} CTAs, {info['smem']} B shared memory, "
+        f"{info['threads']} threads, {info['regs']} registers, "
+        f"{info['spill_bytes']} local bytes, {info['active']} clusters at "
+        f"once")
+    log(f"[{tag}] {name}: CUDA graph of one call: {nodes[0][0]} "
+        f"{nodes[0][1]}")
+    for what, p, g, k in (("kernel", prof, graph, kept),
+                          ("launch floor", floor_prof, floor_graph,
+                           floor_kept)):
+        log(f"[{tag}] {name}: {what}: profiler " + ("; ".join(
+            f"{n}: {t * 1e3:.3f} us a launch over {c:g} events a call kept"
+            for n, (c, t) in p.items()) or "saw no event in three tries")
+            + f"; graph of 50 calls {g * 1e3:.3f} us a call; taken: "
+            + ("profiler" if k >= timing.KEPT_SHARE else
+               f"graph (profiler kept {k:g} < {timing.KEPT_SHARE})"))
+    log(f"[{tag}] {name}: launch floor {floor_ms * 1e3:.3f} us (an empty "
+        f"kernel on the same grid, cluster and shared memory)")
     log(f"[{tag}] {name} {sub} C={C} fs={fs:g} nmax={params.nmax} "
         f"L={sig.code_length}: {stats['n']} launches within one ulp of the "
         f"plain version, {stats['same']} bit-equal, max|d| = "
@@ -1556,7 +1609,29 @@ def _step_case(dev, card, tag, name, C, fs, nb, v1, seed, sub=None,
         f"call from Python), plain {plain_ms * 1e3:.1f} us of device time, "
         f"bound {bms * 1e3:.3f} us by {by}  [{card}]")
     return dict(max_abs_err=stats["err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, floor_ms=floor_ms,
+                shape=dict(name=name, sub=sub, C=C, fs=fs, nmax=params.nmax,
+                           cluster=plan["cluster"], ms=ms, floor_ms=floor_ms,
+                           graph_ms=graph, floor_graph_ms=floor_graph,
+                           kept=kept, floor_kept=floor_kept, bound_ms=bms))
+
+
+def _kept(kernels):
+    """(events kept a call, mean device ms a launch) of the one kernel of
+    profiled_kernels' dict; (0, None) where the profiler saw none."""
+    if len(kernels) != 1:
+        return 0.0, None
+    return next(iter(kernels.values()))
+
+
+def _step_results(cases):
+    """The kernels line's entry of K3 or K4: the bench case's numbers
+    (the first), the largest error of all, and every case's shape and
+    times."""
+    r = {k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "floor_ms")}
+    return dict(r, max_abs_err=max(c["max_abs_err"] for c in cases),
+                shapes=[c["shape"] for c in cases])
 
 
 def phase_k3(dev, card, results):
@@ -1565,16 +1640,13 @@ def phase_k3(dev, card, results):
     GPS L1 e2e shape and at every e2e_track shape."""
     from gnss_dsp_tpu_torch.models import get_signal
 
-    r = _step_case(dev, card, "k3", "gps-l1", 32, 4.096e6, 900, False, 31,
-                   dwells=(200, 200), check_rows=True)
-    errs = [r["max_abs_err"]]
-    errs.append(_step_case(dev, card, "k3", "gps-l1", 8, 8.184e6, 40, False,
-                           32)["max_abs_err"])
+    cases = [_step_case(dev, card, "k3", "gps-l1", 32, 4.096e6, 900, False,
+                        31, dwells=(200, 200), check_rows=True),
+             _step_case(dev, card, "k3", "gps-l1", 8, 8.184e6, 40, False, 32)]
     for i, (name, C) in enumerate(E2E_TRACK):
-        errs.append(_step_case(dev, card, "k3", name, C,
-                               get_signal(name).acq_fs, 40, False,
-                               33 + i)["max_abs_err"])
-    results["track_step_v2"].update(r, max_abs_err=max(errs))
+        cases.append(_step_case(dev, card, "k3", name, C,
+                                get_signal(name).acq_fs, 40, False, 33 + i))
+    results["track_step_v2"].update(_step_results(cases))
 
 
 def phase_k4(dev, card, results):
@@ -1583,14 +1655,13 @@ def phase_k4(dev, card, results):
     at the tracking bench shape for the kernels line."""
     from gnss_dsp_tpu_torch.models import get_signal
 
-    r = _step_case(dev, card, "k4", "gps-l1", 32, 4.096e6, 100, True, 41,
-                   dwells=(200, 200))
-    errs = [r["max_abs_err"]]
+    cases = [_step_case(dev, card, "k4", "gps-l1", 32, 4.096e6, 100, True,
+                        41, dwells=(200, 200))]
     for i, (family, name) in enumerate(K4_FAMILIES):
         fs = 8.184e6 if name == "gps-l1" else get_signal(name).acq_fs
-        errs.append(_step_case(dev, card, "k4", name, 8, fs, 40, True, 42 + i,
-                               sub=family)["max_abs_err"])
-    results["track_step_v1"].update(r, max_abs_err=max(errs))
+        cases.append(_step_case(dev, card, "k4", name, 8, fs, 40, True,
+                                42 + i, sub=family))
+    results["track_step_v1"].update(_step_results(cases))
 
 
 # --------------------------------------------------------------- phase e2e

@@ -1,10 +1,13 @@
 // Thread-block cluster helpers shared by the cluster kernels: the split
-// cluster barrier and the launch (its dynamic shared memory, the
-// non-portable cluster size above 8 CTAs, cudaLaunchKernelEx).  Used by
-// acq_cluster.cuh (K1, K5, K7) and track_fused.cu (K2).
+// cluster barrier, the mbarriers and bulk copies (TMA) that stage device
+// memory into shared memory, and the launch (its dynamic shared memory,
+// the non-portable cluster size above 8 CTAs, cudaLaunchKernelEx).  Used
+// by acq_cluster.cuh (K1, K5, K7), track_fused.cu (K2) and track_step.cu
+// (K3, K4).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace clusterk {
 namespace {   // each translation unit keeps its own instantiations
@@ -15,6 +18,72 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// an arrival that orders no memory: pairs with a later cluster_wait that
+// only has to know every CTA of the cluster has started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// ---- mbarriers, bulk copies and remote stores (PTX)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this CTA's shared memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the shared::cluster address of p (this CTA's shared memory) in the CTA
+// of the cluster with rank `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+// 8 bytes into another CTA's shared memory (shared::cluster addresses from
+// map_rank), completing 8 bytes of the transaction count of its mbarrier
+__device__ __forceinline__ void st_async_b64(uint32_t dst, double v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "l"(__double_as_longlong(v)), "r"(bar)
+      : "memory");
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;

@@ -83,6 +83,10 @@ namespace {
 
 namespace cg = cooperative_groups;
 using gnss_track::kLut;
+using clusterk::bulk_copy;
+using clusterk::mbar_expect_tx;
+using clusterk::mbar_init;
+using clusterk::mbar_wait;
 
 constexpr int kThreads = 256;         // the workers of a CTA
 constexpr int kBlock = kThreads + 32;  // and one producer warp
@@ -261,46 +265,6 @@ __device__ __forceinline__ float fll_atan(float re, float im, float re1,
 __device__ __forceinline__ float pll_costas(float re, float im) {
   const float flip = (re > 0.0f) ? 1.0f : -1.0f;
   return atan2f(flip * im, flip * re);
-}
-
-// ---- mbarriers and bulk copies (PTX)
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// bytes (a multiple of 16, both addresses 16-byte aligned) from device
-// memory into this CTA's shared memory, completing on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // Issue batch q of this rank's share of the window that starts at `start`

@@ -72,10 +72,12 @@ SIGNATURES = {
     "acq_coh_spec_info": [_I, _I, _P],
     "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
-    "track_step_v2": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
-                      _I, _I, _I, _P],
-    "track_step_v1": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
-                      _I, _I, _I, _P],
+    "track_step_v2": [_P, _I, _P, _I, _P, _P, _I, _P, _P,
+                      _I, _I, _I, _I, _P],
+    "track_step_v1": [_P, _I, _P, _I, _P, _P, _I, _P, _P,
+                      _I, _I, _I, _I, _P],
+    "track_step_floor": [_I, _I, _P],
+    "track_step_info": [_I, _I, _I, _I, _P],
 }
 
 

@@ -38,10 +38,10 @@ MAX_CODE = 10230          # longest code staged in shared memory
 MAX_OVERLAY = 1024        # longest overlay row staged in shared memory
 LAUNCHES = 0
 
-# the launch plan (csrc/track_fused.cu make_plan mirrors it)
-SMS = 132                 # streaming multiprocessors of an H100 SXM
+# the launch plan (csrc/track_fused.cu make_plan mirrors it; the cluster
+# size is track_step.cluster_size's)
 THREADS = 256             # worker threads a CTA (a 9th warp issues copies)
-MAX_CLUSTER = 16          # CTAs a cluster (above 8 non-portable)
+MAX_CLUSTER = track_step.MAX_CLUSTER
 TILE = 128                # samples a bulk copy (1 KiB)
 SMEM_BYTES = 227 * 1024   # shared memory a CTA may use
 FIXED_BYTES = 32768       # shared memory before the two stage buffers
@@ -68,12 +68,7 @@ def cluster_plan(C: int, nmax: int, cluster: int | None = None) -> dict:
     `batches` batches of `k` tiles through two buffers of `stage_bytes`
     each (batches 1: the whole share, the next block's staged while this
     one runs; more where two shares do not fit the shared memory)."""
-    if cluster is None:
-        S = 1
-        while 2 * S <= MAX_CLUSTER and C * 2 * S <= SMS:
-            S *= 2
-    else:
-        S = int(cluster)
+    S = track_step.cluster_size(C) if cluster is None else int(cluster)
     if not 1 <= S <= MAX_CLUSTER or S & (S - 1) or nmax < 1:
         raise ValueError(f"cluster size must be a power of two <= "
                          f"{MAX_CLUSTER} and nmax >= 1, got {S}, {nmax}")

@@ -12,7 +12,7 @@ Contract, the JAX kernels' lane layout in the port's types:
                    carr_df, carr_p0, ptr  (DDS phases and increments as
                    int32 bits; ptr the first sample of the block)
   sf f32 [C, 8]    fr_e, fr_p, fr_l, cf, a0, a1, a6, tm (K4 reads the
-                   first 4)
+                   first 4; rows may be any stride apart)
   x complex64 [N]  the chunk; every block lies inside it
   code int8 [C, L] each channel's code, L chips
   nmax             an upper bound on every channel's n
@@ -24,6 +24,13 @@ of the lag's phase; the sums of the carrier-wiped samples times chip and
 factor are taken in float64 and rounded to float32 once.  The TPU layout
 machinery of the JAX kernels (extend_code rows, chip_window, one-hot MXU
 routing, bf16 operands) has no counterpart.
+
+Each call is one cluster launch: every channel on S CTAs (step_plan), the
+block split over them by its actual n (rank_samples), the LUT and a short
+code's row staged in shared memory by bulk copies, the ranks' float64
+sums stored into rank 0's shared memory (csrc/track_step.cu).  The launch
+allocates only its output, makes no copy of contiguous inputs and no host
+synchronisation, so one step can be captured by a CUDA graph.
 
 The wrappers take CUDA tensors and nothing else; LAUNCHES_V2 and
 LAUNCHES_V1 count their kernel launches.  epl_correlate_plain is the plain
@@ -39,7 +46,12 @@ from gnss_dsp_tpu_torch.ops import _build, nco
 
 LAUNCHES_V2 = 0
 LAUNCHES_V1 = 0
-TILE = 2048               # samples of one channel's block per CTA
+
+# the launch plan (csrc/track_step.cu's kThreads, kTile, kMaxCluster)
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 16          # CTAs a cluster (above 8 non-portable)
+THREADS = 256             # threads a CTA
+TILE = 128                # samples a tile
 
 (SI_VINT_E, SI_VINT_P, SI_VINT_L, SI_COFF_DF, SI_N, SI_COFF_P, SI_CARR_DF,
  SI_CARR_P, SI_PTR) = range(9)
@@ -172,6 +184,68 @@ def _epl_terms(si, sf, x, code, nmax, sub, v1):
     return out
 
 
+def cluster_size(C: int) -> int:
+    """CTAs a channel of a C-channel launch: the largest power of two <=
+    MAX_CLUSTER with C x S <= SMS (1 past SMS / 2 channels).  K2's plan
+    (ops/track_fused.cluster_plan) takes the same."""
+    S = 1
+    while 2 * S <= MAX_CLUSTER and C * 2 * S <= SMS:
+        S *= 2
+    return S
+
+
+def step_plan(C: int, cluster: int | None = None) -> dict:
+    """K3's and K4's launch for C channels: S CTAs a channel (cluster, or
+    cluster_size(C)), grid C x S."""
+    S = cluster_size(C) if cluster is None else int(cluster)
+    if not 1 <= S <= MAX_CLUSTER or S & (S - 1) or C < 1:
+        raise ValueError(f"cluster size must be a power of two <= "
+                         f"{MAX_CLUSTER} and C >= 1, got {S}, {C}")
+    return dict(cluster=S, ctas=C * S)
+
+
+def rank_samples(n: int, ptr: int, S: int, rank: int) -> np.ndarray:
+    """The samples 0 <= i < n of a block at ptr that rank `rank` of S
+    correlates, by slot (-1: a slot with no sample): tiles of TILE
+    samples from the even sample below ptr, tile t on rank t % S, the
+    rank's tiles in order (csrc/track_step.cu)."""
+    off = int(ptr) & 1
+    need = -(-(int(n) + off) // TILE)
+    mine = -(-(need - rank) // S) if need > rank else 0
+    e = np.arange(mine * TILE)
+    i = (rank + S * (e // TILE)) * TILE + e % TILE - off
+    return np.where((i >= 0) & (i < n), i, -1)
+
+
+def launch_info(cluster: int, sub: str, v1: bool, L: int) -> dict:
+    """The card's view of K3's (or with v1 K4's) kernel for a code of L
+    chips on `cluster` CTAs a channel (track_step_info): the cluster size,
+    dynamic shared memory bytes a CTA, registers and local bytes a thread,
+    clusters the card holds at once, threads a CTA."""
+    import ctypes
+
+    lib = _build.load()
+    info = (ctypes.c_int * 6)()
+    sel = FAMILIES.index(sub) if v1 else KINDS.index(sub)
+    _build.check(lib.track_step_info(int(cluster), int(v1), sel, int(L),
+                                     ctypes.addressof(info)),
+                 "track_step_info")
+    return dict(zip(("cluster", "smem", "regs", "spill_bytes", "active",
+                     "threads"), info))
+
+
+def launch_floor(C: int, device) -> None:
+    """One launch of an empty kernel on a C-channel step's grid, cluster
+    and shared memory (track_step_floor): the floor under K3's and K4's
+    device time."""
+    plan = step_plan(C)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(lib.track_step_floor(C, plan["cluster"], stream),
+                     "track_step_floor launch")
+
+
 def _launch(entry, sel, si, sf, x, code, nmax, lanes):
     if x.device.type != "cuda":
         raise ValueError(f"track_step kernels need CUDA tensors, got "
@@ -188,19 +262,20 @@ def _launch(entry, sel, si, sf, x, code, nmax, lanes):
     for t in (si, sf, code):
         if t.device != x.device:
             raise ValueError("all track_step tensors must share a device")
-    T = max(1, -(-int(nmax) // TILE))
+    plan = step_plan(C)
     lib = _build.load()
-    x, code = x.contiguous(), code.contiguous()
-    si, sf = si.contiguous(), sf.contiguous()
-    part = torch.empty((C, T, 6), dtype=torch.float64, device=x.device)
+    # no-ops on the engine's tensors; sf is read with its row stride
+    x, code, si = x.contiguous(), code.contiguous(), si.contiguous()
+    if sf.stride(1) != 1:
+        sf = sf.contiguous()
     out = torch.empty((C, 6), dtype=torch.float32, device=x.device)
     lut = nco.lut_cos_sin(x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
             x.data_ptr(), int(x.shape[0]), code.data_ptr(), int(L),
-            si.data_ptr(), sf.data_ptr(), int(sf.shape[1]), lut.data_ptr(),
-            part.data_ptr(), out.data_ptr(), C, T, sel, stream)
+            si.data_ptr(), sf.data_ptr(), int(sf.stride(0)), lut.data_ptr(),
+            out.data_ptr(), C, int(nmax), plan["cluster"], sel, stream)
     _build.check(err, f"{entry} launch")
     return out
 
@@ -218,8 +293,8 @@ def epl_correlate2(si, sf, x, code, nmax: int, sub: str = "none"):
 
 
 def epl_correlate(si, sf, x, code, nmax: int, sub: str = "none"):
-    """K4: sub is the static family of FAMILIES; sf lanes 4-7 are not
-    read.  Returns f32 [C, 6]."""
+    """K4: sub is the static family of FAMILIES; sf [C, >= 4], lanes past
+    the fourth not read.  Returns f32 [C, 6]."""
     global LAUNCHES_V1
     if sub not in FAMILIES:
         raise ValueError(f"K4 subcarrier family {sub!r} not in {FAMILIES}")

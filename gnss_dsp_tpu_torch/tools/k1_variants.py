@@ -29,11 +29,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 from gnss_dsp_tpu_torch.ops._build import ptxas_summary
+from gnss_dsp_tpu_torch.tools.variants import prepare, repo_root, run_child
 
 VARIANTS = ("base", "code_regs", "prns2")
 
@@ -128,52 +127,26 @@ print("VARIANT " + json.dumps(dict(card=card, cases=cases,
 """
 
 
-def prepare(root: str, name: str) -> str:
-    """ROOT/_work/k1_variants/NAME/csrc, a copy of the package's csrc
-    with the variant's patches; returns its path."""
-    base = os.path.join(root, "_work", "k1_variants", name)
-    csrc = os.path.join(base, "csrc")
-    shutil.rmtree(base, ignore_errors=True)
-    shutil.copytree(os.path.join(root, "gnss_dsp_tpu_torch", "csrc"), csrc)
-    for fname, old, new in PATCHES.get(name, ()):
-        path = os.path.join(csrc, fname)
-        with open(path) as f:
-            text = f.read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name} patch of {fname}: {old!r} found "
-                               f"{text.count(old)} times")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    return csrc
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
     args = ap.parse_args(argv)
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    root = repo_root()
     card = None
     for name in args.variants.split(","):
         if name not in VARIANTS:
             raise SystemExit(f"unknown variant {name!r}: {VARIANTS}")
-        csrc = prepare(root, name)
-        build = os.path.join(os.path.dirname(csrc), "build")
-        r = subprocess.run([sys.executable, "-c", CHILD, csrc, build],
-                           cwd=root, capture_output=True, text=True)
-        line = [x for x in r.stdout.splitlines() if x.startswith("VARIANT ")]
-        if r.returncode != 0 or not line:
-            print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
-            raise SystemExit(f"variant {name} failed ({r.returncode})")
-        got = json.loads(line[0][len("VARIANT "):])
+        work = os.path.join(root, "_work", "k1_variants", name)
+        csrc = prepare(root, work, PATCHES.get(name, ()), name)
+        got, lines = run_child(CHILD, (csrc, os.path.join(work, "build")),
+                               root, "VARIANT", f"variant {name}")
         card = got["card"]
         print(json.dumps(dict(
             variant=name,
             cases=[{k: c[k] for k in ("ms", "plain_ms", "library_ms",
                                       "max_abs_err")} for c in got["cases"]],
             k1_kernels=ptxas_summary(got["log"], r"acq2_split_kernel"),
-            k1_log=[x for x in r.stdout.splitlines()
-                    if x.startswith("[k1]")])), flush=True)
+            k1_log=[x for x in lines if x.startswith("[k1]")])), flush=True)
     print(card)
     return 0
 

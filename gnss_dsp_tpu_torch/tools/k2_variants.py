@@ -39,9 +39,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import subprocess
 import sys
+
+from gnss_dsp_tpu_torch.tools.variants import prepare, repo_root, run_child
 
 VARIANTS = ("base", "stamps", "threads512", "spread", "unroll4", "fmodmod")
 
@@ -207,36 +207,22 @@ def split(rows, phases):
                 us_block_total=round(sum(cyc.values()) / ghz / 1e3, 4))
 
 
-def prepare(root: str, name: str) -> tuple:
-    """ROOT/_work/k2_variants/NAME/csrc, a copy of ROOT's csrc with the
-    variant's patches; returns (its path, the stamp phases or None)."""
-    base = os.path.join(root, "_work", "k2_variants", name)
-    csrc = os.path.join(base, "csrc")
-    shutil.rmtree(base, ignore_errors=True)
-    shutil.copytree(os.path.join(root, "gnss_dsp_tpu_torch", "csrc"), csrc)
-    with open(os.path.join(csrc, "track_fused.cu")) as f:
+def patches_of(root: str, name: str) -> tuple:
+    """(the variant's patches of ROOT's csrc, the stamp phases or None)."""
+    if name != "stamps":
+        return PATCHES.get(name, ()), None
+    with open(os.path.join(root, "gnss_dsp_tpu_torch", "csrc",
+                           "track_fused.cu")) as f:
         hooked = "#define K2_MARK(k)\n" in f.read()
-    patches, phases = PATCHES.get(name, ()), None
-    if name == "stamps":
-        patches = _hook_patches() if hooked else _one_cta_patches()
-        phases = HOOK_PHASES if hooked else ONE_CTA_PHASES
-    for fname, old, new in patches:
-        path = os.path.join(csrc, fname)
-        with open(path) as f:
-            text = f.read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name} patch of {fname}: {old!r} found "
-                               f"{text.count(old)} times")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    return csrc, phases
+    if hooked:
+        return _hook_patches(), HOOK_PHASES
+    return _one_cta_patches(), ONE_CTA_PHASES
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--root", default=repo_root())
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -246,18 +232,14 @@ def main(argv=None) -> int:
     for name in args.variants.split(","):
         if name not in VARIANTS:
             raise SystemExit(f"unknown variant {name!r}: {VARIANTS}")
-        csrc, phases = prepare(root, name)
-        build = os.path.join(os.path.dirname(csrc), "build")
-        r = subprocess.run([sys.executable, "-c", CHILD, csrc, build,
-                            "1" if phases else "0"],
-                           cwd=root, capture_output=True, text=True)
-        line = [x for x in r.stdout.splitlines() if x.startswith("VARIANT ")]
-        if r.returncode != 0 or not line:
-            print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
-            raise SystemExit(f"variant {name} failed ({r.returncode})")
-        got = json.loads(line[0][len("VARIANT "):])
+        patches, phases = patches_of(root, name)
+        work = os.path.join(root, "_work", "k2_variants", name)
+        csrc = prepare(root, work, patches, name)
+        got, lines = run_child(CHILD, (csrc, os.path.join(work, "build"),
+                                       "1" if phases else "0"),
+                               root, "VARIANT", f"variant {name}")
         card = got["card"]
-        k2_log = [x for x in r.stdout.splitlines() if x.startswith("[k2]")]
+        k2_log = [x for x in lines if x.startswith("[k2]")]
         fams = [json.loads(x[len("[k2] families "):]) for x in k2_log
                 if x.startswith("[k2] families ")]
         out = dict(

@@ -29,17 +29,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 from gnss_dsp_tpu_torch.ops._build import ptxas_summary
+from gnss_dsp_tpu_torch.tools.variants import prepare, run_child
 
 VARIANTS = ("base", "fma", "fma_twsmem")
 
-# the twsmem patch of TREE's csrc/acq_surface.cuh: (old, new) pairs, each
-# of which must be found exactly once
-TWSMEM_PATCH = (
+# the twsmem patch of TREE's csrc/acq_surface.cuh (tools/variants.prepare)
+TWSMEM_PATCH = tuple(("acq_surface.cuh", old, new) for old, new in (
     ("""__device__ void ifft_inplace(float2* buf, const float2* tw,
                              const float2* w16, int W) {""",
      """__device__ void ifft_inplace(float2* buf, const float2* tw,
@@ -70,7 +68,7 @@ TWSMEM_PATCH = (
     s.tw_in_smem = 2;
   const size_t shmem = surface_smem(
       s.W, s.tw_in_smem == 2 ? ntw - s.W : ntw, s.tw_in_smem,"""),
-)
+))
 
 FMA_SOURCES = ("acquire.cu", "acquire_coh.cu")
 
@@ -100,38 +98,13 @@ print("VARIANT " + json.dumps(dict(card=card, results=res,
 """ % (FMA_SOURCES,)
 
 
-def prepare(tree: str, name: str) -> str:
-    """TREE/_work/variants/NAME/csrc, a copy of TREE's csrc with the
-    variant's patch; returns its path."""
-    base = os.path.join(tree, "_work", "variants", name)
-    csrc = os.path.join(base, "csrc")
-    shutil.rmtree(base, ignore_errors=True)
-    shutil.copytree(os.path.join(tree, "gnss_dsp_tpu_torch", "csrc"), csrc)
-    if name.endswith("twsmem"):
-        path = os.path.join(csrc, "acq_surface.cuh")
-        with open(path) as f:
-            text = f.read()
-        for old, new in TWSMEM_PATCH:
-            if text.count(old) != 1:
-                raise RuntimeError(f"twsmem patch: {old!r} found "
-                                   f"{text.count(old)} times")
-            text = text.replace(old, new)
-        with open(path, "w") as f:
-            f.write(text)
-    return csrc
-
-
 def run_variant(tree: str, name: str) -> dict:
-    csrc = prepare(tree, name)
-    build = os.path.join(os.path.dirname(csrc), "build")
-    r = subprocess.run([sys.executable, "-c", CHILD, tree, csrc, build,
-                        "1" if name.startswith("fma") else "0"],
-                       capture_output=True, text=True, timeout=1200)
-    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("VARIANT ")]
-    if r.returncode != 0 or not lines:
-        raise RuntimeError(f"variant {name} failed ({r.returncode}):\n"
-                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    got = json.loads(lines[-1][len("VARIANT "):])
+    work = os.path.join(tree, "_work", "variants", name)
+    csrc = prepare(tree, work,
+                   TWSMEM_PATCH if name.endswith("twsmem") else (), name)
+    got, _ = run_child(CHILD, (tree, csrc, os.path.join(work, "build"),
+                               "1" if name.startswith("fma") else "0"),
+                       tree, "VARIANT", f"variant {name}", timeout=1200)
     keep = ("ms", "plain_ms", "library_ms", "max_abs_err")
     return dict(
         variant=name, card=got["card"],

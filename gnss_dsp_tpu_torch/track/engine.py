@@ -425,7 +425,7 @@ def kernel_correlate(p: TrackParams):
         raise ValueError(f"K4 needs the subcarrier family, got "
                          f"{p.subcarrier!r}")
     return lambda si, sf, x, code: track_step.epl_correlate(
-        si, sf[:, :4], x, code, p.nmax, p.subcarrier)
+        si, sf, x, code, p.nmax, p.subcarrier)
 
 
 def overlay_chip(overlay, block, sigp):

@@ -20,7 +20,10 @@ an exact tie across ranks and alignments to the lowest lag, then the
 lowest alignment; K3
 and K4 equal to their plain version to one float32 ulp of the channel's
 largest sum (both sum exact float64 products and round once; a sum within
-2^-29 of a rounding tie may round the other way), two launches bit-equal.
+2^-29 of a rounding tie may round the other way), two launches bit-equal,
+and bit-equal to the host emulation of their order of summation
+(tests/test_torch_track_step_plan.step_sums); a K3 launch replayed from a
+CUDA graph bit-equal to an eager one.
 """
 
 import numpy as np
@@ -683,6 +686,25 @@ def _check_step(got, want):
     assert bool(((got - want).abs() <= ulp).all()), (got - want).abs().max()
 
 
+def _emulated(si, sf, x, code, nmax, sub, v1=False):
+    """The kernel's sums in its own order of summation, emulated on the
+    host (tests/test_torch_track_step_plan.step_sums) from the plain
+    version's float64 terms."""
+    from gnss_dsp_tpu_torch.ops import track_step
+    from test_torch_track_step_plan import step_sums
+
+    terms = torch.stack(track_step._epl_terms(si, sf, x, code, nmax, sub,
+                                              v1), dim=1).cpu().numpy()
+    S = track_step.step_plan(si.shape[0])["cluster"]
+    lanes = si.cpu().numpy()
+    out = []
+    for c in range(si.shape[0]):
+        ptr = int(lanes[c, track_step.SI_PTR])
+        n = min(int(lanes[c, track_step.SI_N]), nmax, x.shape[0] - ptr)
+        out.append(step_sums(terms[c], ptr, n, S))
+    return torch.from_numpy(np.stack(out)).to(si.device)
+
+
 @pytest.mark.parametrize("case", range(len(_K3_CASES)))
 @pytest.mark.parametrize("C,L,n,nmax,cf", [
     (3, 1023, 4100, 6148, 0.25), (2, 767_250, 2046, 3076, 0.125),
@@ -699,6 +721,7 @@ def test_k3_matches_plain(dev, case, C, L, n, nmax, cf):
     _check_step(got, want)
     assert torch.equal(got, track_step.epl_correlate2(si, sf, x, code, nmax,
                                                       kind))
+    assert torch.equal(got, _emulated(si, sf, x, code, nmax, kind))
 
 
 @pytest.mark.parametrize("family", ["none", "boc11", "cboc", "tmboc",
@@ -715,6 +738,10 @@ def test_k4_matches_plain(dev, family):
     want = track_step.epl_correlate_plain(si, sf, x, code, 12292, family,
                                           v1=True)
     _check_step(got, want)
+    # the whole [C, 8] sf (read with its row stride), and a second launch
+    assert torch.equal(got, track_step.epl_correlate(si, sf, x, code, 12292,
+                                                     family))
+    assert torch.equal(got, _emulated(si, sf, x, code, 12292, family, True))
     # every static family is one of K3's runtime forms
     kind, coef = {"none": _K3_CASES[0], "boc11": _K3_CASES[1],
                   "cboc": _K3_CASES[2], "rz_even": _K3_CASES[3],
@@ -722,6 +749,55 @@ def test_k4_matches_plain(dev, family):
     sf[:, 4:] = torch.tensor(coef, device=dev)
     assert torch.equal(want, track_step.epl_correlate_plain(
         si, sf, x, code, 12292, kind))
+
+
+def test_k3_launch_replays_in_a_cuda_graph(dev):
+    """One K3 launch captured by torch.cuda.CUDAGraph and replayed on new
+    inputs copied into the captured buffers: equal to an eager launch."""
+    from gnss_dsp_tpu_torch.ops import track_step
+
+    kind, coef = _K3_CASES[1]
+    si, sf, x, code = _step_inputs(dev, 32, 1023, 4100, 6148, coef, 5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        track_step.epl_correlate2(si, sf, x, code, 6148, kind)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = track_step.epl_correlate2(si, sf, x, code, 6148, kind)
+    for seed in (6, 7):
+        for dst, src in zip((si, sf, x, code), _step_inputs(
+                dev, 32, 1023, 4100, 6148, coef, seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, track_step.epl_correlate2(si, sf, x, code,
+                                                          6148, kind))
+
+
+@pytest.mark.parametrize("v1", [False, True])
+def test_step_call_launches_one_kernel(dev, v1):
+    """A K3 (K4, as the per-step engine calls it) call at the bench shape
+    launches one device kernel: no second pass, no copy, no scratch.  A
+    CUDA graph captured from one call holds one node, the step kernel; and
+    torch.profiler's kernel list names no other kernel."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools import timing
+    from gnss_dsp_tpu_torch.track.driver import make_params
+    from gnss_dsp_tpu_torch.track.engine import kernel_correlate
+
+    si, sf, x, code = _step_inputs(dev, 32, 1023, 4100, 6148,
+                                   _K3_CASES[0][1], 8)
+    params = make_params(get_signal("gps-l1"), 4.096e6, 0.0)._replace(
+        fused_scan=False, pallas_v2=not v1)
+    assert params.nmax == 6148
+    kern = kernel_correlate(params)
+    call = lambda: kern(si, sf, x, code)
+    nodes = timing.graph_nodes(call)
+    assert len(nodes) == 1 and "step_kernel" in nodes[0][1], nodes
+    names = timing.profiled_kernels(call, 5)
+    assert all("step_kernel" in k for k in names), names
 
 
 @pytest.mark.parametrize("name,v1", [("galileo-e1b", False),

@@ -195,8 +195,8 @@ def _split_sums(terms, start, nmax, S):
 
 @functools.lru_cache(maxsize=None)
 def _blocks(name, nb=40):
-    """(terms, window start, plain sums) of each ok block of the plain
-    per-step scan on the family capture `name`."""
+    """(terms, window start, plain sums, nmax, n) of each ok block of the
+    plain per-step scan on the family capture `name`."""
     s = _setup(name, pallas=False)
     p = interop.params_from_jax(s["params"])
     x = torch.from_numpy(s["xp"])
@@ -217,7 +217,8 @@ def _blocks(name, nb=40):
         want = track_step.epl_correlate_plain(si, sf, x, code, p.nmax, kind)
         keep = ok.numpy()
         out.append((terms.numpy()[keep], si[:, track_step.SI_PTR].numpy()[keep],
-                    want.numpy()[keep], p.nmax))
+                    want.numpy()[keep], p.nmax,
+                    si[:, track_step.SI_N].numpy()[keep]))
         pe, pp, pl = ((want[:, k], want[:, k + 1]) for k in (0, 2, 4))
         st, _, _ = teng._post_block(pe, pp, pl, n, sj, nfull, ok, cf_dyn, st,
                                     p, cdf, sigp)
@@ -232,6 +233,6 @@ def test_split_sums_match_plain_bit_for_bit(name, S):
     epl_correlate_plain's float32 sums exactly."""
     blocks = _blocks(name)
     assert sum(b[0].shape[0] for b in blocks) >= 40
-    for terms, start, want, nmax in blocks:
+    for terms, start, want, nmax, _ in blocks:
         got = _split_sums(terms, start, nmax, S)
         np.testing.assert_array_equal(got, want)
