@@ -44,10 +44,19 @@ Runs every phase, in this order:
           planted exact tie across cluster ranks and two alignments at each
           new window, which must report the lower lag, then the lower
           alignment
-  k6      per-block coherent kernel vs its plain version at the GPS L1
+  k6      per-block coherent kernel (the combine, then the surface on
+          the cluster core) vs its plain version at the GPS L1
           --coherent 8 shape (32 PRN x 102 doppler x 80 blocks in groups
-          of 8 x 4096) and the Xona X1P shape (1 PRN x 70 doppler x 200
-          blocks x 100 alignments x 4096), with timings
+          of 8 x 4096) and the Xona X1P --coherent 100 shape (1 PRN x 70
+          doppler x 200 blocks in groups of 100 x 100 alignments x 4096),
+          a planted cell per PRN, two launches bit-equal, with timings,
+          the same function in PyTorch calls (matmul, ifft, abs, group
+          sum, finalize_max), the bound and beside it the bound of the
+          3xTF32 combine's design, the plan (cluster, alignment chunks)
+          and the times with the alignment split off or at 4 chunks (X1P,
+          bit-equal); then a planted exact tie across cluster ranks and
+          across two alignment chunks, which must report the lower lag,
+          then the lower alignment
   k2      fused tracking kernel vs its plain version at the tracking bench
           shape (32 channels x 900 blocks, 4.096 MHz), with timings; then
           at every family shape of e2e_track (galileo-e1b, gps-l1cp,
@@ -105,7 +114,13 @@ Runs every phase, in this order:
           BeiDou B1I capture (16.368 MHz, 6 satellites with NH20 at
           32 dB-Hz) searched with --coherent 20 --time 40 over all 63
           PRNs on a 25 Hz grid, then --coherent 8 --time 80 on the e2e
-          GPS L1 capture; the launch counters must show K5 and K6 there
+          GPS L1 capture, then Xona X1P --coherent 100 --time 200 on a
+          206 ms capture (one satellite at 45 dB-Hz carrying its 100-chip
+          overlay from a random chip, its code phase in the code's first
+          5% so that block m lies mostly in code period m) over +-500 Hz
+          at 5 Hz: found within one bin and one chip with the truth's
+          alignment (K6 at A = 100); the launch counters must show K5 and
+          K6 there
   e2e_coherent_track
           the weak-signal workflow at full size: a 1.2 s BeiDou B1I
           capture (16.368 MHz, 6 satellites at 32 dB-Hz, all from one
@@ -168,7 +183,8 @@ bound).
 
 Prints a JSON line of per-kernel results (times, the bound the card's
 peaks put on each kernel's work, the time of one torch.fft.ifft over the
-same product where one exists), then the nvidia-smi line, then a last line {"ok": true,
+same product where one exists, for K6 of the same function in PyTorch
+calls), then the nvidia-smi line, then a last line {"ok": true,
 "device": {...}}.  Exits non-zero, without that line, when any phase fails
 or no GPU is present.  Imports nothing of JAX or of the JAX package.
 """
@@ -242,6 +258,7 @@ K7_CLUSTERS = {30690: (4, 5, 6, 7, 8), 61380: (7, 8)}
 K1_CLUSTERS = {4096: (1, 4, 8), 32768: (16,), 65536: (16,), 81920: (8,)}
 # the cluster kernels' entry functions in nvcc's -Xptxas -v output
 CLUSTER_KERNELS = (r"coh_spec_kernel|coh_wide_kernel|full_kernel"
+                   r"|combine_stream|combine_mma"
                    r"|acq2_split_kernel|acq2_wide_kernel|track_fused_kernel"
                    r"|step_kernel")
 
@@ -249,6 +266,11 @@ CLUSTER_KERNELS = (r"coh_spec_kernel|coh_wide_kernel|full_kernel"
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12       # dense, on the tensor cores
+# what K6's design_bound_ms counts (kernels line, shapes)
+K6_DESIGN_BOUND = ("the 3xTF32 design's bound: 3 TF32 products a combine "
+                   "value at the dense TF32 rate, then the surface's float32 "
+                   "operations (A = 1: the bound)")
 
 
 def log(msg):
@@ -1034,7 +1056,44 @@ def phase_k5(dev, card, results):
         _k5_tie(dev, card, W)
 
 
-def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
+def k6_library_ms(F, code_f, cosang, sinang, sec_mat, m_coh, n_valid=0,
+                  reps=2):
+    """(ms, result) of K6's function in PyTorch calls: the combine by
+    torch.matmul ([A, m_coh] x [m_coh, W] a doppler and group), then
+    torch.fft.ifft over the [P, DC, G*A, W] products code_f[p] *
+    conj(row), abs, the group sum and finalize_max; the weights formed
+    outside the timing."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    DC, B, W = F.shape
+    P, A, G = code_f.shape[0], sec_mat.shape[0], B // m_coh
+    wc = torch.complex(sec_mat[None] * cosang[:, None, :],
+                       -sec_mat[None] * sinang[:, None, :])    # [DC, A, B]
+    wg = wc.reshape(DC, A, G, m_coh).transpose(1, 2).contiguous()
+    Fg = F.reshape(DC, G, m_coh, W)
+
+    def run():
+        f2 = torch.matmul(wg, Fg).reshape(DC, G * A, W)
+        q = torch.fft.ifft(code_f[:, None, None, :] * torch.conj(f2)[None],
+                           dim=-1).abs()
+        return acquire_coh.finalize_max(
+            q.reshape(P, DC, G, A, W).sum(dim=2), n_valid)
+
+    out = run()
+    ms = cuda_ms(run, reps)
+    torch.cuda.empty_cache()
+    return ms, out
+
+
+def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed, ablate=()):
+    """K6 against its plain version on noise spectra with one planted cell
+    per PRN at a random (doppler, alignment, lag); two launches bit-equal;
+    then the same function in PyTorch calls (k6_library_ms), and K6 with
+    the alignments a cluster of `ablate`, each bit-equal to the kernel's
+    own plan (the merge does not depend on the order).  Returns the
+    numbers."""
     import torch
 
     from gnss_dsp_tpu_torch.ops import acquire_coh
@@ -1060,32 +1119,116 @@ def _k6_case(dev, card, tag, P, DC, B, m_coh, sec, W, seed):
                  * _ramp(code_f[p], j, W)[None]).to(torch.complex64)
     args = (F, code_f, cosang, sinang, sec_mat, m_coh)
     CHECKED["acquire_coh"].append(shape_key("acquire_coh", *args))
+
+    def surface(p, d):
+        return acquire_coh.surface_blk_plain(
+            F[d:d + 1], code_f[p:p + 1], cosang[d:d + 1], sinang[d:d + 1],
+            sec_mat, m_coh)[0, 0]
+
     got = acquire_coh.corr_surface_coh(*args)
     plain = acquire_coh.corr_surface_coh_plain(*args)
+    again = acquire_coh.corr_surface_coh(*args)
     torch.cuda.synchronize()
-    err, nd = _check_coh(tag, got, plain, plants, lambda p, d: (
-        acquire_coh.surface_blk_plain(
-            F[d:d + 1], code_f[p:p + 1], cosang[d:d + 1], sinang[d:d + 1],
-            sec_mat, m_coh)[0, 0]))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          (tag, "two launches differ"))
+    err, nd = _check_coh(f"k6 {tag}", got, plain, plants, surface)
     ms = cuda_ms(lambda: acquire_coh.corr_surface_coh(*args), 3)
     plain_ms = cuda_ms(lambda: acquire_coh.corr_surface_coh_plain(*args), 1)
-    lib = library_ms(code_f, F)
+    lib_ms, lib = k6_library_ms(*args)
+    _check_coh(f"k6 {tag} library", lib, plain, plants, surface)
     # the overlay/rotation combine does not depend on the PRN: 8 operations
     # per block value and alignment, then one surface row per group
     G = B // m_coh
-    bms, by = bound(DC * B * W * 8 + P * W * 8 + DC * B * 8 + A * B * 4
-                    + P * DC * 12,
-                    DC * A * B * W * 8 + P * DC * A * G * W * row_flops(W))
+    nbytes = (DC * B * W * 8 + P * W * 8 + DC * B * 8 + A * B * 4
+              + P * DC * 12)
+    comb_ops = DC * A * B * W * 8
+    surf_ops = P * DC * A * G * W * row_flops(W)
+    bms, by = bound(nbytes, comb_ops + surf_ops)
+    # the bound of the design that runs: at A >= 2 the combine's three
+    # TF32 products of each value on the tensor cores, then the surface's
+    # float32 operations (A = 1: the float32 streaming sum, the bound)
+    design_ms = (max(nbytes / HBM_BYTES_PER_S,
+                     3 * comb_ops / TF32_FLOP_PER_S
+                     + surf_ops / FP32_FLOP_PER_S) * 1e3
+                 if A > 1 else bms)
     cells = P * DC * B * A * W
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cluster, a_chunk = acquire_coh.blk_plan(P, DC, A, G, W, sms)
+    info = acquire_coh.spec_launch_info(W, dev.index or 0)
+    chunks = -(-A // a_chunk)
     log(f"[k6] {tag}: P={P} DC={DC} B={B} m_coh={m_coh} A={A} W={W}: idx "
         f"and align exact on planted cells, {nd} near-tie differences "
-        f"elsewhere, max|dpeak| = {err:.3g}")
+        f"elsewhere, max|dpeak| = {err:.3g}, two launches bit-equal; the "
+        f"library's result the same on the planted cells")
+    log(f"[k6] {tag}: plan: {P * DC * chunks} clusters ({chunks} "
+        f"alignment chunks of {a_chunk}) over {DC * G * A} combined rows; "
+        f"{plan_text(info, sms)}")
     log(f"[k6] {tag}: kernel {ms:.3f} ms ({cells / ms / 1e6:.4g} "
         f"Gcells/s as block x alignment cells), plain {plain_ms:.3f} ms, "
-        f"library ifft {library_text(lib)}, bound {bms:.3f} ms by {by}  "
-        f"[{card}]")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib[0], bound_ms=bms, bound_by=by)
+        f"library (matmul, ifft, abs, group sum, finalize_max) "
+        f"{lib_ms:.3f} ms (kernel / library {ms / lib_ms:.3f}), bound "
+        f"{bms:.3f} ms by {by}; {K6_DESIGN_BOUND if A > 1 else 'A = 1'}: "
+        f"{design_ms:.3f} ms  [{card}]")
+    for ch in ablate:
+        alt = acquire_coh.corr_surface_coh(*args, a_chunk=ch)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, alt)),
+              (tag, "another alignment split differs", ch))
+        ms_c = cuda_ms(lambda: acquire_coh.corr_surface_coh(
+            *args, a_chunk=ch), 3)
+        log(f"[k6] {tag}: ablation, {-(-A // ch)} alignment chunks of {ch}: "
+            f"{ms_c:.3f} ms against {ms:.3f}; bit-equal  [{card}]")
+    del F, args
+    torch.cuda.empty_cache()
+    shape = dict(shape=f"{P} x {DC} x {B} (m_coh {m_coh}) x {W}, A {A}",
+                 signal=tag, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=bms, bound_by=by, design_bound_ms=design_ms,
+                 cluster=cluster, a_chunk=a_chunk,
+                 k6_over_library=ms / lib_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, design_bound_ms=design_ms,
+                shape=shape)
+
+
+def _k6_tie(dev, card, W=4096, G=2, A=5, a_chunk=2):
+    """K6 on spectra whose combined rows are K5's tie rows (_k5_tie: X =
+    delta[0] + delta[(n1/2) n2], every product by a unit twiddle or by
+    zero): one block a group (m_coh 1), no rotation, overlay signs +-1
+    but 0.5 for alignment 0, so that alignments 1 .. A-1 tie exactly at
+    every lag; with a_chunk 2, alignments 1 and 2 lie in different
+    chunks.  From lag 0 the kernel must report lag 0 at alignment 1, and
+    from lo = nr - 1 lag nr (rank 1, over rank 0's tied lag n1), idx 1,
+    alignment 1: the chunks' merge keeps the lowest lag, then the lowest
+    alignment."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    _, n1, n2, C = acquire_coh.spec_core_plan(W)
+    nr = -(-n1 // C)
+    code = torch.ones((1, W), dtype=torch.complex64, device=dev)
+    F = torch.zeros((1, G, W), dtype=torch.complex64, device=dev)
+    F[:, :, 0] = 1.0
+    F[:, :, (n1 // 2) * n2] = 1.0
+    sec = np.where(np.random.default_rng(A).random((A, G)) < 0.5, -1.0, 1.0)
+    sec[0] = 0.5
+    sec_mat = torch.from_numpy(sec.astype(np.float32)).to(dev)
+    one = torch.ones((1, G), device=dev)
+    zero = torch.zeros((1, G), device=dev)
+    got = [acquire_coh.corr_surface_coh(F, code, one, zero, sec_mat, 1, nv,
+                                        a_chunk=a_chunk)
+           for nv in (0, W - (nr - 1))]
+    plain = acquire_coh.corr_surface_coh_plain(F, code, one, zero, sec_mat, 1)
+    torch.cuda.synchronize()
+    cells = [(int(g[1][0, 0]), int(g[2][0, 0])) for g in got]
+    check(cells == [(0, 1), (1, 1)], ("k6 tie", W, cells))
+    np.testing.assert_allclose(got[0][0].cpu().numpy(),
+                               plain[0].cpu().numpy(), rtol=1e-4)
+    log(f"[k6] planted tie at W={W} ({C} CTAs, {nr} rows a rank, A={A} in "
+        f"chunks of {a_chunk}, alignments 1 .. {A - 1} equal): lag 0 and lag "
+        f"{nr} (rank 1) reported over rank 0's tied lags, alignment 1 over "
+        f"2 (another chunk) ((idx, align) {cells[0]} from 0, {cells[1]} from "
+        f"lo {nr - 1})  [{card}]")
 
 
 def phase_k6(dev, card, results):
@@ -1096,11 +1239,17 @@ def phase_k6(dev, card, results):
     # groups of 8, one alignment, 102 dopplers a launch
     r = _k6_case(dev, card, "gps-l1 --coherent 8", 32, 102, 80, 8, [1.0],
                  4096, 77)
-    r2 = _k6_case(dev, card, "xona-x1p", 1, 70, 200, 100,
-                  x1p.secondary(x1p.prns()[0]), 4096, 78)
+    # xona-x1p --coherent 100 --time 200: 2 groups of 100 blocks, 100
+    # alignments; the alignment split off, and at 4 chunks
+    r2 = _k6_case(dev, card, "xona-x1p --coherent 100", 1, 70, 200, 100,
+                  x1p.secondary(x1p.prns()[0]), 4096, 78, ablate=(100, 25))
+    _k6_tie(dev, card)
     # the kernels line keeps the GPS L1 case's numbers (the e2e shape)
+    shapes = [r.pop("shape"), r2.pop("shape")]
     results["acquire_coh"].update(r, max_abs_err=max(r["max_abs_err"],
-                                                     r2["max_abs_err"]))
+                                                     r2["max_abs_err"]),
+                                  shapes=shapes,
+                                  design_bound=K6_DESIGN_BOUND)
 
 
 # ---------------------------------------------------------------- phase k2
@@ -1921,7 +2070,8 @@ def phase_e2e_coherent(dev, card, results, work):
     from gnss_dsp_tpu_torch.cli import acquire as acq_cli
     from gnss_dsp_tpu_torch.ops import acquire_coh
     from gnss_dsp_tpu_torch.tools.main_path import (
-        B1I_COHERENT, B1I_FS, parse_hits, run_cli, synth_b1i, synth_capture)
+        B1I_COHERENT, B1I_FS, parse_hits, returns_of, run_cli, synth_at_acq_fs,
+        synth_b1i, synth_capture)
 
     fs = B1I_FS
     b1i = os.path.join(work, "e2e_beidou_b1i.iq")
@@ -1958,6 +2108,33 @@ def phase_e2e_coherent(dev, card, results, work):
     hits = parse_hits(out)
     check(sorted(hits) == list(range(1, 33)), out)
     check_hits("gps-l1 --coherent 8", hits, l1_truth, 62.5)
+    # Xona X1P: one PRN with a 100-chip overlay, K6 at A = 100.  The code
+    # phase lies in the code's first 5%, so block m (a circular window)
+    # lies mostly in code period m, which carries chip (roll + m) mod 100:
+    # the truth's alignment is the roll
+    x1p = os.path.join(work, "e2e_coherent_xona_x1p.iq")
+    x1p_truth = synth_at_acq_fs(x1p, "xona-x1p", 0.206, seed=40, count=1,
+                                dop_max=450.0, overlay=True,
+                                phase_max=0.05 * 1023)
+    n6 = acquire_coh.LAUNCHES_BLK
+    t0 = time.perf_counter()
+    with recording() as c, \
+            returns_of(acq_cli, "acquire_signal_coherent") as res:
+        out = run_cli(acq_cli.main, "xona-x1p",
+                      ["--coherent", "100", "--time", "200",
+                       "--doppler-search", "-500,500,5", x1p,
+                       str(x1p_truth["fs"]), "0", "--device", str(dev)])
+    calls += c
+    torch.cuda.synchronize()
+    t_x1p = time.perf_counter() - t0
+    hits = parse_hits(out)
+    check(sorted(hits) == [0], out)
+    check_hits("xona-x1p --coherent 100", hits, x1p_truth, 5.0)
+    got, roll = res[0][0], int(x1p_truth["rolls"][0])
+    check(got.align == roll, ("xona-x1p alignment", got.align, roll))
+    log(f"[e2e_coherent] xona-x1p --coherent 100: alignment {got.align} "
+        f"(truth {roll}), K6 launches {acquire_coh.LAUNCHES_BLK - n6}")
+    os.remove(x1p)
     l5, l6 = acquire_coh.LAUNCHES_SPEC, acquire_coh.LAUNCHES_BLK
     log(f"[e2e_coherent] launches: acquire_coh_spec {l5}, acquire_coh {l6}")
     check(l5 > 0 and l6 > 0, (l5, l6))
@@ -1965,8 +2142,8 @@ def phase_e2e_coherent(dev, card, results, work):
     results["acquire_coh"]["launches"] = l6
     check_covered("e2e_coherent", calls)
     log(f"[e2e_coherent] wall: synth {t_synth:.2f} s, beidou-b1i "
-        f"--coherent 20 {t_b1i:.2f} s, gps-l1 --coherent 8 {t_l1:.2f} s  "
-        f"[{card}]")
+        f"--coherent 20 {t_b1i:.2f} s, gps-l1 --coherent 8 {t_l1:.2f} s, "
+        f"xona-x1p --coherent 100 {t_x1p:.2f} s  [{card}]")
 
     # the non-coherent search of the same B1I capture, for comparison only
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 // A row transform held across a thread-block cluster, shared by the
-// acquisition kernels K1 (acquire2.cu), K5 (acquire_coh_spec.cu) and K7
-// (acquire.cu).
+// acquisition kernels K1 (acquire2.cu), K5 (acquire_coh_spec.cu), K6's
+// surface stage (acquire_coh.cu) and K7 (acquire.cu).
 //
 // A surface row is the unscaled inverse DFT of W complex values,
 // IDFT_W(code_f[p] * conj(F_row)).  At W = 16384 the row (128 KiB) leaves
@@ -13,7 +13,7 @@
 // factors are 2, 3, 5, 11, 31, with run-time sizes (described here; K7,
 // and wide_rows at the end of the file: K1 and K5 at 163840), and Split,
 // power-of-two and 320-point sub-transforms with compile-time sizes and
-// the values in registers (surface_rows: K1 and K5 at 4096 to 81920).
+// the values in registers (surface_rows: K1, K5 and K6 at 2 to 81920).
 // The cluster's reduction (cluster_best) follows; the launch helpers
 // are cluster_launch.cuh's.
 // row_transform:
@@ -731,13 +731,14 @@ __device__ __forceinline__ bool cluster_best(Best& b) {
   return lead;
 }
 
-// ---- The surface over Split rows (K1 at 4096 to 81920, K5) ---------------
+// ---- The surface over Split rows (K1 at 4096 to 81920, K5, K6) ----------
 //
 // One thread-block cluster of C CTAs per (PRN p, doppler d) walks the
-// rows of F[d] (K1: the B blocks; K5: the G*A combined rows, row g*A + a)
-// and computes, per row, IDFT_W(code_f[p] * conj(F[d, row])).  Each row is
-// a four-step transform W = n1 * n2 (power-of-two n1 <= 256, n2 <= 256 or
-// 320) split over the cluster, with no value in device memory:
+// rows of F[d] (K1: the B blocks; K5 and K6: the G*A combined rows, row
+// g*A + a) and computes, per row, IDFT_W(code_f[p] * conj(F[d, row])).
+// Each row is a four-step transform W = n1 * n2 (power-of-two n1 <= 256,
+// n2 <= 256 or 320) split over the cluster, with no value in device
+// memory:
 //
 //   load     CTA r owns the columns k2 in [r*nc, (r+1)*nc) (nc = n2/C).
 //            Its slice of the row, X[k2 + n2*k1] for every k1, was copied
@@ -768,6 +769,16 @@ __device__ __forceinline__ bool cluster_best(Best& b) {
 // Clusters d*P + p: the P clusters of one doppler run side by side and
 // read its rows from L2.  All sizes are compile-time: one kernel per
 // (n1, n2, C).
+//
+// With kChunk (K5's builds at W <= 16384; K6's surface stage splits)
+// the alignments are split over clusters, a_chunk each: cluster
+// (d*nch + c)*P + p walks alignments [c*a_chunk, (c+1)*a_chunk) of
+// (p, d), nch = ceil(A / a_chunk), and where nch > 1 the chunks meet in
+// one 64-bit atomicMax on key[p, d] (merge_chunk): the peak's float bits
+// (non-negative, so they order as the values) above (16383 - lag) << 16
+// | (65535 - a), so the highest key is _finalize_max's winner whatever
+// the order the chunks arrive in; the chunk that arrives last
+// (count[p, d]) decodes it.  key and count are zero at the launch.
 
 struct SurfaceArgs {
   const float2* F;        // [DC, rows, W]
@@ -777,7 +788,10 @@ struct SurfaceArgs {
   int* al;                // [P, DC]: the alignment (kAlign)
   float* sum;             // [P, DC]: the sum over the lags >= lo (kSum)
   float* q;               // [P, DC, W]: the surface, natural lags (kStore)
+  unsigned long long* key;  // [P, DC]: the chunks' merge (kChunk, nch > 1)
+  unsigned int* count;    // [P, DC]: the chunks merged (kChunk, nch > 1)
   int P, DC, rows, A, lo;
+  int a_chunk;            // alignments a cluster (kChunk)
 };
 
 // The compile-time layout of W = n1 * n2 over C CTAs (Spec: the power of
@@ -829,7 +843,26 @@ __device__ __forceinline__ int umod(int x, int d) {
   return (int)((unsigned)x % (unsigned)d);
 }
 
-template <class K, bool kAlign, bool kSum, bool kStore = false>
+// (peak, lag, alignment) of one alignment chunk into key[o]; the chunk
+// that arrives last writes the winner of all nch, scaled by 1/W
+__device__ __forceinline__ void merge_chunk(const SurfaceArgs& s, size_t o,
+                                            const Best& b, int nch, int W) {
+  const unsigned long long k =
+      (unsigned long long)__float_as_uint(b.v) << 32 |
+      (unsigned)(16383 - (b.j - s.lo)) << 16 | (unsigned)(65535 - b.a);
+  atomicMax(s.key + o, k);
+  __threadfence();            // the key before the count
+  if (atomicAdd(s.count + o, 1u) + 1 == (unsigned)nch) {
+    __threadfence();
+    const unsigned long long w = atomicMax(s.key + o, 0ull);  // every chunk's
+    s.peak[o] = __uint_as_float((unsigned)(w >> 32)) / (float)W;
+    s.idx[o] = 16383 - (int)((w >> 16) & 0xffffu);
+    s.al[o] = 65535 - (int)(w & 0xffffu);
+  }
+}
+
+template <class K, bool kAlign, bool kSum, bool kStore = false,
+          bool kChunk = false>
 __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
   using S1 = typename K::S1;
   using S2 = typename K::S2;
@@ -838,12 +871,19 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
   constexpr int RO2 = S2::RO;                // lags a row-role thread sums
   constexpr int C = N2 / NC;
   constexpr bool kCodeRegs = K::kCodeRegs;
+  static_assert(!kChunk || (kAlign && !kSum && !kStore && W <= 16384),
+                "alignment chunks: K6's key holds a lag in 14 bits");
   extern __shared__ __align__(16) float2 smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int item = blockIdx.x / C;
   const int p = item % s.P;
-  const int d = item / s.P;
+  const int A = kAlign ? s.A : 1;
+  // the alignments [a0, a1) of this cluster: all of them but with kChunk
+  const int nch = kChunk ? (A + s.a_chunk - 1) / s.a_chunk : 1;
+  const int d = item / s.P / nch;
+  const int a0 = kChunk ? (item / s.P % nch) * s.a_chunk : 0;
+  const int a1 = kChunk ? min(A, a0 + s.a_chunk) : A;
   const int tid = threadIdx.x;
   float2* stage = smem;
   float2* code = smem + K::kOffCode;
@@ -853,7 +893,6 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
   float2* wN2 = smem + K::kOffW2;
   float2* wA = smem + K::kOffWA;
   float2* wS = smem + K::kOffWS;
-  const int A = kAlign ? s.A : 1;
   const int G = s.rows / A;
   const int c0 = rank * NC;
   // column role (tid < TC): column c0 + col, thread t1 of its transform;
@@ -877,7 +916,7 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
     cp_async_commit();
   };
 
-  stage_row(0);
+  stage_row(a0);
   for (int i = tid; i < N1; i += K::T) wN1[i] = unit_root(i, N1);
   for (int i = tid; i < N2; i += K::T) {
     wN2[i] = unit_root(i, N2);
@@ -929,7 +968,7 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
 #pragma unroll
     for (int o = 0; o < (RO2 + 1) / 2; ++o) besta[o] = 0;
   }
-  for (int a = 0; a < A; ++a) {
+  for (int a = a0; a < a1; ++a) {
 #pragma unroll
     for (int o = 0; o < RO2; ++o) acc[o] = 0.f;
     for (int g = 0; g < G; ++g) {
@@ -951,7 +990,7 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
       __syncthreads();        // stage read out, xb complete
       if (g + 1 < G)
         stage_row((g + 1) * A + a);
-      else if (a + 1 < A)
+      else if (a + 1 < a1)
         stage_row(a + 1);
       if (tid < K::TC) {
         if constexpr (Q1 > 1) split_c<N1>(v, xb, NC, col, t1);
@@ -1036,6 +1075,10 @@ __device__ __forceinline__ void surface_rows(const SurfaceArgs& s) {
   }
   if (cluster_best<K::T, kSum>(b)) {
     const size_t o = (size_t)p * s.DC + d;
+    if (kChunk && nch > 1) {
+      merge_chunk(s, o, b, nch, W);
+      return;
+    }
     s.peak[o] = b.v / (float)W;   // exact at a power of two W
     s.idx[o] = b.j - s.lo;
     if constexpr (kAlign) s.al[o] = b.a;

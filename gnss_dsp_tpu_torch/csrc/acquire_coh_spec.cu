@@ -27,8 +27,11 @@
 // those windows):
 //
 // * surface_rows, the sub-transforms in registers at compile-time sizes:
-//   powers of two W <= 16384 (n1 = 2^floor(log2(W)/2), C = min(8, n1); 4
-//   CTAs the other build at 16384); 32768 (Galileo E6) on 16 CTAs, 8 with
+//   powers of two W <= 16384 (n1 = 2^floor(log2(W)/2), C = min(8, n1) but
+//   K1's 2 at 4096, where 8 spill; 4 CTAs the other build at 16384), with
+//   the alignments split over clusters where the caller asks (a_chunk <
+//   A: K6's surface stage, csrc/acquire_coh.cu); 32768 (Galileo E6) on 16
+//   CTAs, 8 with
 //   each thread's code values in registers the other build; 65536 (the
 //   padded L5/E5/B2a/B3I/L3OC and Galileo E1 windows) on 8 with the code
 //   in registers, 16 the other build; 81920 = 256 x 320 (GPS L1C, BeiDou
@@ -53,10 +56,11 @@ using acqc::SpecN;
 using acqc::SurfaceArgs;
 using acqc::WideArgs;
 
+// the alignment chunks (kChunk) where the merge key holds the lag
 template <class K>
 __global__ void __launch_bounds__(K::T, K::kMinBlocks)
     coh_spec_kernel(const __grid_constant__ SurfaceArgs s) {
-  acqc::surface_rows<K, true, false>(s);
+  acqc::surface_rows<K, true, false, false, (K::W <= 16384)>(s);
 }
 
 __global__ void __launch_bounds__(acqc::kWT, 1)
@@ -78,7 +82,8 @@ Launch launch_of() {
 }
 
 // The register core's builds, (W, C), the choice first: log2 W = 1 .. 14
-// on C = min(8, n1) CTAs, and 4 at 16384; 32768 on 16, and 8 with the
+// on C = min(8, n1) CTAs but 2 at 4096 (K1's build: 8 CTAs spill there),
+// and 4 at 16384; 32768 on 16, and 8 with the
 // code values in registers (Galileo E6C's per-PRN launches hold 10
 // clusters: 16 CTAs each spread them over more SMs, PERF.md section 6);
 // 65536 on 8 with the code values in registers, and 16; 81920 on 16.
@@ -103,7 +108,7 @@ bool spec_launch(Launch& l, int W, int C) {
   if (W < 2 || W > 16384 || (W & (W - 1))) return false;
   const int L = acqc::ilog2(W);
   const int n1 = 1 << (L / 2);
-  const int choice = n1 < 8 ? n1 : 8;
+  const int choice = L == 12 ? 2 : n1 < 8 ? n1 : 8;
   if (C == 0) C = choice;
   if (C != choice && !(L == 14 && C == 4)) return false;
   switch (L) {
@@ -118,7 +123,7 @@ bool spec_launch(Launch& l, int W, int C) {
     case 9: l = launch_of<Spec<9, 8>>(); break;
     case 10: l = launch_of<Spec<10, 8>>(); break;
     case 11: l = launch_of<Spec<11, 8>>(); break;
-    case 12: l = launch_of<Spec<12, 8>>(); break;
+    case 12: l = launch_of<Spec<12, 2>>(); break;
     case 13: l = launch_of<Spec<13, 8>>(); break;
     default: l = C == 4 ? launch_of<Spec<14, 4>>() : launch_of<Spec<14, 8>>();
   }
@@ -159,35 +164,52 @@ extern "C" int acq_coh_spec_info(int W, int cluster, int* info) {
 // tw: complex64 cluster_twiddle_table(n1, n2) for the run-time core
 // (unread by the register core, may be null there); outputs peak f32, idx
 // i32 (lag - lo), al i32 [P, DC].  cluster: as acq_coh_spec_info.
-// Returns the cudaError_t of the launch (0 = launched).
+// a_chunk: alignments a cluster (A: all; below A only on the register
+// core at W <= 16384, the chunks merged in key u64 and count u32 [P, DC]
+// scratch, which are zeroed here and unread where a_chunk = A).  Returns
+// the cudaError_t of the first call that fails (0 = launched).
 extern "C" int acq_coh_spec(const void* F2, const void* code_f,
                             const void* tw, void* peak, void* idx, void* al,
-                            int P, int DC, int GA, int A, int W, int n_valid,
-                            int cluster, void* stream) {
+                            void* key, void* count, int P, int DC, int GA,
+                            int A, int W, int n_valid, int cluster,
+                            int a_chunk, void* stream) {
   if (P < 1 || DC < 1 || A < 1 || A > 65535 || GA < A || GA % A != 0 ||
-      n_valid < 0 || n_valid > W)
+      n_valid < 0 || n_valid > W || a_chunk < 1 || a_chunk > A)
     return (int)cudaErrorInvalidValue;
   const int lo = n_valid ? W - n_valid : 0;
+  const int nch = (A + a_chunk - 1) / a_chunk;
+  const cudaStream_t st = (cudaStream_t)stream;
   Launch l;
   if (spec_launch(l, W, cluster)) {
-    const long long grid = (long long)P * DC * l.C;
+    if (nch > 1 && (W > 16384 || key == nullptr || count == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const long long grid = (long long)P * DC * nch * l.C;
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (nch > 1) {
+      const size_t cells = (size_t)P * DC;
+      cudaError_t m = cudaMemsetAsync(key, 0, cells * 8, st);
+      if (m == cudaSuccess) m = cudaMemsetAsync(count, 0, cells * 4, st);
+      if (m != cudaSuccess) return (int)m;
+    }
     SurfaceArgs s = {};
     s.F = (const float2*)F2;
     s.code_f = (const float2*)code_f;
     s.peak = (float*)peak;
     s.idx = (int*)idx;
     s.al = (int*)al;
+    s.key = (unsigned long long*)key;
+    s.count = (unsigned int*)count;
     s.P = P;
     s.DC = DC;
     s.rows = GA;
     s.A = A;
     s.lo = lo;
+    s.a_chunk = a_chunk;
     return (int)acqc::launch_cluster(l.kernel, (int)grid, l.T, l.C, l.smem,
-                                     (cudaStream_t)stream, s);
+                                     st, s);
   }
   WideArgs s = {};
-  if (tw == nullptr || !acqc::wide_plan(s.plan, W, cluster))
+  if (tw == nullptr || nch > 1 || !acqc::wide_plan(s.plan, W, cluster))
     return (int)cudaErrorInvalidValue;
   const long long grid = (long long)P * DC * s.plan.C;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -203,6 +225,5 @@ extern "C" int acq_coh_spec(const void* F2, const void* code_f,
   s.A = A;
   s.lo = lo;
   return (int)acqc::launch_cluster(coh_wide_kernel, (int)grid, acqc::kWT,
-                                   s.plan.C, acqc::wide_smem(s.plan),
-                                   (cudaStream_t)stream, s);
+                                   s.plan.C, acqc::wide_smem(s.plan), st, s);
 }

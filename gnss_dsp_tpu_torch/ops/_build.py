@@ -15,10 +15,9 @@ in 5.9 s this way, against 10.6-11.1 s for one nvcc line over all of them.
 Flags are per source (flags()).  --fmad=false keeps nvcc from contracting
 a*b + c into a fused multiply-add: the two-float code phase and the
 chip-boundary recurrence of the tracking kernels round differently when
-contracted, and the K6 source keeps it too, unchanged.  The cluster
-surface kernels K1 (acquire2.cu), K5 (acquire_coh_spec.cu) and K7
-(acquire.cu) are held to rtol 1e-4 and build with contraction
-(FMA_SOURCES).
+contracted.  The cluster surface kernels K1 (acquire2.cu), K5
+(acquire_coh_spec.cu), K6 (acquire_coh.cu) and K7 (acquire.cu) are held
+to rtol 1e-4 and build with contraction (FMA_SOURCES).
 
 The output lives in gnss_dsp_tpu_torch/_build/ and its name carries a
 hash of the sources (headers included) and of each source's flags, so a
@@ -44,7 +43,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources built with FMA contraction; every other one with --fmad=false
-FMA_SOURCES = ("acquire.cu", "acquire2.cu", "acquire_coh_spec.cu")
+FMA_SOURCES = ("acquire.cu", "acquire2.cu", "acquire_coh.cu",
+               "acquire_coh_spec.cu")
 
 _lock = threading.Lock()
 _lib = None
@@ -67,11 +67,11 @@ SIGNATURES = {
                     _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F,
                     _I, _I, _P],
     "track_fused_info": [_I, _I, _I, _I, _P],
-    "acq_coh_spec": [_P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "acq_coh_spec": [_P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_coh_spec_info": [_I, _I, _P],
     "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "track_step_v2": [_P, _I, _P, _I, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],
     "track_step_v1": [_P, _I, _P, _I, _P, _P, _I, _P, _P,

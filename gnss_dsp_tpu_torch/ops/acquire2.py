@@ -86,22 +86,6 @@ MAX_CLUSTER = 16
 SMEM_LIMIT = 227 * 1024
 
 
-def twiddle_table(W: int) -> np.ndarray:
-    """K6's in-place inverse-FFT twiddles (csrc/acq_surface.cuh),
-    complex64: e^{2 pi i k/16}
-    (k < 16), then for each Stockham pass (radix R = min(16, W/Ns) at
-    span Ns) the [R, Ns] table e^{2 pi i r k/(Ns R)}.  float64, rounded
-    once."""
-    parts = [np.exp(2j * np.pi * np.arange(16) / 16)]
-    ns = 1
-    while ns < W:
-        r = min(16, W // ns)
-        rk = np.arange(r)[:, None] * np.arange(ns)[None, :]
-        parts.append(np.exp(2j * np.pi * rk / (ns * r)).reshape(-1))
-        ns *= r
-    return np.concatenate(parts).astype(np.complex64)
-
-
 def next_radix(rem: int) -> int:
     """Radix of the four-step kernel's next pass over `rem` (0: none)."""
     for r in WIDE_RADICES:
@@ -182,11 +166,6 @@ def _cached(key, make, device):
     if t is None:
         t = _TW_CACHE[key] = torch.from_numpy(make()).to(device)
     return t
-
-
-def twiddles(W: int, device) -> torch.Tensor:
-    """twiddle_table(W) on `device`, cached."""
-    return _cached(("pow2", W), lambda: twiddle_table(W), device)
 
 
 def check_w(W: int, what: str):

@@ -29,9 +29,12 @@ Kernels: K5 csrc/acquire_coh_spec.cu, one thread-block cluster per
 cluster (csrc/acq_cluster.cuh) on K1's cores (spec_core_plan: the
 register core at the windows of SPEC_CLUSTERS, the run-time core at
 163840 and any other window wide_split factors), the max over alignments
-in the kernel; K6 csrc/acquire_coh.cu, one CTA per (PRN, doppler,
-alignment) and a second kernel for the max over alignments, at
-power-of-two W <= 16384.
+in the kernel; K6 csrc/acquire_coh.cu at power-of-two W <= 16384, in two
+stages: the combine (combine_blk_plain's rows F2 [DC, G*A, W], once per
+doppler and group, never per PRN), then K5's alignment loop on the
+register core over F2 (K5's own launch and builds), one cluster per
+(PRN, doppler) and alignment chunk (blk_plan), the chunks merged in the
+kernel.
 
 The wrappers launch the CUDA kernel for CUDA tensors and take the plain
 version only for CPU tensors.  Each kernel has its own launch counter.
@@ -45,19 +48,24 @@ import torch
 
 from gnss_dsp_tpu_torch.ops import _build
 from gnss_dsp_tpu_torch.ops.acquire2 import (
-    check_w, cluster_core_plan, cluster_twiddles, read_launch_info, twiddles)
+    check_w, cluster_core_plan, cluster_twiddles, read_launch_info)
 
 LAUNCHES_SPEC = 0      # K5
 LAUNCHES_BLK = 0       # K6
 _PLAIN_CHUNK_BYTES = 1 << 28   # bound on the plain versions' temporaries
 
-# K5's register-core builds (csrc/acquire_coh_spec.cu): W -> the cluster
-# sizes built, the kernel's choice first (16 at 32768, 8 at 65536; on 8
-# CTAs each thread keeps its code values in registers there).  Any other
+# K5's register-core builds (csrc/acquire_coh_spec.cu), which K6's surface
+# stage runs too: W -> the cluster sizes built, the kernel's choice first
+# (K1's 2 at 4096, where 8 spill; 16 at 32768, 8 at 65536: on 8 CTAs each
+# thread keeps its code values in registers there).  Any other
 # (W, cluster) takes the run-time core.
 SPEC_CLUSTERS = {**{1 << L: (min(8, 1 << (L // 2)),) for L in range(1, 14)},
-                 16384: (8, 4), 32768: (16, 8), 65536: (8, 16),
+                 4096: (2,), 16384: (8, 4), 32768: (16, 8), 65536: (8, 16),
                  81920: (16,)}
+# K6's alignment split (blk_plan): the CTAs of work an SM it aims for, and
+# the fewest rows a cluster walks
+FILL_CTAS = 8
+MIN_ROWS = 8
 
 
 def finalize_max(q: torch.Tensor, n_valid: int = 0):
@@ -157,13 +165,35 @@ def spec_launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
                             spec_core_plan(W, cluster), "K5")
 
 
-def _outputs(P, DC, A, device):
-    f32, i32 = torch.float32, torch.int32
-    return (torch.empty((P, DC, A), dtype=f32, device=device),
-            torch.empty((P, DC, A), dtype=i32, device=device),
-            torch.empty((P, DC), dtype=f32, device=device),
-            torch.empty((P, DC), dtype=i32, device=device),
-            torch.empty((P, DC), dtype=i32, device=device))
+def combine_blk_plain(F, cosang, sinang, sec_mat, m_coh: int):
+    """K6's combine stage in plain PyTorch: F2 complex64 [DC, G*A, W], row
+    g*A + a = sum_m sec_mat[a, g*M + m] conj(rot[d, g*M + m])
+    F[d, g*M + m] with rot = cosang + i sinang, M = m_coh: the rows K5
+    takes (corr_surface_coh_spec_plain(F2, code_f, A, n_valid) is K6's
+    result)."""
+    DC, B, W = F.shape
+    A = sec_mat.shape[0]
+    G = B // m_coh
+    wc = torch.complex(sec_mat[None] * cosang[:, None, :],
+                       -sec_mat[None] * sinang[:, None, :])    # [DC, A, B]
+    return torch.einsum("dagm,dgmw->dgaw", wc.reshape(DC, A, G, m_coh),
+                        F.reshape(DC, G, m_coh, W)).reshape(DC, G * A, W)
+
+
+def blk_plan(P: int, DC: int, A: int, G: int, W: int, sm_count: int):
+    """(cluster, a_chunk) of K6's surface stage: K5's cluster size at W
+    (spec_core_plan, the register core at every W that check_w admits)
+    and the alignments a cluster walks.  All A where the P x DC clusters
+    give every SM FILL_CTAS CTAs; else A split into at least as many
+    chunks as reach that, each of at least MIN_ROWS rows (G an alignment)
+    and one alignment."""
+    check_w(W, "acquire_coh blk")
+    C = spec_core_plan(W)[3]
+    have, want = P * DC * C, FILL_CTAS * sm_count
+    if have >= want:
+        return C, A
+    chunks = -(-want // have)
+    return C, min(A, max(A // chunks, -(-MIN_ROWS // G), 1))
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -208,19 +238,21 @@ def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
         err = lib.acq_coh_spec(f2.data_ptr(), code_f.data_ptr(),
                                None if tw is None else tw.data_ptr(),
                                peak.data_ptr(), idx.data_ptr(),
-                               al.data_ptr(), P, DC, GA, A, W, n_valid,
-                               cluster, stream)
+                               al.data_ptr(), None, None, P, DC, GA, A, W,
+                               n_valid, cluster, A, stream)
     _build.check(err, "acq_coh_spec launch")
     LAUNCHES_SPEC += 1
     return peak, idx, al
 
 
 def corr_surface_coh(F, code_f, cosang, sinang, sec_mat, m_coh: int,
-                     n_valid: int = 0):
+                     n_valid: int = 0, *, a_chunk: int = 0):
     """K6: (peak, idx, align) [P, DC] for per-block spectra F complex64
     [DC, B, W], code_f complex64 [P, W], the residual rotation
     cosang/sinang f32 [DC, B] and the overlay signs sec_mat f32 [A, B]
-    (sec[(a + m) mod N] at global block m); B % m_coh == 0."""
+    (sec[(a + m) mod N] at global block m); B % m_coh == 0.  On the card
+    the surface stage runs `a_chunk` alignments a cluster (0:
+    blk_plan's)."""
     global LAUNCHES_BLK
     _check(F, code_f)
     DC, B, W = F.shape
@@ -235,25 +267,46 @@ def corr_surface_coh(F, code_f, cosang, sinang, sec_mat, m_coh: int,
     if not _on_cuda(F):
         return corr_surface_coh_plain(F, code_f, cosang, sinang, sec_mat,
                                       m_coh, n_valid)
-    check_w(W, "acquire_coh blk")
+    if A > 65535:
+        raise NotImplementedError(f"K6 keeps alignments in 16 bits: A={A}")
+    P = code_f.shape[0]
+    G = B // m_coh
+    dev = F.device.index if F.device.index is not None \
+        else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, chunk = blk_plan(P, DC, A, G, W, sms)
+    if a_chunk:
+        if not 1 <= a_chunk <= A:
+            raise ValueError(f"a_chunk={a_chunk} outside [1, {A}]")
+        chunk = a_chunk
+    spec_launch_info(W, dev)      # the card's build is the host's
     lib = _build.load()
     F = F.contiguous()
+    if F.data_ptr() % 16:     # the combine copies 16 bytes at a time
+        F = F.clone()
     code_f = code_f.contiguous()
     f32 = dict(dtype=torch.float32, device=F.device)
     cosang = cosang.to(**f32).contiguous()
     sinang = sinang.to(**f32).contiguous()
     sec_mat = sec_mat.to(**f32).contiguous()
-    P = code_f.shape[0]
-    pk, ix, peak, idx, al = _outputs(P, DC, A, F.device)
-    tw = twiddles(W, F.device)
+    comb = torch.empty((DC, G * A, W), dtype=torch.complex64, device=F.device)
+    split = chunk < A
+    key = (torch.empty((P, DC), dtype=torch.int64, device=F.device)
+           if split else None)
+    count = (torch.empty((P, DC), dtype=torch.int32, device=F.device)
+             if split else None)
+    peak = torch.empty((P, DC), dtype=torch.float32, device=F.device)
+    idx, al = (torch.empty((P, DC), dtype=torch.int32, device=F.device)
+               for _ in range(2))
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = lib.acq_coh_blk(F.data_ptr(), code_f.data_ptr(), tw.data_ptr(),
-                              cosang.data_ptr(), sinang.data_ptr(),
-                              sec_mat.data_ptr(), pk.data_ptr(),
-                              ix.data_ptr(), peak.data_ptr(), idx.data_ptr(),
-                              al.data_ptr(), P, DC, B, A, m_coh, W, n_valid,
-                              stream)
+        err = lib.acq_coh_blk(
+            F.data_ptr(), code_f.data_ptr(), cosang.data_ptr(),
+            sinang.data_ptr(), sec_mat.data_ptr(), comb.data_ptr(),
+            key.data_ptr() if split else None,
+            count.data_ptr() if split else None, peak.data_ptr(),
+            idx.data_ptr(), al.data_ptr(), P, DC, B, A, m_coh, W, n_valid,
+            chunk, stream)
     _build.check(err, "acq_coh_blk launch")
     LAUNCHES_BLK += 1
     return peak, idx, al

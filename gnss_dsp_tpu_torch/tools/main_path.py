@@ -22,7 +22,9 @@ coherent_track_args hands its results to the track CLI (--coherent M
 Run as a program on a CUDA card, this module drives the coherent acquire
 CLI on the B1I capture (--coherent 20 --time 40, 63 PRNs, 25 Hz grid),
 then the acquire CLI and the track CLI on chip_smoke.py's GPS L1 capture
-(2.2 s at 8.184 MHz, 2150 tracked blocks), the same two with --mesh 1 (the
+(2.2 s at 8.184 MHz, 2150 tracked blocks), the coherent acquire CLI on the
+same capture (--coherent 8 --time 80, 32 PRNs over +-6 kHz at 62.5 Hz:
+K6 at A = 1), the same two with --mesh 1 (the
 sharded paths on a 1 x 1 mesh), then the acquire CLI on the
 wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
 --time 80), the coherent acquire CLI on the captures of COHERENT_WIDE
@@ -36,7 +38,8 @@ once warm under torch.profiler
 with CUDA activity.  It prints one JSON object: per stage
 the cold and warm host walls, the device busy time (the union of the
 trace's device events: kernels and copies), the idle share
-1 - busy / warm wall, and the costliest device events; then the
+1 - busy / warm wall, and the costliest device events (for the GPS L1
+--coherent 8 stage also K6's share of the busy time); then the
 nvidia-smi name and power limit.  Chrome traces go to DIR (default
 chiprun_out/).
 """
@@ -351,7 +354,11 @@ def device_busy_us(intervals) -> float:
     return busy
 
 
-def _profiled(name, fn, args, out_dir):
+def _profiled(name, fn, args, out_dir, share_of=None):
+    """(text, numbers) of the CLI main `fn` on `args`, cold, then warm
+    under torch.profiler; with share_of, the device time of the kernels
+    whose name contains one of those strings over the busy time
+    ("share")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -374,11 +381,14 @@ def _profiled(name, fn, args, out_dir):
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
-    return text, dict(
-        cold_s=cold, warm_s=warm, device_busy_s=busy_us / 1e6,
-        idle_share=1.0 - busy_us / 1e6 / warm,
-        top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
-             for e in top])
+    out = dict(cold_s=cold, warm_s=warm, device_busy_s=busy_us / 1e6,
+               idle_share=1.0 - busy_us / 1e6 / warm,
+               top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                    for e in top])
+    if share_of:
+        out["share"] = sum(e.self_device_time_total for e in ka
+                           if any(k in e.key for k in share_of)) / busy_us
+    return text, out
 
 
 def main(argv=None) -> int:
@@ -419,6 +429,20 @@ def main(argv=None) -> int:
                            ("gps-l1", ["--blocks", str(blocks),
                                        "--device", "cuda", path, str(fs),
                                        "0", spec]), args.out)
+        # the flagship's weak-signal search: K6 at A = 1 (its combine
+        # kernel, then K5's surface kernel, which this search runs only
+        # through K6)
+        text, coh_l1 = _profiled(
+            "acquire_coherent_gps_l1", acq_cli.main,
+            ("gps-l1", ["--coherent", "8", "--time", "80",
+                        "--doppler-search", "-6000,6000,62.5", path, str(fs),
+                        "0", "--device", "cuda"]), args.out,
+            share_of=("combine_", "coh_spec_kernel"))
+        hits = parse_hits(text)
+        for prn, dop in zip(truth["prns"], truth["dops"]):
+            if abs(hits[prn]["doppler"] - dop) > 62.5:
+                raise RuntimeError(f"gps-l1 --coherent 8 prn {prn} missed: "
+                                   f"{hits[prn]}")
         # the same two calls through the sharded paths (--mesh 1: on one
         # card a 1 x 1 mesh; K1's surface and the torch reduction in place
         # of K1's reduction, K2 through track_scan_sharded)
@@ -521,7 +545,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(json.dumps(dict(acquire=acq, track=trk, acquire_mesh=acq_mesh,
+    print(json.dumps(dict(acquire=acq, track=trk,
+                          acquire_coherent_gps_l1=coh_l1,
+                          acquire_mesh=acq_mesh,
                           track_mesh=trk_mesh, acquire_coherent=coh,
                           acquire_wide=wide, acquire_coherent_wide=coh_wide,
                           track_galileo_e1b=fam,

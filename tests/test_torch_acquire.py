@@ -5,8 +5,6 @@
     the same bf16-rounded spectra: argmax exact on the planted cells,
     peak and sum to rtol 5e-3 (the TPU kernel's inverse DFT runs as bf16
     matmuls, the acquisition engine's stated bf16 budget);
-  * the inverse-FFT plan K1 runs on the card (Stockham passes over the
-    host twiddle table), emulated in numpy, against np.fft.ifft;
   * acquire_signal against the JAX one on the tiny GPS L1 configuration
     of __graft_entry__.py: PRN, doppler and code offset exact, metric to
     rtol 1e-4 (float32 FFTs in another order);
@@ -74,60 +72,6 @@ def test_k1_plain_matches_pallas_kernel_interpret():
         assert int(idx_t[p, d]) == int(idx_j[p, d]) == (-j) % W
     np.testing.assert_allclose(peak_t.numpy(), peak_j, rtol=5e-3)
     np.testing.assert_allclose(sum_t.numpy(), sum_j, rtol=5e-3)
-
-
-def _emulate_stockham_ifft(x, W):
-    """The K1 kernel's inverse FFT, step for step: padded shared index,
-    bit-reversed loads, in-register radix-2 DIT, Stockham writes."""
-    tw = acquire2.twiddle_table(W).astype(np.complex128)
-
-    def padded(e):
-        return e + (e >> 4)
-
-    def bitrev(v, bits):
-        return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
-
-    src = np.zeros(padded(W) + 1, complex)
-    dst = np.zeros_like(src)
-    for e in range(W):
-        src[padded(e)] = x[e]
-    ns, off = 1, 16
-    while ns < W:
-        R = min(16, W // ns)
-        bits = R.bit_length() - 1
-        items = W // R
-        for j in range(items):
-            k = j & (ns - 1)
-            v = [0j] * R
-            for r in range(R):
-                a = src[padded(j + r * items)]
-                v[bitrev(r, bits)] = a if r == 0 else a * tw[off + r * ns + k]
-            ln = 2
-            while ln <= R:
-                for i in range(0, R, ln):
-                    for kk in range(ln // 2):
-                        u, t = v[i + kk], v[i + kk + ln // 2]
-                        if kk:
-                            t = tw[kk * (16 // ln)] * t
-                        v[i + kk], v[i + kk + ln // 2] = u + t, u - t
-                ln <<= 1
-            d = (j - k) * R + k
-            for r in range(R):
-                dst[padded(d + r * ns)] = v[r]
-        off += R * ns
-        ns *= R
-        src, dst = dst, src
-    return np.array([src[padded(e)] for e in range(W)]) / W
-
-
-@pytest.mark.parametrize("W", [2, 8, 32, 256, 1024, 4096])
-def test_k1_stockham_plan_is_the_inverse_dft(W):
-    rng = np.random.default_rng(W)
-    x = rng.standard_normal(W) + 1j * rng.standard_normal(W)
-    np.testing.assert_allclose(_emulate_stockham_ifft(x, W), np.fft.ifft(x),
-                               rtol=0, atol=1e-6 * np.abs(x).max())
-    tw = acquire2.twiddle_table(W)
-    assert tw.dtype == np.complex64 and np.abs(np.abs(tw) - 1).max() < 1e-6
 
 
 def _tiny_gps_l1():

@@ -17,7 +17,8 @@ idx and align exact on the planted cells, peak rtol 1e-4 (K6's kernel
 sums each group's blocks before the IDFT, its plain version after), K5
 at every window the coherent route sends it, two launches bit-equal, and
 an exact tie across ranks and alignments to the lowest lag, then the
-lowest alignment; K3
+lowest alignment (K6 also across alignment chunks, whose merge is
+bit-equal to one cluster walking every alignment); K3
 and K4 equal to their plain version to one float32 ulp of the channel's
 largest sum (both sum exact float64 products and round once; a sum within
 2^-29 of a rounding tie may round the other way), two launches bit-equal,
@@ -350,6 +351,97 @@ def test_k6_matches_plain(dev, W, P, DC, A, m_coh, G, n_valid):
     plain = acquire_coh.corr_surface_coh_plain(F, code, c, s, sec_mat, m_coh,
                                                n_valid)
     _check_planted(got, plain, plants, W, n_valid)
+
+
+@pytest.mark.parametrize("W,P,DC,A,m_coh,G,n_valid,chunks", [
+    (4096, 1, 3, 100, 100, 2, 0, (1, 7, 25, 100)),
+    (2048, 2, 2, 10, 5, 3, 700, (1, 3, 10)),
+    (8, 3, 2, 300, 4, 2, 0, (64, 300))])
+def test_k6_alignment_split_is_bit_equal(dev, W, P, DC, A, m_coh, G, n_valid,
+                                         chunks):
+    """The surface stage with the alignments split over clusters (their
+    (peak, lag, alignment) merged by one 64-bit atomicMax) gives the bits
+    of one cluster walking all of them, one launch count a call, and the
+    plain version's planted cells."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, P, DC, G * m_coh, W,
+                                                 A, n_valid, W + 3 * A)
+    whole = acquire_coh.corr_surface_coh(F, code, c, s, sec_mat, m_coh,
+                                         n_valid, a_chunk=A)
+    plain = acquire_coh.corr_surface_coh_plain(F, code, c, s, sec_mat, m_coh,
+                                               n_valid)
+    _check_planted(whole, plain, plants, W, n_valid)
+    for ch in chunks:
+        n0 = acquire_coh.LAUNCHES_BLK
+        got = acquire_coh.corr_surface_coh(F, code, c, s, sec_mat, m_coh,
+                                           n_valid, a_chunk=ch)
+        assert acquire_coh.LAUNCHES_BLK == n0 + 1
+        for a, b in zip(got, whole):
+            assert torch.equal(a, b), ch
+
+
+@pytest.mark.parametrize("W,P,DC,A,m_coh,G,n_valid", [
+    (4096, 2, 3, 1, 8, 2, 0), (4096, 1, 2, 100, 100, 2, 0),
+    (1024, 2, 2, 20, 20, 1, 600), (2, 1, 2, 130, 3, 2, 0)])
+def test_k6_combines_match_plain(dev, W, P, DC, A, m_coh, G, n_valid):
+    """The combine the kernel takes (the streaming sum at A = 1, 3xTF32
+    mma.sync at A >= 2, its 130 alignments over two CTAs)
+    against the plain version: planted cells exact, peak rtol 1e-4."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, P, DC, G * m_coh, W,
+                                                 A, n_valid, W + A)
+    got = acquire_coh.corr_surface_coh(F, code, c, s, sec_mat, m_coh,
+                                       n_valid)
+    plain = acquire_coh.corr_surface_coh_plain(F, code, c, s, sec_mat, m_coh,
+                                               n_valid)
+    _check_planted(got, plain, plants, W, n_valid)
+
+
+def test_k6_surface_takes_k1s_build_at_4096(dev):
+    """K6's surface stage is K5's launch, on K1's 2-CTA build at 4096 (the
+    card's plan equals the host's), against the plain version at the GPS
+    L1 --coherent 8 group shape."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    info = acquire_coh.spec_launch_info(4096, dev.index or 0)
+    assert (info["core"], info["cluster"], info["n1"], info["n2"]) == \
+        ("split", 2, 64, 64)
+    code, F, c, s, sec_mat, plants = _coh_inputs(dev, 3, 2, 16, 4096, 1, 0, 2)
+    got = acquire_coh.corr_surface_coh(F, code, c, s, sec_mat, 8)
+    plain = acquire_coh.corr_surface_coh_plain(F, code, c, s, sec_mat, 8)
+    _check_planted(got, plain, plants, 4096, 0)
+
+
+@pytest.mark.parametrize("a_chunk", [1, 2, 5])
+def test_k6_keeps_the_lowest_lag_then_alignment_on_a_tie(dev, a_chunk):
+    """K6 at 4096 (2 CTAs a cluster, 32 rows a rank) on rows whose
+    surfaces tie exactly at every lag with an even j mod n1 (delta[0] +
+    delta[(n1/2) n2], every product by a unit twiddle or by zero), one
+    block a group, no rotation, alignments 1-4 equal and alignment 0 at
+    half: the kernel reports lag 0 at alignment 1, and from lo = 31 lag
+    32 (rank 1, over rank 0's lag 64), alignment 1, however the
+    alignments are split."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    W, G, A = 4096, 2, 5
+    code = torch.ones((1, W), dtype=torch.complex64, device=dev)
+    F = torch.zeros((1, G, W), dtype=torch.complex64, device=dev)
+    F[:, :, 0] = 1.0
+    F[:, :, 32 * 64] = 1.0
+    sec = np.array([[0.5, 0.5], [1, -1], [-1, 1], [1, 1], [-1, -1]])
+    sec_mat = torch.from_numpy(sec.astype(np.float32)).to(dev)
+    one = torch.ones((1, G), device=dev)
+    zero = torch.zeros((1, G), device=dev)
+    cells = []
+    for nv in (0, W - 31):
+        got = acquire_coh.corr_surface_coh(F, code, one, zero, sec_mat, 1, nv,
+                                           a_chunk=a_chunk)
+        cells.append((int(got[1][0, 0]), int(got[2][0, 0])))
+    assert cells == [(0, 1), (1, 1)]
+    plain = acquire_coh.corr_surface_coh_plain(F, code, one, zero, sec_mat, 1)
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("W,P,DC,A,G,n_valid", [

@@ -215,8 +215,9 @@ def test_build_hash_follows_the_sources():
     from gnss_dsp_tpu_torch.ops import _build
 
     srcs = [os.path.basename(p) for p in _build._sources()]
-    assert srcs == ["acq_cluster.cuh", "acq_surface.cuh", "acquire.cu", "acquire2.cu", "acquire_coh.cu",
-                    "acquire_coh_spec.cu", "cluster_launch.cuh",
+    assert srcs == ["acq_cluster.cuh", "acquire.cu", "acquire2.cu",
+                    "acquire_coh.cu", "acquire_coh_spec.cu",
+                    "cluster_launch.cuh",
                     "track_corr.cuh", "track_fused.cu", "track_step.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
@@ -224,15 +225,16 @@ def test_build_hash_follows_the_sources():
 
 
 def test_build_flags_per_source():
-    """The tracking kernels (and K6) keep --fmad=false; the cluster
-    surface kernels K1, K5 and K7 build with contraction; the flags are
-    the same but for that one."""
+    """The tracking kernels keep --fmad=false; the cluster surface
+    kernels K1, K5, K6 and K7 build with contraction; the flags are the
+    same but for that one."""
     from gnss_dsp_tpu_torch.ops import _build
 
-    pinned = ["track_fused.cu", "track_step.cu", "acquire_coh.cu"]
+    pinned = ["track_fused.cu", "track_step.cu"]
     for src in pinned:
         assert "--fmad=false" in _build.flags(src), src
-    for src in ("acquire.cu", "acquire2.cu", "acquire_coh_spec.cu"):
+    for src in ("acquire.cu", "acquire2.cu", "acquire_coh.cu",
+                "acquire_coh_spec.cu"):
         assert "--fmad=false" not in _build.flags(src), src
         assert _build.flags(src) + ["--fmad=false"] == _build.flags(pinned[0])
     assert all("-gencode" in _build.flags(s) and "arch=compute_90a,code=sm_90a"
