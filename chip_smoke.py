@@ -11,9 +11,11 @@ Runs every phase, in this order:
   k1      acquisition-surface kernel vs its plain version at the GPS L1
           sky-search shape (32 PRN x 70 doppler x 80 blocks x 4096), the
           non-coherent BeiDou B1I shape (63 PRN x 70 doppler x 40 blocks x
-          16384) and the launch shapes of the wide e2e searches below (GPS
+          16384), the launch shapes of the wide e2e searches below (GPS
           L5I and Galileo E6B padded with n_valid, Galileo E1B, GPS L1CP,
-          GPS L2CM at 65536 to 163840), with timings, the kernel's plan at
+          GPS L2CM at 65536 to 163840) and e2e_fdma's (one code row
+          against 102 of the 15 x 70 channel-band dopplers x 80 blocks x
+          16384), with timings, the kernel's plan at
           each window (core, n1 x n2, cluster size, clusters the card holds
           at once, registers, spills) and the times at the other cluster
           sizes built; then a planted exact tie across cluster ranks at
@@ -24,7 +26,9 @@ Runs every phase, in this order:
           4096), on the 1 x 1 mesh of acquire --mesh 1 (32 x 70 x 80) and
           on the 1 x 2 mesh of the two gloo ranks (32 x 70 x 40), GPS L2CM
           on one shard of the 2 x 2 mesh (16 x 28 x 2 x 163840, the
-          run-time core), with its plan, its time beside K7's at the same
+          run-time core) and e2e_fdma's GLONASS L1 shard of the 2 x 2 mesh
+          (1 code row x 204 of its 8 channels' 560 dopplers x 40 x 16384),
+          with its plan, its time beside K7's at the same
           shape and one library ifft, and the bound
   k7      full-surface kernel vs its plain version at the Xona X5 launch
           shape (1 PRN x 54 doppler x 80 blocks x 30690) and at the
@@ -37,7 +41,9 @@ Runs every phase, in this order:
           20 alignments x 16384) and at the launch shape of every search of
           e2e_coherent_wide (GPS L5Q and Galileo E6C padded with n_valid,
           Galileo E1C at 65536, GPS L1CD at 81920, GPS L2CM at 163840 on
-          the run-time core), a planted cell per PRN (and on the padded
+          the run-time core) and e2e_fdma's GLONASS L1 --coherent 8 (1
+          channel x 16 dopplers x 10 groups x 1 alignment x 16384), a
+          planted cell per PRN (and on the padded
           windows a stronger one below the searched lags, which must not
           win), with timings, the library ifft, the bound, the kernel's
           plan and the times at the other cluster sizes built; then a
@@ -173,6 +179,25 @@ Runs every phase, in this order:
           tools/multihost_worker ranks sharing the card over gloo on a 1 x 2
           mesh (the sum over time shards crosses the ranks): winners equal
           to (a)'s, metric within rtol 1e-5
+  e2e_fdma
+          GLONASS FDMA through the acquire CLI: a GLONASS L1 capture at
+          16.384 MHz (4 channels at 45 dB-Hz within +-450 Hz among the
+          default -7:7), default grid, --time 80: every live channel within
+          one bin and one chip, above every dead one (K1, one code row);
+          the search's device time and cells per second (15 x 70 x 16384 x
+          80 cells); --mesh on a 2 x 2 mesh of the card equal to it
+          (channel, doppler and code exact, metric rtol 1e-5; K1's
+          surface); --coherent 8 over +-500 Hz at 62.5 Hz (K5, one launch a
+          channel) finding the live channels; GLONASS L2 once through the
+          plain CLI
+  e2e_serial
+          the assisted serial searches through the acquire CLI: GPS L2CL at
+          4.096 MHz (--time 40, 75 hypotheses) and GLONASS L1 P at 16.384
+          MHz (--time 80, 1000 hypotheses, FDMA channel 3), one satellite
+          at 45 dB-Hz planted at hypothesis k: k and its code phase printed
+          exactly, q at k within rtol 1e-6 of a float64 host evaluation,
+          and serial_search_sharded on a 2 x 2 mesh of the card the same k
+          and metric (rtol 1e-5), with the walls
 
 In the e2e phases every surface-kernel, per-step correlator and K2 call
 is recorded with its shape, and each must have been held against its
@@ -242,6 +267,17 @@ E2E_TRACK = (("galileo-e1b", 8), ("gps-l1cp", 8), ("gps-l2cm", 8),
 K4_FAMILIES = (("none", "gps-l1"), ("boc11", "gps-l1cd"),
                ("cboc", "galileo-e1b"), ("tmboc", "gps-l1cp"),
                ("rz_even", "gps-l2cm"), ("rz_odd", "gps-l2cl"))
+
+# the FDMA searches of e2e_fdma (one capture each at acq_fs, default
+# channels and grid), and its coherent search: (signal, M, --time ms,
+# doppler step over +-500 Hz)
+E2E_FDMA = ("glonass-l1", "glonass-l2")
+FDMA_COHERENT = ("glonass-l1", 8, 80, 62.5)
+# the assisted serial searches of e2e_serial through the acquire CLI:
+# (signal, capture rate, --time ms, PRN or FDMA channel, planted
+# hypothesis k, parent code phase, doppler)
+E2E_SERIAL = (("gps-l2cl", 4.096e6, 40, 5, 31, 1234.0, 250.0),
+              ("glonass-l1-p", 16.384e6, 80, 3, 417, 33.0, -700.0))
 
 # the wide-window and odd-length searches of e2e_wide, one per route
 E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
@@ -593,8 +629,8 @@ def _k1_case(dev, card, tag, P, DC, B, W, seed, plant_seed, n_valid=0,
     torch.cuda.empty_cache()
     shape = dict(shape=f"{P} x {DC} x {B} x {W}" + (
         f", n_valid {n_valid}" if n_valid else ""), signal=tag, ms=ms,
-        library_ms=lib[0], library_calls=lib[1], bound_ms=bms,
-        k1_over_library=ms / lib[0] if lib[0] else None)
+        plain_ms=plain_ms, library_ms=lib[0], library_calls=lib[1],
+        bound_ms=bms, k1_over_library=ms / lib[0] if lib[0] else None)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib[0], bound_ms=bms, bound_by=by,
                 shape=shape)
@@ -614,6 +650,24 @@ def wide_launch(name, ms=80):
     B = engine._block_count(sig, ms)
     D = len(engine.doppler_grid(sig, sig.doppler_default)[0])
     return route, P, engine.dop_chunk_for(route, P, B, W, D), B, W, n_valid
+
+
+def fdma_launch(name, ms=80):
+    """(P, DC, B, W) of the first (largest) K1 launch of the acquire CLI's
+    FDMA search on `name` (acquire_signal_fdma) at its default channels
+    and doppler grid: one code row against the C x D increments in
+    dop_chunk_for's chunks."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.acquire.plan import acq_plan
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    sig = get_signal(name)
+    route, W, _, _ = acq_plan(sig)
+    check(route == "v2", (name, "route", route))
+    B = engine._block_count(sig, ms)
+    CD = len(sig.prns()) * len(engine.doppler_grid(sig,
+                                                   sig.doppler_default)[0])
+    return 1, engine.dop_chunk_for(route, 1, B, W, CD), B, W
 
 
 def _k1_tie(dev, card, W, B=2):
@@ -665,6 +719,14 @@ def phase_k1(dev, card, results):
             errs.append(w["max_abs_err"])
             shapes.append(w["shape"])
             windows.add(W)
+    # e2e_fdma's searches: one code row against every channel's band (the
+    # GLONASS L1 and L2 launches are the same shape)
+    launch = fdma_launch(E2E_FDMA[0])
+    check(all(fdma_launch(name) == launch for name in E2E_FDMA), launch)
+    w = _k1_case(dev, card, "glonass-l1/l2 fdma", *launch, 80, 81, reps=3,
+                 plain_reps=1)
+    errs.append(w["max_abs_err"])
+    shapes.append(w["shape"])
     results["acquire2"]["max_abs_err"] = max(errs)
     results["acquire2"]["shapes"] = shapes
     for W in sorted(windows):
@@ -688,6 +750,24 @@ def mesh_launch(name, nsat, ntime, ms=80):
     B = -(-engine._block_count(sig, ms) // ntime)
     D = len(engine.doppler_grid(sig, sig.doppler_default)[0])
     return route, P, mesh_dop_chunk(P, W, D), B, W
+
+
+def fdma_mesh_launch(name, nsat, ntime, ms=80):
+    """(route, P, DC, B, W) of the first K1 surface launch of one shard of
+    acquire_signal_fdma_sharded on `name` at its default channels and
+    grid over an nsat x ntime mesh: one code row against the bands of the
+    sat row's ceil(C / nsat) channels."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.acquire.plan import mesh_plan
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.parallel.acquire import fdma_dop_chunk
+
+    sig = get_signal(name)
+    route, W = mesh_plan(sig)
+    B = -(-engine._block_count(sig, ms) // ntime)
+    D = len(engine.doppler_grid(sig, sig.doppler_default)[0])
+    Dr = -(-len(sig.prns()) // nsat) * D
+    return route, 1, fdma_dop_chunk(W, B, Dr), B, W
 
 
 def _planted_surface(dev, P, DC, B, W, seed, plant_seed):
@@ -835,7 +915,8 @@ def _k1s_case(dev, card, tag, P, DC, B, W, seed, reps=3):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib[0], bound_ms=bms, bound_by=by,
                 shape=dict(shape=f"{P} x {DC} x {B} x {W}", case=tag, ms=ms,
-                           k7=k7, library_ms=lib[0], bound_ms=bms))
+                           plain_ms=plain_ms, k7=k7, library_ms=lib[0],
+                           bound_ms=bms))
 
 
 def phase_k1s(dev, card, results):
@@ -846,10 +927,12 @@ def phase_k1s(dev, card, results):
     cases = (("gps-l1 2 x 2 shard", "gps-l1", 2, 2),
              ("gps-l1 1 x 1", "gps-l1", 1, 1),
              ("gps-l1 1 x 2 shard", "gps-l1", 1, 2),
-             ("gps-l2cm 2 x 2 shard", "gps-l2cm", 2, 2))
+             ("gps-l2cm 2 x 2 shard", "gps-l2cm", 2, 2),
+             ("glonass-l1 fdma 2 x 2 shard", "glonass-l1", 2, 2))
     shapes, errs = [], []
     for i, (tag, name, nsat, ntime) in enumerate(cases):
-        route, P, DC, B, W = mesh_launch(name, nsat, ntime)
+        launch = fdma_mesh_launch if "fdma" in tag else mesh_launch
+        route, P, DC, B, W = launch(name, nsat, ntime)
         check(route == "v2", (tag, "route", route))
         r = _k1s_case(dev, card, tag, P, DC, B, W, 700 + i)
         shapes.append(r.pop("shape"))
@@ -903,7 +986,7 @@ def coherent_launch(name, m, ms, step):
     """(P, DC, G, A, W, n_valid) of the first (largest) K5 launch of the
     acquire CLI's `name` --coherent m --time ms over -500..500 Hz in
     `step` Hz at its default PRNs, as acquire/coherent.py plans it (per-PRN
-    overlays: one PRN a launch)."""
+    overlays and FDMA channels: one PRN or channel a launch)."""
     from gnss_dsp_tpu_torch.acquire import engine
     from gnss_dsp_tpu_torch.acquire.coherent import coh_dop_chunk
     from gnss_dsp_tpu_torch.acquire.plan import coh_plan
@@ -915,7 +998,9 @@ def coherent_launch(name, m, ms, step):
     secs = [np.asarray(sig.secondary(p)) if sig.secondary is not None
             else np.ones(1) for p in prns]
     N = len(secs[0])
-    per_prn = any(not np.array_equal(v, secs[0]) for v in secs[1:])
+    # per-PRN overlays and FDMA channels: one PRN (channel) a launch
+    per_prn = bool(sig.fdma_hz) or any(
+        not np.array_equal(v, secs[0]) for v in secs[1:])
     blocks = max(int(ms / sig.acq_coherent_ms) // m, 1) * m
     fast = coh_plan(sig, n, m, N)
     check(fast is not None and fast[0] == "spec", (name, "not K5", fast))
@@ -992,8 +1077,8 @@ def _k5_case(dev, card, tag, P, DC, G, A, W, n_valid, seed, reps=3):
     torch.cuda.empty_cache()
     shape = dict(shape=f"{P} x {DC} x {G}x{A} rows x {W}" + (
         f", n_valid {n_valid}" if n_valid else ""), signal=tag, ms=ms,
-        library_ms=lib[0], library_calls=lib[1], bound_ms=bms,
-        k5_over_library=ms / lib[0] if lib[0] else None)
+        plain_ms=plain_ms, library_ms=lib[0], library_calls=lib[1],
+        bound_ms=bms, k5_over_library=ms / lib[0] if lib[0] else None)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib[0], bound_ms=bms, bound_by=by,
                 shape=shape)
@@ -1050,6 +1135,11 @@ def phase_k5(dev, card, results):
         w = _k5_case(dev, card, name, *launch, 70 + i, reps=2)
         errs.append(w["max_abs_err"])
         shapes.append(w["shape"])
+    # e2e_fdma's --coherent: one channel a launch, one alignment
+    w = _k5_case(dev, card, "glonass-l1 fdma --coherent 8",
+                 *coherent_launch(*FDMA_COHERENT), 90, reps=3)
+    errs.append(w["max_abs_err"])
+    shapes.append(w["shape"])
     results["acquire_coh_spec"]["max_abs_err"] = max(errs)
     results["acquire_coh_spec"]["shapes"] = shapes
     for W in sorted({launch[4] for launch in seen}):
@@ -2583,6 +2673,238 @@ def phase_e2e_mesh(dev, card, results, work, e2e, b1i_track):
     return b_path
 
 
+# ---------------------------------------------------------- phase e2e_fdma
+
+def _fdma_results(one, other, what):
+    """AcqResults of two FDMA searches: channel, doppler and code offset
+    equal, metric within rtol 1e-5."""
+    check(len(one) == len(other), (what, len(one), len(other)))
+    for a, b in zip(one, other):
+        check((a.prn, a.doppler, a.code_offset)
+              == (b.prn, b.doppler, b.code_offset), (what, a, b))
+        check(abs(a.metric - b.metric) <= 1e-5 * abs(a.metric),
+              (what, "metric", a, b))
+
+
+def phase_e2e_fdma(dev, card, results, work):
+    """GLONASS FDMA through the acquire CLI: (a) a GLONASS L1 capture at
+    16.384 MHz (main_path.synth_fdma: 4 channels at 45 dB-Hz within
+    +-450 Hz among the default -7:7), the default grid, --time 80 (K1,
+    one code row against 15 x 70 increments): every live channel within
+    one bin and one chip, above every dead channel; the search alone
+    timed (device time and cells per second, the JAX package's
+    glonass_l1_fdma_acq_cells_per_s_sustained cells 15 x 70 x 16384 x 80);
+    (b) --mesh on a 2 x 2 mesh of the card (K1's surface): the single-card
+    results (channel, doppler and code exact, metric rtol 1e-5); (c)
+    --coherent 8 over +-500 Hz at 62.5 Hz (K5, one launch a channel): the
+    live channels found within one bin and one chip; (d) GLONASS L2 once
+    through the plain CLI (4 channels within +-4 kHz)."""
+    import torch
+
+    from gnss_dsp_tpu_torch.acquire.engine import (
+        _block_count, acquire_signal_fdma, fdma_grid)
+    from gnss_dsp_tpu_torch.acquire.plan import acq_plan
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire2, acquire_coh
+    from gnss_dsp_tpu_torch.ops.frontend import prepare_baseband
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        parse_hits, returns_of, run_cli, synth_fdma)
+
+    tag = "e2e_fdma"
+    name = E2E_FDMA[0]
+    sig = get_signal(name)
+    path = os.path.join(work, f"{tag}_{name}.iq")
+    truth = synth_fdma(path, name, 0.085, seed=61, device=dev)
+    fs = truth["fs"]
+    args = ["--time", "80", path, "%d" % fs, "0", "--device", str(dev)]
+    chans = sig.prns()
+
+    # (a) the plain CLI
+    acquire2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recording() as calls, \
+            returns_of(acq_cli, "acquire_signal_fdma") as one:
+        out = run_cli(acq_cli.main, name, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_covered(tag, calls)
+    k1 = acquire2.LAUNCHES
+    check(k1 > 0, "(a): K1 not on the path")
+    hits = parse_hits(out)
+    check(sorted(hits) == chans, (tag, sorted(hits)))
+    check_hits(name, hits, truth, sig.doppler_default[2], phase=tag)
+    x = acq_cli.read_samples(path, int(85 * fs / 1000), dev)
+    xb = prepare_baseband(x, fs, 0.0, sig.acq_fs, sig.acq_lowpass_hz, 82)
+
+    def search():
+        return acquire_signal_fdma(sig, xb, chans, ms=80)
+
+    search()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    busy = device_ms(search, 2)
+    D = len(fdma_grid(sig, sig.doppler_default, chans)[0][0])
+    W, B = acq_plan(sig)[1], _block_count(sig, 80)
+    cells = len(chans) * D * W * B
+    log(f"[{tag}] (a) {name} CLI: {len(chans)} channels x {D} dopplers x "
+        f"{B} blocks x {W}, K1 launches {k1}, CLI {wall:.2f} s; the search "
+        f"alone "
+        f"{warm * 1e3:.2f} ms host wall, {busy:.3f} ms device time: "
+        f"{cells / (busy / 1e3) / 1e9:.4g} Gcells/s by device time, "
+        f"{cells / warm / 1e9:.4g} by host wall  [{card}]")
+
+    # (b) --mesh 4: a 2 x 2 mesh over the card
+    saved = acq_cli.cli_devices
+    acq_cli.cli_devices = lambda device, n: [dev] * 4
+    try:
+        acquire2.LAUNCHES_SURFACE = 0
+        t0 = time.perf_counter()
+        with recording() as calls, \
+                returns_of(acq_cli, "acquire_signal_fdma_sharded") as res:
+            run_cli(acq_cli.main, name, ["--mesh", "4"] + args)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+    finally:
+        acq_cli.cli_devices = saved
+    check_covered(tag, calls)
+    k1s = acquire2.LAUNCHES_SURFACE
+    check(k1s > 0, "(b): K1's surface not on the path")
+    _fdma_results(one[0], res[0], "(b) --mesh")
+    log(f"[{tag}] (b) {name} --mesh on a 2 x 2 mesh of the card: 15 "
+        f"channels equal to the single-card CLI's (metric rtol 1e-5), K1 "
+        f"surface launches {k1s}, {t_b:.2f} s  [{card}]")
+
+    # (c) --coherent 8 over +-500 Hz
+    _, m, ms, step = FDMA_COHERENT
+    acquire_coh.LAUNCHES_SPEC = acquire_coh.LAUNCHES_BLK = 0
+    t0 = time.perf_counter()
+    with recording() as calls:
+        out = run_cli(acq_cli.main, name, [
+            "--coherent", str(m), "--time", str(ms), "--doppler-search",
+            f"-500,500,{step:g}", path, "%d" % fs, "0", "--device",
+            str(dev)])
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    check_covered(tag, calls)
+    k5 = acquire_coh.LAUNCHES_SPEC
+    check(k5 == len(chans) and acquire_coh.LAUNCHES_BLK == 0,
+          ("(c): K5 not the route", k5, acquire_coh.LAUNCHES_BLK))
+    hits = parse_hits(out)
+    check(sorted(hits) == chans, (tag, "(c)", sorted(hits)))
+    check_hits(f"{name} --coherent {m}", hits, truth, step, phase=tag)
+    os.remove(path)
+    log(f"[{tag}] (c) {name} --coherent {m} --time {ms}, 16 dopplers at "
+        f"{step:g} Hz: K5 launches {k5}, {t_c:.2f} s  [{card}]")
+
+    # (d) GLONASS L2 through the plain CLI
+    name = E2E_FDMA[1]
+    sig = get_signal(name)
+    path = os.path.join(work, f"{tag}_{name}.iq")
+    truth = synth_fdma(path, name, 0.085, seed=62, dop_max=4000.0,
+                       device=dev)
+    acquire2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recording() as calls:
+        out = run_cli(acq_cli.main, name, ["--time", "80", path,
+                                           "%d" % truth["fs"], "0",
+                                           "--device", str(dev)])
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    check_covered(tag, calls)
+    os.remove(path)
+    k1d = acquire2.LAUNCHES
+    check(k1d > 0, "(d): K1 not on the path")
+    hits = parse_hits(out)
+    check(sorted(hits) == sig.prns(), (tag, "(d)", sorted(hits)))
+    check_hits(name, hits, truth, sig.doppler_default[2], phase=tag)
+    k1 += k1d
+    log(f"[{tag}] (d) {name} CLI: K1 launches {k1d}, "
+        f"{t_d:.2f} s  [{card}]")
+    log(f"[{tag}] launches: K1 {k1}, K1 surface {k1s}, K5 {k5}")
+    results["acquire2"]["launches"] += k1
+    results["acquire2_surface"]["launches"] += k1s
+    results["acquire_coh_spec"]["launches"] += k5
+
+
+# -------------------------------------------------------- phase e2e_serial
+
+def serial_q_host(sig, xw, geom, code, k):
+    """q of hypothesis k on the host: the chip indices in the searches'
+    float32 arithmetic (s_frac + i * incr, each rounded), the +-1 chips
+    times the wiped blocks xw (complex [B, n]) summed in float64."""
+    i = np.arange(geom.n, dtype=np.float32) * np.float32(geom.incr)
+    cp = geom.s_frac[k][:, None] + i[None, :]
+    idx = (geom.s_int[k][:, None].astype(np.int64)
+           + np.floor(cp).astype(np.int64)) % geom.L
+    y = (code[idx].astype(np.float64) * xw.astype(np.complex128)).sum(-1)
+    return float(np.abs(y).sum())
+
+
+def phase_e2e_serial(dev, card, work):
+    """The assisted serial searches through the acquire CLI, on one
+    satellite at 45 dB-Hz planted at hypothesis k (main_path.synth_serial)
+    for each of E2E_SERIAL (GPS L2CL at 4.096 MHz, --time 40, 75
+    hypotheses; GLONASS L1 P at 16.384 MHz, --time 80, 1000 hypotheses on
+    FDMA channel 3): k found exactly and its code phase printed; q at k
+    within rtol 1e-6 of a float64 host evaluation on the same wiped
+    samples; then serial_search_sharded on a 2 x 2 mesh of the card: the
+    same k, metric rtol 1e-5."""
+    import torch
+
+    from gnss_dsp_tpu_torch.acquire import serial
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops.frontend import mix_long
+    from gnss_dsp_tpu_torch.parallel.acquire import serial_search_sharded
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        returns_of, run_cli, synth_serial)
+
+    tag = "e2e_serial"
+    for i, (name, fs, ms, prn, k, pp, dop) in enumerate(E2E_SERIAL):
+        sig = get_signal(name)
+        chan = prn if sig.fdma_hz else 0
+        path = os.path.join(work, f"{tag}_{name}.iq")
+        synth_serial(path, name, fs, (ms + 3) / 1000.0, prn, k, pp, dop,
+                     seed=70 + i, device=dev)
+        t0 = time.perf_counter()
+        with returns_of(acq_cli, "serial_search") as res:
+            out = run_cli(acq_cli.main, name, [
+                "--time", str(ms), path, "%d" % fs, "0", str(prn), str(dop),
+                str(pp), "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = res[0]
+        want = "%f" % (sig.acq_serial_stride * k + sig.acq_serial_scale * pp)
+        check(r.k == k and out.split()[0] == want, (name, out, want, r))
+        x = mix_long(acq_cli.read_samples(path, int((ms + 2) * fs / 1000),
+                                          dev), 0.0)
+        os.remove(path)
+        geom = serial.hypothesis_geometry(sig, fs, ms, pp)
+        xw = serial.wipe_blocks(sig, x, dop, fs, chan, geom).cpu().numpy()
+        q = serial_q_host(sig, xw, geom, sig.code_table((prn,))[0], k)
+        check(abs(r.metric - q) <= 1e-6 * q, (name, "q at k", r.metric, q))
+        t0 = time.perf_counter()
+        sh = serial_search_sharded(sig, x, prn, dop, pp, fs,
+                                   make_mesh(devices=[dev] * 4), ms=ms,
+                                   chan=chan)
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t0
+        check(sh.k == k and abs(sh.metric - r.metric) <= 1e-5 * r.metric,
+              (name, "sharded", sh, r))
+        log(f"[{tag}] {name} ({sig.acq_serial} hypotheses, {geom.blocks} "
+            f"blocks of {geom.n} at {fs:g} Hz, {'chan' if chan else 'prn'} "
+            f"{prn}): k {r.k}, printed code phase {out.split()[0]} (the "
+            f"planted one), q at k {r.metric:.6g} against the float64 host "
+            f"evaluation {q:.6g} (rtol 1e-6); CLI {wall:.2f} s; the sharded "
+            f"search on a 2 x 2 mesh of the card k {sh.k}, metric within "
+            f"rtol 1e-5, {t_sh:.2f} s  [{card}]")
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -2652,6 +2974,8 @@ def main(argv=None) -> int:
         f"{results['acquire_coh_spec']['launches']}, e2e_coherent_track "
         f"{k5_track}, e2e_coherent_wide {k5_wide}")
     results["acquire_coh_spec"]["launches"] += k5_track + k5_wide
+    phase_e2e_fdma(dev, card, results, args.out)
+    phase_e2e_serial(dev, card, args.out)
     for r in results.values():
         need = ["launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by"] + (["library_ms"] if r["name"] not in NO_LIBRARY

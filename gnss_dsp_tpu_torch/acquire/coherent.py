@@ -30,7 +30,11 @@ On CUDA, K5 takes every window the route sends to spec (the register
 core up to 81920, the run-time core at 163840: ops/acquire_coh.
 spec_core_plan), K6 power-of-two windows up to 16384; a fused route at a
 window its kernel does not take raises NotImplementedError naming the
-signal and W.  Not ported here: FDMA channels (chan offsets).
+signal and W.  FDMA channels (GLONASS L1/L2, no overlay: N = 1) search
+one channel a call, its band offset folded into the oscillators
+(acquire_signal_coherent's chan, engine.doppler_grid); on the card the
+spec route at 16384 (K5 with one code row and one alignment).  The
+assisted serial searches have no coherent form (serial.py).
 """
 
 from __future__ import annotations
@@ -237,7 +241,7 @@ def coh_dop_chunk(fast, P: int, blocks: int, m_coh: int, N: int,
 def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
                             m_coh: int | None = None, ms: int | None = None,
                             dop_chunk: int | None = None,
-                            engine: str = "auto") -> list:
+                            engine: str = "auto", chan: int = 0) -> list:
     """Secondary-wiped extended-coherent acquisition of `sig`.
 
     x_int: complex64 internal-rate samples on the device the search runs
@@ -245,14 +249,17 @@ def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
     -> 20 ms ...); ms to one coherent group.  Signals without a secondary
     get an all-ones overlay.  engine: "auto" takes the fused route where
     plan.coh_plan gives one, "fused" requires it, "xla" forces the
-    circular plain-torch engine.  Returns list[CoherentAcqResult] in PRN
-    order.  Refuses the reference's route switches GNSS_DSP_NO_PALLAS and
-    GNSS_DSP_NO_V2P (device.refuse_switches)."""
+    circular plain-torch engine.  chan: the FDMA channel whose band
+    offset the oscillators carry (0 for CDMA signals).  Returns
+    list[CoherentAcqResult] in PRN order.  Refuses the reference's route
+    switches GNSS_DSP_NO_PALLAS and GNSS_DSP_NO_V2P
+    (device.refuse_switches)."""
     refuse_switches("acquire_signal_coherent",
                     ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
-    if sig.fdma_hz or sig.acq_serial:
-        raise NotImplementedError(
-            f"{sig.name}: FDMA and serial coherent searches are not ported")
+    if sig.acq_serial:
+        raise ValueError(
+            f"{sig.name} is an assisted serial search, with no coherent form "
+            "(acquire/serial.serial_search)")
     if engine not in ("auto", "fused", "xla"):
         raise ValueError(f"engine {engine!r}: want auto, fused or xla")
     n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
@@ -308,7 +315,7 @@ def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
             f"{need} samples ({need / sig.acq_fs * 1e3:g} ms), the capture "
             f"holds {x_int.shape[0]}: give ms (--time) one code period more")
 
-    dops, fixed = eng.doppler_grid(sig, doppler_search)
+    dops, fixed = eng.doppler_grid(sig, doppler_search, chan)
     if dop_chunk is None:
         dop_chunk = coh_dop_chunk(fast, len(prns), blocks, m_coh, N, window,
                                   len(dops))

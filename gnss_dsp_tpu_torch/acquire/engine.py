@@ -3,7 +3,7 @@
 Counterpart: gnss_dsp_tpu/acquire/engine.py (`AcqResult`,
 `build_code_ffts` :42-54, `block_windows` :57-77, `grid_search` :176-266
 on its v2, v2p and v1 branches, `_block_count` :269-279, `doppler_grid`
-:282-290, `acquire_signal` :367-445).
+:282-290, `acquire_signal` :367-445, `acquire_signal_fdma` :448-502).
 
 The route (acquire/plan.acq_plan, the reference's _fused_plan) sets the
 search, on every device:
@@ -30,9 +30,18 @@ parallel/acquire.py:76-82), the surface route (surface, the counterpart
 of chunk_q_fused :120-144: K1's natural-order surface on v2, K7 on v1)
 and the reduction over the lags (surface_metric).
 
-Not ported here: FDMA (acquire_signal_fdma), serial searches and
-per-chunk results.  The extended-coherent search is in coherent.py and
-shares block_windows, mix_fft and the code-spectra LRU.
+FDMA (GLONASS L1/L2): every channel shares one m-sequence, so
+acquire_signal_fdma searches one code row against the increments of all
+C channels' bands (each channel's offset folded into its oscillator,
+doppler_grid's chan) in one search, and grid_search's `group` reduces the
+per-doppler metrics per band: the first maximum inside each channel's D
+dopplers, as the reference's one-chunk-per-channel scan (per_chunk=True)
+gives it, however the port chunks the dopplers.  acquire_signal(chan=)
+searches one channel's band.
+
+The assisted serial searches (GPS L2CL, GLONASS P) are serial.py.  The
+extended-coherent search is in coherent.py and shares block_windows,
+mix_fft and the code-spectra LRU.
 """
 
 from __future__ import annotations
@@ -122,11 +131,15 @@ def _block_count(sig, ms: int) -> int:
     return int(ms)
 
 
-def doppler_grid(sig, doppler_search):
+def doppler_grid(sig, doppler_search, chan: int = 0):
+    """(dopplers, int32 NCO increments) of the grid; the FDMA band offset
+    of channel `chan` (sig.fdma_hz * chan) is folded into each increment,
+    not into the reported doppler."""
     dmin, dmax, dinc = doppler_search
     dops = np.arange(dmin, dmax, dinc)
+    offs = sig.fdma_hz * chan
     fixed = np.array(
-        [nco.freq_to_fixed(-d / sig.acq_fs) for d in dops],
+        [nco.freq_to_fixed(-(d + offs) / sig.acq_fs) for d in dops],
         dtype=np.int64,
     ).astype(np.int32)
     return dops, fixed
@@ -166,12 +179,31 @@ def surface_metric(q: torch.Tensor, peak_mean: bool):
     return metric, code_idx.to(torch.int32)
 
 
+def band_best(metric: torch.Tensor, code_idx: torch.Tensor, group: int):
+    """The first maximum of each group of `group` consecutive dopplers:
+    metric f32 [P, D], code_idx i32 [P, D] -> (metric f32, code_idx i32,
+    dop_idx i64, the index within the group), each [P, D // group].  Of
+    equal metrics the lower doppler index wins, as the reference's running
+    best over doppler chunks."""
+    P, D = metric.shape
+    if D % group:
+        raise ValueError(f"{D} dopplers do not split into groups of {group}")
+    metric = metric.reshape(P, D // group, group)
+    best = torch.argmax(metric, dim=-1, keepdim=True)          # first max
+    return (torch.gather(metric, 2, best)[..., 0],
+            torch.gather(code_idx.reshape(P, D // group, group), 2,
+                         best)[..., 0],
+            best[..., 0])
+
+
 def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
                 dopp_fixed: torch.Tensor, n: int, window: int, blocks: int,
                 peak_mean: bool, dop_chunk: int | None = None,
-                route: str = "v2", n_valid: int = 0, data_window: int = 0):
+                route: str = "v2", n_valid: int = 0, data_window: int = 0,
+                group: int | None = None):
     """Search the full grid; returns per-PRN (metric f32 [P], code_idx
-    i32 [P], dop_idx i64 [P]) tensors.
+    i32 [P], dop_idx i64 [P]) tensors, or with `group` per (PRN, group)
+    [P, D // group] ones (band_best).
 
     x          : complex64 [>= (blocks-1)*n + data_window] internal-rate
                  samples
@@ -182,19 +214,20 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
                  code_idx then counts from window - n_valid
     data_window: samples of data per block window (default: window);
                  zeros follow up to window
-    dop_chunk  : dopplers per kernel call (default: dop_chunk_for)"""
+    dop_chunk  : dopplers per kernel call (default: dop_chunk_for)
+    group      : the dopplers fall in consecutive groups of this many (an
+                 FDMA channel's band each); the results are each group's
+                 first maximum, dop_idx its index within the group.  The
+                 chunking need not follow the groups."""
     P = code_ffts.shape[0]
     D = int(dopp_fixed.shape[0])
     dev = x.device
     xb = block_windows(x, n, data_window or window, blocks, pad_to=window)
     if dop_chunk is None:
         dop_chunk = dop_chunk_for(route, P, blocks, window, D)
-    best_metric = torch.full((P,), -float("inf"), dtype=torch.float32,
-                             device=dev)
-    best_code = torch.zeros((P,), dtype=torch.int32, device=dev)
-    best_dop = torch.zeros((P,), dtype=torch.int64, device=dev)
     cells = torch.full((1, 1), float(n_valid or window),
                        dtype=torch.float32, device=dev)
+    metrics, codes = [], []
     for d0 in range(0, D, dop_chunk):
         df = dopp_fixed[d0:d0 + dop_chunk].to(dev, torch.int64)
         F = mix_fft(xb, df)
@@ -205,14 +238,11 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
             peak, code_idx, sm = acquire2.corr_surface2(F, code_ffts,
                                                         n_valid)  # [P, dc]
             metric = peak / (sm / cells) if peak_mean else peak
-        ch_best = torch.argmax(metric, dim=-1)                # first max
-        ch_metric = torch.gather(metric, 1, ch_best[:, None])[:, 0]
-        ch_code = torch.gather(code_idx, 1, ch_best[:, None])[:, 0]
-        upd = ch_metric > best_metric
-        best_metric = torch.where(upd, ch_metric, best_metric)
-        best_code = torch.where(upd, ch_code, best_code)
-        best_dop = torch.where(upd, ch_best + d0, best_dop)
-    return best_metric, best_code, best_dop
+        metrics.append(metric)
+        codes.append(code_idx)
+    best = band_best(torch.cat(metrics, dim=1), torch.cat(codes, dim=1),
+                     group or D)
+    return best if group else tuple(v[:, 0] for v in best)
 
 
 # device-resident code-FFT LRU: repeated acquire calls on the same
@@ -236,39 +266,90 @@ def device_code_ffts(sig, prns, n: int, window: int, device,
     return code_ffts
 
 
+def _serial_refused(sig, what: str):
+    if sig.acq_serial:
+        raise ValueError(f"{sig.name} is an assisted serial search: "
+                         f"acquire/serial.serial_search, not {what}")
+
+
+def _results(sig, n: int, ids, metric, code_idx, dopplers):
+    """AcqResults of ids[i] with its (metric, natural code index) and
+    its doppler dopplers[i]."""
+    metric = metric.cpu().numpy()
+    code_idx = code_idx.cpu().numpy()
+    out = []
+    for i, prn in enumerate(ids):
+        code = (sig.code_length * float(code_idx[i]) / n) % sig.code_length
+        out.append(AcqResult(prn=prn, doppler=float(dopplers[i]),
+                             metric=float(metric[i]), code_offset=code))
+    return out
+
+
+def _search(sig, x_int: torch.Tensor, code_ids, ids, dops, fixed,
+            ms: int) -> list:
+    """The one grid search of acquire_signal and acquire_signal_fdma: the
+    code rows of `code_ids` against the NCO increments `fixed` (int [G *
+    D], G = len(dops) groups of D = len(dops[0])) on the signal's plan,
+    the first maximum per (code row, group).  Returns the AcqResults of
+    `ids`, the i-th that of (row i // G, group i % G), its doppler from
+    dops[i % G]."""
+    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
+    route, window, data_window, n_valid = acq_plan(sig)
+    code_ffts = device_code_ffts(sig, code_ids, n, window, x_int.device,
+                                 route)
+    metric, code_idx, dop_idx = grid_search(
+        x_int, code_ffts, torch.from_numpy(np.asarray(fixed, np.int64)),
+        n=n, window=window, blocks=_block_count(sig, ms),
+        peak_mean=(sig.acq_metric == "peak_mean"), route=route,
+        n_valid=n_valid, data_window=data_window, group=len(dops[0]))
+    G = len(dops)
+    return _results(sig, n, ids, metric.reshape(-1), code_idx.reshape(-1),
+                    [dops[i % G][d] for i, d in
+                     enumerate(dop_idx.reshape(-1).cpu().numpy())])
+
+
 def acquire_signal(sig, x_int: torch.Tensor, prns, doppler_search=None,
-                   ms: int = 80) -> list:
+                   ms: int = 80, chan: int = 0) -> list:
     """Run acquisition for one signal over `prns`.
 
     x_int: complex64 internal-rate samples covering >= ms+2 ms, on the
-    device the search runs on.  Returns list[AcqResult] in PRN order.
-    Refuses the reference's route switches GNSS_DSP_NO_PALLAS and
-    GNSS_DSP_NO_V2P (device.refuse_switches)."""
+    device the search runs on.  chan: the FDMA channel whose band offset
+    the oscillators carry (GLONASS L1/L2; 0 for the others).  Returns
+    list[AcqResult] in PRN order.  Refuses the reference's route switches
+    GNSS_DSP_NO_PALLAS and GNSS_DSP_NO_V2P (device.refuse_switches)."""
     refuse_switches("acquire_signal",
                     ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
-    if sig.fdma_hz or sig.acq_serial:
-        raise NotImplementedError(
-            f"{sig.name}: FDMA (acquire_signal_fdma) and serial searches "
-            "(acquire/serial.py) are not ported yet")
-    doppler_search = doppler_search or sig.doppler_default
-    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
-    route, window, data_window, n_valid = acq_plan(sig)
-    blocks = _block_count(sig, ms)
-    dops, fixed = doppler_grid(sig, doppler_search)
-    code_ffts = device_code_ffts(sig, prns, n, window, x_int.device, route)
-    metric, code_idx, dop_idx = grid_search(
-        x_int, code_ffts, torch.from_numpy(fixed.astype(np.int64)),
-        n=n, window=window, blocks=blocks,
-        peak_mean=(sig.acq_metric == "peak_mean"), route=route,
-        n_valid=n_valid, data_window=data_window)
-    metric = metric.cpu().numpy()
-    code_idx = code_idx.cpu().numpy()
-    dop_idx = dop_idx.cpu().numpy()
-    out = []
-    for i, prn in enumerate(prns):
-        code = (sig.code_length * float(code_idx[i]) / n) % sig.code_length
-        out.append(AcqResult(
-            prn=prn, doppler=float(dops[dop_idx[i]]),
-            metric=float(metric[i]), code_offset=code,
-        ))
-    return out
+    _serial_refused(sig, "acquire_signal")
+    dops, fixed = doppler_grid(sig, doppler_search or sig.doppler_default,
+                               chan)
+    return _search(sig, x_int, prns, prns, [dops], fixed, ms)
+
+
+def fdma_grid(sig, doppler_search, chans):
+    """(per-channel dopplers [C][D], int64 increments [C * D]) of an FDMA
+    search: each channel's band, channel after channel."""
+    dops_all, fixed_all = [], []
+    for chan in chans:
+        dops, fixed = doppler_grid(sig, doppler_search, chan)
+        dops_all.append(dops)
+        fixed_all.append(fixed)
+    return dops_all, np.concatenate(fixed_all).astype(np.int64)
+
+
+def acquire_signal_fdma(sig, x_int: torch.Tensor, chans, doppler_search=None,
+                        ms: int = 80) -> list:
+    """Every FDMA channel of `chans` in one search (GLONASS L1/L2): the
+    shared m-sequence is one code row, searched against all C x D
+    increments (fdma_grid), and each channel's result is the first
+    maximum over its own D dopplers (band_best).
+
+    x_int: complex64 internal-rate samples covering >= ms+2 ms, on the
+    device the search runs on.  Returns list[AcqResult] in channel order
+    (prn field = channel).  Refuses the reference's GNSS_DSP_NO_PALLAS."""
+    refuse_switches("acquire_signal_fdma", ("GNSS_DSP_NO_PALLAS",))
+    _serial_refused(sig, "acquire_signal_fdma")
+    if not sig.fdma_hz:
+        raise ValueError(f"{sig.name} is not an FDMA signal")
+    dops_all, fixed = fdma_grid(sig, doppler_search or sig.doppler_default,
+                                chans)
+    return _search(sig, x_int, chans[:1], chans, dops_all, fixed, ms)

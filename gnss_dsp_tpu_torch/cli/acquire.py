@@ -1,10 +1,12 @@
 """Acquisition CLI.
 
-Counterpart: gnss_dsp_tpu/cli/acquire.py:26-180 (`read_samples`,
-`_fmt_row`, and `main` on the single-signal branches, non-coherent,
---coherent and --mesh).
+Counterpart: gnss_dsp_tpu/cli/acquire.py:26-211 (`read_samples`,
+`_fmt_row`, `main` on every branch, non-coherent, --coherent and --mesh,
+FDMA or not, and `_main_serial`).
 
   python -m gnss_dsp_tpu_torch.cli.acquire SIGNAL [options] input_file sample_rate carrier_offset
+  python -m gnss_dsp_tpu_torch.cli.acquire gps-l2cl [options] input_file fs coffset prn doppler l2cm_code_phase
+  python -m gnss_dsp_tpu_torch.cli.acquire glonass-l1-p [options] input_file fs coffset chan doppler ca_code_phase
 
 Output rows are the reference workers' (acquire-gps-l1.py:102).  Adds
 --device (default cuda); a CUDA device that does not exist is an error,
@@ -16,8 +18,18 @@ runs the sharded search (parallel/acquire.acquire_signal_sharded) over a
 mesh of N devices (N < 0: all), time_shards 2 where N is even: on the
 card, the cards torch sees (one card: a 1 x 1 mesh, as in the JAX
 package), on the CPU N shards of it (parallel/mesh.cli_devices).
---mesh and --coherent are mutually exclusive, as in the reference.  Not
-ported here: FDMA and serial searches (they raise NotImplementedError).
+--mesh and --coherent are mutually exclusive, as in the reference.
+
+FDMA signals (GLONASS L1/L2) take --channel in place of --prn and print
+"chan" rows (acquire-glonass-l1.py:96-97): all channels in one search
+(acquire_signal_fdma; on the card K1), with --coherent one
+acquire_signal_coherent(chan=) a channel (K5), with --mesh
+parallel/acquire.acquire_signal_fdma_sharded.  The assisted serial
+searches (gps-l2cl, glonass-l1-p/l2-p) take the channel or PRN, the
+doppler and the parent code phase after the capture, wipe the carrier
+offset off the native-rate samples with no front end, and print one
+"code_phase metric" row (acquire-gps-l2cl.py:76), the code phase not
+reduced mod L.
 """
 
 from __future__ import annotations
@@ -27,11 +39,14 @@ import sys
 
 from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
-from gnss_dsp_tpu_torch.acquire.engine import acquire_signal
+from gnss_dsp_tpu_torch.acquire.engine import (
+    acquire_signal, acquire_signal_fdma)
+from gnss_dsp_tpu_torch.acquire.serial import serial_search
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx
-from gnss_dsp_tpu_torch.ops.frontend import prepare_baseband
-from gnss_dsp_tpu_torch.parallel.acquire import acquire_signal_sharded
+from gnss_dsp_tpu_torch.ops.frontend import mix_long, prepare_baseband
+from gnss_dsp_tpu_torch.parallel.acquire import (
+    acquire_signal_fdma_sharded, acquire_signal_sharded)
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 
 
@@ -49,6 +64,9 @@ def read_samples(filename, n: int, device):
 
 
 def _fmt_row(sig, r) -> str:
+    if sig.fdma_hz:
+        return "chan % 2d doppler % 7.1f metric % 7.1f code_offset %7.2f" % (
+            r.prn, r.doppler, r.metric, r.code_offset)
     if sig.acq_metric == "peak_mean":
         return "prn %3d doppler % 7.1f metric % 5.2f code_offset %6.1f" % (
             r.prn, r.doppler, r.metric, r.code_offset)
@@ -56,17 +74,31 @@ def _fmt_row(sig, r) -> str:
         r.prn, r.doppler, r.metric, r.code_offset)
 
 
+def _device_option(parser):
+    # --device is taken out of argv by pop_device_arg before parsing, so
+    # that it may follow the positionals; the option is here for --help
+    parser.add_option("--device", default="cuda",
+                      help="torch device, anywhere on the line "
+                      "(default %default)")
+
+
 def main(signal: str, argv=None) -> int:
     sig = get_signal(signal)
-    if sig.acq_serial or sig.fdma_hz:
+    argv = sys.argv[2:] if argv is None else argv
+    if sig.code_table is None:
         raise NotImplementedError(
-            f"{signal}: serial and FDMA searches are not ported yet")
+            f"{signal}: no code table (code windows only), as in the "
+            f"reference")
+    if sig.acq_serial:
+        return _main_serial(sig, argv)
+    fdma = bool(sig.fdma_hz)
     usage = (f"acquire {signal} [options] input_filename sample_rate "
              "carrier_offset")
     parser = optparse.OptionParser(usage=usage)
     parser.disable_interspersed_args()
-    parser.add_option("--prn", dest="prn", default=sig.prn_default,
-                      help="PRNs to search (default %default)")
+    parser.add_option("--channel" if fdma else "--prn", dest="prn",
+                      default=sig.prn_default,
+                      help="PRNs/channels to search (default %default)")
     parser.add_option("--doppler-search", metavar="MIN,MAX,INCR",
                       default="%g,%g,%g" % sig.doppler_default,
                       help="Doppler search grid (default %default)")
@@ -80,12 +112,8 @@ def main(signal: str, argv=None) -> int:
     parser.add_option("--mesh", type="int", default=0, metavar="N",
                       help="shard the search over an N-device mesh (0 = "
                       "single device, -1 = all devices)")
-    # --device is taken out of argv by pop_device_arg before parsing, so
-    # that it may follow the positionals; the option is here for --help
-    parser.add_option("--device", default="cuda",
-                      help="torch device, anywhere on the line "
-                      "(default %default)")
-    device, argv = pop_device_arg(sys.argv[2:] if argv is None else argv)
+    _device_option(parser)
+    device, argv = pop_device_arg(argv)
     options, args = parser.parse_args(argv)
     if len(args) != 3:
         parser.error("expected input_filename sample_rate carrier_offset")
@@ -106,18 +134,55 @@ def main(signal: str, argv=None) -> int:
     if options.mesh:
         mesh = make_mesh(None if options.mesh < 0 else options.mesh,
                          devices=cli_devices(dev, options.mesh))
-        for r in acquire_signal_sharded(sig, xb, prns, mesh,
-                                        doppler_search=dops, ms=ms):
+        run = acquire_signal_fdma_sharded if fdma else acquire_signal_sharded
+        for r in run(sig, xb, prns, mesh, doppler_search=dops, ms=ms):
             print(_fmt_row(sig, r))
         return 0
     if options.coherent:
         m = None if options.coherent < 0 else options.coherent
-        for r in acquire_signal_coherent(sig, xb, prns, dops, m_coh=m,
-                                         ms=ms):
-            print(_fmt_row(sig, r))
+        # FDMA: one search a channel, its band offset in its oscillators
+        searches = [([c], c) for c in prns] if fdma else [(prns, 0)]
+        for ids, chan in searches:
+            for r in acquire_signal_coherent(sig, xb, ids, dops, m_coh=m,
+                                             ms=ms, chan=chan):
+                print(_fmt_row(sig, r))
         return 0
-    for r in acquire_signal(sig, xb, prns, doppler_search=dops, ms=ms):
+    run = acquire_signal_fdma if fdma else acquire_signal
+    for r in run(sig, xb, prns, doppler_search=dops, ms=ms):
         print(_fmt_row(sig, r))
+    return 0
+
+
+def _main_serial(sig, argv) -> int:
+    fdma = bool(sig.fdma_hz)
+    label = "chan" if fdma else "prn"
+    parser = optparse.OptionParser(
+        usage=f"acquire {sig.name} [options] input_filename sample_rate "
+              f"carrier_offset {label} doppler parent_code_phase")
+    parser.disable_interspersed_args()
+    parser.add_option("--time", type="int",
+                      default=40 if sig.acq_serial == 75 else 80,
+                      help="integration time in ms (default %default)")
+    _device_option(parser)
+    device, argv = pop_device_arg(argv)
+    options, args = parser.parse_args(argv)
+    if len(args) != 6:
+        parser.error("expected file fs coffset %s doppler code_phase" % label)
+    dev = resolve_device(device)
+    filename, fs, coffset = args[0], float(args[1]), float(args[2])
+    prn, doppler, phase = int(args[3]), float(args[4]), float(args[5])
+    ms = options.time
+
+    x = read_samples(filename, int((ms + 2) * fs / 1000), dev)
+    if x is None:
+        print("insufficient samples", file=sys.stderr)
+        return 1
+    r = serial_search(sig, mix_long(x, -coffset / fs), prn, doppler,
+                      parent_code_phase=phase, fs=fs, ms=ms,
+                      chan=prn if fdma else 0)
+    # the reference's row: code_phase metric (acquire-gps-l2cl.py:76)
+    print("%f %f" % (sig.acq_serial_stride * r.k
+                     + sig.acq_serial_scale * phase, r.metric))
     return 0
 
 

@@ -3,16 +3,20 @@
     python -m gnss_dsp_tpu_torch.tools.acquire_all [--device cuda] [--out DIR]
                                                    [--coherent]
 
-For each signal that is neither FDMA nor a serial search and has a code
-table (29 of the 35; gps-p is registered for its code windows only, as in
-the reference): an 85 ms capture at its internal rate from
+For each signal with a code table (34 of the 35; gps-p is registered for
+its code windows only, as in the reference, and its CLI must raise
+NotImplementedError): an 85 ms capture at its internal rate from
 main_path.synth_at_acq_fs (four satellites at 45 dB-Hz, or all of a
-shorter default PRN list), the acquire CLI at its default PRNs and
-doppler grid with --time 80, and a check that every planted PRN lies
-within one doppler bin and one chip of the truth and above every absent
-PRN.  The FDMA and serial signals must raise NotImplementedError.  Prints
-one line per signal (route, window, wall, margin) and exits non-zero if
-any signal fails.
+shorter default PRN list; for GLONASS L1/L2 main_path.synth_fdma, four
+channels within +-450 Hz), the acquire CLI at its default PRNs or
+channels and doppler grid with --time 80, and a check that every planted
+PRN or channel lies within one doppler bin and one chip of the truth and
+above every absent one.  The assisted serial searches (gps-l2cl at 4.096
+MHz, glonass-l1-p/l2-p at 16.384 MHz on a random channel other than 0)
+run their CLI at its default --time on main_path.synth_serial's capture
+of one satellite at a random hypothesis k, and must print that k's code
+phase.  Prints one line per signal (route, window, wall, margin) and
+exits non-zero if any signal fails.
 
 With --coherent, the same signals through the extended-coherent search
 (acquire_signal_coherent, the acquire CLI's --coherent path) instead: a
@@ -26,6 +30,9 @@ the last block reach past the span), the doppler grid about 1 / (2 x
 the span) over +-500 Hz, every default PRN: the planted one within one bin
 and one chip, above every absent PRN, and on the linear windows with the
 truth's alignment.  The line gives the route (spec, blk or xla), W and A.
+The FDMA signals take the same branch a channel (--coherent 2, no
+overlay: K5 on the card); the serial searches, which have no coherent
+form, run as without --coherent.
 """
 
 from __future__ import annotations
@@ -38,18 +45,31 @@ import time
 import numpy as np
 
 
+def _synth(path, sig, seconds, device, count=4, dop_max=None,
+           overlay=False, phase_max=None):
+    """main_path.synth_fdma on `device` for the FDMA signals (no overlay,
+    dopplers within +-450 Hz), else main_path.synth_at_acq_fs."""
+    from gnss_dsp_tpu_torch.tools.main_path import synth_at_acq_fs, synth_fdma
+
+    if sig.fdma_hz:
+        return synth_fdma(path, sig.name, seconds, count=count,
+                          dop_max=min(dop_max or 450.0, 450.0), device=device)
+    return synth_at_acq_fs(path, sig.name, seconds, count=count,
+                           dop_max=dop_max, overlay=overlay,
+                           phase_max=phase_max)
+
+
 def run_signal(name: str, device: str, work: str) -> dict:
     """Synthesize, acquire and check one signal; returns what was seen."""
     from gnss_dsp_tpu_torch.acquire.plan import acq_plan
     from gnss_dsp_tpu_torch.cli import acquire as acq_cli
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.tools.main_path import (
-        parse_hits, run_cli, synth_at_acq_fs)
+    from gnss_dsp_tpu_torch.tools.main_path import parse_hits, run_cli
 
     sig = get_signal(name)
     route, window, _, n_valid = acq_plan(sig)
     path = os.path.join(work, f"acquire_all_{name}.iq")
-    truth = synth_at_acq_fs(path, name, 0.085)
+    truth = _synth(path, sig, 0.085, device)
     try:
         t0 = time.perf_counter()
         hits = parse_hits(run_cli(acq_cli.main, name, [
@@ -60,6 +80,44 @@ def run_signal(name: str, device: str, work: str) -> dict:
     r = _check_hits(sig, hits, truth, sig.doppler_default[2])
     return dict(r, name=name, route=route, window=window, n_valid=n_valid,
                 prns=len(hits), wall_s=wall)
+
+
+# the serial searches' capture rate: GPS L2CL at 4.096 MHz, GLONASS P's
+# 5.11 Mchip/s at 16.384 MHz
+SERIAL_FS = {"gps-l2cl": 4.096e6, "glonass-l1-p": 16.384e6,
+             "glonass-l2-p": 16.384e6}
+
+
+def run_serial(name: str, device: str, work: str, seed: int = 9) -> dict:
+    """One satellite at a random hypothesis k through the serial CLI at
+    its default --time: the printed code phase must be k's."""
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli, synth_serial
+
+    sig = get_signal(name)
+    fs = SERIAL_FS[name]
+    ms = 40 if sig.acq_serial == 75 else 80
+    rng = np.random.default_rng(seed)
+    prn = int(rng.choice([p for p in sig.prns() if p != 0]))
+    k = int(rng.integers(sig.acq_serial))
+    pp = round(float(rng.uniform(0.0, sig.acq_serial_stride
+                                 / sig.acq_serial_scale)), 2)
+    dop = round(float(rng.uniform(-3000.0, 3000.0)), 1)
+    path = os.path.join(work, f"acquire_all_{name}.iq")
+    synth_serial(path, name, fs, (ms + 3) / 1000.0, prn, k, pp, dop,
+                 device=device)
+    try:
+        t0 = time.perf_counter()
+        out = run_cli(acq_cli.main, name, [
+            path, "%d" % fs, "0", str(prn), str(dop), str(pp),
+            "--device", device]).split()
+        wall = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+    want = "%f" % (sig.acq_serial_stride * k + sig.acq_serial_scale * pp)
+    return dict(name=name, prn=prn, k=k, fs=fs, ms=ms, wall_s=wall,
+                bad=[] if out[0] == want else [(out, want)])
 
 
 MAX_SPAN_MS = 100      # the longest coherent span of the sweep
@@ -84,7 +142,7 @@ def run_signal_coherent(name: str, device: str, work: str) -> dict:
     from gnss_dsp_tpu_torch.cli import acquire as acq_cli
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.tools.main_path import (
-        parse_hits, returns_of, run_cli, synth_at_acq_fs)
+        parse_hits, returns_of, run_cli)
 
     sig = get_signal(name)
     m = coherent_m(sig)
@@ -100,8 +158,8 @@ def run_signal_coherent(name: str, device: str, work: str) -> dict:
     # off can correlate better than the truth (the linear windows of the
     # fused route do not straddle).  Plant the code phase in the code's
     # first 5% there, so that each block lies 95% in one period.
-    truth = synth_at_acq_fs(
-        path, name, (ms + 6) / 1000.0, count=1, dop_max=450.0,
+    truth = _synth(
+        path, sig, (ms + 6) / 1000.0, device, count=1, dop_max=450.0,
         overlay=sig.secondary is not None,
         phase_max=(0.05 * sig.code_length if route[0] == "xla" and N > 1
                    else None))
@@ -116,8 +174,9 @@ def run_signal_coherent(name: str, device: str, work: str) -> dict:
     finally:
         os.remove(path)
     r = _check_hits(sig, hits, truth, step)
-    prn, roll = truth["prns"][0], int(truth["rolls"][0])
-    got = {x.prn: x for x in res[0]}[prn]
+    prn = truth["prns"][0]
+    got = {x.prn: x for x in sum(res, [])}[prn]
+    roll = int(truth["rolls"][0]) if "rolls" in truth else 0
     if got.linear and got.align != (roll + 1) % N:
         r["bad"].append((prn, "align", got.align, (roll + 1) % N))
     return dict(r, name=name, route=route[0], window=route[1], A=N, m=m,
@@ -168,20 +227,25 @@ def main(argv=None) -> int:
     failed = []
     for name, sig in sorted(all_signals().items()):
         if sig.code_table is None:
-            print(f"{name:14s} no code table (code windows only), skipped",
-                  flush=True)
-            continue
-        if sig.fdma_hz or sig.acq_serial:
             try:
-                acq_cli.main(name, (["--coherent", "-1"] if args.coherent
-                                    else []) + ["x.iq", "1e6", "0",
-                                                "--device", args.device])
+                acq_cli.main(name, ["x.iq", "1e6", "0", "--device",
+                                    args.device])
             except NotImplementedError:
-                print(f"{name:14s} FDMA/serial: NotImplementedError, as "
-                      f"expected", flush=True)
+                print(f"{name:14s} no code table (code windows only): "
+                      f"NotImplementedError, as expected", flush=True)
                 continue
             failed.append(name)
-            print(f"{name:14s} FDMA/serial did not raise", flush=True)
+            print(f"{name:14s} no code table, and did not raise", flush=True)
+            continue
+        if sig.acq_serial:
+            r = run_serial(name, args.device, args.out)
+            print(f"{name:14s} serial {sig.acq_serial:4d} hypotheses at "
+                  f"{r['fs']:g} Hz over {r['ms']} ms, prn/chan {r['prn']}, "
+                  f"k {r['k']}, CLI {r['wall_s']:.2f} s"
+                  f"{'  FAILED ' + str(r['bad']) if r['bad'] else ''}",
+                  flush=True)
+            if r["bad"]:
+                failed.append(name)
             continue
         if args.coherent:
             r = run_signal_coherent(name, args.device, args.out)

@@ -10,7 +10,9 @@ synth_b1i writes the BeiDou B1I capture of the extended-coherent path
 (six satellites with their NH20 overlay at 32 dB-Hz, 16.368 MHz), and
 synth_at_acq_fs the captures of the wide-window acquisition path (four
 satellites, or Xona X5's one, at 45 dB-Hz and the signal's own internal
-rate and subcarrier).
+rate and subcarrier).  synth_fdma writes a GLONASS L1/L2 capture (FDMA
+channels, each band offset in its carrier only) and synth_serial one
+satellite of an assisted serial search planted at hypothesis k.
 
 synth_coherent_track writes a capture for coherent tracking (satellites
 at 32 dB-Hz, all from one overlay phase: the same six B1I satellites at
@@ -28,7 +30,11 @@ K6 at A = 1), the same two with --mesh 1 (the
 sharded paths on a 1 x 1 mesh), then the acquire CLI on the
 wide-window captures of WIDE_STAGES (default PRNs and doppler grid,
 --time 80), the coherent acquire CLI on the captures of COHERENT_WIDE
-(K5 at 32768-163840, as chip_smoke.py's e2e_coherent_wide), the coherent
+(K5 at 32768-163840, as chip_smoke.py's e2e_coherent_wide), the FDMA
+acquire CLI on an 85 ms GLONASS L1 capture (synth_fdma: 4 of the 15
+channels, default grid, --time 80: K1 with one code row), the GLONASS L1 P
+serial acquire CLI (synth_serial: channel 3 at hypothesis 417 of 1000,
+16.384 MHz, --time 80), the coherent
 track CLI (--coherent 20, K2) on a 1.2 s B1I capture from its coherent
 acquisition and on a 1.2 s GPS L5Q one (4 satellites at 30.69 MHz, its
 acquisition K5 at 65536), then the track CLI on a 2.2 s galileo-e1b
@@ -72,6 +78,10 @@ COHERENT_WIDE = (("gps-l5q", 20, 40, 25.0, 32.0),
                  ("galileo-e6c", 100, 100, 5.0, 32.0),
                  ("gps-l1cd", 2, 20, 25.0, 45.0),
                  ("gps-l2cm", 2, 60, 12.5, 45.0))
+
+# the GLONASS L1 P serial stage: (capture rate, FDMA channel, planted
+# hypothesis k, C/A code phase, doppler)
+SERIAL_P = (16.384e6, 3, 417, 33.0, -700.0)
 
 E2E_PRNS = (3, 8, 12, 17, 21, 24, 28, 31)
 E2E_DOPS = (-5437.0, -3811.0, -2206.0, -577.0, 1049.0, 2633.0, 4188.0, 5794.0)
@@ -168,8 +178,7 @@ def synth_coherent_track(path, name, prns, fs, seconds, cn0=32.0,
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
-    from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t, write_noisy
 
     sig = get_signal(name)
     n = int(fs * seconds)
@@ -183,13 +192,7 @@ def synth_coherent_track(path, name, prns, fs, seconds, cn0=32.0,
                         float(dop), float(cp), sig.subcarrier,
                         sig.carrier_ratio, device=device,
                         data_bits=np.roll(sig.secondary(prn), -roll))
-    g = torch.Generator(device=device).manual_seed(seed)
-    sigma = float(np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0))))
-    x += sigma * torch.complex(torch.randn(n, generator=g, device=device),
-                               torch.randn(n, generator=g, device=device))
-    scale = 127.0 / (4.0 * float(x.real.std()))
-    with open(path, "wb") as f:
-        f.write(to_int8_iq(x.cpu().numpy(), scale=scale))
+    write_noisy(path, x, fs, cn0, seed)
     N = len(sig.secondary(prns[0]))
     return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs, cn0=cn0,
                 overlay_phase=(roll + 1) % N, code_length=sig.code_length)
@@ -281,6 +284,59 @@ def synth_at_acq_fs(path, name, seconds, cn0=45.0, seed=5, count=4,
         f.write(to_int8_iq(x, scale=scale))
     return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs,
                 code_length=sig.code_length, rolls=rolls)
+
+
+def synth_fdma(path, name, seconds, count=4, cn0=45.0, seed=5,
+               dop_max=450.0, device="cuda"):
+    """`count` channels of the FDMA signal `name` (GLONASS L1/L2, among
+    its default channels) at random dopplers within +-dop_max and random
+    code phases, each with its band offset in the carrier only (the code
+    rate rides the true doppler), plus one noise array at `cn0` dB-Hz per
+    channel, sampled at the signal's acq_fs on `device` and written to
+    `path` as int8 I/Q.  Returns the truth (prns: the channels)."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t, write_noisy
+
+    sig = get_signal(name)
+    fs = sig.acq_fs
+    n = int(fs * seconds)
+    rng = np.random.default_rng(seed)
+    chans = sorted(rng.permutation(sig.prns())[:count].tolist())
+    dops = rng.uniform(-dop_max, dop_max, len(chans)).round(1)
+    phases = rng.uniform(0.0, sig.code_length, len(chans)).round(2)
+    x = torch.zeros(n, dtype=torch.complex64, device=device)
+    for c, dop, cp in zip(chans, dops, phases):
+        x += synth_iq_t(sig.code_table((c,))[0], sig.chip_rate, fs, n,
+                        float(dop) + sig.fdma_hz * c, float(cp), "none",
+                        sig.track_carrier_ratio(c), code_doppler_hz=float(dop),
+                        device=device)
+    write_noisy(path, x, fs, cn0, seed)
+    return dict(prns=tuple(chans), dops=dops, phases=phases, fs=fs,
+                code_length=sig.code_length)
+
+
+def synth_serial(path, name, fs, seconds, prn, k, parent_code_phase,
+                 doppler, cn0=45.0, seed=5, device="cuda"):
+    """One satellite of the serial-search signal `name` (GPS L2CL with its
+    RZ half-chips, GLONASS P on FDMA channel `prn`) at `fs`, its code at
+    chip (k * stride + scale * parent_code_phase) mod L at sample 0, the
+    hypothesis k of the assisted search, plus noise at `cn0` dB-Hz,
+    written to `path` as int8 I/Q on `device`.  Returns the code phase."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t, write_noisy
+
+    sig = get_signal(name)
+    chan = prn if sig.fdma_hz else 0
+    phase = (k * sig.acq_serial_stride
+             + sig.acq_serial_scale * parent_code_phase) % sig.code_length
+    x = synth_iq_t(sig.code_table((prn,))[0], sig.chip_rate, fs,
+                   int(fs * seconds), doppler + sig.fdma_hz * chan, phase,
+                   sig.subcarrier, sig.track_carrier_ratio(chan),
+                   code_doppler_hz=doppler, device=device)
+    write_noisy(path, x, fs, cn0, seed)
+    return phase
 
 
 @contextlib.contextmanager
@@ -491,6 +547,38 @@ def main(argv=None) -> int:
             for prn, dop in zip(wt["prns"], wt["dops"]):
                 if abs(hits[prn]["doppler"] - dop) > step:
                     raise RuntimeError(f"{name} prn {prn} missed: {hits[prn]}")
+        # GLONASS L1 FDMA (K1, one code row against 15 x 70 increments)
+        # and the GLONASS L1 P serial search (1000 hypotheses, no kernel)
+        fpath = os.path.join(args.out, "main_path_glonass_l1.iq")
+        ft = synth_fdma(fpath, "glonass-l1", 0.085, seed=61)
+        try:
+            text, fdma = _profiled(
+                "acquire_fdma_glonass_l1", acq_cli.main,
+                ("glonass-l1", ["--time", "80", fpath, "%d" % ft["fs"], "0",
+                                "--device", "cuda"]), args.out)
+        finally:
+            os.remove(fpath)
+        hits = parse_hits(text)
+        for chan, dop in zip(ft["prns"], ft["dops"]):
+            if abs(hits[chan]["doppler"] - dop) > 200.0:
+                raise RuntimeError(f"glonass-l1 chan {chan} missed: "
+                                   f"{hits[chan]}")
+        spath = os.path.join(args.out, "main_path_glonass_l1_p.iq")
+        synth_serial(spath, "glonass-l1-p", SERIAL_P[0], 0.083,
+                     *SERIAL_P[1:])
+        try:
+            text, serial = _profiled(
+                "acquire_serial_glonass_l1_p", acq_cli.main,
+                ("glonass-l1-p", ["--time", "80", spath, "%d" % SERIAL_P[0],
+                                  "0", str(SERIAL_P[1]), str(SERIAL_P[4]),
+                                  str(SERIAL_P[3]), "--device", "cuda"]),
+                args.out)
+        finally:
+            os.remove(spath)
+        psig = get_signal("glonass-l1-p")
+        if text.split()[0] != "%f" % (psig.acq_serial_stride * SERIAL_P[2]
+                                      + psig.acq_serial_scale * SERIAL_P[3]):
+            raise RuntimeError(f"glonass-l1-p missed: {text}")
         cpath = os.path.join(args.out, "main_path_b1i_track.iq")
         ct = synth_coherent_track(cpath, "beidou-b1i", B1I_PRNS, B1I_FS,
                                   B1I_TRACK_SECONDS)
@@ -553,7 +641,10 @@ def main(argv=None) -> int:
                           track_galileo_e1b=fam,
                           track_step_galileo_e1b=step,
                           track_coherent_b1i=coh_trk,
-                          track_coherent_l5q=l5q_trk, seconds=seconds,
+                          track_coherent_l5q=l5q_trk,
+                          acquire_fdma_glonass_l1=fdma,
+                          acquire_serial_glonass_l1_p=serial,
+                          seconds=seconds,
                           blocks=blocks, channels=len(truth["prns"]),
                           card=card), indent=1))
     return 0

@@ -17,7 +17,12 @@ Rank 0 writes the gathered results to OUT.npz.
 IN.npz, as the JAX package's tests write it: the search (task absent or
 "acquire"): sig, acq_fs, x (internal-rate complex samples), prns,
 dop_search, ms, dop_chunk; tracking (task "track"): sig, fs, x, prns,
-phases, dops, tab, ratios, cdf, coffset, n_blocks.
+phases, dops, tab, ratios, cdf, coffset, n_blocks.  Two more tasks of
+the port: "fdma", the FDMA search (the search's keys, prns the
+channels: acquire_signal_fdma_sharded), and "serial", the assisted
+serial search over every shard (sig, fs, x native-rate samples, prn,
+doppler, parent_code_phase, ms, chan, k_chunk: serial_search_sharded;
+OUT.npz holds k, metric and code_offset).
 """
 
 from __future__ import annotations
@@ -29,14 +34,16 @@ import numpy as np
 import torch
 
 
-def _acquire(data, dev, mesh):
+def _acquire(data, dev, mesh, fdma=False):
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.parallel.acquire import acquire_signal_sharded
+    from gnss_dsp_tpu_torch.parallel.acquire import (
+        acquire_signal_fdma_sharded, acquire_signal_sharded)
 
     sig = dataclasses.replace(get_signal(str(data["sig"])),
                               acq_fs=float(data["acq_fs"]))
     x = torch.from_numpy(np.asarray(data["x"], np.complex64)).to(dev)
-    res = acquire_signal_sharded(
+    run = acquire_signal_fdma_sharded if fdma else acquire_signal_sharded
+    res = run(
         sig, x, [int(p) for p in data["prns"]], mesh,
         doppler_search=tuple(float(v) for v in data["dop_search"]),
         ms=int(data["ms"]), dop_chunk=int(data["dop_chunk"]),
@@ -44,6 +51,19 @@ def _acquire(data, dev, mesh):
     return dict(prn=[r.prn for r in res], doppler=[r.doppler for r in res],
                 metric=[r.metric for r in res],
                 code_offset=[r.code_offset for r in res])
+
+
+def _serial(data, dev, mesh):
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.parallel.acquire import serial_search_sharded
+
+    x = torch.from_numpy(np.asarray(data["x"], np.complex64)).to(dev)
+    r = serial_search_sharded(
+        get_signal(str(data["sig"])), x, int(data["prn"]),
+        float(data["doppler"]), float(data["parent_code_phase"]),
+        float(data["fs"]), mesh, ms=int(data["ms"]), chan=int(data["chan"]),
+        k_chunk=int(data["k_chunk"]), multihost=True)
+    return dict(k=r.k, metric=r.metric, code_offset=r.code_offset)
 
 
 def _track(data, dev, mesh):
@@ -94,10 +114,14 @@ def main(argv=None) -> int:
     init_multihost(f"127.0.0.1:{args.port}", args.nproc, args.pid, "gloo",
                    local_devices=[dev] * shards)
     data = np.load(args.in_npz)
-    if "task" in data and str(data["task"]) == "track":
+    task = str(data["task"]) if "task" in data else "acquire"
+    if task == "track":
         out = _track(data, dev, make_mesh(time_shards=1))
+    elif task == "serial":
+        out = _serial(data, dev, make_mesh(time_shards=args.time_shards))
     else:
-        out = _acquire(data, dev, make_mesh(time_shards=args.time_shards))
+        out = _acquire(data, dev, make_mesh(time_shards=args.time_shards),
+                       fdma=task == "fdma")
     if args.pid == 0:
         np.savez(args.out_npz, **out)
     torch.distributed.barrier()

@@ -166,7 +166,6 @@ def synth_track(path, name, seconds, count=4, cn0=CN0_DBHZ, seed=5,
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
 
     sig = get_signal(name)
     fs = sig.acq_fs
@@ -185,16 +184,28 @@ def synth_track(path, name, seconds, count=4, cn0=CN0_DBHZ, seed=5,
                         float(dop) + sig.fdma_hz * prn, float(cp),
                         sig.subcarrier, sig.track_carrier_ratio(prn),
                         code_doppler_hz=float(dop), device=device)
-    g = torch.Generator(device=device).manual_seed(seed)
+    write_noisy(path, x, fs, cn0, seed)
+    return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs,
+                code_length=L)
+
+
+def write_noisy(path, x, fs, cn0, seed):
+    """x (complex64 on its device, unit-amplitude satellites) plus one
+    noise array at `cn0` dB-Hz per satellite (a generator seeded with
+    `seed` on x's device), written to `path` as int8 I/Q with 4 standard
+    deviations at full scale."""
+    import torch
+
+    from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
     sigma = float(np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0))))
-    x += sigma * torch.complex(
-        torch.randn(n, generator=g, device=device),
-        torch.randn(n, generator=g, device=device))
+    x = x + sigma * torch.complex(
+        torch.randn(x.shape[0], generator=g, device=x.device),
+        torch.randn(x.shape[0], generator=g, device=x.device))
     scale = 127.0 / (4.0 * float(x.real.std()))
     with open(path, "wb") as f:
         f.write(to_int8_iq(x.cpu().numpy(), scale=scale))
-    return dict(prns=tuple(prns), dops=dops, phases=phases, fs=fs,
-                code_length=L)
 
 
 def run_signal(name, device, work, seconds=0.8, count=4, seed=5,

@@ -20,9 +20,9 @@ the JAX package, on the CPU.
   * the CLI with --coherent 8 against the JAX CLI (its fused route in
     interpret mode) on a short GPS L1 capture: prn, doppler and
     code_offset fields identical, metric to rtol 3e-2 (bf16 IDFT);
-  * a fused window the CUDA kernels do not take is refused on CUDA, and
-    the CLI refuses FDMA --coherent (not ported) and --coherent with
-    --mesh (as the reference).
+  * a fused window the CUDA kernels do not take is refused on CUDA, the
+    CLI refuses --coherent with --mesh (as the reference), and FDMA
+    --coherent prints the JAX CLI's rows (one search a channel).
 """
 
 import contextlib
@@ -570,19 +570,59 @@ def test_short_capture_names_the_time_it_needs():
 
 # ------------------------------------------------------------------ CLI
 
+def _glonass_capture(path, fs=16.384e6, ms=13):
+    """GLONASS L1 channels -1 and 1 (no overlay) at 16.384 MHz, noiseless:
+    the band offset in the carrier, the code rate on the true doppler."""
+    from gnss_dsp_tpu.models import get_signal
+    from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+
+    sig = get_signal("glonass-l1")
+    n = int(fs * ms / 1000)
+    x = sum(synth_iq(sig.code_table((c,))[0], sig.chip_rate, fs, n,
+                     doppler_hz=d + sig.fdma_hz * c, code_phase=cp,
+                     cn0_dbhz=None, carrier_ratio=sig.track_carrier_ratio(c),
+                     code_doppler_hz=d)
+            for c, d, cp in ((-1, 140.0, 211.3), (1, -260.0, 400.7)))
+    path.write_bytes(to_int8_iq(x.astype(np.complex64), scale=20.0))
+    return str(path)
+
+
 @pytest.mark.parametrize("signal,opts,exc", [
     ("gps-l1", ["--mesh", "2", "--coherent", "8"], SystemExit),
-    ("glonass-l1", ["--coherent", "8"], NotImplementedError)],
+    ("glonass-l1", ["--coherent", "8"], None)],
     ids=["mesh", "fdma_coherent"])
 def test_cli_refuses_unported_modes(signal, opts, exc, tmp_path):
     """--mesh with --coherent is a usage error (optparse exits), as in
-    the reference; FDMA raises."""
+    the reference.  FDMA --coherent, refused until the FDMA search was
+    ported, now runs one search a channel (chan=) and prints the JAX
+    CLI's rows (its XLA engine on the CPU: the same circular 16384-sample
+    windows as the port's spec route, whose plain version runs here):
+    channel, doppler and code offset text for text, metric rtol 1e-4."""
+    from gnss_dsp_tpu.cli import acquire as jcli
     from gnss_dsp_tpu_torch.cli import acquire as tcli
 
-    iq = tmp_path / "x.iq"
-    iq.write_bytes(np.zeros(2 * 200_000, np.int8).tobytes())
-    with pytest.raises(exc):
-        tcli.main(signal, opts + [str(iq), "4096000", "0", "--device", "cpu"])
+    if exc is not None:
+        iq = tmp_path / "x.iq"
+        iq.write_bytes(np.zeros(2 * 200_000, np.int8).tobytes())
+        with pytest.raises(exc):
+            tcli.main(signal, opts + [str(iq), "4096000", "0", "--device",
+                                      "cpu"])
+        return
+    args = opts + ["--channel", "-1:1", "--time", "8", "--doppler-search",
+                   "-500,500,125", _glonass_capture(tmp_path / "g.iq"),
+                   "16384000", "0"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GNSS_DSP_NO_COMPILE_CACHE", "1")
+        want = _run(jcli.main, signal, args).splitlines()
+    got = _run(tcli.main, signal, args + ["--device", "cpu"]).splitlines()
+    assert len(got) == len(want) == 3
+    for a, b in zip(want, got):
+        fa, fb = a.split(), b.split()
+        assert fb[:5] + fb[6:] == fa[:5] + fa[6:], (a, b)
+        assert abs(float(fb[5]) - float(fa[5])) <= 1e-4 * float(fa[5])
+    rows = {int(r.split()[1]): r.split() for r in got}
+    assert rows[-1][3] == "125.0" and rows[1][3] == "-250.0"
+    assert abs(float(rows[-1][7]) - 211.3) <= 1.0
 
 
 def _run(main, *args):

@@ -971,3 +971,118 @@ def test_sharded_step_scan_on_the_card(dev):
     assert torch.equal(got[1].nan_to_num(7.0), want[1].nan_to_num(7.0))
     for a, b in zip(got[0], want[0]):
         assert torch.equal(a, b)
+
+
+def _glonass_l1(dev, fs, ms, live):
+    """GLONASS L1 at fs (the band offset in the carrier, the code rate on
+    the true doppler), channels live = {chan: (doppler, chips)}, on dev."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+
+    sig = get_signal("glonass-l1")
+    n = int(fs * ms / 1000)
+    return sum(synth_iq_t(sig.code_table((c,))[0], sig.chip_rate, fs, n,
+                          d + sig.fdma_hz * c, cp, "none",
+                          sig.track_carrier_ratio(c), code_doppler_hz=d,
+                          device=dev)
+               for c, (d, cp) in live.items())
+
+
+@pytest.mark.parametrize("dop_chunk", [None, 3])
+def test_k1_one_code_row_grouped_by_channel(dev, dop_chunk):
+    """The FDMA search at GLONASS L1's 16384 window: K1 with P = 1 over the
+    5 channels' 8-doppler bands in chunks that do not follow the bands,
+    each band reduced to its first maximum; the same cells as the search
+    on the CPU (K1's plain version), metric rtol 1e-4."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire2
+
+    sig = get_signal("glonass-l1")
+    live = {-2: (750.0, 300.25), 1: (-250.0, 41.5)}
+    x = _glonass_l1(dev, sig.acq_fs, 7, live)
+    chans, grid, ms = [-2, -1, 0, 1, 2], (-1000.0, 1000.0, 250.0), 4
+    n = int(sig.acq_fs * 1e-3)
+    dops, fixed = engine.fdma_grid(sig, grid, chans)
+    cf = engine.device_code_ffts(sig, [0], n, n, dev)
+    n0 = acquire2.LAUNCHES
+    got = engine.grid_search(x, cf, torch.from_numpy(fixed), n=n, window=n,
+                             blocks=ms, peak_mean=False, dop_chunk=dop_chunk,
+                             group=8)
+    assert acquire2.LAUNCHES == n0 + (1 if dop_chunk is None else 14)
+    want = engine.grid_search(x.cpu(), cf.cpu(), torch.from_numpy(fixed),
+                              n=n, window=n, blocks=ms, peak_mean=False,
+                              dop_chunk=dop_chunk, group=8)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=0)
+    res = engine.acquire_signal_fdma(sig, x, chans, grid, ms=ms)
+    for r in res:
+        if r.prn in live:
+            assert r.doppler == live[r.prn][0]
+            assert abs(r.code_offset - live[r.prn][1]) <= 1.0
+
+
+def test_fdma_sharded_on_the_card(dev):
+    """acquire_signal_fdma_sharded on a 2 x 2 mesh of the card (K1's
+    surface, one code row a shard): the single-card search's cells,
+    metric rtol 1e-5."""
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire2
+    from gnss_dsp_tpu_torch.parallel.acquire import (
+        acquire_signal_fdma_sharded)
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+
+    sig = get_signal("glonass-l1")
+    x = _glonass_l1(dev, sig.acq_fs, 7, {0: (500.0, 99.0)})
+    chans, grid = [-1, 0, 1], (-1000.0, 1000.0, 250.0)
+    one = engine.acquire_signal_fdma(sig, x, chans, grid, ms=4)
+    n0 = acquire2.LAUNCHES_SURFACE
+    got = acquire_signal_fdma_sharded(sig, x, chans,
+                                      make_mesh(devices=[dev] * 4), grid,
+                                      ms=4)
+    assert acquire2.LAUNCHES_SURFACE > n0
+    for a, b in zip(one, got):
+        assert (a.prn, a.doppler, a.code_offset) == \
+            (b.prn, b.doppler, b.code_offset)
+        assert abs(a.metric - b.metric) <= 1e-5 * a.metric
+    assert (got[1].doppler, round(got[1].code_offset)) == (500.0, 99)
+
+
+@pytest.mark.parametrize("name,prn,fs,ms,k_true,pp,dop,chan", [
+    ("gps-l2cl", 5, 2.048e6, 40, 31, 1234.0, 250.0, 0),
+    ("glonass-l1-p", 2, 4.096e6, 12, 417, 33.0, -700.0, 2)])
+def test_serial_search_on_the_card(dev, name, prn, fs, ms, k_true, pp, dop,
+                                   chan):
+    """serial_search on the card against its CPU run on the same samples:
+    k and code_offset exact, q within rtol 1e-6 (float64 sums on both,
+    rounded to float32 once), and the sharded twin on a 2 x 2 mesh of the
+    card bit-equal to the single-card search."""
+    from gnss_dsp_tpu_torch.acquire import serial
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.parallel.acquire import serial_search_sharded
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+
+    sig = get_signal(name)
+    phase = (k_true * sig.acq_serial_stride + sig.acq_serial_scale * pp) \
+        % sig.code_length
+    x = synth_iq_t(sig.code_table((prn,))[0], sig.chip_rate, fs,
+                   int(fs * (ms + 4) / 1000), dop + sig.fdma_hz * chan,
+                   phase, "none", sig.track_carrier_ratio(chan),
+                   code_doppler_hz=dop, device=dev)
+    kw = dict(parent_code_phase=pp, fs=fs, ms=ms, chan=chan)
+    got = serial.serial_search(sig, x, prn, dop, **kw)
+    want = serial.serial_search(sig, x.cpu(), prn, dop, **kw)
+    assert got.k == want.k == k_true
+    assert got.code_offset == want.code_offset
+    assert abs(got.metric - want.metric) <= 1e-6 * want.metric
+    g = serial.hypothesis_geometry(sig, fs, ms, pp)
+    q = [serial.chunked_q(serial.wipe_blocks(sig, xx, dop, fs, chan, g),
+                          serial.device_code(sig, prn, xx.device), g.s_int,
+                          g.s_frac, g, 64).cpu() for xx in (x, x.cpu())]
+    torch.testing.assert_close(q[0], q[1], rtol=1e-6, atol=0)
+    sh = serial_search_sharded(sig, x, prn, dop, mesh=make_mesh(
+        devices=[dev] * 4), **kw)
+    assert (sh.k, sh.metric) == (got.k, got.metric)

@@ -12,7 +12,11 @@ the single-process port:
     sum over time shards crosses the ranks by all_reduce): every value
     equal to the single-process search on a 1 x 2 grid;
   * tracking with 4 CPU shards a rank (8 channels over an 8 x 1 mesh):
-    rows and state equal to the single-process track_scan bit for bit.
+    rows and state equal to the single-process track_scan bit for bit;
+  * the FDMA search (15 GLONASS L1 channels over a 4 x 2 mesh, each sat
+    row's bands inside one rank) and the GPS L2CL serial search (75
+    hypotheses over the 8 shards of both ranks): every value equal to the
+    single-process sharded search on the same grid.
 """
 
 import dataclasses
@@ -149,6 +153,59 @@ def test_two_process_tracking(tmp_path):
     for k in st._fields:
         np.testing.assert_array_equal(got[k], getattr(st, k).numpy(),
                                       err_msg=k)
+
+
+def test_two_process_fdma_search(tmp_path):
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.parallel.acquire import (
+        acquire_signal_fdma_sharded)
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq
+
+    sig = dataclasses.replace(get_signal("glonass-l1"), acq_fs=2.048e6)
+    chans, grid, ms = list(range(-7, 8)), (500.0, 2500.0, 250.0), 6
+    x = synth_iq(sig.code_table((-3,))[0], sig.chip_rate, sig.acq_fs,
+                 int(sig.acq_fs * (ms + 2) / 1000),
+                 doppler_hz=1500.0 + sig.fdma_hz * -3, code_phase=100.0,
+                 cn0_dbhz=45.0, rng=np.random.default_rng(5),
+                 carrier_ratio=sig.track_carrier_ratio(-3),
+                 code_doppler_hz=1500.0).astype(np.complex64)
+    npz = os.path.join(tmp_path, "in.npz")
+    np.savez(npz, task="fdma", sig="glonass-l1", acq_fs=sig.acq_fs, x=x,
+             prns=chans, dop_search=grid, ms=ms, dop_chunk=5)
+    got = _workers(str(tmp_path), npz)
+    same = _as_cols(acquire_signal_fdma_sharded(
+        sig, torch.from_numpy(x), chans,
+        make_mesh(8, 2, devices=["cpu"] * 8), doppler_search=grid, ms=ms,
+        dop_chunk=5))
+    for k, v in same.items():
+        np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+    assert int(got["prn"][np.argmax(got["metric"])]) == -3
+
+
+def test_two_process_serial_search(tmp_path):
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.parallel.acquire import serial_search_sharded
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq
+
+    sig = get_signal("gps-l2cl")
+    fs, ms, pp = 2.048e6, 40, 1234.0
+    phase = float((31 * 10230 + pp) % sig.code_length)
+    x = synth_iq(sig.code_table((5,))[0], sig.chip_rate, fs,
+                 int(fs * (ms + 2) / 1000), doppler_hz=250.0,
+                 code_phase=phase, cn0_dbhz=None,
+                 carrier_ratio=sig.carrier_ratio).astype(np.complex64)
+    npz = os.path.join(tmp_path, "in.npz")
+    np.savez(npz, task="serial", sig="gps-l2cl", fs=fs, x=x, prn=5,
+             doppler=250.0, parent_code_phase=pp, ms=ms, chan=0, k_chunk=5)
+    got = _workers(str(tmp_path), npz)
+    same = serial_search_sharded(sig, torch.from_numpy(x), 5, 250.0, pp, fs,
+                                 make_mesh(8, 2, devices=["cpu"] * 8),
+                                 ms=ms, k_chunk=5)
+    assert int(got["k"]) == same.k == 31
+    assert float(got["metric"]) == same.metric
+    assert float(got["code_offset"]) == same.code_offset == phase
 
 
 def test_rank_group_made_once():

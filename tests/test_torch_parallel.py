@@ -182,8 +182,9 @@ def test_acquire_sharded_matches_jax_sharded(case, layout):
 
 def test_acquire_sharded_pads_prns_and_takes_2d_valid():
     """Three PRNs on four sat shards: padded with copies of the first,
-    the same results as one shard; and grid_search_sharded's per-PRN
-    validity rows (the FDMA twin's form) mask each PRN's own dopplers."""
+    the same results as one shard; and grid_search_sharded's per-row
+    increments (the FDMA twin's form, in place of the reference's 2-D
+    validity mask) search each row's own dopplers, in groups."""
     from gnss_dsp_tpu_torch.acquire import engine
     from gnss_dsp_tpu_torch.models import get_signal
     from gnss_dsp_tpu_torch.parallel.acquire import (
@@ -206,14 +207,18 @@ def test_acquire_sharded_pads_prns_and_takes_2d_valid():
     cf = torch.from_numpy(engine.build_code_ffts(sig, (3, 3), n, n)
                           .astype(np.complex64))
     dops, fixed = engine.doppler_grid(sig, grid)
-    valid = np.ones((2, len(dops)), bool)
-    valid[1, dops == 1000.0] = False       # PRN 3's true doppler, row 1
+    # six dopplers a row: row 0 leaves out -2000 and -1500 Hz, row 1
+    # -2000 Hz and PRN 3's true doppler 1000 Hz
+    keep = [dops > -1200.0, (dops > -2000.0) & (dops != 1000.0)]
     metric, code, dop = grid_search_sharded(
-        x, cf, fixed.astype(np.int64), valid, n=n, window=n, blocks=ms,
-        peak_mean=True, dop_chunk=3, mesh=make_mesh(2, 1, devices=["cpu"] * 2),
-        route="v2")
-    assert dops[dop[0]] == 1000.0 and dops[dop[1]] != 1000.0
-    assert metric[0] > metric[1]
+        x, cf, np.stack([fixed[k] for k in keep]).astype(np.int64), n=n,
+        window=n, blocks=ms, peak_mean=True, dop_chunk=3,
+        mesh=make_mesh(2, 1, devices=["cpu"] * 2), route="v2", group=3)
+    assert metric.shape == code.shape == dop.shape == (2, 2)
+    row_dops = [dops[k].reshape(2, 3) for k in keep]
+    assert row_dops[0][1, dop[0, 1]] == 1000.0
+    assert 1000.0 not in row_dops[1]
+    assert metric[0, 1] > metric[1].max()
 
 
 def _track_setup(C=8, nb=40):

@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
-from gnss_dsp_tpu_torch.acquire.engine import acquire_signal
+from gnss_dsp_tpu_torch.acquire.engine import (
+    acquire_signal, acquire_signal_fdma)
 from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
 
@@ -42,6 +43,13 @@ def _acquire(name="gps-l5i"):
     return acquire_signal(sig, x, [1], (-500.0, 500.0, 500.0), ms=3)
 
 
+def _acquire_fdma():
+    sig = get_signal("glonass-l1")
+    x = torch.zeros(16384 * 4, dtype=torch.complex64)
+    return acquire_signal_fdma(sig, x, [-1, 0], (-500.0, 500.0, 500.0),
+                               ms=2)
+
+
 def _acquire_coherent(name="gps-l1"):
     sig = get_signal(name)
     x = torch.zeros(4096 * 12, dtype=torch.complex64)
@@ -57,10 +65,12 @@ def _track():
 
 
 ENTRIES = {"acquire_signal": _acquire,
+           "acquire_signal_fdma": _acquire_fdma,
            "acquire_signal_coherent": _acquire_coherent,
            "track_file": _track}
 CASES = [("acquire_signal", "GNSS_DSP_NO_PALLAS"),
          ("acquire_signal", "GNSS_DSP_NO_V2P"),
+         ("acquire_signal_fdma", "GNSS_DSP_NO_PALLAS"),
          ("acquire_signal_coherent", "GNSS_DSP_NO_PALLAS"),
          ("acquire_signal_coherent", "GNSS_DSP_NO_V2P"),
          ("track_file", "GNSS_DSP_NO_PALLAS"),
