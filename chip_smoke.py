@@ -481,10 +481,12 @@ def shape_key(name, F, code_f, *rest):
     return F.shape[0], key
 
 
-def step_key(name, si, sf, x, code, nmax, sub):
+def step_key(name, si, sf, x, code, nmax, sub, lens=None):
     """(0, (subcarrier, channels, nmax, code length)) of a per-step
-    correlator call: its launch grid and the kernel's template."""
-    return 0, (sub, si.shape[0], int(nmax), code.shape[1])
+    correlator call: its launch grid and the kernel's template; with
+    per-channel code lengths (a mixed-signal table) "lens" after it."""
+    key = (sub, si.shape[0], int(nmax), code.shape[1])
+    return 0, key + (() if lens is None else ("lens",))
 
 
 def fused_key(name, x, chunk_len, code_tab, state, params, *rest):
@@ -2905,6 +2907,564 @@ def phase_e2e_serial(dev, card, work):
             f"rtol 1e-5, {t_sh:.2f} s  [{card}]")
 
 
+# ------------------------------------------------- phase k2_slice (K2 shapes)
+
+# the slice's mixes through `track multi` (e2e_multi): (tag, [(signal, prn
+# or FDMA channel, doppler, code phase, carrier offset)], capture rate).
+# L2CL's code phase lies near its end, so its first boundary (the 1.5 s
+# code's) falls in the capture
+E2E_MULTI = (
+    ("tmboc", [("gps-l1cp", 3, 700.0, 5100.4, 0.0),
+               ("gps-l1cp", 11, -1900.0, 812.6, 0.0),
+               ("gps-l1", 7, 900.0, 317.25, 0.0),
+               ("gps-l1", 21, -2400.0, 77.5, 0.0)], 8.192e6),
+    ("long_code", [("gps-l2cl", 7, 900.0, 767200.5, 0.0),
+                   ("gps-l2cl", 12, -1300.0, 767100.25, 0.0),
+                   ("gps-l2cm", 29, 1120.0, 4208.8, 0.0)], 4.096e6),
+)
+# the coherent receiver (e2e_receiver): B1I on band 1 and B2I on band 2
+# at 16.368 MHz, each with its NH20 from overlay phase COH_ROLL
+COH_RX_FS = 16.368e6
+COH_RX = {1: [("beidou-b1i", 11, 1250.0, 1500.6, 0.0)],
+          2: [("beidou-b2i", 14, -600.0, 1682.9, 0.0)]}
+COH_ROLL = 7
+RX_SECONDS = 1.5          # the 2017 sky's capture (e2e_receiver)
+RX_CHUNK_MS = 500.0
+RX_HELD_BLOCKS = 600      # two chunks: the whole first, 98 blocks after the rebase
+
+
+def _k2_mix(dev, card, tag, mix, fs, coh, seed, seconds, nb=None):
+    """K2 against its plain version at a mixed-signal launch shape
+    (tools/track_all.mixed_inputs: the mix at fs, 45 dB-Hz, each channel
+    from its first code boundary, the setup of track multi): with nb, one
+    launch of nb blocks; else a launch whose chunk ends at 45% of the
+    capture (every channel stalls), then the refill.  Rows, int rows and
+    state bit-equal.  Then the time of one launch, the plain version's
+    and the bound.  Returns the numbers."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.track_all import mixed_inputs
+    from gnss_dsp_tpu_torch.track.engine import track_scan, track_scan_plain
+
+    d = mixed_inputs(mix, fs, seconds, seed, dev, coherent_blocks=coh)
+    p = d["params"]
+    C = len(mix)
+    check(p.fused_scan, (tag, "not K2", p))
+    extra = (d["ratios"], d["cdf"], d["sigp"], d["overlay"])
+    sigs = [get_signal(m[0]) for m in mix]
+    full = torch.full((C,), d["n"], dtype=torch.int32, device=dev)
+    blocks = nb or int(seconds * 1000) + 2
+    runs = (((full, nb),) if nb else
+            ((torch.full_like(full, int(0.45 * d["n"])), blocks),
+             (full, blocks)))
+    st = d["st"]
+    for launch, (cl, nbl) in enumerate(runs):
+        k = track_scan(d["x"], cl, d["tab"], st, p, nbl, *extra)
+        pl = track_scan_plain(d["x"], cl, d["tab"], st, p, nbl, *extra)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k[2], pl[2], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], pl[1], rtol=0, atol=0,
+                                   equal_nan=True)
+        for field, a, b in zip(k[0]._fields, k[0], pl[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                       msg=f"{tag} state {field}")
+        if not nb:
+            check(bool(k[0].stalled.all()), (tag, launch, "not stalled"))
+        st = k[0]._replace(stalled=torch.zeros_like(k[0].stalled))
+    rows = int((k[2][:, :, 0] > 0).sum())
+    CHECKED["track_fused"].append(fused_key("track_fused", d["x"], d["n"],
+                                            d["tab"], d["st"], p))
+
+    def run_kernel():
+        return track_scan(d["x"], full, d["tab"], d["st"], p, blocks, *extra)
+
+    ms = cuda_ms(run_kernel, 3)
+    plain_ms = cuda_ms(lambda: track_scan_plain(
+        d["x"], full, d["tab"], d["st"], p, blocks, *extra), 1)
+    ns = run_kernel()[2][..., 0].to(torch.float64).sum(0).cpu().numpy()
+    chips = sum(min(s.code_length, int(v * s.chip_rate / fs) + 3)
+                for s, v in zip(sigs, ns))
+    bms, by = k2_bound(d["x"].numel(), chips, blocks * C, float(ns.sum()),
+                       p.subcarrier)
+    plan = track_fused.cluster_plan(C, p.nmax)
+    log(f"[k2_slice] {tag}: {C} channels ({', '.join(m[0] for m in mix)}) "
+        f"at {fs:g} Hz, kind {p.subcarrier}, nmax {p.nmax}, code table "
+        f"{tuple(d['tab'].shape)}, M {p.coh_blocks}; plan: {plan['cluster']}"
+        f" CTAs a channel, {plan['tiles']} tiles, {plan['batches']} "
+        f"batch(es); {len(runs)} launch(es) bit-equal to the plain version "
+        f"({rows} rows in the last); one launch of {blocks} blocks "
+        f"{ms:.3f} ms ({ns.sum() / ms / 1e3:.4g} Msamples/s), plain "
+        f"{plain_ms:.3f} ms, bound {bms:.4f} ms by {by}  [{card}]")
+    return dict(name=tag, channels=C, fs=fs, coherent=p.coh_blocks,
+                blocks=blocks, nmax=p.nmax, kind=p.subcarrier,
+                code=list(d["tab"].shape), plan=plan, max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def phase_k2_slice(dev, card, results):
+    """K2 against its plain version at every launch shape of the new
+    phases: the 2017 sky's 11 channels at 69.984 MHz in one launch (nmax
+    104980: 8 CTAs a channel, the window in two batches; 40 blocks), its
+    three bands as `track multi` launches them, the coherent receiver
+    (B1I and B2I at 16.368 MHz, M = 20), e2e_multi's TMBOC mix (and its
+    two-channel shard under --mesh 2) and its long-code mix (L2CL's
+    767,250 chips in the table)."""
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.receiver_sky import BANDS, FS
+
+    sky = [s for seeds in BANDS.values() for s in seeds]
+    out = [_k2_mix(dev, card, "receiver", sky, FS, 1, 81, 0.045, nb=40)]
+    check(out[0]["nmax"] == 104980 and out[0]["plan"]["cluster"] == 8
+          and out[0]["plan"]["batches"] == 2,
+          ("receiver plan", out[0]["plan"]))
+    info = track_fused.launch_info(104980, 8, out[0]["kind"])
+    log(f"[k2_slice] receiver: the card's plan {info}")
+    for b, seeds in BANDS.items():
+        out.append(_k2_mix(dev, card, f"band {b}", seeds, FS, 1, 81 + b,
+                           0.03))
+    coh = [s for seeds in COH_RX.values() for s in seeds]
+    out.append(_k2_mix(dev, card, "coherent receiver", coh, COH_RX_FS, -1,
+                       85, 0.3))
+    for i, (tag, mix, fs) in enumerate(E2E_MULTI):
+        out.append(_k2_mix(dev, card, f"multi {tag}", mix, fs, 1, 86 + i,
+                           0.06))
+    tag, mix, fs = E2E_MULTI[0]
+    out.append(_k2_mix(dev, card, f"multi {tag}, a --mesh 2 shard",
+                       mix[:2], fs, 1, 88, 0.06))
+    results["track_fused"]["shapes"] += out
+
+
+# ------------------------------------------------------ phase e2e_receiver
+
+def _rows_text(rows):
+    """{"SIG:prn": [row dicts]} -> the same rows as `track multi` prints
+    them (after the prefix)."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.track.driver import format_row_9, format_row_14
+
+    out = {}
+    for key, r in rows.items():
+        fmt = (format_row_14 if get_signal(key.split(":")[0]).row_format
+               == 14 else format_row_9)
+        out[key] = [fmt(v) for v in r]
+    return out
+
+
+def _receiver_profile(paths, dev, work):
+    """The one-program receiver once more under torch.profiler: (wall,
+    device busy seconds, K2's device seconds and kernel count, the
+    largest device events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnss_dsp_tpu_torch.tools.main_path import device_busy_us
+    from gnss_dsp_tpu_torch.tools.receiver_sky import run_receiver
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_receiver(paths, dev, RX_CHUNK_MS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = device_busy_us((e.time_range.start, e.time_range.end)
+                          for e in ev) / 1e6
+    k2 = [e for e in ev if "track_fused_kernel" in e.name]
+    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(ka, key=lambda e: -e.self_device_time_total)[:6]
+    prof.export_chrome_trace(os.path.join(work, "trace_receiver.json"))
+    return wall, busy, sum(e.time_range.elapsed_us() for e in k2) / 1e6, \
+        len(k2), [(e.key[:50], e.self_device_time_total / 1e3, e.count)
+                  for e in top]
+
+
+def phase_e2e_receiver(dev, card, results, work):
+    """The 2017 three-band sky (tools/receiver_sky: the 11 golden seeds at
+    69.984 MHz, each band's stream synthesised on the card in 125 ms
+    chunks, 45 dB-Hz, RX_SECONDS): the three per-band `track multi` CLI
+    runs, then track_receiver over all 11 channels in one program at
+    chunk_ms 500 (so the per-band rebase runs between chunks), one K2
+    launch a chunk (the counts set to 0 just before, read just after).
+    Every channel of both: >= 0.9 rows a millisecond, the median carrier_f
+    of the last 200 rows within 8 Hz of the seed, prompt above early and
+    late; the receiver's rows against the per-band runs' at rtol 2e-3 /
+    atol 2e-2 (the reference's tolerance) and text-equal.  The receiver's
+    own scans of its first two chunks (band segments, per-band chunk
+    ends, offset pointers, the rebase between them) bit-equal to the
+    plain version on the same arguments.  Then the receiver under
+    torch.profiler (K2's device time, busy and idle shares), under
+    GNSS_DSP_UPLOAD_INT4 (every channel locked, half the bytes uploaded a
+    chunk), and the coherent receiver (B1I and B2I at 16.368 MHz, NH20
+    from one overlay phase, coherent_blocks -1): mean carrier_f of the
+    last 200 rows within 1 Hz.  Returns K2's launches."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.main_path import environ
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.receiver_sky import (
+        BANDS, FS, run_per_band, run_receiver, scans_held_to_plain,
+        synth_bands, validate)
+
+    tag = "e2e_receiver"
+    paths = {b: os.path.join(work, f"sky_band{b}.iq") for b in BANDS}
+    t0 = time.perf_counter()
+    synth_bands(paths, RX_SECONDS, device=dev)
+    torch.cuda.synchronize()
+    log(f"[{tag}] synthesised {RX_SECONDS} s x 3 bands at 69.984 MHz on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    with recording() as calls:
+        per, walls = run_per_band(paths, dev, RX_CHUNK_MS)
+    torch.cuda.synchronize()
+    check_covered(tag, calls)
+    lines, fails = validate(per, RX_SECONDS)
+    for ln in lines:
+        log(f"[{tag}] per band {ln}")
+    check(not fails, (tag, "per band", fails))
+
+    track_fused.LAUNCHES = track_step.LAUNCHES_V2 = 0
+    track_step.LAUNCHES_V1 = 0
+    stats = {}
+    with recording() as calls:
+        one, wall = run_receiver(paths, dev, RX_CHUNK_MS, stats=stats)
+    torch.cuda.synchronize()
+    k2 = track_fused.LAUNCHES
+    check_covered(tag, calls)
+    chunks = stats["chunks"]
+    check(k2 == chunks and k2 >= 3 and track_step.LAUNCHES_V2 == 0,
+          (tag, "one K2 launch a chunk", k2, chunks))
+    lines, fails = validate(one, RX_SECONDS)
+    for ln in lines:
+        log(f"[{tag}] one program {ln}")
+    check(not fails, (tag, "one program", fails))
+    same = total = 0
+    text = _rows_text(one)
+    for key, rows in per.items():
+        check(len(rows) == len(text[key]), (tag, key, len(rows),
+                                            len(text[key])))
+        a = np.array([r.split() for r in rows], float)
+        b = np.array([r.split() for r in text[key]], float)
+        np.testing.assert_allclose(b, a, rtol=2e-3, atol=2e-2)
+        same += sum(x == y for x, y in zip(rows, text[key]))
+        total += len(rows)
+    check(same == total, (tag, "rows text-equal to the per-band runs'",
+                          same, total))
+    log(f"[{tag}] the receiver's rows against the per-band runs': within "
+        f"rtol 2e-3 / atol 2e-2 and text-equal, {same} of {total}")
+    t0 = time.perf_counter()
+    with scans_held_to_plain() as held:
+        run_receiver(paths, dev, RX_CHUNK_MS, max_blocks=RX_HELD_BLOCKS)
+    check(len(held) == 2 and sum(held) == RX_HELD_BLOCKS, (tag, held))
+    log(f"[{tag}] the receiver's own scans of its first {len(held)} chunks "
+        f"({held} blocks, the second after the rebase) against the plain "
+        f"version on the same arguments: rows, int rows and state "
+        f"bit-equal ({time.perf_counter() - t0:.2f} s)  [{card}]")
+    t_band = sum(walls.values())
+    log(f"[{tag}] walls: per band {', '.join(f'{w:.2f}' for w in walls.values())}"
+        f" s ({RX_SECONDS / t_band:.3f} capture seconds a wall second); one "
+        f"program {wall:.2f} s ({RX_SECONDS / wall:.3f}); {chunks} chunks, "
+        f"{k2} K2 launches; upload {stats['upload_bytes'][0]} bytes "
+        f"a chunk; read-wait {stats['t_read']:.2f} s, upload "
+        f"{stats['t_upload']:.2f} s, scan and rows "
+        f"{stats['t_scan']:.2f} s  [{card}]")
+    int8_bytes = stats["upload_bytes"]
+
+    pwall, busy, k2_s, k2_n, top = _receiver_profile(paths, dev, work)
+    # K2's bound over the run: each launch's chunk (every band's segment,
+    # complex64) read once, each channel's chips, the rows, the samples
+    keys = [f"{s}:{p}" for v in BANDS.values() for s, p, *_ in v]
+    sigs = [get_signal(k.split(":")[0]) for k in keys]
+    samp = [one[k][-1]["samp"] for k in keys]
+    chips = chunks * sum(min(g.code_length,
+                             int(n * g.chip_rate / FS / chunks) + 3)
+                         for g, n in zip(sigs, samp))
+    bms, by = k2_bound(chunks * len(BANDS) * stats["seg_cap"], chips,
+                       sum(len(one[k]) for k in keys), float(sum(samp)),
+                       "subc")
+    log(f"[{tag}] profiled: wall {pwall:.2f} s, device busy {busy:.3f} s "
+        f"(busy share {busy / pwall:.4f}, idle {1 - busy / pwall:.4f}), K2 "
+        f"{k2_n} launches {k2_s * 1e3:.2f} ms of device time "
+        f"({sum(samp) / k2_s / 1e9:.4g} G samples/s over {sum(samp)} "
+        f"samples; bound {bms:.4f} ms by {by}); largest device events "
+        f"{json.dumps(top)}  [{card}]")
+    results["track_fused"]["receiver"] = dict(
+        seconds=RX_SECONDS, chunks=chunks, launches=k2, wall_s=wall,
+        per_band_wall_s=t_band, realtime=RX_SECONDS / wall,
+        profiled_wall_s=pwall, busy_s=busy, idle_share=1 - busy / pwall,
+        k2_device_ms=k2_s * 1e3, k2_bound_ms=bms, k2_bound_by=by,
+        upload_bytes=int8_bytes[0])
+
+    stats = {}
+    with environ({"GNSS_DSP_UPLOAD_INT4": "1"}):
+        four, wall4 = run_receiver(paths, dev, RX_CHUNK_MS, stats=stats)
+    lines, fails = validate(four, RX_SECONDS)
+    check(not fails, (tag, "int4", fails, lines))
+    got = stats["upload_bytes"]
+    check([2 * b for b in got] == int8_bytes, (tag, "int4 bytes", got,
+                                               int8_bytes))
+    log(f"[{tag}] GNSS_DSP_UPLOAD_INT4: every channel locked, "
+        f"{got[0]} bytes a chunk against {int8_bytes[0]}, wall {wall4:.2f} s"
+        f"  [{card}]")
+    for p in paths.values():
+        os.remove(p)
+
+    cpaths = {b: os.path.join(work, f"coh_band{b}.iq") for b in COH_RX}
+    roll = {b: [COH_ROLL] * len(s) for b, s in COH_RX.items()}
+    synth_bands(cpaths, 1.2, bands=COH_RX, fs=COH_RX_FS, device=dev,
+                overlays=roll)
+    track_fused.LAUNCHES = 0
+    stats = {}
+    with recording() as calls:
+        crows, cwall = run_receiver(cpaths, dev, RX_CHUNK_MS, bands=COH_RX,
+                                    fs=COH_RX_FS, coherent_blocks=-1,
+                                    overlay_phase=roll, stats=stats)
+    torch.cuda.synchronize()
+    check_covered(tag, calls)
+    check(track_fused.LAUNCHES == stats["chunks"],
+          (tag, "coherent: one K2 launch a chunk"))
+    k2 += track_fused.LAUNCHES
+    for seeds in COH_RX.values():
+        for s, p, dop, *_ in seeds:
+            cf = np.array([r["carrier_f"] for r in crows[f"{s}:{p}"][-200:]])
+            check(abs(cf.mean() - dop) < 1.0, (tag, s, cf.mean(), dop))
+            log(f"[{tag}] coherent {s}:{p}: {len(crows[f'{s}:{p}'])} rows, "
+                f"mean carrier_f of the last 200 {cf.mean():.3f} (truth "
+                f"{dop}), spread {cf.std():.3f} Hz")
+    log(f"[{tag}] coherent receiver {cwall:.2f} s  [{card}]")
+    for p in cpaths.values():
+        os.remove(p)
+    return k2
+
+
+# --------------------------------------------------------- phase e2e_multi
+
+def phase_e2e_multi(dev, card, work, seconds=1.2):
+    """`track multi` through the CLI on each mix of E2E_MULTI (one 1.2 s
+    capture at the mix's rate, 45 dB-Hz, tools/receiver_sky.synth_bands),
+    loop dwells 200/200, each channel's doppler 3 Hz off: every channel
+    within 5 Hz of the truth over the last 200 rows, K2 the route (the
+    long-code mix's rows read from device memory); then the TMBOC mix
+    under --mesh 2 (two sat shards of the card): rows byte-equal.
+    Returns K2's launches."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+    from gnss_dsp_tpu_torch.tools.receiver_sky import synth_bands
+
+    tag = "e2e_multi"
+    k2 = 0
+    for i, (name, mix, fs) in enumerate(E2E_MULTI):
+        path = os.path.join(work, f"multi_{name}.iq")
+        synth_bands({0: path}, seconds, bands={0: mix}, fs=fs, device=dev,
+                    seed=90 + i)
+        spec = ",".join(f"{s}:{p}:{d + 3.0}:{c}:{co}"
+                        for s, p, d, c, co in mix)
+        argv = ["--loop-dwells", "200,200", path, "%d" % fs, "0", spec,
+                "--device", str(dev)]
+        track_fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with recording() as calls:
+            out = run_cli(trk_cli.main, "multi", argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_covered(tag, calls)
+        check(track_fused.LAUNCHES > 0, (tag, name, "K2 not launched"))
+        k2 += track_fused.LAUNCHES
+        rows = {}
+        for line in out.splitlines():
+            key, rest = line.split(" ", 1)
+            rows.setdefault(key, []).append(rest)
+        for s, p, dop, *_ in mix:
+            r = rows[f"{s}:{p}"]
+            cf = np.array([float(v.split()[3]) for v in r[-200:]])
+            df = float(np.abs(cf - dop).max())
+            check(len(r) >= 800 and df <= 5.0, (tag, s, p, len(r), df))
+            log(f"[{tag}] {name} {s}:{p}: {len(r)} rows, last-200 "
+                f"|carrier_f - truth| <= {df:.3f} Hz")
+        log(f"[{tag}] {name}: track multi {wall:.2f} s, {track_fused.LAUNCHES}"
+            f" K2 launches  [{card}]")
+        if i == 0:
+            track_fused.LAUNCHES = 0
+            with recording() as calls:
+                sharded = run_cli(trk_cli.main, "multi",
+                                  ["--mesh", "2"] + argv)
+            torch.cuda.synchronize()
+            check_covered(tag, calls)
+            k2 += track_fused.LAUNCHES
+            check(sharded == out, (tag, "--mesh 2 rows differ"))
+            log(f"[{tag}] {name} --mesh 2 (two sat shards of the card, "
+                f"{track_fused.LAUNCHES} K2 launches): rows byte-equal")
+        os.remove(path)
+    return k2
+
+
+# ---------------------------------------------------- phase e2e_checkpoint
+
+def phase_e2e_checkpoint(dev, card, work, e2e, blocks=600, stop=250):
+    """The track CLI on the e2e GPS L1 capture (8 channels, 8.184 MHz)
+    with --chunk-ms 100: an uninterrupted run of `blocks` blocks; a run
+    with --checkpoint that stops at `stop` blocks (--blocks, after two
+    chunks were checkpointed), then --resume to `blocks`: the rows joined
+    at the resumed block byte-equal to the uninterrupted run's.  The
+    same with --mesh 2.  Returns K2's launches."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+
+    tag = "e2e_checkpoint"
+    path, fs, specs = e2e[:3]
+    ck = os.path.join(work, "track.ck.npz")
+    k2 = 0
+    for mesh in ([], ["--mesh", "2"]):
+        base = mesh + ["--chunk-ms", "100", "--device", str(dev), path,
+                       "%d" % fs, "0", specs]
+        track_fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with recording() as calls:
+            full = run_cli(trk_cli.main, "gps-l1",
+                           ["--blocks", str(blocks)] + base).splitlines()
+            first = run_cli(trk_cli.main, "gps-l1",
+                            ["--blocks", str(stop), "--checkpoint", ck]
+                            + base).splitlines()
+            check(os.path.exists(ck), (tag, "no checkpoint"))
+            rest = run_cli(trk_cli.main, "gps-l1",
+                           ["--blocks", str(blocks), "--resume", ck]
+                           + base).splitlines()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_covered(tag, calls)
+        k2 += track_fused.LAUNCHES
+        # each channel resumes at its own block (they stall at the chunk
+        # end at different blocks): join channel by channel
+        full, first, rest = (_rows_by_prn("\n".join(t))
+                             for t in (full, first, rest))
+        starts = {}
+        for prn, rows in full.items():
+            starts[prn] = int(rest[prn][0].split()[0])
+            check(0 < starts[prn] < stop, (tag, prn, "resumed at",
+                                           starts[prn]))
+            joined = [r for r in first[prn]
+                      if int(r.split()[0]) < starts[prn]] + rest[prn]
+            check(joined == rows, (tag, mesh, prn, "joined rows differ",
+                                   len(joined), len(rows)))
+        os.remove(ck)
+        log(f"[{tag}] {' '.join(mesh) or 'one card'}: stopped at {stop} "
+            f"blocks after the checkpoint, resumed at blocks "
+            f"{sorted(set(starts.values()))}: {sum(map(len, full.values()))}"
+            f" rows of {len(full)} channels joined byte-equal to the "
+            f"uninterrupted run's; three CLI runs {wall:.2f} s  [{card}]")
+    return k2
+
+
+# ------------------------------------------------------- phase e2e_recover
+
+def _b2b_capture(path, duo, fs, seconds, seed, dev, cn0=60.0):
+    """The duo's satellites [(signal, prn, doppler)] with random
+    navigation bits a code period, each at cn0 dB-Hz, synthesised on the
+    card and written as int8 I/Q; returns their codes."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t, write_noisy
+
+    rng = np.random.default_rng(seed)
+    n = int(fs * seconds)
+    x = torch.zeros(n, dtype=torch.complex64, device=dev)
+    codes = []
+    for name, prn, dop in duo:
+        sig = get_signal(name)
+        codes.append(sig.code_table((prn,))[0].astype(np.float64))
+        bits = rng.choice([-1.0, 1.0], int(seconds * 1000) + 2)
+        x += synth_iq_t(sig.code_table((prn,))[0], sig.chip_rate, fs, n, dop,
+                        0.0, "none", sig.carrier_ratio, device=dev,
+                        data_bits=bits)
+    write_noisy(path, x, fs, cn0, seed)
+    return codes
+
+
+def _recovered(path, code):
+    """(share of bins visited, chip agreement either sign) of a bins
+    file."""
+    bins = np.loadtxt(path)
+    check(bins.shape == (len(code), 2), ("bins shape", bins.shape))
+    rec = np.where(bins[:, 0] >= 0, 1.0, -1.0)
+    hit = bins[:, 0] != 0.0
+    agree = (rec[hit] == code[hit]).mean()
+    return hit.mean(), max(agree, 1.0 - agree)
+
+
+def phase_e2e_recover(dev, card, work, fs=22.0e6):
+    """Unknown-code recovery on the card (the plain scan on CUDA tensors,
+    the reference's route; no kernel launches): the B2bI track CLI at 22
+    MHz over 300 ms at 60 dB-Hz with data bits, warm-up 10: > 95% of the
+    bins visited, the chips > 98% the planted code (either sign); a
+    second run writes the same bins; `track multi --recover` on B2bI +
+    B2bQ (150 ms) recovers both codes in one pass (> 97%); --mesh 2 (two
+    sat shards of the card) writes the single run's bins."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+
+    tag = "e2e_recover"
+    duo = [("beidou-b2bi", 19, 800.0), ("beidou-b2bq", 20, -1500.0)]
+    path = os.path.join(work, "b2bi.iq")
+    codes = _b2b_capture(path, duo[:1], fs, 0.3, 101, dev)
+    n0 = (track_fused.LAUNCHES, track_step.LAUNCHES_V2,
+          track_step.LAUNCHES_V1)
+    bins, walls = [], []
+    for k, mesh in enumerate(([], [], ["--mesh", "2"])):
+        bins.append(os.path.join(work, f"b2bi-chips-{k}.dat"))
+        t0 = time.perf_counter()
+        rows = run_cli(trk_cli.main, "beidou-b2bi", mesh + [
+            "--loop-dwells", "10,10", "--recover-warmup", "10",
+            "--recover-file", bins[-1], "--device", str(dev), path,
+            "%d" % fs, "0", "19", "800", "0"]).splitlines()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(len(rows) >= 280, (tag, "rows", len(rows)))
+    hit, agree = _recovered(bins[0], codes[0])
+    check(hit > 0.95 and agree > 0.98, (tag, "b2bi", hit, agree))
+    texts = [open(b).read() for b in bins]
+    check(texts[1] == texts[0], (tag, "two runs' bins differ"))
+    check(texts[2] == texts[0], (tag, "--mesh 2 bins differ"))
+    log(f"[{tag}] beidou-b2bi: {hit:.4f} of the bins visited, chips "
+        f"{agree:.5f} the planted code; two runs bit-equal, --mesh 2 "
+        f"equal; CLI walls {', '.join(f'{w:.2f}' for w in walls)} s for "
+        f"300 blocks (the plain scan, many small launches a block)  "
+        f"[{card}]")
+    os.remove(path)
+    path = os.path.join(work, "b2b.iq")
+    codes = _b2b_capture(path, duo, fs, 0.15, 102, dev)
+    out = os.path.join(work, "chips.dat")
+    t0 = time.perf_counter()
+    run_cli(trk_cli.main, "multi", [
+        "--loop-dwells", "10,10", "--recover", "--recover-warmup", "10",
+        "--recover-file", out, "--device", str(dev), path, "%d" % fs, "0",
+        ",".join(f"{s}:{p}:{d}:0" for s, p, d in duo)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for (s, p, _), code in zip(duo, codes):
+        hit, agree = _recovered(os.path.join(work, f"chips-{s}-{p}.dat"),
+                                code)
+        check(hit > 0.95 and agree > 0.97, (tag, s, hit, agree))
+        log(f"[{tag}] multi --recover {s}:{p}: {hit:.4f} visited, chips "
+            f"{agree:.5f}")
+    log(f"[{tag}] multi --recover (two codes, one pass) {wall:.2f} s  "
+        f"[{card}]")
+    check((track_fused.LAUNCHES, track_step.LAUNCHES_V2,
+           track_step.LAUNCHES_V1) == n0, (tag, "a kernel launched"))
+    os.remove(path)
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -2952,8 +3512,11 @@ def main(argv=None) -> int:
     phase_k2_main_path(dev, results, args.out)
     phase_k3(dev, card, results)
     phase_k4(dev, card, results)
+    phase_k2_slice(dev, card, results)
     e2e = phase_e2e(dev, card, results, args.out)
     phase_gps_l1_routes(dev, card, results, e2e)
+    k2_slice = {"e2e_checkpoint": phase_e2e_checkpoint(dev, card, args.out,
+                                                       e2e)}
     k2_fams, k3 = phase_e2e_track(dev, card, args.out)
     results["track_step_v2"]["launches"] += k3
     phase_e2e_coherent(dev, card, results, args.out)
@@ -2976,6 +3539,12 @@ def main(argv=None) -> int:
     results["acquire_coh_spec"]["launches"] += k5_track + k5_wide
     phase_e2e_fdma(dev, card, results, args.out)
     phase_e2e_serial(dev, card, args.out)
+    k2_slice["e2e_receiver"] = phase_e2e_receiver(dev, card, results,
+                                                  args.out)
+    k2_slice["e2e_multi"] = phase_e2e_multi(dev, card, args.out)
+    phase_e2e_recover(dev, card, args.out)
+    log(f"[k2] launches: {json.dumps(k2_slice)}")
+    results["track_fused"]["launches"] += sum(k2_slice.values())
     for r in results.values():
         need = ["launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by"] + (["library_ms"] if r["name"] not in NO_LIBRARY

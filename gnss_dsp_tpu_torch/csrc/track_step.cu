@@ -105,6 +105,7 @@ struct Args {
   const int* si;
   const float* sf;
   int sf_stride;
+  const int* lens;   // each channel's code length (<= L), or null: L
   const float2* lut;
   float* out;
   int nmax;
@@ -123,8 +124,8 @@ step_kernel(const __grid_constant__ Args a) {
   asm("mov.u32 %0, %%clusterid.x;\n" : "=r"(c));
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int L = a.L;
-  const int8_t* row = a.code + (size_t)c * L;
+  const int L = a.lens ? a.lens[c] : a.L;
+  const int8_t* row = a.code + (size_t)c * a.L;
   K34_MARK_INIT
   // the lanes, every load issued before any wait
   const int* s = a.si + (size_t)c * NSI;
@@ -265,8 +266,9 @@ Kernel kernel_of(int v1, int sel, int L) {
 }
 
 int launch(int v1, int sel, const void* x, int nx, const void* code, int L,
-           const void* si, const void* sf, int sf_stride, const void* lut,
-           void* out, int C, int nmax, int cluster, void* stream) {
+           const void* si, const void* sf, int sf_stride, const void* lens,
+           const void* lut, void* out, int C, int nmax, int cluster,
+           void* stream) {
   const Kernel k = kernel_of(v1, sel, L);
   if (k == nullptr || nx < 1 || L < 1 || C < 1 || nmax < 1 ||
       sf_stride < (v1 ? 4 : 8) || !cluster_ok(cluster) ||
@@ -274,7 +276,8 @@ int launch(int v1, int sel, const void* x, int nx, const void* code, int L,
     return (int)cudaErrorInvalidValue;
   const Args args{(const float2*)x, nx, (const int8_t*)code, L,
                   (const int*)si, (const float*)sf, sf_stride,
-                  (const float2*)lut, (float*)out, nmax, cluster};
+                  (const int*)lens, (const float2*)lut,
+                  (float*)out, nmax, cluster};
   return (int)clusterk::launch_cluster(k, C * cluster, kThreads, cluster,
                                        (size_t)kSmemBytes,
                                        (cudaStream_t)stream, args);
@@ -283,7 +286,8 @@ int launch(int v1, int sel, const void* x, int nx, const void* code, int L,
 }  // namespace
 
 // x: complex64 [nx]; code: int8 [C, L]; si: int32 [C, 9]; sf: float32
-// [C, >= lanes] rows sf_stride floats apart; lut: float32 [1024, 2],
+// [C, >= lanes] rows sf_stride floats apart; lens: null, or int32 [C]
+// each channel's code length (<= L, its row zero-padded past it); lut: float32 [1024, 2],
 // 16-byte aligned; out: float32 [C, 6].  nmax bounds every channel's n;
 // cluster: the CTAs a channel (cluster_size's S).  Returns the
 // cudaError_t of the one launch (0 = launched); a cluster the card cannot
@@ -292,20 +296,22 @@ int launch(int v1, int sel, const void* x, int nx, const void* code, int L,
 // K3: kind 0 = "none", 1 = "subc", 2 = "tmboc"; sf has 8 lanes.
 extern "C" int track_step_v2(const void* x, int nx, const void* code, int L,
                              const void* si, const void* sf, int sf_stride,
-                             const void* lut, void* out, int C, int nmax,
-                             int cluster, int kind, void* stream) {
-  return launch(0, kind, x, nx, code, L, si, sf, sf_stride, lut, out, C,
-                nmax, cluster, stream);
+                             const void* lens, const void* lut, void* out,
+                             int C, int nmax, int cluster, int kind,
+                             void* stream) {
+  return launch(0, kind, x, nx, code, L, si, sf, sf_stride, lens, lut,
+                out, C, nmax, cluster, stream);
 }
 
 // K4: family 0 = "none", 1 = "boc11", 2 = "cboc", 3 = "tmboc",
 // 4 = "rz_even", 5 = "rz_odd"; sf has at least 4 lanes.
 extern "C" int track_step_v1(const void* x, int nx, const void* code, int L,
                              const void* si, const void* sf, int sf_stride,
-                             const void* lut, void* out, int C, int nmax,
-                             int cluster, int family, void* stream) {
-  return launch(1, family, x, nx, code, L, si, sf, sf_stride, lut, out, C,
-                nmax, cluster, stream);
+                             const void* lens, const void* lut, void* out,
+                             int C, int nmax, int cluster, int family,
+                             void* stream) {
+  return launch(1, family, x, nx, code, L, si, sf, sf_stride, lens, lut,
+                out, C, nmax, cluster, stream);
 }
 
 // The launch floor: floor_kernel on the grid, cluster and shared memory of

@@ -22,9 +22,10 @@ SWITCHES = {
                           "coherent.py:356, track/driver.py:112)",
     "GNSS_DSP_NO_V2P": "sends the pad2 signals to the v1 route at the "
                        "unpadded 2n window (acquire/engine.py:318)",
-    "GNSS_DSP_UPLOAD_INT4": "quantises each tracking chunk to 4 bits "
-                            "before the scan (track/driver.py:623)",
 }
+# GNSS_DSP_UPLOAD_INT4 (the 4-bit front end) is honoured: track_file and
+# track_receiver quantise each chunk to 4 bits before the upload, as the
+# reference's do (ops/cplx.from_int4_iq).
 
 
 def refuse_switches(what: str, names=tuple(SWITCHES)):

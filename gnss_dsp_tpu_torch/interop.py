@@ -6,8 +6,10 @@ The tests use these so that both packages start from identical inputs:
                                the route (fused_scan, pallas_v2) and the
                                coherent span (coh_blocks)
   state_from_numpy(d, device)  {field: array} (JAX TrackState leaves,
-                               cacc [C, 6] among them) -> port
-                               TrackState; coffset_p uint32 -> int64
+                               the recovery bins acc_re/acc_im and cacc
+                               [C, 6] among them; a JAX checkpoint's
+                               arrays too) -> port TrackState;
+                               coffset_p uint32 -> int64
   state_to_numpy(state)        port TrackState -> {field: array};
                                coffset_p int64 -> uint32
   code_ffts_from_split(re, im, plan=None)
@@ -42,13 +44,17 @@ def params_from_jax(p) -> TrackParams:
 
 
 def state_from_numpy(d, device="cpu") -> TrackState:
-    """{field: array} -> TrackState.  Accepts a JAX TrackState too
-    (its recovery leaves acc_re/acc_im are ignored)."""
+    """{field: array} -> TrackState.  Accepts a JAX TrackState or the
+    arrays of a checkpoint (np.load) too; where the recovery bins
+    acc_re/acc_im are missing they are [C, 1] zeros (recovery off)."""
     if hasattr(d, "_asdict"):
         d = d._asdict()
     out = {}
     for k in TrackState._fields:
-        a = np.asarray(d[k])
+        if k in ("acc_re", "acc_im") and k not in d:
+            a = np.zeros((np.asarray(d["ptr"]).shape[0], 1), np.float32)
+        else:
+            a = np.asarray(d[k])
         dt = _DTYPES.get(k, np.float32)
         if k in _UINT32_FIELDS:
             a = a.astype(np.uint32).astype(np.int64)

@@ -113,3 +113,57 @@ def mix(x: torch.Tensor, df_fixed, p0_fixed) -> torch.Tensor:
     c, s = cos_sin_of_idx(phase_indices(df_fixed, p0_fixed, x.shape[-1]))
     xr, xi = x.real, x.imag
     return torch.complex(xr * c - xi * s, xr * s + xi * c)
+
+
+# ---------------------------------------------------- code-phase binning
+
+def accum_rows(acc: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """acc [C, bins, K] float32 with val[c, i] (K values) added at
+    acc[c, idx[c, i]] for every kept (c, i), one float32 addition at a
+    time in the order of i: what the reference's `.at[idx].add` does on
+    its CPU backend, for each of the K values (re and im together: one
+    sort for both).  The order is made, not left to atomics: the kept
+    entries are sorted stably by (channel, bin), each takes its rank
+    among its bin's entries, and round r adds every bin's r-th entry at
+    once (a bin has one entry a round, so no two additions meet).  The
+    same bits on every device and every run."""
+    C, bins, K = acc.shape
+    flat = acc.reshape(C * bins, K).clone()
+    rows = torch.arange(C, device=acc.device)[:, None].expand_as(idx)
+    key = (rows * bins + idx)[keep]
+    v = val[keep].to(torch.float32)
+    if key.numel() == 0:
+        return acc.clone()
+    key, perm = torch.sort(key, stable=True)
+    v = v[perm]
+    pos = torch.arange(key.numel(), device=acc.device)
+    start = torch.ones_like(key, dtype=torch.bool)
+    start[1:] = key[1:] != key[:-1]
+    first = torch.cummax(torch.where(start, pos, 0), 0).values
+    rank = pos - first
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        k = key[sel]
+        flat[k] = flat[k] + v[sel]
+    return flat.reshape(C, bins, K)
+
+
+def accum_code_bins(x: torch.Tensor, cp0, incr, code_length: int):
+    """Code-phase-binned accumulation (counterpart of nco.accum_code_bins,
+    the reference's nco.accum, nco.py:58-64): a[floor(cp_i)] += x[i] with
+    cp_i = (cp0 + i*incr) mod code_length, the product-sum rounded once
+    to float32 (XLA contracts it), x complex64 [n].  Returns (re, im)
+    float32 [code_length], added in sample order (accum_rows)."""
+    n = x.shape[-1]
+    dev = x.device
+    i = torch.arange(n, dtype=torch.float64, device=dev)
+    cp = (i * float(np.float32(incr)) + float(np.float32(cp0))
+          ).to(torch.float32)
+    cp = torch.remainder(cp, float(code_length))
+    idx = torch.floor(cp).to(torch.int64)[None, :]
+    keep = torch.ones_like(idx, dtype=torch.bool)
+    z = torch.zeros((1, int(code_length), 2), dtype=torch.float32,
+                    device=dev)
+    acc = accum_rows(z, idx, torch.view_as_real(x)[None], keep)[0]
+    return acc[:, 0], acc[:, 1]

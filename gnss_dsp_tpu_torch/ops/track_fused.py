@@ -16,12 +16,15 @@ between the two by the chunk's device, and takes K2 where
 params.fused_scan holds (track/driver.make_params sets it as the
 reference's router does).
 
-The kernel covers the reference's scope but recovery and the mesh: the
+The kernel covers the reference's scope but recovery (the reference's
+XLA correlator only; the port's plain scan) and the mesh: the
 subcarrier kinds of K3 ("none", "subc", "tmboc", their coefficients in
 the sigp lanes), sub-blocks, any code length (codes of <= MAX_CODE chips
-are staged in shared memory, longer ones read from device memory) and
-the extended-coherent lanes (cacc, the overlay table staged in shared
-memory, at most MAX_OVERLAY chips a channel).
+are staged in shared memory, longer ones read from device memory; each
+channel wraps at its own length, the sigp L lane, so a mixed-signal
+table [C, Lmax] holds rows of several lengths) and the extended-coherent
+lanes (cacc, the overlay table staged in shared memory, at most
+MAX_OVERLAY chips a channel).
 
 This module holds the ctypes wrapper, the launch plan and the state
 packing only.  The wrapper takes CUDA tensors and nothing else.
@@ -146,8 +149,8 @@ def track_scan_fused(x, chunk_len, code_tab, state, params, n_blocks: int,
                      cluster: int | None = None):
     """(state', rows_f f32 [B, C, 11], rows_i i32 [B, C, 3]) with
     track/engine.track_scan semantics.  x complex64 [N], N >= params.nmax;
-    chunk_len i32 [C]; code_tab int8 [C, L]; ratios f32 [C];
-    coffset_df i32 [C]; sigp f32 [C, 12]; overlay f32 [C, nov]
+    chunk_len i32 [C]; code_tab int8 [C, L], L >= each channel's code
+    length; ratios f32 [C]; coffset_df i32 [C]; sigp f32 [C, 12]; overlay f32 [C, nov]
     (params.coh_blocks > 1; None: all ones); every tensor on one CUDA
     device.  cluster: CTAs a channel in place of cluster_plan's choice
     (tests and chip_smoke.py only)."""

@@ -16,10 +16,12 @@ Contract, the JAX kernels' lane layout in the port's types:
   x complex64 [N]  the chunk; every block lies inside it
   code int8 [C, L] each channel's code, L chips
   nmax             an upper bound on every channel's n
+  lens int32 [C]   optional: each channel's code length L_c <= L, its row
+                   zero-padded past it (a mixed-signal table); None: L
   -> f32 [C, 6]    E re, E im, P re, P im, L re, L im
 
 For lag k in (E, P, L) and sample i < n the chip index is
-(vint_k + floor(fma(i, cf, fr_k))) floor-mod L, the subcarrier factor that
+(vint_k + floor(fma(i, cf, fr_k))) floor-mod L_c, the subcarrier factor that
 of the lag's phase; the sums of the carrier-wiped samples times chip and
 factor are taken in float64 and rounded to float32 once.  The TPU layout
 machinery of the JAX kernels (extend_code rows, chip_window, one-hot MXU
@@ -126,22 +128,31 @@ def family_factor(family, cp, rel, vint):
 
 
 def epl_correlate_plain(si, sf, x, code, nmax: int, sub: str = "none",
-                        v1: bool = False):
+                        v1: bool = False, lens=None, wiped: bool = False):
     """The plain version of K3 (v1=False, sub a kind of KINDS) and of K4
     (v1=True, sub a family of FAMILIES): the same sums as a gather over
-    an [C, nmax] window, on any device."""
+    an [C, nmax] window, on any device.  wiped: also return (m_re, m_im
+    f32 [C, nmax] the carrier-wiped samples, the prompt's chip index
+    int64 [C, nmax], the mask i < n), what unknown-code recovery bins."""
     # each product is exact in float64: the rounded sum does not depend on
     # the order of summation
-    return torch.stack([t.sum(-1) for t in _epl_terms(
-        si, sf, x, code, nmax, sub, v1)], dim=1).to(torch.float32)
+    terms, extra = _epl_terms(si, sf, x, code, nmax, sub, v1, lens,
+                              with_wiped=True)
+    sums = torch.stack([t.sum(-1) for t in terms], dim=1).to(torch.float32)
+    return (sums, extra) if wiped else sums
 
 
-def _epl_terms(si, sf, x, code, nmax, sub, v1):
+def _epl_terms(si, sf, x, code, nmax, sub, v1, lens=None,
+               with_wiped=False):
     """The terms epl_correlate_plain sums, [E re, E im, P re, P im, L re,
     L im], each float64 [C, nmax]: sample i of the block (0 past its n)
-    times the lag's chip and factor, exact in float64."""
+    times the lag's chip and factor, exact in float64.  with_wiped: also
+    the wiped samples, prompt chip index and mask (epl_correlate_plain's
+    wiped tuple)."""
     dev = x.device
     C, L = code.shape
+    L = (torch.full((C, 1), L, dtype=torch.int64, device=dev) if lens is None
+         else lens.to(dev, torch.int64)[:, None])
     i = torch.arange(int(nmax), dtype=torch.int64, device=dev)
     si = si.to(torch.int64)
     n = si[:, SI_N]
@@ -158,8 +169,8 @@ def _epl_terms(si, sf, x, code, nmax, sub, v1):
     idx = ((ph1 >> nco.LUT_SHIFT) + (ph2 >> nco.LUT_SHIFT)) & (nco.NT - 1)
     wc, ws = nco.cos_sin_of_idx(idx)
     xr, xi = xb.real, xb.imag
-    m_re = (xr * wc - xi * ws).to(torch.float64)
-    m_im = (xr * ws + xi * wc).to(torch.float64)
+    w_re, w_im = xr * wc - xi * ws, xr * ws + xi * wc
+    m_re, m_im = w_re.to(torch.float64), w_im.to(torch.float64)
 
     i_f = i.to(torch.float64)[None, :]
     cf = sf[:, SF_CF].to(torch.float64)[:, None]
@@ -173,14 +184,18 @@ def _epl_terms(si, sf, x, code, nmax, sub, v1):
         # float64 product of two float32 values is exact
         cp = (i_f * cf + fr).to(torch.float32)
         rel = torch.floor(cp).to(torch.int64)
-        chips = torch.gather(code, 1, torch.remainder(vint + rel, L)
-                             ).to(torch.float32)
+        cidx = torch.remainder(vint + rel, L)
+        if lag == 1:
+            cidx_p = cidx
+        chips = torch.gather(code, 1, cidx).to(torch.float32)
         f = (family_factor(sub, cp, rel, vint) if v1
              else subcarrier_factor(sub, cp, rel, vint, *coef))
         if f is not None:
             chips = chips * f
         chips = torch.where(mask, chips, 0.0).to(torch.float64)
         out += [m_re * chips, m_im * chips]
+    if with_wiped:
+        return out, (w_re, w_im, cidx_p, mask)
     return out
 
 
@@ -246,7 +261,7 @@ def launch_floor(C: int, device) -> None:
                      "track_step_floor launch")
 
 
-def _launch(entry, sel, si, sf, x, code, nmax, lanes):
+def _launch(entry, sel, si, sf, x, code, nmax, lanes, lens=None):
     if x.device.type != "cuda":
         raise ValueError(f"track_step kernels need CUDA tensors, got "
                          f"{x.device}")
@@ -259,7 +274,11 @@ def _launch(entry, sel, si, sf, x, code, nmax, lanes):
             or sf.shape[1] < lanes:
         raise ValueError(f"si [C, 9] and sf [C, >= {lanes}] for C = {C}, "
                          f"got {tuple(si.shape)}, {tuple(sf.shape)}")
-    for t in (si, sf, code):
+    if lens is not None:
+        if lens.dtype != torch.int32 or lens.shape != (C,):
+            raise TypeError("lens must be int32 [C]")
+        lens = lens.contiguous()
+    for t in (si, sf, code) + (() if lens is None else (lens,)):
         if t.device != x.device:
             raise ValueError("all track_step tensors must share a device")
     plan = step_plan(C)
@@ -274,31 +293,35 @@ def _launch(entry, sel, si, sf, x, code, nmax, lanes):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
             x.data_ptr(), int(x.shape[0]), code.data_ptr(), int(L),
-            si.data_ptr(), sf.data_ptr(), int(sf.stride(0)), lut.data_ptr(),
+            si.data_ptr(), sf.data_ptr(), int(sf.stride(0)),
+            0 if lens is None else lens.data_ptr(), lut.data_ptr(),
             out.data_ptr(), C, int(nmax), plan["cluster"], sel, stream)
     _build.check(err, f"{entry} launch")
     return out
 
 
-def epl_correlate2(si, sf, x, code, nmax: int, sub: str = "none"):
+def epl_correlate2(si, sf, x, code, nmax: int, sub: str = "none",
+                   lens=None):
     """K3: sub is the runtime kind ("none", "subc", "tmboc"), the
-    coefficients sf lanes 4-7.  Returns f32 [C, 6]."""
+    coefficients sf lanes 4-7; lens as in the contract.  Returns f32
+    [C, 6]."""
     global LAUNCHES_V2
     if sub not in KINDS:
         raise ValueError(f"K3 subcarrier kind {sub!r} not in {KINDS}")
     out = _launch("track_step_v2", KINDS.index(sub), si, sf, x, code, nmax,
-                  8)
+                  8, lens)
     LAUNCHES_V2 += 1
     return out
 
 
-def epl_correlate(si, sf, x, code, nmax: int, sub: str = "none"):
+def epl_correlate(si, sf, x, code, nmax: int, sub: str = "none",
+                  lens=None):
     """K4: sub is the static family of FAMILIES; sf [C, >= 4], lanes past
-    the fourth not read.  Returns f32 [C, 6]."""
+    the fourth not read; lens as in the contract.  Returns f32 [C, 6]."""
     global LAUNCHES_V1
     if sub not in FAMILIES:
         raise ValueError(f"K4 subcarrier family {sub!r} not in {FAMILIES}")
     out = _launch("track_step_v1", FAMILIES.index(sub), si, sf, x, code,
-                  nmax, 4)
+                  nmax, 4, lens)
     LAUNCHES_V1 += 1
     return out

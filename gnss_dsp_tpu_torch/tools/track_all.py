@@ -2,7 +2,7 @@
 
     python -m gnss_dsp_tpu_torch.tools.track_all [--device cuda] [--out DIR]
 
-For each of the 32 trackable signals: a capture from synth_track (four
+For each of the 34 signals with a code table: a capture from synth_track (four
 satellites at 45 dB-Hz, or four FDMA channels, at the signal's internal
 rate, 0.8 s), the track CLI with each channel's true code phase and its
 doppler off by up to 10 Hz, and a check that every channel holds lock:
@@ -10,8 +10,9 @@ carrier_f within 5 Hz of the truth over the last 100 rows (10 Hz for the
 Xona signals, which start in PLL with hot gains).  Prints one
 line per signal (route, wall, worst carrier error, C/N0 of the last 300
 rows) and exits non-zero if any signal fails.  beidou-b2bi and
-beidou-b2bq (unknown-code recovery) and gps-p (no code table, as in the
-reference) must raise NotImplementedError.
+beidou-b2bq track with unknown-code recovery on (their default: the
+plain scan, the reference's route for it, the bins to --out); gps-p (no
+code table, as in the reference) must raise NotImplementedError.
 
 synth_track and run_signal are also chip_smoke.py's e2e_track phase;
 scan_inputs gives track_scan's arguments for a family, synthesised on the
@@ -56,15 +57,16 @@ def _subcarrier_t(sub, cp):
 
 def synth_iq_t(code, chip_rate, fs, n, doppler_hz, code_phase, subcarrier,
                carrier_ratio, code_doppler_hz=None, device="cpu",
-               data_bits=None):
+               data_bits=None, t0=0):
     """utils.synth.synth_iq (noiseless) in torch on `device`: complex64
-    [n].  Phases are float64 in the absolute sample index; the carrier
-    phase wraps to [0, 1) before it drops to float32.  data_bits: one +-1
-    per code period, period floor(code phase / L) taking
-    data_bits[that mod len]."""
+    [n], samples t0 to t0 + n of the signal.  Phases are float64 in the
+    absolute sample index (so chunks with increasing t0 join exactly);
+    the carrier phase wraps to [0, 1) before it drops to float32.
+    data_bits: one +-1 per code period, period floor(code phase / L)
+    taking data_bits[that mod len]."""
     import torch
 
-    t = torch.arange(n, dtype=torch.float64, device=device)
+    t = torch.arange(t0, t0 + n, dtype=torch.float64, device=device)
     cd = doppler_hz if code_doppler_hz is None else code_doppler_hz
     cp = code_phase + t * ((chip_rate + cd / carrier_ratio) / fs)
     tab = torch.as_tensor(np.asarray(code, np.float32), device=device)
@@ -96,10 +98,8 @@ def scan_inputs(name, C, fs, seconds, seed, device, coherent_blocks=1,
     import torch
 
     from gnss_dsp_tpu_torch.models import get_signal
-    from gnss_dsp_tpu_torch.ops import nco
     from gnss_dsp_tpu_torch.track import engine
-    from gnss_dsp_tpu_torch.track.driver import (
-        TrackChannel, make_params, overlay_table)
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel, channel_setup
 
     sig = get_signal(name)
     rng = np.random.default_rng(seed)
@@ -110,15 +110,17 @@ def scan_inputs(name, C, fs, seconds, seed, device, coherent_blocks=1,
     phases = np.mod(L - rng.uniform(0.002, 0.040, C) * sig.chip_rate,
                     L).round(2)
     rolls = rng.integers(0, 100, C)
-    M, overlay, periods = overlay_table(
-        sig, [TrackChannel(p, 0.0, 0.0, overlay_phase=int(r))
-              for p, r in zip(prns, rolls)], coherent_blocks)
-    params = make_params(sig, fs, 0.0, loop_dwells=dwells, coherent_blocks=M)
+    setup = channel_setup(
+        [sig] * C, [TrackChannel(p, 0.0, 0.0, overlay_phase=int(r))
+                    for p, r in zip(prns, rolls)],
+        fs, [0.0] * C, dwells, coherent_blocks, -1, seconds * 1000, False,
+        device)
+    params, overlay = setup.params, setup.overlay
     n = int(fs * seconds)
     x = torch.zeros(n, dtype=torch.complex64, device=device)
     for p, d, cp, r in zip(prns, dops, phases, rolls):
         # the first code boundary starts period 1, tracked block 0: block b
-        # carries overlay chip (roll + b), as overlay_table rolls the row
+        # carries overlay chip (roll + b), as channel_setup rolls the row
         bits = (np.roll(sig.secondary(p), 1 - int(r))
                 if overlay is not None else None)
         x += synth_iq_t(sig.code_table((p,))[0], sig.chip_rate, fs, n,
@@ -132,26 +134,17 @@ def scan_inputs(name, C, fs, seconds, seed, device, coherent_blocks=1,
                                torch.randn(n, generator=g, device=device))
     x = torch.cat([x, torch.zeros(params.nmax + 1024, dtype=x.dtype,
                                   device=device)])
-    sigp = engine.sigp_from_params(params, C, device)
     code_p, ptr = phases, np.zeros(C, np.int32)
     if overlay is not None:
-        sigp[:, engine.SIGP_NOV] = torch.tensor(periods, dtype=torch.float32,
-                                                device=device)
-        overlay = torch.from_numpy(overlay).to(device)
         ptr = np.array([int(fs * 0.001 * sig.code_period_ms * (L - cp) / L)
                         for cp in phases], np.int32)
         code_p = phases + ptr * (sig.chip_rate / fs)
     return dict(
-        params=params, x=x, n=n,
-        tab=torch.from_numpy(sig.code_table(tuple(prns)).astype(np.int8)
-                             ).to(device),
+        params=params, x=x, n=n, tab=setup.code_tab,
         st=engine.init_state(code_p, np.zeros(C), np.zeros(C), dops,
                              ptr=ptr, device=device),
-        ratios=torch.tensor([sig.track_carrier_ratio(p) for p in prns],
-                            dtype=torch.float32, device=device),
-        cdf=torch.tensor([nco.freq_to_fixed(-sig.fdma_hz * p / fs)
-                          for p in prns], dtype=torch.int32, device=device),
-        sigp=sigp, overlay=overlay,
+        ratios=setup.ratios, cdf=setup.coffset_df, sigp=setup.sigp,
+        overlay=overlay,
         truth=dict(prns=prns, dops=dops, phases=phases))
 
 
@@ -227,6 +220,8 @@ def run_signal(name, device, work, seconds=0.8, count=4, seed=5,
     spec = ",".join(f"{p}:{d + e}:{c}" for p, d, e, c in zip(
         truth["prns"], truth["dops"], err, truth["phases"]))
     opts = ["--loop-dwells", f"{dwells[0]},{dwells[1]}"] if dwells else []
+    if sig.recover_default:
+        opts += ["--recover-file", os.path.join(work, f"{name}-chips.dat")]
     try:
         t0 = time.perf_counter()
         out = run_cli(trk_cli.main, name, opts + [
@@ -259,6 +254,57 @@ def run_signal(name, device, work, seconds=0.8, count=4, seed=5,
                 max_df=dfs, cn0=cn0s, bad=bad, path=path)
 
 
+def mixed_inputs(mix, fs, seconds, seed, device, coherent_blocks=1,
+                 dwells=(8, 8), cn0=CN0_DBHZ):
+    """scan_inputs for a mix of signals, as track multi and the receiver
+    launch them: mix is [(signal, prn or FDMA channel, doppler, code
+    phase, carrier offset)], one channel each, all in one capture at fs
+    (each satellite at cn0 dB-Hz beside its carrier offset and FDMA
+    channel; with coherent_blocks != 1 each carries its overlay from
+    chip 0), every channel from its first code boundary, the setup of
+    track/driver.channel_setup.  Returns the same dict."""
+    import torch
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.track import engine
+    from gnss_dsp_tpu_torch.track.driver import (
+        TrackChannel, channel_setup, first_boundary)
+
+    sigs = [get_signal(m[0]) for m in mix]
+    chans = [TrackChannel(prn=p, doppler=d, code_offset=cp)
+             for _, p, d, cp, _co in mix]
+    setup = channel_setup(sigs, chans, fs, [m[4] for m in mix], dwells,
+                          coherent_blocks, -1, seconds * 1000, True, device)
+    n = int(fs * seconds)
+    x = torch.zeros(n, dtype=torch.complex64, device=device)
+    for s, (_, p, d, cp, co) in zip(sigs, mix):
+        chan = p if s.fdma_hz else 0
+        bits = (np.roll(s.secondary(p), 1)
+                if setup.overlay is not None and s.secondary is not None
+                else None)
+        x += synth_iq_t(s.code_table((p,))[0], s.chip_rate, fs, n,
+                        float(d) + s.fdma_hz * chan + co, float(cp),
+                        s.subcarrier, s.track_carrier_ratio(chan),
+                        code_doppler_hz=float(d), device=device,
+                        data_bits=bits)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sigma = float(np.sqrt(fs / (2.0 * 10 ** (cn0 / 10.0))))
+    x += sigma * torch.complex(torch.randn(n, generator=g, device=device),
+                               torch.randn(n, generator=g, device=device))
+    x = torch.cat([x, torch.zeros(setup.params.nmax + 1024, dtype=x.dtype,
+                                  device=device)])
+    ptr, code_p = first_boundary(sigs, chans, fs)
+    C = len(mix)
+    return dict(params=setup.params, x=x, n=n, tab=setup.code_tab,
+                st=engine.init_state(code_p, np.zeros(C), np.zeros(C),
+                                     [m[2] for m in mix], ptr=ptr,
+                                     device=device),
+                ratios=setup.ratios, cdf=setup.coffset_df, sigp=setup.sigp,
+                overlay=setup.overlay,
+                truth=dict(prns=[m[1] for m in mix],
+                           dops=[m[2] for m in mix]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -274,7 +320,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     failed, ran = [], 0
     for name, sig in sorted(all_signals().items()):
-        if sig.code_table is None or sig.recover_default:
+        if sig.code_table is None:
             try:
                 track_file(sig, io.BytesIO(), 1e6, 0.0,
                            [TrackChannel(prn=1, doppler=0.0, code_offset=0.0)],
@@ -287,7 +333,8 @@ def main(argv=None) -> int:
             print(f"{name:14s} did not raise", flush=True)
             continue
         p = make_params(sig, sig.acq_fs, 0.0)
-        route = ("K2" if p.fused_scan else "K3" if p.pallas_v2 else "K4")
+        route = ("plain (recovery)" if sig.recover_default else
+                 "K2" if p.fused_scan else "K3" if p.pallas_v2 else "K4")
         # the PLL-start signals (Xona) run hot loop gains from block 0
         # (track-xona-x1p.py:151), whose carrier_f jitters more
         limit = 10.0 if sig.track_mode_initial == "PLL" else 5.0
@@ -309,3 +356,4 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+

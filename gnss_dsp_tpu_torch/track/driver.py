@@ -2,20 +2,30 @@
 batching, row accumulation and reference-format output.
 
 Counterpart: gnss_dsp_tpu/track/driver.py (`TrackChannel`, `make_params`
-:117-191, the host int64 counters and `emit_rows` :505-536, the streaming
-chunk loop with refill and pointer rebase :580-701, `format_row_14`
-:704-711).  N channels share one device-resident chunk, each with its own
-pointer; the unbounded counters (samp, code_cyc, carrier_cyc) accumulate
-on the host in python ints from per-block deltas.
+:117-191, `track_file` :221-701 with the host int64 counters and
+`emit_rows` :505-536, the streaming chunk loop with refill and pointer
+rebase :580-701, `format_row_14` :704-711).  N channels share one
+device-resident chunk, each with its own pointer; the unbounded counters
+(samp, code_cyc, carrier_cyc) accumulate on the host in python ints from
+per-block deltas.
 
 make_params records the route on the card as the reference's router
 chooses it (:178-183): the whole-loop kernel K2 (fused_scan) for every
 signal with a code table, every subcarrier family, sub-block and long
 code, coherent or not, unless GNSS_DSP_NO_FUSED is set or recovery is on;
 else the per-step route on K3, or on K4 when GNSS_DSP_PALLAS_V1 is set
-(pallas_v2).
+(pallas_v2).  Recovery runs the plain scan (track/engine).
 
-Extended-coherent tracking (coherent_blocks = M, -1 for the signal's own
+Mixed signals (`sigs`, the CLI's `track multi`, :256-283, 343-480): each
+channel carries its own signal's constants in its sigp row, its own code
+row (the [C, Lmax] table zero-padded, each wrapping at its own length),
+carrier-aiding ratio, carrier offset (`coffsets`, plus its FDMA channel)
+and coherent span; the launch takes the subcarrier kind "tmboc" if any
+channel is TMBOC, else "subc" if any has a subcarrier, else "none"; the
+loop constants are the first signal's and the block envelope nmax the
+largest (channel_setup, shared with track/receiver).
+
+Extended-coherent tracking (coherent_blocks = M, -1 for each signal's own
 overlay length) builds the reference's overlay table (:393-413): each
 channel's secondary code rolled by its TrackChannel.overlay_phase, the
 overlay period in the sigp NOV lane, M in the COH lane.  Only
@@ -24,16 +34,24 @@ whole-period signals qualify (:299-306).
 With a mesh (parallel/mesh) the channels are padded to a multiple of its
 sat axis with clones of channel 0, whose rows are computed but never
 emitted (:311-331), and every chunk runs parallel/track.
-track_scan_sharded; coherent tracking under a mesh needs the fused
-kernel K2 (:318-324).
+track_scan_sharded; the recovery bins split over it like the state.
+The reference's refusals stand: coherent tracking under a mesh needs
+K2, so not with recovery (:318-324), and a mixed-signal run under a mesh
+needs K2 and no recovery (:280-283).
 
-Not ported here: checkpoint/resume, mixed-signal (`multi`)
-and preloaded chunks, the int4 front end (track_file refuses
-GNSS_DSP_UPLOAD_INT4, and the route switch GNSS_DSP_NO_PALLAS) and
-unknown-code recovery.  The kernels read the plain [C, L] int8 code
-table (long codes too: L2CL's 767,250 and GLONASS P's 5,110,000 chips
-stay in device memory), so the JAX package's extended code rows have no
-counterpart.
+Checkpoint/resume (:421-450, 664-690, track/checkpoint): after every
+chunk the state and host counters go to one npz (atomic rename); a
+resume seeks the stream to the checkpoint's sample and goes on bit for
+bit.  Unknown-code recovery (recover_after; None: 200 blocks where every
+signal recovers by default, the BeiDou B2b ones, else off) leaves each
+channel's complex bins on TrackChannel.recovered.  GNSS_DSP_UPLOAD_INT4
+uploads each chunk as packed 4-bit I/Q (ops/cplx.from_int4_iq, :623-630).
+
+Not ported here: the preloaded chunks of the batched workload runner
+(`preloaded`, cli/workload.py).  The kernels read the plain [C, L] int8
+code table (long codes too: L2CL's 767,250 and GLONASS P's 5,110,000
+chips stay in device memory), so the JAX package's extended code rows
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -49,9 +67,11 @@ import torch
 from gnss_dsp_tpu_torch.device import refuse_switches, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx, nco
 from gnss_dsp_tpu_torch.parallel.track import track_scan_sharded
+from gnss_dsp_tpu_torch.track import checkpoint
 from gnss_dsp_tpu_torch.track.engine import (
-    SIGP_NOV, TrackParams, init_state, sigp_from_params, track_scan,
+    SIGP_COH, SIGP_NOV, TrackParams, init_state, sigp_row, track_scan,
 )
+from gnss_dsp_tpu_torch.ops.track_step import subc_kind
 from gnss_dsp_tpu_torch.utils.twofloat import tf_from_f64
 
 
@@ -121,6 +141,7 @@ class TrackChannel:
     code_cyc: int = 0
     carrier_cyc: int = 0
     rows: list = field(default_factory=list)
+    recovered: np.ndarray | None = None   # complex recovery bins a chip
 
 
 def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
@@ -158,144 +179,270 @@ def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
     )
 
 
-def overlay_table(sig, channels, coherent_blocks: int):
-    """(M, overlay f32 [C, nov] or None, each row's period): the coherent
-    span and each channel's secondary code rolled so that block b reads
-    chip (overlay_phase + b) mod its period, rows zero-padded to the
-    longest.  M = -1 is the signal's own overlay length; M = 1 (or an
-    overlay-free signal at -1) is non-coherent."""
-    nov = len(sig.secondary(1)) if sig.secondary is not None else 1
-    M = max(nov, 1) if coherent_blocks == -1 else int(coherent_blocks)
+def _chan_M(s, coherent_blocks: int) -> int:
+    """A channel's coherent span: -1 is its signal's own overlay length
+    (1, non-coherent, for an overlay-free signal), else coherent_blocks."""
+    if coherent_blocks == -1:
+        return max(len(s.secondary(1)) if s.secondary is not None else 1, 1)
+    return int(coherent_blocks)
+
+
+def coherent_rows(sigs, channels, coherent_blocks: int):
+    """(M, overlay f32 [C, nov] or None, each row's period, each
+    channel's span): M the largest span (1: nothing coherent), each
+    channel's secondary code rolled so that block b reads chip
+    (overlay_phase + b) mod its period (all ones for a channel at span 1
+    or without an overlay), rows zero-padded to the longest
+    (driver.py:289-310, 393-415)."""
+    spans = [_chan_M(s, coherent_blocks) for s in sigs]
+    M = max(spans)
     if M <= 1:
-        return 1, None, None
-    if sig.sub_blocks != 1:
-        raise ValueError(f"coherent tracking needs a whole-period signal; "
-                         f"{sig.name} tracks in {sig.sub_blocks} sub-blocks")
-    rows = [np.roll(np.asarray(sig.secondary(ch.prn) if sig.secondary
-                               is not None else np.ones(1), np.float32),
-                    -int(ch.overlay_phase)) for ch in channels]
+        return 1, None, None, spans
+    for s, m in zip(sigs, spans):
+        if m > 1 and s.sub_blocks != 1:
+            raise ValueError(f"coherent tracking needs a whole-period "
+                             f"signal; {s.name} tracks in {s.sub_blocks} "
+                             f"sub-blocks")
+    rows = [np.roll(np.asarray(s.secondary(ch.prn)
+                               if m > 1 and s.secondary is not None
+                               else np.ones(1), np.float32),
+                    -int(ch.overlay_phase))
+            for s, ch, m in zip(sigs, channels, spans)]
     periods = [len(r) for r in rows]
     table = np.zeros((len(rows), max(periods)), np.float32)
     for k, r in enumerate(rows):
         table[k, :len(r)] = r
-    return M, table, periods
+    return M, table, periods, spans
+
+
+@dataclass
+class ChannelSetup:
+    """What a scan of these channels takes besides the chunk and the
+    state: the route and envelope (params), and per channel its sigp row,
+    code row, carrier-aiding ratio, carrier-offset increment and overlay
+    row, all on one device."""
+    params: TrackParams
+    sigp: torch.Tensor
+    code_tab: torch.Tensor
+    ratios: torch.Tensor
+    coffset_df: torch.Tensor
+    overlay: torch.Tensor | None
+    blocks_per_scan: int
+
+
+def channel_setup(sigs, channels, fs: float, coffsets, loop_dwells,
+                  coherent_blocks: int, recover_after: int, chunk_ms: float,
+                  mixed: bool, dev) -> ChannelSetup:
+    """The setup of track_file (driver.py:335-500) for channels of the
+    signals `sigs` (one per channel).  mixed: each channel's code row
+    from its own signal, zero-padded to the longest, and the launch's
+    subcarrier the mix's kind; else one signal's table."""
+    sig = sigs[0]
+    M, overlay, periods, spans = coherent_rows(sigs, channels,
+                                               coherent_blocks)
+    pll = all(c.pll_from_start for c in channels)
+    params = make_params(sig, fs, coffsets[0], loop_dwells,
+                         pll_from_start=pll, recover_after=recover_after,
+                         coherent_blocks=M)
+    if mixed:
+        alls = [make_params(s, fs, 0.0, loop_dwells, pll_from_start=pll,
+                            recover_after=recover_after) for s in sigs]
+        kinds = {subc_kind(str(s.subcarrier)) for s in sigs}
+        kind = "subc" if kinds - {"none"} else "none"
+        if "tmboc" in kinds:
+            kind = "tmboc"
+        params = params._replace(nmax=max(q.nmax for q in alls))
+        if params.pallas_v2:
+            # under GNSS_DSP_PALLAS_V1 the launch keeps the first
+            # signal's static family, as the reference's does
+            params = params._replace(subcarrier=kind)
+    rows = []
+    for s, m in zip(sigs, spans):
+        cf_hi, cf_lo = tf_from_f64(np.float64(s.chip_rate) / np.float64(fs))
+        rows.append(sigp_row(cf_hi, cf_lo, s.el_spacing, s.code_length,
+                             fs * 0.001 * s.code_period_ms, s.sub_blocks,
+                             str(s.subcarrier)))
+    sigp = torch.from_numpy(np.stack(rows)).to(dev)
+    if overlay is not None:
+        sigp[:, SIGP_COH] = torch.tensor(spans, dtype=torch.float32,
+                                         device=dev)
+        sigp[:, SIGP_NOV] = torch.tensor(periods, dtype=torch.float32,
+                                         device=dev)
+        overlay = torch.from_numpy(overlay).to(dev)
+    if mixed:
+        tabs = [np.asarray(s.code_table((c.prn,))[0], np.int8)
+                for s, c in zip(sigs, channels)]
+        code_np = np.zeros((len(channels), max(len(t) for t in tabs)),
+                           np.int8)
+        for k, t in enumerate(tabs):
+            code_np[k, :len(t)] = t
+    else:
+        code_np = sig.code_table(tuple(c.prn for c in channels)
+                                 ).astype(np.int8)
+    code_tab = torch.from_numpy(np.ascontiguousarray(code_np)).to(dev)
+    ratios = torch.tensor([s.track_carrier_ratio(c.prn)
+                           for s, c in zip(sigs, channels)],
+                          dtype=torch.float32, device=dev)
+    # each channel's carrier-offset wipe: its band's offset and, for an
+    # FDMA signal, its channel's (track-glonass-l1.py:161)
+    coffset_df = torch.tensor(
+        [nco.freq_to_fixed(-(co + (s.fdma_hz or 0.0) * c.prn) / fs)
+         for s, c, co in zip(sigs, channels, coffsets)],
+        dtype=torch.int32, device=dev)
+    sub_ms = min(s.code_period_ms / s.sub_blocks for s in sigs)
+    return ChannelSetup(params, sigp, code_tab, ratios, coffset_df, overlay,
+                        int(chunk_ms / sub_ms) + 2)
+
+
+def first_boundary(sigs, channels, fs: float, offsets=None):
+    """(ptr int32 [C], code_p float64 [C]): each channel's alignment to
+    its first code boundary (:434-442); offsets: each channel's
+    segment start in the chunk (the receiver's bands)."""
+    ptr0 = np.zeros(len(channels), np.int32)
+    code_p0 = np.zeros(len(channels), np.float64)
+    for k, (s, ch) in enumerate(zip(sigs, channels)):
+        L = s.code_length
+        n0 = int(fs * 0.001 * s.code_period_ms * (L - ch.code_offset) / L)
+        ptr0[k] = n0 + (0 if offsets is None else offsets[k])
+        code_p0[k] = ch.code_offset + n0 * (s.chip_rate / fs)
+    return ptr0, code_p0
+
+
+def emit_rows(channels, n_emit, emit, rows_f, rows_i, nb) -> bool:
+    """Accumulate the host counters and emit (or keep) each channel's
+    rows of a scan, block by block (:505-536); channels from n_emit on
+    are clones, computed but never emitted.  True if any channel ran."""
+    rows_f = rows_f.cpu().numpy()
+    rows_i = rows_i.cpu().numpy()
+    any_row = False
+    for b in range(nb):
+        for k, ch in enumerate(channels):
+            nn = int(rows_i[b, k, 0])
+            if nn == 0:
+                continue
+            any_row = True
+            if k >= n_emit:
+                continue
+            ch.samp += nn
+            ch.carrier_cyc += int(rows_i[b, k, 1])
+            ch.code_cyc += int(rows_i[b, k, 2])
+            f = rows_f[b, k]
+            row = {
+                "block": int(f[0]), "p_re": float(f[1]),
+                "p_im": float(f[2]),
+                "carrier_f": float(f[3]), "code_f_offset": float(f[4]),
+                "phase_deg": float(f[5]), "early": float(f[6]),
+                "prompt": float(f[7]), "late": float(f[8]),
+                "code_cyc": ch.code_cyc, "code_p": float(f[9]),
+                "carrier_cyc": ch.carrier_cyc,
+                "carrier_p": float(f[10]),
+                "samp": ch.samp,
+            }
+            if emit is not None:
+                emit(k, row)
+            else:
+                ch.rows.append(row)
+    return any_row
+
+
+def _clone(c0):
+    return TrackChannel(prn=c0.prn, doppler=c0.doppler,
+                        code_offset=c0.code_offset,
+                        carrier_phase=c0.carrier_phase,
+                        pll_from_start=c0.pll_from_start)
 
 
 def track_file(sig, fp, fs: float, coffset: float, channels,
                loop_dwells=(500, 500), chunk_ms: float = 2000.0,
                max_blocks: int | None = None, emit=None, device="cuda",
-               coherent_blocks: int = 1, mesh=None):
+               coherent_blocks: int = 1, mesh=None,
+               recover_after: int | None = None,
+               checkpoint_path: str | None = None,
+               resume_from: str | None = None, sigs=None, coffsets=None):
     """Track `channels` (list[TrackChannel]) through the int8 I/Q stream
     `fp` on `device` (the card unless the caller asks for the CPU).
-    coherent_blocks: the extended-coherent span M (1 = off, -1 = the
-    signal's overlay length; see overlay_table).  mesh: shard the
-    channels over its sat axis (parallel/track.track_scan_sharded; the
-    chunk and the state stay on `device`).
+    coherent_blocks: the extended-coherent span M (1 = off, -1 = each
+    signal's overlay length).  mesh: shard the channels over its sat axis
+    (parallel/track.track_scan_sharded; the chunk and the state stay on
+    `device`).  sigs: one signal per channel (a mixed-signal run), each
+    with its carrier offset in coffsets (default `coffset`).
+    recover_after: unknown-code recovery after that many blocks (None:
+    the signals' default), the bins left on each channel's .recovered.
+    checkpoint_path: write the state after every chunk; resume_from: go
+    on from such a file (`fp` seekable).
 
     emit(channel_index, row_dict) is called once per completed block, in
     block order per chunk.  Returns the channels (rows accumulated when
-    emit is None).  Refuses GNSS_DSP_UPLOAD_INT4 (the int4 front end is
-    not ported) and the route switches GNSS_DSP_NO_PALLAS and
+    emit is None).  Refuses the route switches GNSS_DSP_NO_PALLAS and
     GNSS_DSP_NO_V2P (device.refuse_switches)."""
     refuse_switches("track_file")
-    if sig.code_table is None:
-        raise NotImplementedError(
-            f"{sig.name}: no code table (code windows only), as in the "
-            f"reference")
-    if sig.recover_default:
-        raise NotImplementedError(
-            f"{sig.name}: unknown-code recovery is not ported")
+    mixed = sigs is not None and len({s.name for s in sigs}) > 1
+    sigs = [sig] * len(channels) if sigs is None else list(sigs)
+    if len(sigs) != len(channels):
+        raise ValueError("sigs needs one signal a channel")
+    for s in set(sigs):
+        if s.code_table is None:
+            raise NotImplementedError(
+                f"{s.name}: no code table (code windows only), as in the "
+                f"reference")
+    coffsets = ([coffset] * len(channels) if coffsets is None else
+                list(coffsets) + [coffset] * (len(channels) - len(coffsets)))
+    if recover_after is None:
+        recover_after = (200 if all(s.recover_default for s in sigs)
+                         else -1)
+    if mixed and mesh is not None and (os.environ.get("GNSS_DSP_NO_FUSED")
+                                       or recover_after >= 0):
+        raise ValueError("a mixed-signal run under a mesh needs the fused "
+                         "kernel K2 and no recovery (drop --mesh)")
     dev = resolve_device(device)
     n_emit = len(channels)
     if mesh is not None:
         # pad to a multiple of the sat axis with clones of channel 0
-        c0 = channels[0]
-        channels = list(channels) + [
-            TrackChannel(prn=c0.prn, doppler=c0.doppler,
-                         code_offset=c0.code_offset,
-                         carrier_phase=c0.carrier_phase,
-                         pll_from_start=c0.pll_from_start)
-            for _ in range((-len(channels)) % mesh.shape["sat"])]
-    M, overlay, periods = overlay_table(sig, channels, coherent_blocks)
-    params = make_params(sig, fs, coffset, loop_dwells,
-                         pll_from_start=all(c.pll_from_start
-                                            for c in channels),
-                         coherent_blocks=M)
-    if mesh is not None and M > 1 and not params.fused_scan:
+        pad = (-len(channels)) % mesh.shape["sat"]
+        channels = list(channels) + [_clone(channels[0])
+                                     for _ in range(pad)]
+        sigs = sigs + [sigs[0]] * pad
+        coffsets = coffsets + [coffsets[0]] * pad
+    setup = channel_setup(sigs, channels, fs, coffsets, loop_dwells,
+                          coherent_blocks, recover_after, chunk_ms, mixed,
+                          dev)
+    params = setup.params
+    if mesh is not None and params.coh_blocks > 1 and not params.fused_scan:
         raise ValueError("coherent tracking under a mesh needs the fused "
-                         "kernel K2 (GNSS_DSP_NO_FUSED is set)")
+                         "kernel K2 (GNSS_DSP_NO_FUSED set, or recovery "
+                         "on: pass recover_after=-1)")
     C = len(channels)
-    # the signal's constants, subcarrier and coherent lanes, one row per
-    # channel; each channel's overlay period in the NOV lane
-    sigp = sigp_from_params(params, C, dev)
-    if overlay is not None:
-        sigp[:, SIGP_NOV] = torch.tensor(periods, dtype=torch.float32,
-                                         device=dev)
-        overlay = torch.from_numpy(overlay).to(dev)
 
-    # alignment to the first code boundary (:141-143), per channel: the
-    # reference discards n0 samples; with a shared stream each channel's
-    # pointer starts at its own n0
-    L = sig.code_length
-    ptr0 = np.zeros(C, np.int32)
-    code_p0 = np.zeros(C, np.float64)
-    for k, ch in enumerate(channels):
-        n0 = int(fs * 0.001 * sig.code_period_ms * (L - ch.code_offset) / L)
-        ptr0[k] = n0
-        code_p0[k] = ch.code_offset + n0 * (sig.chip_rate / fs)
-    state = init_state(
-        code_p=code_p0, code_f_off=np.zeros(C),
-        carrier_p=np.array([c.carrier_phase for c in channels]),
-        carrier_f=np.array([c.doppler for c in channels]),
-        ptr=ptr0, device=dev)
-    code_tab = torch.from_numpy(np.ascontiguousarray(
-        sig.code_table(tuple(c.prn for c in channels)).astype(np.int8))
-    ).to(dev)
-    ratios = torch.tensor([sig.track_carrier_ratio(c.prn) for c in channels],
-                          dtype=torch.float32, device=dev)
-    coffset_df = torch.tensor(
-        [nco.freq_to_fixed(-(coffset + (sig.fdma_hz or 0.0) * c.prn) / fs)
-         for c in channels], dtype=torch.int32, device=dev)
+    abs_buf0 = 0          # the stream sample at the chunk's start
+    total_blocks = 0
+    if resume_from is not None:
+        state, host, meta = checkpoint.load(resume_from, dev)
+        if state.ptr.shape[0] != C:
+            raise ValueError(f"checkpoint holds {state.ptr.shape[0]} "
+                             f"channels, this run {C}")
+        abs_buf0 = int(meta["abs_buf0"])
+        total_blocks = int(meta["total_blocks"])
+        fp.seek(2 * abs_buf0)
+        for k, ch in enumerate(channels):
+            ch.samp = int(host["samp"][k])
+            ch.code_cyc = int(host["code_cyc"][k])
+            ch.carrier_cyc = int(host["carrier_cyc"][k])
+    else:
+        ptr0, code_p0 = first_boundary(sigs, channels, fs)
+        state = init_state(
+            code_p=code_p0, code_f_off=np.zeros(C),
+            carrier_p=np.array([c.carrier_phase for c in channels]),
+            carrier_f=np.array([c.doppler for c in channels]),
+            ptr=ptr0, device=dev,
+            recover_bins=(max(s.code_length for s in sigs)
+                          if recover_after >= 0 else 1))
+    scan = dict(ratios=setup.ratios, coffset_df=setup.coffset_df,
+                sigp=setup.sigp, overlay=setup.overlay)
 
     chunk_samples = int(fs * chunk_ms / 1000.0)
-    blocks_per_scan = int(chunk_ms / (sig.code_period_ms / sig.sub_blocks)) + 2
     pad_extra = params.nmax
-
-    def emit_rows(rows_f, rows_i, nb):
-        rows_f = rows_f.cpu().numpy()
-        rows_i = rows_i.cpu().numpy()
-        any_row = False
-        for b in range(nb):
-            for k, ch in enumerate(channels):
-                nn = int(rows_i[b, k, 0])
-                if nn == 0:
-                    continue
-                any_row = True
-                if k >= n_emit:            # a mesh-padding clone
-                    continue
-                ch.samp += nn
-                ch.carrier_cyc += int(rows_i[b, k, 1])
-                ch.code_cyc += int(rows_i[b, k, 2])
-                f = rows_f[b, k]
-                row = {
-                    "block": int(f[0]), "p_re": float(f[1]),
-                    "p_im": float(f[2]),
-                    "carrier_f": float(f[3]), "code_f_offset": float(f[4]),
-                    "phase_deg": float(f[5]), "early": float(f[6]),
-                    "prompt": float(f[7]), "late": float(f[8]),
-                    "code_cyc": ch.code_cyc, "code_p": float(f[9]),
-                    "carrier_cyc": ch.carrier_cyc,
-                    "carrier_p": float(f[10]),
-                    "samp": ch.samp,
-                }
-                if emit is not None:
-                    emit(k, row)
-                else:
-                    ch.rows.append(row)
-        return any_row
-
+    int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
     buf = np.zeros(0, np.int8)         # interleaved int8 I/Q bytes
-    total_blocks = 0
     reader = _PrefetchReader(fp, chunk_samples + pad_extra)
     while True:
         # refill the chunk (the next read already ran on the prefetch
@@ -309,36 +456,42 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
                 nbuf = len(buf) // 2
         if nbuf == 0:
             break
-        nb = blocks_per_scan
+        nb = setup.blocks_per_scan
         if max_blocks is not None:
             nb = min(nb, max_blocks - total_blocks)
             if nb <= 0:
                 break
         # tail pad >= nmax so every block a channel can start fits; the
-        # raw bytes upload as they are and the pad is appended on the
-        # device
+        # raw bytes upload as they are (or packed to 4 bits) and the pad
+        # is appended on the device
         tail = pad_extra + (-(nbuf + pad_extra)) % 1024
-        x_dev = cplx.from_int8_iq(buf, pad=tail, device=dev)
+        x_dev, _ = cplx.from_iq(buf, pad=tail, device=dev, int4=int4)
         state = state._replace(stalled=torch.zeros_like(state.stalled))
         if mesh is not None:
             state, rows_f, rows_i = track_scan_sharded(
-                mesh, x_dev, nbuf, code_tab, state, params, nb,
-                ratios=ratios, coffset_df=coffset_df, sigp=sigp,
-                overlay=overlay)
+                mesh, x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
         else:
             state, rows_f, rows_i = track_scan(
-                x_dev, nbuf, code_tab, state, params, nb, ratios=ratios,
-                coffset_df=coffset_df, sigp=sigp, overlay=overlay)
-        emitted_any = emit_rows(rows_f, rows_i, nb)
+                x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
+        emitted_any = emit_rows(channels, n_emit, emit, rows_f, rows_i, nb)
         total_blocks += nb
         if max_blocks is not None and total_blocks >= max_blocks:
             break
 
         # drop fully-consumed samples, rebase pointers (2 bytes/sample)
-        ptrs = state.ptr.cpu().numpy()
-        consumed = int(ptrs.min())
+        consumed = int(state.ptr.min())
         buf = buf[2 * consumed:]
         state = state._replace(ptr=state.ptr - consumed)
+        abs_buf0 += consumed
+        if checkpoint_path is not None:
+            # the pointers are relative to the stream sample abs_buf0, so
+            # a resume needs only a seek: no sample is stored
+            tmp = checkpoint_path + ".tmp"
+            with open(tmp, "wb") as f:
+                checkpoint.save(f, state, channels,
+                                meta={"abs_buf0": abs_buf0,
+                                      "total_blocks": total_blocks})
+            os.replace(tmp, checkpoint_path)
 
         if reader.done and not emitted_any:
             break
@@ -346,6 +499,11 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
             # every channel is frozen at the data end and no samples can
             # arrive: rebasing cannot unstall them
             break
+    if recover_after >= 0:
+        acc_re = state.acc_re.cpu().numpy()
+        acc_im = state.acc_im.cpu().numpy()
+        for k, ch in enumerate(channels[:n_emit]):
+            ch.recovered = acc_re[k] + 1j * acc_im[k]
     return channels[:n_emit]
 
 

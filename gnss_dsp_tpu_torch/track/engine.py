@@ -25,8 +25,19 @@ its device and the route recorded in TrackParams, as the reference does:
   * CPU: the same loop on the correlators' plain version
     (track_scan_plain), which is K2's plain version too.
 
-Scope: no unknown-code recovery (recover_after >= 0 raises
-NotImplementedError).
+Unknown-code recovery (recover_after >= 0, `_recover`): after block
+recover_after, each block's carrier-wiped samples, times the sign of the
+prompt's I arm, add into the channel's per-chip bins TrackState.acc_re /
+acc_im at the prompt's chip index, in sample order, as the reference's
+`.at[].add` in its XLA correlator does (:364-375).  The reference sends
+recovery to that correlator (driver.py:125-128), so here it always runs
+the plain loop, on the chunk's device (the card's too): that is the
+reference's route, not a fallback, and no kernel runs.
+
+A mixed-signal scan (track multi, the receiver) carries each channel's
+own code length in its sigp L lane; code_tab is then [C, Lmax], each row
+zero-padded past its length, and the chip index wraps at the channel's
+own length.
 
 Arithmetic follows the JAX engine op for op in float32, and where the
 rounding of one operation decides a later integer (a chip index, a DDS
@@ -91,7 +102,8 @@ class TrackParams(NamedTuple):
     code_period_ms: float = 1.0
     sub: int = 1               # sub-blocks per code period
     subcarrier: str = "none"   # none|boc11|cboc|tmboc|rz_even|rz_odd
-    recover_after: int = -1    # unknown-code recovery (not ported)
+    recover_after: int = -1    # unknown-code recovery after that block
+                               # (-1 off; the plain scan, _recover)
     coh_blocks: int = 1        # extended-coherent periods M (1 = off)
     pallas_v2: bool = False    # per-step route: K3 (True) or K4 (False)
     fused_scan: bool = False   # whole-loop kernel K2
@@ -157,12 +169,14 @@ class TrackState(NamedTuple):
     stalled: torch.Tensor      # bool: ran out of chunk samples
     n_full: torch.Tensor       # int32 samples in the current code period
     sub_j: torch.Tensor        # int32 sub-block index within the period
+    acc_re: torch.Tensor       # f32 [C, bins] code-recovery bins
+    acc_im: torch.Tensor       # ... ([C, 1] zeros when recovery is off)
     cacc: torch.Tensor         # f32 [C, 6] coherent E/P/L sums (re, im of
                                # E, P, L; zeros when coh_blocks == 1)
 
 
 def init_state(code_p, code_f_off, carrier_p, carrier_f, ptr=0,
-               device="cpu") -> TrackState:
+               device="cpu", recover_bins: int = 1) -> TrackState:
     c = np.shape(np.atleast_1d(code_p))[0]
 
     def as1(v, dt):
@@ -191,6 +205,10 @@ def init_state(code_p, code_f_off, carrier_p, carrier_f, ptr=0,
         stalled=as1(zeros, bool),
         n_full=as1(zeros, np.int32),
         sub_j=as1(zeros, np.int32),
+        acc_re=torch.zeros((c, int(recover_bins)), dtype=torch.float32,
+                           device=device),
+        acc_im=torch.zeros((c, int(recover_bins)), dtype=torch.float32,
+                           device=device),
         cacc=torch.zeros((c, 6), dtype=torch.float32, device=device),
     )
 
@@ -380,6 +398,8 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
         stalled=st.stalled,
         n_full=n_full_new,
         sub_j=sub_j_next,
+        acc_re=st.acc_re,          # recovery bins: _recover, gated on ok
+        acc_im=st.acc_im,
         cacc=cacc_new,
     )
     # freeze the channel if the chunk ran dry (host refills and resumes)
@@ -401,17 +421,13 @@ def _post_block(p_early, p_prompt, p_late, n, sub_j_next, n_full_new, ok,
     return new, row_f, row_i
 
 
-def check_supported(p: TrackParams):
-    if p.recover_after >= 0:
-        raise NotImplementedError("unknown-code recovery is not ported")
-
-
 def plain_correlate(p: TrackParams):
     """The correlators' plain version for p's subcarrier (K3's form; K4's
-    static families give the same values)."""
+    static families give the same values).  lens: each channel's code
+    length where the table is wider (a mixed-signal scan), else None."""
     kind = track_step.subc_kind(p.subcarrier)
-    return lambda si, sf, x, code: track_step.epl_correlate_plain(
-        si, sf, x, code, p.nmax, kind)
+    return lambda si, sf, x, code, lens=None: track_step.epl_correlate_plain(
+        si, sf, x, code, p.nmax, kind, lens=lens)
 
 
 def kernel_correlate(p: TrackParams):
@@ -419,13 +435,36 @@ def kernel_correlate(p: TrackParams):
     module, one launch a block."""
     if p.pallas_v2:
         kind = track_step.subc_kind(p.subcarrier)
-        return lambda si, sf, x, code: track_step.epl_correlate2(
-            si, sf, x, code, p.nmax, kind)
+        return lambda si, sf, x, code, lens=None: track_step.epl_correlate2(
+            si, sf, x, code, p.nmax, kind, lens)
     if p.subcarrier not in track_step.FAMILIES:
         raise ValueError(f"K4 needs the subcarrier family, got "
                          f"{p.subcarrier!r}")
-    return lambda si, sf, x, code: track_step.epl_correlate(
-        si, sf, x, code, p.nmax, p.subcarrier)
+    return lambda si, sf, x, code, lens=None: track_step.epl_correlate(
+        si, sf, x, code, p.nmax, p.subcarrier, lens)
+
+
+def code_lens(code_tab, sigp):
+    """Each channel's code length (int32 [C], the sigp L lane) where one
+    differs from the table's width (a mixed-signal table), else None."""
+    lens = sigp[:, SIGP_L].to(torch.int32)
+    return None if bool((lens == code_tab.shape[1]).all()) else lens
+
+
+def _recover(st: TrackState, new: TrackState, p: TrackParams, ok, prompt_re,
+             wiped):
+    """The recovery bins after one block (engine.py:364-375): once block
+    > recover_after, the block's wiped samples (m_re, m_im f32 [C,
+    nmax], their prompt chip index cidx [C, nmax], mask i < n) times the
+    sign of the prompt's I arm add into new.acc_re / acc_im, where ok."""
+    m_re, m_im, cidx, mask = wiped
+    sgn = torch.where(prompt_re > 0, 1.0, -1.0)
+    gate = (st.block > p.recover_after) & ok
+    keep = mask & gate[:, None]
+    val = torch.stack([m_re, m_im], -1) * sgn[:, None, None]
+    acc = nco.accum_rows(torch.stack([st.acc_re, st.acc_im], -1), cidx, val,
+                         keep)
+    return new._replace(acc_re=acc[..., 0], acc_im=acc[..., 1])
 
 
 def overlay_chip(overlay, block, sigp):
@@ -447,6 +486,8 @@ def _scan(x, chunk_len, code_tab, state, params, n_blocks: int, ratios,
     coh = params.coh_blocks > 1
     if coh and overlay is None:
         overlay = torch.ones((state.ptr.shape[0], 1), device=x.device)
+    recover = params.recover_after >= 0
+    lens = code_lens(code_tab, sigp)
     rows_f, rows_i = [], []
     st = state
     for b in range(n_blocks):
@@ -454,11 +495,19 @@ def _scan(x, chunk_len, code_tab, state, params, n_blocks: int, ratios,
             break
         si, sf, n, sj, nfull, ok, cf_dyn = _geometry(
             x.shape[0], chunk_len, ratios, st, params, coffset_df, sigp)
-        sums = correlate(si, sf, x, code_tab)
+        if recover:
+            sums, wiped = track_step.epl_correlate_plain(
+                si, sf, x, code_tab, params.nmax,
+                track_step.subc_kind(params.subcarrier), lens=lens,
+                wiped=True)
+        else:
+            sums = (correlate(si, sf, x, code_tab) if lens is None
+                    else correlate(si, sf, x, code_tab, lens))
         pe, pp, pl = ((sums[:, k], sums[:, k + 1]) for k in (0, 2, 4))
         s_ovl = overlay_chip(overlay, st.block, sigp) if coh else None
-        st, rf, ri = _post_block(pe, pp, pl, n, sj, nfull, ok, cf_dyn, st,
-                                 params, coffset_df, sigp, s_ovl)
+        new, rf, ri = _post_block(pe, pp, pl, n, sj, nfull, ok, cf_dyn, st,
+                                  params, coffset_df, sigp, s_ovl)
+        st = _recover(st, new, params, ok, pp[0], wiped) if recover else new
         rows_f.append(rf)
         rows_i.append(ri)
     C, dev = st.ptr.shape[0], x.device
@@ -475,7 +524,9 @@ def track_scan_plain(x, chunk_len, code_tab, state, params,
                      n_blocks: int, ratios, coffset_df, sigp, overlay=None):
     """The plain version of K2 and of the per-step route: n_blocks steps
     of the correlators' plain version, all channels at once, on any
-    device.  Arguments as track_scan's, every one but overlay given."""
+    device.  Arguments as track_scan's, every one but overlay given.
+    With params.recover_after >= 0 the recovery scan (the reference's
+    route for it)."""
     return _scan(x, chunk_len, code_tab, state, params, n_blocks, ratios,
                  coffset_df, sigp, plain_correlate(params), overlay)
 
@@ -486,8 +537,9 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     """Run up to n_blocks blocks for C channels over one chunk.
 
     x_chunk: complex64 [N] whose last >= params.nmax samples are the
-    tail pad (beyond every chunk_len); code_tab: int8 [C, L], L the code
-    length of every channel; state leaves [C] (cacc [C, 6]); ratios f32
+    tail pad (beyond every chunk_len); code_tab: int8 [C, L], L at least
+    every channel's code length (its sigp L lane; rows zero-padded past
+    it); state leaves [C] (cacc [C, 6]); ratios f32
     [C] carrier-aiding divisors; coffset_df [C] int32 DDS increments; sigp
     f32 [C, 12]; overlay f32 [C, nov], with params.coh_blocks > 1 the
     secondary-overlay chips, block b of channel c taking
@@ -496,10 +548,12 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     Returns (state, rows_f [n_blocks, C, 11], rows_i [n_blocks, C, 3]);
     rows are NaN/0 once a channel exhausts the chunk.  On a CUDA chunk
     this is one launch of kernel K2 (params.fused_scan) or one launch of
-    K3 or K4 a block; on a CPU chunk, and only there, the plain loop."""
+    K3 or K4 a block; on a CPU chunk, and only there, the plain loop.
+    Recovery (params.recover_after >= 0) runs the plain loop on either
+    device, as the reference runs it on its XLA correlator."""
     args, overlay = scan_args(x_chunk, chunk_len, code_tab, state, params,
                               n_blocks, ratios, coffset_df, sigp, overlay)
-    if x_chunk.device.type == "cpu":
+    if x_chunk.device.type == "cpu" or params.recover_after >= 0:
         return track_scan_plain(*args, overlay)
     if params.fused_scan:
         return track_fused.track_scan_fused(*args, overlay)
@@ -511,7 +565,6 @@ def scan_args(x_chunk, chunk_len, code_tab, state, params, n_blocks,
     """track_scan's arguments checked, with their defaults, on x_chunk's
     device: ((x_chunk, chunk_len i32 [C], code_tab, state, params,
     n_blocks, ratios, coffset_df, sigp), overlay)."""
-    check_supported(params)
     dev = x_chunk.device
     C = state.ptr.shape[0]
     chunk_len = torch.as_tensor(chunk_len, dtype=torch.int32)
@@ -527,9 +580,13 @@ def scan_args(x_chunk, chunk_len, code_tab, state, params, n_blocks,
     if int(chunk_len.max()) > x_chunk.shape[0] - params.nmax:
         raise ValueError("x_chunk needs a tail pad of >= params.nmax samples "
                          "beyond chunk_len")
-    if (sigp[:, SIGP_L] != code_tab.shape[1]).any():
-        raise ValueError("code_tab must be [C, L], L every channel's code "
-                         "length")
+    if (sigp[:, SIGP_L] > code_tab.shape[1]).any():
+        raise ValueError("code_tab must be [C, L], L at least every "
+                         "channel's code length")
+    if params.recover_after >= 0 and (
+            sigp[:, SIGP_L] > state.acc_re.shape[1]).any():
+        raise ValueError("recovery needs a bin a chip: state.acc_re must "
+                         "be [C, >= each channel's code length]")
     if params.coh_blocks > 1 and overlay is not None:
         overlay = overlay.to(dev, torch.float32)
         if (sigp[:, SIGP_NOV] > overlay.shape[1]).any():

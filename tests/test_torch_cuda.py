@@ -1086,3 +1086,161 @@ def test_serial_search_on_the_card(dev, name, prn, fs, ms, k_true, pp, dop,
     sh = serial_search_sharded(sig, x, prn, dop, mesh=make_mesh(
         devices=[dev] * 4), **kw)
     assert (sh.k, sh.metric) == (got.k, got.metric)
+
+
+# mixed-signal launches (track multi, the receiver): each channel's own
+# sigp row and code row in the [C, Lmax] table, the launch's kind the
+# mix's: (name, [(signal, prn, doppler, code phase, carrier offset)], fs)
+_K2_MIXES = [
+    ("tmboc", [("gps-l1cp", 3, 700.0, 5100.4, 900.0),
+               ("gps-l1", 7, 900.0, 317.25, 900.0),
+               ("galileo-e1b", 24, -1500.0, 2047.3, 900.0),
+               ("glonass-l1", -3, -700.0, 41.5, 900.0)], 4.096e6),
+    ("subc", [("gps-l2cm", 29, 1120.0, 4208.8, 0.0),
+              ("gps-l1", 7, 900.0, 317.25, 0.0),
+              ("beidou-b1i", 34, 400.0, 1500.6, -150.0)], 4.096e6),
+    ("long_code", [("gps-l2cl", 7, 900.0, 767200.5, 0.0),
+                   ("gps-l1", 21, -1200.0, 317.25, 0.0)], 2.048e6),
+]
+
+
+@pytest.mark.parametrize("cluster", [1, 4, None])
+@pytest.mark.parametrize("case", range(len(_K2_MIXES)))
+def test_k2_mixed_kinds_match_plain_bit_for_bit(dev, case, cluster):
+    """K2 with channels of different signals (subcarrier kinds, code
+    lengths, FDMA, carrier offsets) in one launch against its plain
+    version, across a stall and a refill (the long-code mix reads every
+    row from device memory)."""
+    from gnss_dsp_tpu_torch.tools.track_all import mixed_inputs
+
+    kind, mix, fs = _K2_MIXES[case]
+    d = mixed_inputs(mix, fs, 0.08, 9, dev)
+    p = d["params"]
+    assert p.fused_scan and p.subcarrier == ("subc" if kind == "long_code"
+                                             else kind)
+    extra = (d["ratios"], d["cdf"], d["sigp"], d["overlay"])
+    C = len(mix)
+    st = d["st"]
+    for cl, nb in ((torch.full((C,), int(fs * 0.045), dtype=torch.int32,
+                               device=dev), 60),
+                   (torch.full((C,), d["n"], dtype=torch.int32,
+                               device=dev), 60)):
+        k = _k2_both(dev, d["x"], d["tab"], st, p, cl, nb, extra, cluster)
+        assert bool(k[0].stalled.all())
+        st = k[0]._replace(stalled=torch.zeros_like(k[0].stalled))
+
+
+def test_k2_at_the_receiver_shape_runs_two_batches(dev):
+    """The 2017 sky's 11 channels at 69.984 MHz in one launch: nmax
+    104980, 8 CTAs a channel, the window staged in two batches; 40
+    blocks against the plain version bit for bit."""
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.receiver_sky import BANDS, FS
+    from gnss_dsp_tpu_torch.tools.track_all import mixed_inputs
+
+    mix = [s for seeds in BANDS.values() for s in seeds]
+    d = mixed_inputs(mix, FS, 0.045, 3, dev)
+    p = d["params"]
+    plan = track_fused.cluster_plan(11, p.nmax)
+    assert p.nmax == 104980 and plan["cluster"] == 8
+    assert plan["batches"] == 2
+    extra = (d["ratios"], d["cdf"], d["sigp"], d["overlay"])
+    k = _k2_both(dev, d["x"], d["tab"], d["st"], p, d["n"], 40, extra, None)
+    assert bool((k[2][:, :, 0] > 0).sum(0).ge(30).all())
+
+
+def test_receiver_scans_match_plain_on_its_own_inputs(dev, tmp_path):
+    """track_receiver over the 2017 sky's three bands (80 ms each at
+    69.984 MHz, chunk_ms 20): each of its scans (band segments, each
+    channel's segment end as its chunk_len, pointers inside its band's
+    segment, the rebase between chunks) against the plain version on the
+    same arguments bit for bit, one K2 launch a chunk."""
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.receiver_sky import (
+        BANDS, run_receiver, scans_held_to_plain, synth_bands)
+
+    paths = {b: str(tmp_path / f"band{b}.iq") for b in BANDS}
+    synth_bands(paths, 0.08, device=dev)
+    n0 = track_fused.LAUNCHES
+    stats = {}
+    with scans_held_to_plain() as held:
+        rows, _ = run_receiver(paths, dev, 20.0, stats=stats, max_blocks=48)
+    assert held == [22, 22, 4] and stats["chunks"] == 3
+    assert track_fused.LAUNCHES == n0 + 3
+    assert all(len(r) >= 30 for r in rows.values())
+
+
+def test_code_recovery_bins_lie_on_the_card(dev):
+    """CodeRecovery given the card's blocks keeps its bins there."""
+    from gnss_dsp_tpu_torch.track.recover import CodeRecovery
+
+    rec = CodeRecovery(1023, warmup_blocks=0)
+    x = torch.ones(4096, dtype=torch.complex64, device=dev)
+    rec.update(x, 0.0, 0.25, 1.0)
+    assert rec.acc_re.device.type == "cuda"
+    assert rec.chips().shape == (1023,)
+
+
+def test_int4_unpack_on_the_card(dev):
+    """from_int4_iq on the card: the CPU's values, bit for bit."""
+    from gnss_dsp_tpu_torch.ops import cplx
+
+    rng = np.random.default_rng(8)
+    raw = rng.integers(-128, 128, 20000, dtype=np.int16).astype(np.int8)
+    packed = cplx.pack_int4_host(raw)
+    a = cplx.from_int4_iq(packed, pad=33, device=dev)
+    assert a.device.type == "cuda"
+    assert torch.equal(a.cpu(), cplx.from_int4_iq(packed, pad=33))
+
+
+def test_recovery_bins_are_bit_equal_run_to_run(dev):
+    """Recovery on the card (the plain scan on CUDA tensors, no kernel):
+    two runs give equal bits, equal to the CPU's within rtol 1e-5 of the
+    largest bin."""
+    import io
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+    from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
+
+    sig = get_signal("beidou-b2bi")
+    fs = 22.0e6
+    bits = np.random.default_rng(1).choice([-1.0, 1.0], 50)
+    x = synth_iq_t(sig.code_table((19,))[0], sig.chip_rate, fs,
+                   int(fs * 0.04), 800.0, 0.0, "none", sig.carrier_ratio,
+                   device="cpu", data_bits=bits).numpy()
+    x = x + np.random.default_rng(2).standard_normal(x.size) * 3
+    raw = to_int8_iq(x, scale=8.0)
+
+    def run(device):
+        ch = TrackChannel(prn=19, doppler=800.0, code_offset=0.0)
+        track_file(sig, io.BytesIO(raw), fs, 0.0, [ch], loop_dwells=(10, 10),
+                   recover_after=10, device=device)
+        return ch.recovered
+
+    n0 = (track_fused.LAUNCHES, track_step.LAUNCHES_V2)
+    a, b = run(dev), run(dev)
+    assert (track_fused.LAUNCHES, track_step.LAUNCHES_V2) == n0
+    np.testing.assert_array_equal(a, b)
+    c = run("cpu")
+    np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5 * np.abs(c).max())
+
+
+def test_k3_mixed_code_lengths_match_plain(dev):
+    """K3 with each channel's own code length (lens) in a wider table,
+    against the plain version to one float32 ulp of the largest sum."""
+    from gnss_dsp_tpu_torch.ops import track_step
+
+    C, nmax = 3, 6200
+    si, sf, x, code = _step_inputs(dev, C, 10230, 6000, nmax,
+                                   (1.0, 0.0, 0.0, 0.0), 12)
+    lens = torch.tensor([1023, 10230, 2046], dtype=torch.int32, device=dev)
+    si[:, :3] = torch.remainder(si[:, :3], lens[:, None])
+    got = track_step.epl_correlate2(si, sf, x, code, nmax, "none", lens)
+    want = track_step.epl_correlate_plain(si, sf, x, code, nmax, "none",
+                                          lens=lens)
+    _check_step(got, want)
+    full = track_step.epl_correlate_plain(si, sf, x, code, nmax, "none")
+    assert not torch.equal(full, want)

@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
               "ops.acquire", "models.catalog", "models.codes.selftest",
               "utils.synth", "utils.ranges", "cli.cn0", "ops.track_step",
               "tools.track_all", "parallel.mesh", "parallel.acquire",
-              "parallel.track", "tools.multihost_worker"):
+              "parallel.track", "tools.multihost_worker", "track.receiver",
+              "track.checkpoint", "track.recover"):
         assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
@@ -108,6 +109,55 @@ def test_track_file_defaults_to_the_card(monkeypatch):
     out = track_file(sig, io.BytesIO(raw), 2.048e6, 0.0, chans(),
                      device="cpu")
     assert len(out[0].rows) > 0
+
+
+def test_receiver_and_recovery_default_to_the_card(monkeypatch, tmp_path):
+    """The receiver, a recovery run (B2bI by default) and a checkpoint's
+    load ask for CUDA unless told otherwise, which raises here; on the
+    CPU they run and launch no kernel.  CodeRecovery takes no device: its
+    bins lie on the device of the blocks it is given."""
+    import inspect
+    import io
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_fused, track_step
+    from gnss_dsp_tpu_torch.track import checkpoint
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+    from gnss_dsp_tpu_torch.track.engine import init_state
+    from gnss_dsp_tpu_torch.track.receiver import track_receiver
+    from gnss_dsp_tpu_torch.track.recover import CodeRecovery
+
+    raw = np.zeros(2 * 60_000, np.int8).tobytes()
+    l1, b2b = get_signal("gps-l1"), get_signal("beidou-b2bi")
+
+    def bands():
+        return [(io.BytesIO(raw), [l1],
+                 [TrackChannel(prn=3, doppler=0.0, code_offset=10.0)], [0.0])]
+
+    def recover(**kw):
+        ch = [TrackChannel(prn=19, doppler=0.0, code_offset=0.0)]
+        track_file(b2b, io.BytesIO(raw), 22e6, 0.0, ch, **kw)
+        return ch[0]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        track_receiver(bands(), 4.096e6)
+    with pytest.raises(RuntimeError, match="is_available"):
+        recover()
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, init_state([0.0], [0.0], [0.0], [0.0]))
+    with pytest.raises(RuntimeError, match="is_available"):
+        checkpoint.load(path)
+    assert checkpoint.load(path, "cpu")[0].ptr.device.type == "cpu"
+    assert list(inspect.signature(CodeRecovery).parameters) == [
+        "code_length", "warmup_blocks"]
+    rec = CodeRecovery(1023, warmup_blocks=0)
+    rec.update(torch.ones(4096, dtype=torch.complex64), 0.0, 0.25, 1.0)
+    assert rec.acc_re.device.type == "cpu" and rec.chips().shape == (1023,)
+    before = (track_fused.LAUNCHES, track_step.LAUNCHES_V2)
+    assert len(track_receiver(bands(), 4.096e6, device="cpu")[0].rows) > 0
+    assert recover(device="cpu", recover_after=0).recovered.shape == (10230,)
+    assert (track_fused.LAUNCHES, track_step.LAUNCHES_V2) == before
 
 
 def test_cpu_run_launches_no_kernel():

@@ -198,10 +198,27 @@ def test_former_refusals_match_jax_scan(change):
 
 
 def test_unported_modes_raise():
-    """Unknown-code recovery is the one mode the port still refuses."""
+    """Unknown-code recovery, the one mode the port once refused, now runs
+    (the plain scan, the reference's route for it): recovery after block
+    10 with a bin a chip, the rows and state against the JAX XLA scan's
+    as above, the bins visited by both within rtol 1e-5 (atol a few ulps
+    of the largest bin) and the same bins visited."""
     s = _setup(1, pallas=False)
-    p = interop.params_from_jax(s["params"])._replace(recover_after=200)
-    with pytest.raises(NotImplementedError):
-        teng.track_scan(torch.from_numpy(s["xp"]), s["n"],
-                        torch.from_numpy(s["code"]),
-                        interop.state_from_numpy(s["st"]), p, 2)
+    p = s["params"]._replace(recover_after=10)
+    L = s["code"].shape[1]
+    st_j0 = s["st"]._replace(acc_re=jnp.zeros((1, L), jnp.float32),
+                             acc_im=jnp.zeros((1, L), jnp.float32))
+    s = dict(s, params=p, st=st_j0)
+    st_j, rf_j, ri_j = _run_jax(s, 40)
+    st_t, rf_t, ri_t = _run_port(s, 40)
+    np.testing.assert_array_equal(ri_t, ri_j)
+    np.testing.assert_allclose(rf_t, rf_j, rtol=2e-5, atol=2e-4)
+    _check_state(st_j, st_t)
+    got = interop.state_to_numpy(st_t)
+    for k in ("acc_re", "acc_im"):
+        want = np.asarray(getattr(st_j, k))
+        visited = want != 0
+        assert visited.mean() > 0.9
+        np.testing.assert_array_equal(got[k] != 0, visited)
+        np.testing.assert_allclose(got[k][visited], want[visited], rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
