@@ -15,7 +15,10 @@ Runs every phase, in this order:
           L5I and Galileo E6B padded with n_valid, Galileo E1B, GPS L1CP,
           GPS L2CM at 65536 to 163840) and e2e_fdma's (one code row
           against 102 of the 15 x 70 channel-band dopplers x 80 blocks x
-          16384), with timings, the kernel's plan at
+          16384) and e2e_workload's (every acquisition of acquire-all.sh
+          whose launch shape is not among those: BeiDou B1I/B2I 63 x 70 x
+          80 x 16384, GLONASS L3OC 64 and Galileo E5 50 x 25 x 80 x 65536
+          with n_valid), with timings, the kernel's plan at
           each window (core, n1 x n2, cluster size, clusters the card holds
           at once, registers, spills) and the times at the other cluster
           sizes built; then a planted exact tie across cluster ranks at
@@ -31,9 +34,11 @@ Runs every phase, in this order:
           with its plan, its time beside K7's at the same
           shape and one library ifft, and the bound
   k7      full-surface kernel vs its plain version at the Xona X5 launch
-          shape (1 PRN x 54 doppler x 80 blocks x 30690) and at the
+          shape (1 PRN x 54 doppler x 80 blocks x 30690), at the
           sharded search's GPS L5I shard shape (16 x 70 x 40 x 61380 =
-          220 x 279), with timings, its cluster plan (cluster size,
+          220 x 279) and at GPS L5I's single-card launch under
+          GNSS_DSP_NO_V2P (32 x 22 x 80 x 61380, one doppler chunk of
+          e2e_switches'), with timings, its cluster plan (cluster size,
           clusters the card holds at once, registers, spills) and the
           times at other cluster sizes
   k5      spectral-combine coherent kernel vs its plain version at the
@@ -198,6 +203,34 @@ Runs every phase, in this order:
           exactly, q at k within rtol 1e-6 of a float64 host evaluation,
           and serial_search_sharded on a 2 x 2 mesh of the card the same k
           and metric (rtol 1e-5), with the walls
+  e2e_switches
+          the reference's route switches through the CLIs (after
+          e2e_mesh): GNSS_DSP_NO_V2P on an 85 ms GPS L5I capture at
+          30.69 MHz takes K7 at 61380 (counted by its wrapper and seen in
+          torch.profiler's events) and no K1, with the padded route's
+          winners; GNSS_DSP_NO_PALLAS on the e2e GPS L1 capture: acquire,
+          acquire --coherent 2, acquire --mesh 1, track and track multi
+          on the card each refuse the switch, naming it, with no kernel
+          launched and no plain route called (the port runs only its
+          kernels on a card); with the switches unset K1 and K2 launch
+          and the plain routes are never called
+  e2e_aux the squaring CLI on the card against --device cpu (int16 equal
+          but for rounding ties, counted), correlation_shape on the card
+          against the CPU (rtol 1e-5), utils/profiling.trace writing the
+          card's kernels into its trace
+  e2e_workload (last)
+          the reference's whole workload, acquire-all.sh's 21
+          acquisitions and track-all-gnss-2017-L1L2L5.sh's 11 tracks, in
+          one process (cli/workload all) on the 2017 three-band sky (1.5 s
+          at 69.984 MHz, 45 dB-Hz; the bands synthesised on the card and
+          interleaved into the tools/synth_sky container): each track's
+          whole-band K2 scan held against the plain version for 40 blocks
+          from block 1000 (the pointer ~70 M samples into the chunk);
+          then the run, K1 the only acquisition kernel and one K2 launch
+          a track, tools/sky_workload.validate on all 32 files, each file
+          byte-equal to the same CLI call without the cache, the stage
+          walls; then the run again under torch.profiler (busy and idle
+          share, files equal again)
 
 In the e2e phases every surface-kernel, per-step correlator and K2 call
 is recorded with its shape, and each must have been held against its
@@ -219,6 +252,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import io
 import json
 import math
 import os
@@ -672,6 +706,26 @@ def fdma_launch(name, ms=80):
     return 1, engine.dop_chunk_for(route, 1, B, W, CD), B, W
 
 
+def workload_launches() -> dict:
+    """{signal: (P, DC, B, W, n_valid)} of the first (largest) K1 launch
+    of each acquisition of cli/workload.ACQUIRE_ALL, as the acquire CLI
+    plans it at its default PRNs, grid and --time (80 ms for all)."""
+    from gnss_dsp_tpu_torch.cli.workload import ACQUIRE_ALL
+    from gnss_dsp_tpu_torch.models import get_signal
+
+    out = {}
+    for _band, name, _co, _out in ACQUIRE_ALL:
+        sig = get_signal(name)
+        check(sig.acq_ms_default == 80, (name, sig.acq_ms_default))
+        if sig.fdma_hz:
+            out[name] = fdma_launch(name) + (0,)
+        else:
+            route, *launch = wide_launch(name)
+            check(route in ("v2", "v2p"), (name, "route", route))
+            out[name] = tuple(launch)
+    return out
+
+
 def _k1_tie(dev, card, W, B=2):
     """K1 on a row whose surface ties exactly at every lag with an even
     row index j mod n1: X = code * conj(F) = delta[0] + delta[(n1/2) n2],
@@ -729,6 +783,17 @@ def phase_k1(dev, card, results):
                  plain_reps=1)
     errs.append(w["max_abs_err"])
     shapes.append(w["shape"])
+    # e2e_workload's 21 acquisitions: each launch shape not held above
+    for i, (name, (P, DC, B, W, n_valid)) in enumerate(
+            workload_launches().items()):
+        if any(k == (P, B, W, n_valid, True) and DC <= d
+               for d, k in CHECKED["acquire2"]):
+            continue
+        w = _k1_case(dev, card, f"workload {name}", P, DC, B, W, 90 + i,
+                     95 + i, n_valid, reps=2, plain_reps=1)
+        errs.append(w["max_abs_err"])
+        shapes.append(w["shape"])
+        windows.add(W)
     results["acquire2"]["max_abs_err"] = max(errs)
     results["acquire2"]["shapes"] = shapes
     for W in sorted(windows):
@@ -863,6 +928,19 @@ def phase_k7(dev, card, results):
     results["acquire_61380"].update(_k7_case(
         dev, card, "gps-l5i 2 x 2 shard", P, DC, B, W, 6138, 10,
         K7_CLUSTERS[W], reps=2))
+    # GNSS_DSP_NO_V2P: the pad2 signals' single-card search at 61380
+    # (e2e_switches), one doppler chunk of GPS L5I's launch
+    from gnss_dsp_tpu_torch.tools.main_path import environ
+
+    with environ({"GNSS_DSP_NO_V2P": "1"}):
+        route, P, DC, B, W, _ = wide_launch("gps-l5i")
+    check(route == "v1" and W == 61380, ("gps-l5i NO_V2P route", route, W))
+    one = _k7_case(dev, card, "gps-l5i single card, GNSS_DSP_NO_V2P", P,
+                   DC, B, W, 6139, 11, (), reps=2)
+    results["acquire_61380"]["single_card"] = dict(
+        shape=f"{P} x {DC} x {B} x {W}", **one)
+    results["acquire_61380"]["max_abs_err"] = max(
+        results["acquire_61380"]["max_abs_err"], one["max_abs_err"])
 
 
 # --------------------------------------------------------------- phase k1s
@@ -3465,6 +3543,489 @@ def phase_e2e_recover(dev, card, work, fs=22.0e6):
     os.remove(path)
 
 
+# ----------------------------------------------------- phase e2e_workload
+
+WORKLOAD_SECONDS = 1.5    # the 2017 sky's capture, as e2e_receiver's
+WORKLOAD_HELD_FROM = 1000  # K2 held against the plain version from here
+WORKLOAD_HELD = 40
+
+
+@contextlib.contextmanager
+def k2_held_deep(held):
+    """Within: every scan track_file runs (track/driver.track_scan) runs
+    as it is, and besides, from the state after WORKLOAD_HELD_FROM blocks
+    (the pointer tens of millions of samples into a whole-band chunk),
+    WORKLOAD_HELD more blocks by K2 and by the plain version on the same
+    arguments, rows, int rows and state bit-equal; each scan's shape goes
+    into CHECKED and (its pointer, the chunk's length) into `held`."""
+    import torch
+
+    from gnss_dsp_tpu_torch.track import driver, engine
+
+    scan = driver.track_scan
+
+    def deep(x, chunk_len, code_tab, state, params, n_blocks, **kw):
+        mid = min(WORKLOAD_HELD_FROM, n_blocks - WORKLOAD_HELD)
+        s_mid = scan(x, chunk_len, code_tab, state, params, mid, **kw)[0]
+        k = scan(x, chunk_len, code_tab, s_mid, params, WORKLOAD_HELD, **kw)
+        args, ovl = engine.scan_args(x, chunk_len, code_tab, s_mid, params,
+                                     WORKLOAD_HELD, **kw)
+        p = engine.track_scan_plain(*args, ovl)
+        torch.testing.assert_close(k[2], p[2], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], p[1], rtol=0, atol=0,
+                                   equal_nan=True)
+        for field, a, b in zip(k[0]._fields, k[0], p[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                       msg=f"state {field}")
+        check(bool((k[2][:, :, 0] > 0).all()), "k2 held: a channel stalled")
+        CHECKED["track_fused"].append(fused_key(
+            "track_fused", x, chunk_len, code_tab, state, params))
+        held.append((int(s_mid.ptr.max()), x.shape[0]))
+        return scan(x, chunk_len, code_tab, state, params, n_blocks, **kw)
+
+    driver.track_scan = deep
+    try:
+        yield held
+    finally:
+        driver.track_scan = scan
+
+
+def _busy_share(fn):
+    """(wall s, device busy s) of fn() under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnss_dsp_tpu_torch.tools.main_path import device_busy_us
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_us((e.time_range.start, e.time_range.end)
+                          for e in prof.events()
+                          if e.device_type == DeviceType.CUDA) / 1e6
+    return wall, busy
+
+
+def phase_e2e_workload(dev, card, results, work):
+    """The reference's full workload in one process (cli/workload all:
+    acquire-all.sh's 21 acquisitions, track-all-gnss-2017-L1L2L5.sh's 11
+    tracks) on the 2017 three-band sky: WORKLOAD_SECONDS at 69.984 MHz
+    and 45 dB-Hz, the bands synthesised on the card
+    (tools/receiver_sky.synth_bands) and interleaved into the
+    tools/synth_sky container.  First the workload's own whole-band
+    chunks: each track's K2 scan held against the plain version from
+    block WORKLOAD_HELD_FROM (k2_held_deep).  Then the run, the counts
+    set to 0 just before and read just after: K1 the only acquisition
+    kernel, one K2 launch a track (the band preloaded whole), every launch
+    shape held; tools/sky_workload.validate on all 32 files (11 planted
+    acquisitions, 11 tracks); each file byte-equal to the same CLI call
+    without the cache; the stage walls (stderr), then the run again under
+    torch.profiler (busy and idle share; files equal again).  Returns
+    (K1 launches, K2 launches)."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.cli import workload
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+    from gnss_dsp_tpu_torch.tools.receiver_sky import BANDS, FS, synth_bands
+    from gnss_dsp_tpu_torch.tools.sky_workload import (
+        output_files, validate, write_container)
+
+    tag = "e2e_workload"
+    paths = {b: os.path.join(work, f"wl_band{b}.iq") for b in BANDS}
+    t0 = time.perf_counter()
+    synth_bands(paths, WORKLOAD_SECONDS, device=dev)
+    torch.cuda.synchronize()
+    container = os.path.join(work, "sky.pcap")
+    frames = write_container(paths, container)
+    check(frames == int(WORKLOAD_SECONDS * 1000), (tag, frames))
+    log(f"[{tag}] container {container}: {frames} frames x 3 bands at "
+        f"69.984 MHz, {os.path.getsize(container)} bytes, bands synthesised "
+        f"on the card ({time.perf_counter() - t0:.2f} s)")
+
+    held, cache = [], {}
+    t0 = time.perf_counter()
+    with k2_held_deep(held):
+        for row in workload.TRACK_ALL:
+            run_cli(lambda *a: trk_cli.main(*a, x_cache=cache), row[1],
+                    workload.track_argv(row, paths[row[0]])
+                    + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    check(len(held) == len(workload.TRACK_ALL), (tag, held))
+    log(f"[{tag}] each track's whole-band K2 scan held against the plain "
+        f"version for {WORKLOAD_HELD} blocks from block {WORKLOAD_HELD_FROM}"
+        f": rows, int rows and state bit-equal; pointers "
+        f"{min(p for p, _ in held)}-{max(p for p, _ in held)} into chunks of "
+        f"{held[0][1]} samples ({time.perf_counter() - t0:.2f} s)  [{card}]")
+    del cache
+
+    dest = os.path.join(work, "workload")
+    _zero_counts()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with recording() as calls, contextlib.redirect_stderr(err):
+        rc = workload.main(["all", container, dest, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    k1, k2 = counts.pop("acquire2"), counts.pop("track_fused")
+    check(rc == 0, (tag, "rc", rc))
+    for line in err.getvalue().splitlines():
+        log(f"[{tag}] {line}  [{card}]")
+    check_covered(tag, calls)
+    check(k1 > 0 and k2 == len(workload.TRACK_ALL)
+          and not any(counts.values()), (tag, "launches", k1, k2, counts))
+    lines, fails = validate(dest)
+    for ln in lines:
+        log(f"[{tag}] {ln}")
+    check(not fails, (tag, "validate", fails))
+    for b, p in paths.items():
+        with open(p, "rb") as f, open(os.path.join(dest, f"band{b}.iq"),
+                                      "rb") as g:
+            check(f.read() == g.read(), (tag, "demuxed band differs", b))
+        os.remove(p)
+    log(f"[{tag}] cli.workload all: {wall:.2f} s wall, {k1} K1 launches "
+        f"(21 acquisitions), {k2} K2 launches (11 tracks, one a track); "
+        f"every planted acquisition and track validated  [{card}]")
+
+    texts = {}
+    for fn in output_files():
+        with open(os.path.join(dest, fn)) as f:
+            texts[fn] = f.read()
+    t_un = {}
+    same = 0
+    for row in workload.ACQUIRE_ALL + workload.TRACK_ALL:
+        band = os.path.join(dest, f"band{row[0]}.iq")
+        if len(row) == 4:
+            main, argv, fn = acq_cli.main, workload.acquire_argv(row, band), \
+                row[3]
+        else:
+            main, argv, fn = trk_cli.main, workload.track_argv(row, band), \
+                row[6]
+        t1 = time.perf_counter()
+        out = run_cli(main, row[1], argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        t_un[fn] = time.perf_counter() - t1
+        check(out == texts[fn], (tag, fn, "differs from the uncached call"))
+        same += 1
+    log(f"[{tag}] all {same} files byte-equal to the same CLI call without "
+        f"the cache; uncached walls: acquisitions "
+        f"{sum(t_un[r[3]] for r in workload.ACQUIRE_ALL):.2f} s, tracks "
+        f"{sum(t_un[r[6]] for r in workload.TRACK_ALL):.2f} s "
+        f"({json.dumps({k: round(v, 3) for k, v in t_un.items()})})  "
+        f"[{card}]")
+
+    dest2 = os.path.join(work, "workload_profiled")
+    err2 = io.StringIO()
+    with contextlib.redirect_stderr(err2):
+        pwall, busy = _busy_share(lambda: workload.main(
+            ["all", container, dest2, "--device", str(dev)]))
+    for fn, text in texts.items():
+        with open(os.path.join(dest2, fn)) as f:
+            check(f.read() == text, (tag, fn, "second run differs"))
+    stages = [ln for ln in err2.getvalue().splitlines()
+              if "acquire-all" in ln or "track-all" in ln]
+    log(f"[{tag}] profiled run: wall {pwall:.2f} s, device busy {busy:.3f} "
+        f"s (busy share {busy / pwall:.4f}, idle {1 - busy / pwall:.4f}); "
+        f"{'; '.join(stages)}; files equal to the first run's  [{card}]")
+    results["acquire2"]["workload"] = dict(launches=k1, wall_s=wall)
+    results["track_fused"]["workload"] = dict(
+        launches=k2, wall_s=wall, profiled_wall_s=pwall, busy_s=busy,
+        idle_share=1 - busy / pwall)
+    for d in (dest, dest2):
+        for b in BANDS:
+            os.remove(os.path.join(d, f"band{b}.iq"))
+    os.remove(container)
+    return k1, k2
+
+
+# ----------------------------------------------------- phase e2e_switches
+
+@contextlib.contextmanager
+def plain_routes():
+    """Yields a dict counting the calls of the kernel-free routes: the
+    plain surface of the xla route (ops/acquire.corr_surface_plain, as
+    acquire/engine calls it) and the plain scan (track/engine.
+    track_scan_plain, as track_scan calls it)."""
+    from gnss_dsp_tpu_torch.ops import acquire
+    from gnss_dsp_tpu_torch.track import engine
+
+    seen = {"surface": 0, "scan": 0}
+    saved = [(acquire, "corr_surface_plain", "surface"),
+             (engine, "track_scan_plain", "scan")]
+    origs = [getattr(m, f) for m, f, _ in saved]
+    for (m, f, key), orig in zip(saved, origs):
+        def spy(*a, _orig=orig, _key=key, **kw):
+            seen[_key] += 1
+            return _orig(*a, **kw)
+        setattr(m, f, spy)
+    try:
+        yield seen
+    finally:
+        for (m, f, _), orig in zip(saved, origs):
+            setattr(m, f, orig)
+
+
+def _kernel_counts():
+    from gnss_dsp_tpu_torch.ops import (acquire, acquire2, acquire_coh,
+                                        track_fused, track_step)
+
+    return dict(acquire2=acquire2.LAUNCHES, acquire=acquire.LAUNCHES,
+                surface=acquire2.LAUNCHES_SURFACE,
+                spec=acquire_coh.LAUNCHES_SPEC, blk=acquire_coh.LAUNCHES_BLK,
+                track_fused=track_fused.LAUNCHES,
+                step_v2=track_step.LAUNCHES_V2,
+                step_v1=track_step.LAUNCHES_V1)
+
+
+def _zero_counts():
+    """Every kernel wrapper's launch count (_kernel_counts) set to 0."""
+    from gnss_dsp_tpu_torch.ops import (acquire, acquire2, acquire_coh,
+                                        track_fused, track_step)
+
+    acquire2.LAUNCHES = acquire.LAUNCHES = acquire2.LAUNCHES_SURFACE = 0
+    acquire_coh.LAUNCHES_SPEC = acquire_coh.LAUNCHES_BLK = 0
+    track_fused.LAUNCHES = 0
+    track_step.LAUNCHES_V2 = track_step.LAUNCHES_V1 = 0
+    check(not any(_kernel_counts().values()), _kernel_counts())
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _kernel_counts().items()}
+
+
+def phase_e2e_switches(dev, card, results, work, e2e):
+    """The reference's route switches through the CLIs on the card.
+    GNSS_DSP_NO_V2P: gps-l5i's acquisition (an 85 ms capture at 30.69
+    MHz) takes K7 at 61380 (counted by its wrapper and by torch.profiler)
+    and no K1, with the v2p route's winners.  GNSS_DSP_NO_PALLAS: GPS L1
+    acquire (also --coherent 2 and --mesh 1), track (300 blocks) and
+    track multi on the e2e capture each raise the refusal that names the
+    switch, with no kernel launched and no plain route called.  Unset: K1
+    and K2 launch and the plain routes are never called.  Returns K7's
+    launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.tools.main_path import (
+        environ, parse_hits, run_cli, synth_at_acq_fs)
+
+    tag = "e2e_switches"
+    path = os.path.join(work, "switch_gps_l5i.iq")
+    truth = synth_at_acq_fs(path, "gps-l5i", 0.085, seed=70)
+    args = ["--time", "80", path, str(truth["fs"]), "0", "--device",
+            str(dev)]
+    n0 = _kernel_counts()
+    with plain_routes() as plain:
+        t0 = time.perf_counter()
+        v2p = parse_hits(run_cli(acq_cli.main, "gps-l5i", list(args)))
+        torch.cuda.synchronize()
+        t_v2p = time.perf_counter() - t0
+    d = _delta(n0)
+    check(d["acquire2"] > 0 and d["acquire"] == 0 and plain["surface"] == 0,
+          (tag, "unset gps-l5i", d, plain))
+    n0 = _kernel_counts()
+    with environ({"GNSS_DSP_NO_V2P": "1"}), recording() as calls, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        v1 = parse_hits(run_cli(acq_cli.main, "gps-l5i", list(args)))
+        torch.cuda.synchronize()
+        t_v1 = time.perf_counter() - t0
+    d = _delta(n0)
+    k7 = d["acquire"]
+    seen = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "full_kernel" in e.name)
+    check(k7 > 0 and d["acquire2"] == 0 and 0 < seen <= k7,
+          (tag, "NO_V2P: K7 not the route", d, seen))
+    check_covered(tag, calls)
+    check_hits("gps-l5i NO_V2P", v1, truth, 200.0, phase=tag)
+    for prn in truth["prns"]:
+        check((v1[prn]["doppler"], v1[prn]["code"])
+              == (v2p[prn]["doppler"], v2p[prn]["code"]),
+              (tag, prn, v1[prn], v2p[prn]))
+    log(f"[{tag}] GNSS_DSP_NO_V2P gps-l5i: K7 at 61380, {k7} launches "
+        f"(profiler: {seen} kernel events), no K1; planted winners equal to "
+        f"the v2p route's; acquire CLI {t_v1:.2f} s against {t_v2p:.2f} s "
+        f"on K1's v2p  [{card}]")
+    os.remove(path)
+
+    path, fs, specs, k2_out, _truth = e2e
+    acq = [path, str(fs), "0", "--device", str(dev)]
+    trk = ["--blocks", "300", "--device", str(dev), path, str(fs), "0", specs]
+    n0 = _kernel_counts()
+    with plain_routes() as plain:
+        t0 = time.perf_counter()
+        a = run_cli(acq_cli.main, "gps-l1", list(acq))
+        torch.cuda.synchronize()
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t = run_cli(trk_cli.main, "gps-l1", list(trk))
+        torch.cuda.synchronize()
+        t_t = time.perf_counter() - t0
+    d = _delta(n0)
+    check(d["acquire2"] > 0 and d["track_fused"] == 1
+          and plain == {"surface": 0, "scan": 0},
+          (tag, "unset: not the kernel routes", d, plain))
+    hits, want = parse_hits(a), _rows_by_prn(k2_out)
+    for prn, rows in _rows_by_prn(t).items():
+        check(rows == want[prn][:len(rows)], (tag, "unset rows", prn))
+    k1_unset, k2_unset = d["acquire2"], d["track_fused"]
+    refused = []
+    calls = [("acquire", acq_cli.main, "gps-l1", acq),
+             ("acquire --coherent 2", acq_cli.main, "gps-l1",
+              ["--coherent", "2"] + acq),
+             ("acquire --mesh 1", acq_cli.main, "gps-l1",
+              ["--mesh", "1"] + acq),
+             ("track", trk_cli.main, "gps-l1", trk),
+             ("track multi", trk_cli.main, "multi",
+              ["--blocks", "30", "--device", str(dev), path, str(fs), "0",
+               "gps-l1:" + specs.split(",")[0]])]
+    n0 = _kernel_counts()
+    with environ({"GNSS_DSP_NO_PALLAS": "1"}), plain_routes() as plain:
+        for label, main, signal, argv in calls:
+            try:
+                run_cli(main, signal, list(argv))
+            except RuntimeError as e:
+                check("GNSS_DSP_NO_PALLAS" in str(e), (tag, label, str(e)))
+                refused.append(label)
+        torch.cuda.synchronize()
+    d = _delta(n0)
+    check(refused == [c[0] for c in calls] and not any(d.values())
+          and plain == {"surface": 0, "scan": 0},
+          (tag, "NO_PALLAS not refused on the card", refused, d, plain))
+    log(f"[{tag}] GNSS_DSP_NO_PALLAS on the card: {', '.join(refused)} each "
+        f"refused, naming the switch; no kernel launched, no plain route "
+        f"called.  Unset: K1 {k1_unset} launches / K2 {k2_unset}, no plain "
+        f"route, the rows K2's of phase e2e, {len(hits)} PRNs searched; "
+        f"walls acquire {t_a:.2f} s / track {t_t:.2f} s  [{card}]")
+    results["acquire_61380"]["launches"] += k7
+    results["acquire_61380"]["single_card"]["launches"] = k7
+    return k7
+
+
+# ---------------------------------------------------------- phase e2e_aux
+
+def _binary_cli(main, argv, out):
+    """main(argv) writing binary to sys.stdout.buffer, into `out`."""
+    import types
+
+    with open(out, "wb") as f:
+        saved = sys.stdout
+        sys.stdout = types.SimpleNamespace(buffer=f)
+        try:
+            rc = main(argv)
+        finally:
+            sys.stdout = saved
+    check(rc == 0, (main.__module__, rc))
+    return np.fromfile(out, np.int16)
+
+
+def phase_e2e_aux(dev, card, work, e2e):
+    """The aux tools on the card: the squaring CLI on a 4-round capture
+    (a weak tone in noise at an int8 level where 20 r stays inside
+    int16, 4 MHz, carrier offset 2.5 kHz) against --device cpu: int16
+    equal, or one LSB apart where the CPU's unrounded 20 r lies within
+    float32 rounding (1e-5 relative) of a .5 tie (counted);
+    correlation_shape on a block of the e2e capture (320 lags at 0.0125
+    chips, cboc) against the CPU, rtol 1e-5 / atol 1e-6 n;
+    utils/profiling.trace around a squaring call writes its trace with
+    the card's kernels in it."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import squaring as sq_cli
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops.frontend import mix_long
+    from gnss_dsp_tpu_torch.ops.squaring import squaring
+    from gnss_dsp_tpu_torch.track.probe import correlation_shape
+    from gnss_dsp_tpu_torch.utils.profiling import device_sync, trace
+
+    tag = "e2e_aux"
+    path, fs = e2e[0], e2e[1]
+    rounds, sq_fs, coff = 4, 4.0e6, 2500.0
+    per = sq_cli.B * sq_cli.N * sq_cli.M
+    rng = np.random.default_rng(15)
+    n = rounds * per + 999
+    t = np.arange(n)
+    x = 0.3 * np.exp(2j * np.pi * 3000.0 * t / sq_fs) + 2 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    iq = np.empty(2 * n, np.int8)
+    iq[0::2] = np.clip(np.round(x.real), -127, 127)
+    iq[1::2] = np.clip(np.round(x.imag), -127, 127)
+    sq_path = os.path.join(work, "squaring.iq")
+    iq.tofile(sq_path)
+    walls = {}
+    got = {}
+    for d in (str(dev), "cpu"):
+        t0 = time.perf_counter()
+        got[d] = _binary_cli(sq_cli.main, [sq_path, str(sq_fs), str(coff),
+                                           "--device", d],
+                             os.path.join(work, f"sq_{d[:3]}.bin"))
+        walls[d] = time.perf_counter() - t0
+    a, b = got[str(dev)].astype(np.int32), got["cpu"].astype(np.int32)
+    check(a.shape == b.shape == (2 * sq_cli.B * rounds,), (tag, a.shape))
+    check(np.abs(b).max() < 16000, (tag, "20 r leaves int16"))
+    r20, ph = [], 0.0
+    for k in range(rounds):
+        seg = iq[2 * k * per: 2 * (k + 1) * per].astype(np.float32)
+        xs = torch.from_numpy(seg.view(np.complex64).copy())
+        r = squaring(mix_long(xs, -coff / sq_fs, ph), sq_cli.N,
+                     sq_cli.M).numpy()
+        ph = float(np.mod(ph - per * coff / sq_fs, 1))
+        r20.append(np.stack([20 * r.real, 20 * r.imag], 1).reshape(-1))
+    r20 = np.concatenate(r20)
+    check((np.round(r20).astype(np.int32) == b).all(),
+          (tag, "the CPU CLI's rounding"))
+    diff = np.flatnonzero(a != b)
+    off = np.abs(np.abs(r20 - np.floor(r20)) - 0.5)
+    check((np.abs(a - b) <= 1).all()
+          and (off[diff] <= 1e-5 * np.abs(r20[diff]) + 1e-4).all(),
+          (tag, "card and CPU differ past a rounding tie",
+           a[diff][:8], b[diff][:8], r20[diff][:8]))
+    log(f"[{tag}] squaring CLI on the card: {rounds} rounds, int16 equal to "
+        f"--device cpu but {len(diff)} of {a.size} values one LSB apart, "
+        f"each at a rounding tie of 20 r; walls {walls[str(dev)]:.2f} s "
+        f"card, {walls['cpu']:.2f} s cpu  [{card}]")
+    os.remove(sq_path)
+    sig = get_signal("galileo-e1b")
+    raw = np.fromfile(path, np.int8, count=2 * 16368)
+    x = torch.from_numpy(raw.astype(np.float32).view(np.complex64))
+    code = torch.from_numpy(sig.code_table((11,))[0].astype(np.int8))
+    args = (4090.3, np.float32(sig.chip_rate / fs), 0.0125, 320, 4092,
+            "cboc")
+    c_dev = correlation_shape(x.to(dev), code.to(dev), *args)
+    c_cpu = correlation_shape(x, code, *args)
+    check(c_dev.device.type == "cuda", (tag, c_dev.device))
+    torch.testing.assert_close(c_dev.cpu(), c_cpu, rtol=1e-5,
+                               atol=1e-6 * x.shape[0])
+    err = float((c_dev.cpu() - c_cpu).abs().max())
+    log(f"[{tag}] correlation_shape on the card: 320 lags x {x.shape[0]} "
+        f"samples within rtol 1e-5 of the CPU's (max |d| {err:.3g})")
+    tdir = os.path.join(work, "aux_trace")
+    xs = torch.from_numpy(np.fromfile(path, np.int8, count=2 * 1600000)
+                          .astype(np.float32).view(np.complex64)).to(dev)
+    with trace(tdir):
+        r = squaring(xs, 16, 100)
+        device_sync(r)
+    tfile = os.path.join(tdir, "trace.json")
+    with open(tfile) as f:
+        text = f.read()
+    check('"cat": "kernel"' in text or '"cat":"kernel"' in text,
+          (tag, "no kernel in the trace"))
+    log(f"[{tag}] profiling.trace wrote {tfile} ({len(text)} bytes, the "
+        f"card's kernels in it)")
+    for d in got:
+        os.remove(os.path.join(work, f"sq_{d[:3]}.bin"))
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -3526,6 +4087,8 @@ def main(argv=None) -> int:
         f"e2e_track and e2e_coherent_track {json.dumps(k2_fams)}")
     results["track_fused"]["launches"] += sum(k2_fams.values())
     os.remove(phase_e2e_mesh(dev, card, results, args.out, e2e, b1i_track))
+    phase_e2e_switches(dev, card, results, args.out, e2e)
+    phase_e2e_aux(dev, card, args.out, e2e)
     os.remove(e2e[0])
     k1_wide = phase_e2e_wide(dev, card, results, args.out)
     log(f"[e2e_wide] acquire2 launches: e2e {results['acquire2']['launches']}"
@@ -3543,6 +4106,10 @@ def main(argv=None) -> int:
                                                   args.out)
     k2_slice["e2e_multi"] = phase_e2e_multi(dev, card, args.out)
     phase_e2e_recover(dev, card, args.out)
+    k1_wl, k2_slice["e2e_workload"] = phase_e2e_workload(dev, card, results,
+                                                        args.out)
+    log(f"[e2e_workload] acquire2 launches: {k1_wl}")
+    results["acquire2"]["launches"] += k1_wl
     log(f"[k2] launches: {json.dumps(k2_slice)}")
     results["track_fused"]["launches"] += sum(k2_slice.values())
     for r in results.values():

@@ -47,7 +47,7 @@ import torch
 
 from gnss_dsp_tpu_torch.acquire import engine as eng
 from gnss_dsp_tpu_torch.acquire.plan import coh_plan
-from gnss_dsp_tpu_torch.device import refuse_switches
+from gnss_dsp_tpu_torch.device import refuse_no_pallas
 from gnss_dsp_tpu_torch.ops import acquire_coh
 from gnss_dsp_tpu_torch.ops.acquire2 import check_w
 from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
@@ -251,11 +251,12 @@ def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
     plan.coh_plan gives one, "fused" requires it, "xla" forces the
     circular plain-torch engine.  chan: the FDMA channel whose band
     offset the oscillators carry (0 for CDMA signals).  Returns
-    list[CoherentAcqResult] in PRN order.  Refuses the reference's route
-    switches GNSS_DSP_NO_PALLAS and GNSS_DSP_NO_V2P
-    (device.refuse_switches)."""
-    refuse_switches("acquire_signal_coherent",
-                    ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
+    list[CoherentAcqResult] in PRN order.  Under GNSS_DSP_NO_PALLAS
+    plan.coh_plan gives no fused route, so "auto" takes the XLA engine
+    (the reference's coherent.py:356) on the CPU, and a card refuses the
+    switch (device.refuse_no_pallas); GNSS_DSP_NO_V2P moves nothing
+    here, as in the reference."""
+    refuse_no_pallas("acquire_signal_coherent", x_int.device)
     if sig.acq_serial:
         raise ValueError(
             f"{sig.name} is an assisted serial search, with no coherent form "

@@ -15,8 +15,13 @@ search, on every device:
        block windows zero-padded to the route's FFT length, and K1's
        reduction masked to the n exact linear lags (n_valid = n)
   v1   circular search at a window with no aligned split (Xona X5,
-       30690): the full surface from kernel K7 (ops/acquire), then max,
-       first argmax and mean over the lags in torch
+       30690; the pad2 windows 61380 and 30690 too under
+       GNSS_DSP_NO_V2P): the full surface from kernel K7 (ops/acquire),
+       then max, first argmax and mean over the lags in torch
+  xla  under GNSS_DSP_NO_PALLAS, the reference's XLA engine: the same
+       circular search at the data window with the surface in plain
+       torch (ops/acquire2.corr_surface_plain), on the CPU only (the
+       entry points refuse the switch on a card, device.refuse_no_pallas)
 
 Per doppler chunk: mix the block windows with each doppler's
 oscillator, forward FFT (torch.fft, outside the kernels as in the JAX
@@ -27,7 +32,8 @@ maximum, so the winning cell does not depend on the chunking.
 The sharded search (parallel/acquire) takes its parts from here: the
 block windows of one time shard (shard_block_windows, the reference's
 parallel/acquire.py:76-82), the surface route (surface, the counterpart
-of chunk_q_fused :120-144: K1's natural-order surface on v2, K7 on v1)
+of chunk_q_fused :120-144: K1's natural-order surface on v2, K7 on v1,
+the plain surface on xla, CPU only)
 and the reduction over the lags (surface_metric).
 
 FDMA (GLONASS L1/L2): every channel shares one m-sequence, so
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from gnss_dsp_tpu_torch.acquire.plan import acq_plan
-from gnss_dsp_tpu_torch.device import refuse_switches
+from gnss_dsp_tpu_torch.device import refuse_no_pallas
 from gnss_dsp_tpu_torch.models.codes import resample_host
 from gnss_dsp_tpu_torch.ops import acquire, acquire2, nco
 
@@ -148,15 +154,22 @@ def doppler_grid(sig, doppler_search, chan: int = 0):
 def dop_chunk_for(route: str, P: int, blocks: int, window: int,
                   D: int) -> int:
     """Dopplers per kernel call: as many as keep the [dc, B, W] spectra,
-    and on v1 also K7's [P, dc, W] surface, under ~1 GB."""
-    per_dc = blocks * window * 8 + (P * window * 4 if route == "v1" else 0)
+    and on v1 and xla also the [P, dc, W] surface, under ~1 GB."""
+    per_dc = blocks * window * 8 + (P * window * 4
+                                    if route in ("v1", "xla") else 0)
     return int(np.clip((1 << 30) // per_dc, 1, D))
 
 
-def surface_v1(F: torch.Tensor, code_ffts: torch.Tensor) -> torch.Tensor:
-    """K7's surface on a CUDA tensor, its plain version on a CPU one."""
+def surface_v1(F: torch.Tensor, code_ffts: torch.Tensor,
+               route: str = "v1") -> torch.Tensor:
+    """K7's surface on a CUDA tensor, its plain version on a CPU one.
+    Route "xla" (GNSS_DSP_NO_PALLAS) is the plain version and runs on the
+    CPU only."""
     if F.device.type == "cpu":
         return acquire.corr_surface_plain(F, code_ffts)
+    if route == "xla":
+        raise RuntimeError("route xla (GNSS_DSP_NO_PALLAS) runs on the CPU "
+                           "only")
     return acquire.corr_surface(F, code_ffts)
 
 
@@ -164,10 +177,10 @@ def surface(F: torch.Tensor, code_ffts: torch.Tensor,
             route: str) -> torch.Tensor:
     """q f32 [P, dc, W], natural lag order: on route "v2" K1's surface
     (reduce=False), on "v1" K7's; on a CPU tensor their plain version (the
-    same function)."""
+    same function), which is also route "xla" (CPU only)."""
     if route == "v2":
         return acquire2.corr_surface2(F, code_ffts, 0, False)
-    return surface_v1(F, code_ffts)
+    return surface_v1(F, code_ffts, route)
 
 
 def surface_metric(q: torch.Tensor, peak_mean: bool):
@@ -209,7 +222,7 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
                  samples
     code_ffts  : complex64 [P, window] natural-order code spectra
     dopp_fixed : int [D] per-sample NCO increments
-    route      : "v2", "v2p" or "v1" (acquire/plan.acq_plan)
+    route      : "v2", "v2p", "v1" or "xla" (acquire/plan.acq_plan)
     n_valid    : v2p: the exact linear lags K1's reduction is masked to;
                  code_idx then counts from window - n_valid
     data_window: samples of data per block window (default: window);
@@ -231,9 +244,9 @@ def grid_search(x: torch.Tensor, code_ffts: torch.Tensor,
     for d0 in range(0, D, dop_chunk):
         df = dopp_fixed[d0:d0 + dop_chunk].to(dev, torch.int64)
         F = mix_fft(xb, df)
-        if route == "v1":
-            metric, code_idx = surface_metric(surface_v1(F, code_ffts),
-                                              peak_mean)
+        if route in ("v1", "xla"):
+            metric, code_idx = surface_metric(
+                surface_v1(F, code_ffts, route), peak_mean)
         else:
             peak, code_idx, sm = acquire2.corr_surface2(F, code_ffts,
                                                         n_valid)  # [P, dc]
@@ -315,11 +328,11 @@ def acquire_signal(sig, x_int: torch.Tensor, prns, doppler_search=None,
     x_int: complex64 internal-rate samples covering >= ms+2 ms, on the
     device the search runs on.  chan: the FDMA channel whose band offset
     the oscillators carry (GLONASS L1/L2; 0 for the others).  Returns
-    list[AcqResult] in PRN order.  Refuses the reference's route switches
-    GNSS_DSP_NO_PALLAS and GNSS_DSP_NO_V2P (device.refuse_switches)."""
-    refuse_switches("acquire_signal",
-                    ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
+    list[AcqResult] in PRN order.  The route follows the reference's
+    switches GNSS_DSP_NO_PALLAS and GNSS_DSP_NO_V2P (acquire/plan); on a
+    card GNSS_DSP_NO_PALLAS is refused (device.refuse_no_pallas)."""
     _serial_refused(sig, "acquire_signal")
+    refuse_no_pallas("acquire_signal", x_int.device)
     dops, fixed = doppler_grid(sig, doppler_search or sig.doppler_default,
                                chan)
     return _search(sig, x_int, prns, prns, [dops], fixed, ms)
@@ -345,9 +358,10 @@ def acquire_signal_fdma(sig, x_int: torch.Tensor, chans, doppler_search=None,
 
     x_int: complex64 internal-rate samples covering >= ms+2 ms, on the
     device the search runs on.  Returns list[AcqResult] in channel order
-    (prn field = channel).  Refuses the reference's GNSS_DSP_NO_PALLAS."""
-    refuse_switches("acquire_signal_fdma", ("GNSS_DSP_NO_PALLAS",))
+    (prn field = channel); under GNSS_DSP_NO_PALLAS the plain surface on
+    the CPU, and a refusal on a card."""
     _serial_refused(sig, "acquire_signal_fdma")
+    refuse_no_pallas("acquire_signal_fdma", x_int.device)
     if not sig.fdma_hz:
         raise ValueError(f"{sig.name} is not an FDMA signal")
     dops_all, fixed = fdma_grid(sig, doppler_search or sig.doppler_default,

@@ -12,16 +12,25 @@ It returns (route, window, data_window, n_valid):
                reduction masked to the n exact linear lags; "v1": the
                circular search at a window with neither (Xona X5,
                W = 30690), the full surface from kernel K7, reduced in
-               torch
+               torch; "xla": under GNSS_DSP_NO_PALLAS, the circular
+               search at the data window in plain torch, no kernel (the
+               reference's XLA engine, _fused_plan's None), on the CPU
+               only: a card's entry points refuse the switch
+               (device.refuse_no_pallas)
   window       FFT length of the search
   data_window  samples of data in each block window (2n for pad2 and
                sliding signals, else n); zeros follow up to window
   n_valid      on v2p the n lags that are exact linear correlations,
                reported from 0 (lag - (window - n)), else 0
 
-The route is a property of the signal, not of the device: the CPU takes
-it too (the JAX package takes its XLA engine on a CPU, :309), so the
-plain versions check the same search the kernels run.  On v2p the port
+The route is a property of the signal and of the reference's switches,
+not of the device: the CPU takes it too (the JAX package takes its XLA
+engine on a CPU, :309), so the plain versions check the same search the
+kernels run.  The switches are read as the reference reads them (set
+means non-empty): GNSS_DSP_NO_PALLAS sends every search to "xla" (:307);
+GNSS_DSP_NO_V2P drops the padded route (:318), so the pad2 windows
+without an aligned split take "v1", the circular search at 2n lags (K7
+at 61380 and 30690).  On v2p the port
 searches at the reference's own padded length (plan_padded: 65536 for
 the 61380 windows, 32768 for 30690), powers of two both; any length of
 at least 2n would give the same valid cells.  The reference's last test,
@@ -34,7 +43,8 @@ mesh_plan, the sharded search.  Counterpart: the plan
 gnss_dsp_tpu/parallel/acquire.py:181-183 takes, _fused_plan(window) with
 no pad2_n (engine.py:293-333): at the 2n window of the pad2 and sliding
 signals (n for the others), "v2" where plan_aligned(window) holds, else
-"v1".  The sharded search has no padded route: the pad2 windows with no
+"v1"; "xla" (each shard's surface in plain torch) under
+GNSS_DSP_NO_PALLAS.  The sharded search has no padded route: the pad2 windows with no
 aligned split (61380, 30690) take v1, the circular search at 2n lags
 (kernel K7).  It returns (route, window); the port's kernels choose
 their own split (acquire2.core_plan, acquire2.wide_split).
@@ -46,7 +56,8 @@ pick_g (:61-111) and pallas_acquire_coh.plan_coh / plan_coh_spec
 (:60-155).
 
 coh_plan returns (mode, window, data_window, n_valid), or None where the
-JAX package takes its XLA einsum engine:
+JAX package takes its XLA einsum engine (always under GNSS_DSP_NO_PALLAS,
+coherent.py:356; its planner does not read GNSS_DSP_NO_V2P):
 
   mode         "spec" (spectral combine, kernel K5) or "blk" (per-block
                kernel, K6)
@@ -65,6 +76,8 @@ result and is not carried over.
 """
 
 from __future__ import annotations
+
+import os
 
 
 MAX_N1 = 512          # pallas_acquire2.MAX_N1
@@ -108,18 +121,25 @@ def plan_padded(window: int, max_pad: int = 16384) -> int:
     raise ValueError(f"no aligned split within {max_pad} of {window}")
 
 
+def no_pallas() -> bool:
+    """GNSS_DSP_NO_PALLAS is set: the reference's XLA engines, no kernel."""
+    return bool(os.environ.get("GNSS_DSP_NO_PALLAS"))
+
+
 def acq_plan(sig):
     """(route, window, data_window, n_valid) of the non-coherent search
-    of `sig`, as _fused_plan(window, pad2_n) with the Pallas kernels
-    enabled."""
+    of `sig`, as _fused_plan(window, pad2_n) on an accelerator, under the
+    reference's switches."""
     n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
     dw = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
+    if no_pallas():
+        return ("xla", dw, dw, 0)
     try:
         plan_aligned(dw)
         return ("v2", dw, dw, 0)
     except ValueError:
         pass
-    if sig.acq_pad2:
+    if sig.acq_pad2 and not os.environ.get("GNSS_DSP_NO_V2P"):
         try:
             return ("v2p", plan_padded(dw), dw, n)
         except ValueError:
@@ -129,11 +149,13 @@ def acq_plan(sig):
 
 def mesh_plan(sig):
     """(route, window) of the sharded search of `sig`, as
-    _fused_plan(window) with the Pallas kernels enabled and no pad2_n:
-    "v2" (K1) where plan_aligned(window) holds, else "v1" (K7); each
-    kernel picks its own split of the window."""
+    _fused_plan(window) on an accelerator with no pad2_n: "v2" (K1) where
+    plan_aligned(window) holds, else "v1" (K7); each kernel picks its own
+    split of the window.  "xla" under GNSS_DSP_NO_PALLAS."""
     n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
     window = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
+    if no_pallas():
+        return ("xla", window)
     try:
         plan_aligned(window)
         return ("v2", window)
@@ -184,7 +206,9 @@ def fits_spec(window: int) -> bool:
 
 def coh_plan(sig, n: int, m_coh: int, A: int):
     """(mode, window, data_window, n_valid) or None (XLA engine), as
-    _coh_fast_plan(...)[:4] with the Pallas kernels enabled."""
+    _coh_fast_plan(...)[:4] on an accelerator."""
+    if no_pallas():
+        return None
     dw = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
 
     def plan_at(window, n_valid):

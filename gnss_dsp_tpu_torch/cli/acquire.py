@@ -1,8 +1,8 @@
 """Acquisition CLI.
 
-Counterpart: gnss_dsp_tpu/cli/acquire.py:26-211 (`read_samples`,
-`_fmt_row`, `main` on every branch, non-coherent, --coherent and --mesh,
-FDMA or not, and `_main_serial`).
+Counterpart: gnss_dsp_tpu/cli/acquire.py:26-211 (`read_samples` with its
+`cache`, `_fmt_row`, `main` on every branch, non-coherent, --coherent and
+--mesh, FDMA or not, and `_main_serial`).
 
   python -m gnss_dsp_tpu_torch.cli.acquire SIGNAL [options] input_file sample_rate carrier_offset
   python -m gnss_dsp_tpu_torch.cli.acquire gps-l2cl [options] input_file fs coffset prn doppler l2cm_code_phase
@@ -30,11 +30,17 @@ doppler and the parent code phase after the capture, wipe the carrier
 offset off the native-rate samples with no front end, and print one
 "code_phase metric" row (acquire-gps-l2cl.py:76), the code phase not
 reduced mod L.
+
+main(signal, argv, x_cache=dict) is the batched workload runner's call
+(cli/workload): each input file is uploaded once, as int8 converted on
+the device, and every later call on that file slices the device tensor;
+the rows are those of the same call without the cache.
 """
 
 from __future__ import annotations
 
 import optparse
+import os
 import sys
 
 from gnss_dsp_tpu_torch.models import get_signal
@@ -50,10 +56,19 @@ from gnss_dsp_tpu_torch.parallel.acquire import (
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 
 
-def read_samples(filename, n: int, device):
+def read_samples(filename, n: int, device, cache: dict | None = None):
     """n complex samples from `filename` ("-" = stdin) as complex64 on
     `device` (raw int8 uploaded, converted on the device); None when the
-    input is short."""
+    input is short.  With `cache` (file name -> the whole file on the
+    device; one device a cache) a file is read and uploaded once, and
+    each call slices its first n samples there."""
+    if cache is not None and filename != "-":
+        ent = cache.get(filename)
+        if ent is None:
+            with open(filename, "rb") as fp:
+                z = fp.read(2 * (os.path.getsize(filename) // 2))
+            ent = cache[filename] = cplx.from_int8_iq(z, device=device)
+        return ent[:n] if ent.shape[0] >= n else None
     fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
     z = fp.read(2 * int(n))
     if filename != "-":
@@ -82,7 +97,7 @@ def _device_option(parser):
                       "(default %default)")
 
 
-def main(signal: str, argv=None) -> int:
+def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     sig = get_signal(signal)
     argv = sys.argv[2:] if argv is None else argv
     if sig.code_table is None:
@@ -90,7 +105,7 @@ def main(signal: str, argv=None) -> int:
             f"{signal}: no code table (code windows only), as in the "
             f"reference")
     if sig.acq_serial:
-        return _main_serial(sig, argv)
+        return _main_serial(sig, argv, x_cache)
     fdma = bool(sig.fdma_hz)
     usage = (f"acquire {signal} [options] input_filename sample_rate "
              "carrier_offset")
@@ -125,7 +140,7 @@ def main(signal: str, argv=None) -> int:
     dops = tuple(float(v) for v in options.doppler_search.split(","))
     prns = sig.prns(options.prn)
 
-    x = read_samples(filename, int((ms + 5) * fs / 1000), dev)
+    x = read_samples(filename, int((ms + 5) * fs / 1000), dev, x_cache)
     if x is None:
         print("insufficient samples", file=sys.stderr)
         return 1
@@ -153,7 +168,7 @@ def main(signal: str, argv=None) -> int:
     return 0
 
 
-def _main_serial(sig, argv) -> int:
+def _main_serial(sig, argv, x_cache: dict | None = None) -> int:
     fdma = bool(sig.fdma_hz)
     label = "chan" if fdma else "prn"
     parser = optparse.OptionParser(
@@ -173,7 +188,7 @@ def _main_serial(sig, argv) -> int:
     prn, doppler, phase = int(args[3]), float(args[4]), float(args[5])
     ms = options.time
 
-    x = read_samples(filename, int((ms + 2) * fs / 1000), dev)
+    x = read_samples(filename, int((ms + 2) * fs / 1000), dev, x_cache)
     if x is None:
         print("insufficient samples", file=sys.stderr)
         return 1

@@ -1,7 +1,7 @@
 """Tracking CLI.
 
-Counterpart: gnss_dsp_tpu/cli/track.py (`main` :148-298, `main_multi`
-:57-147).
+Counterpart: gnss_dsp_tpu/cli/track.py (`_preload_chunk` :25-55, `main`
+:148-298, `main_multi` :57-147).
 
   python -m gnss_dsp_tpu_torch.cli.track SIGNAL [options] input_file \\
       sample_rate carrier_offset prn doppler code_offset
@@ -36,6 +36,13 @@ the data-wiped samples into per-chip bins after --recover-warmup blocks
 on the plain scan, the reference's route for it, and writes them to
 --recover-file as "%f %f" rows (under `multi`, RECOVER_FILE-SIG-PRN.ext
 a channel).
+
+main(signal, argv, x_cache=dict) is the batched
+workload runner's call (cli/workload): a file of at most one --chunk-ms
+chunk is uploaded once (_preload_chunk) and tracked in single-chunk mode
+(track/driver.track_file's `preloaded`); not under --mesh, --checkpoint
+or --resume, nor from stdin.  The rows are those of the same call
+without the cache.
 """
 
 from __future__ import annotations
@@ -44,12 +51,33 @@ import optparse
 import os
 import sys
 
+import numpy as np
+
 from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
+from gnss_dsp_tpu_torch.ops import cplx
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 from gnss_dsp_tpu_torch.track.driver import (
     TrackChannel, format_row_9, format_row_14, track_file,
 )
+
+
+def _preload_chunk(path: str, fs: float, chunk_ms: float, cache: dict, *,
+                   device):
+    """(x, n): the whole file `path` on `device` as complex64, zero-padded
+    for every family's margins, shared across CLI calls through `cache`
+    (file name -> (x, n); one device a cache), uploaded once; None when the file is longer than one chunk (the streaming
+    reader takes it).  The pad is int(fs * 0.006) + 16384 samples, then
+    up to a multiple of 1024."""
+    n = os.path.getsize(path) // 2
+    if n > int(fs * chunk_ms / 1000.0):
+        return None
+    if path not in cache:
+        raw = np.fromfile(path, np.int8, count=2 * n)
+        pad = int(fs * 0.006) + 16384
+        pad += (-(n + pad)) % 1024
+        cache[path] = (cplx.from_int8_iq(raw, pad=pad, device=device), n)
+    return cache[path]
 
 
 def _common_options(parser):
@@ -91,7 +119,7 @@ def _write_bins(path, bins):
             f.write("%f %f\n" % (v.real, v.imag))
 
 
-def main_multi(argv=None) -> int:
+def main_multi(argv=None, x_cache: dict | None = None) -> int:
     """Channels of different signals in one scan over one stream:
 
       track multi [options] input_file sample_rate carrier_offset \\
@@ -139,6 +167,10 @@ def main_multi(argv=None) -> int:
     def emit(k, row):
         print(f"{sigs[k].name}:{channels[k].prn} " + fmts[k](row))
 
+    preloaded = None
+    if x_cache is not None and filename != "-" and mesh is None:
+        preloaded = _preload_chunk(filename, fs, options.chunk_ms, x_cache,
+                                   device=dev)
     fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
     track_file(sigs[0], fp, fs, coffset, channels, loop_dwells=dwells,
                chunk_ms=options.chunk_ms,
@@ -146,7 +178,7 @@ def main_multi(argv=None) -> int:
                coherent_blocks=options.coherent, mesh=mesh,
                recover_after=(options.recover_warmup if options.recover
                               else -1),
-               sigs=sigs, coffsets=coffsets)
+               sigs=sigs, coffsets=coffsets, preloaded=preloaded)
     if options.recover:
         base, ext = os.path.splitext(options.recover_file)
         for s, ch in zip(sigs, channels):
@@ -155,9 +187,9 @@ def main_multi(argv=None) -> int:
     return 0
 
 
-def main(signal: str, argv=None) -> int:
+def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     if signal == "multi":
-        return main_multi(argv)
+        return main_multi(argv, x_cache)
     sig = get_signal(signal)
     label = "chan" if sig.fdma_hz else "prn"
     parser = optparse.OptionParser(
@@ -239,6 +271,11 @@ def main(signal: str, argv=None) -> int:
         prefix = f"ch{channels[k].prn} " if multi else ""
         print(prefix + fmt(row))
 
+    preloaded = None
+    if (x_cache is not None and filename != "-" and mesh is None
+            and options.checkpoint is None and options.resume is None):
+        preloaded = _preload_chunk(filename, fs, options.chunk_ms, x_cache,
+                                   device=dev)
     # left open: the prefetch thread may still be reading ahead
     fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
     track_file(sig, fp, fs, coffset, channels, loop_dwells=dwells,
@@ -247,7 +284,7 @@ def main(signal: str, argv=None) -> int:
                coherent_blocks=options.coherent, mesh=mesh,
                recover_after=recover_after,
                checkpoint_path=options.checkpoint,
-               resume_from=options.resume)
+               resume_from=options.resume, preloaded=preloaded)
     if recover_after >= 0:
         _write_bins(options.recover_file, channels[0].recovered)
     return 0

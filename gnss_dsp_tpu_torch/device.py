@@ -4,6 +4,11 @@ There is no global default device in this package: every entry point
 takes `device` and passes it on.  resolve_device refuses to hand out a
 CUDA device that does not exist, so `--device cuda` on a machine without
 a card fails loudly instead of running on the CPU.
+
+GNSS_DSP_NO_PALLAS, the reference's switch to its XLA engines, is
+honoured on the CPU only (the plain versions, acquire/plan's "xla"
+route): on a card the port runs its kernels and nothing else, so every
+entry point given a card refuses the switch (refuse_no_pallas).
 """
 
 from __future__ import annotations
@@ -12,30 +17,17 @@ import os
 
 import torch
 
-# The reference's environment switches that the port does not honour yet,
-# and what each does there.  An entry point that one of them would move
-# refuses to run while it is set (refuse_switches): it never runs a route
-# the caller asked to leave.
-SWITCHES = {
-    "GNSS_DSP_NO_PALLAS": "sends acquisition and tracking to the XLA "
-                          "engine (acquire/engine.py:307, acquire/"
-                          "coherent.py:356, track/driver.py:112)",
-    "GNSS_DSP_NO_V2P": "sends the pad2 signals to the v1 route at the "
-                       "unpadded 2n window (acquire/engine.py:318)",
-}
-# GNSS_DSP_UPLOAD_INT4 (the 4-bit front end) is honoured: track_file and
-# track_receiver quantise each chunk to 4 bits before the upload, as the
-# reference's do (ops/cplx.from_int4_iq).
 
-
-def refuse_switches(what: str, names=tuple(SWITCHES)):
-    """Raise NotImplementedError naming the first of the switches `names`
-    that is set (non-empty, as the reference reads them)."""
-    for name in names:
-        if os.environ.get(name):
-            raise NotImplementedError(
-                f"{what}: {name} is set; the reference then {SWITCHES[name]}, "
-                f"which the port does not do yet")
+def refuse_no_pallas(what: str, *devices) -> None:
+    """Raise RuntimeError while GNSS_DSP_NO_PALLAS is set (non-empty, as
+    the reference reads it) and any of `devices` is not the CPU."""
+    if os.environ.get("GNSS_DSP_NO_PALLAS") and any(
+            torch.device(d).type != "cpu" for d in devices):
+        raise RuntimeError(
+            f"{what}: GNSS_DSP_NO_PALLAS is set, which sends the reference "
+            "to its XLA engines; on a card the port runs only its kernels. "
+            "Unset it, or run on the CPU (--device cpu) for the plain "
+            "versions")
 
 
 def resolve_device(name="cuda") -> torch.device:

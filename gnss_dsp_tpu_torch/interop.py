@@ -43,7 +43,7 @@ def params_from_jax(p) -> TrackParams:
     return TrackParams(**{k: src[k] for k in TrackParams._fields})
 
 
-def state_from_numpy(d, device="cpu") -> TrackState:
+def state_from_numpy(d, device) -> TrackState:
     """{field: array} -> TrackState.  Accepts a JAX TrackState or the
     arrays of a checkpoint (np.load) too; where the recovery bins
     acc_re/acc_im are missing they are [C, 1] zeros (recovery off)."""

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 
-def from_int8_iq(raw, pad: int = 0, device="cpu") -> torch.Tensor:
+def from_int8_iq(raw, pad: int = 0, *, device) -> torch.Tensor:
     """Interleaved int8 I/Q (bytes or int8 array) -> complex64 [n + pad]
     on `device`, with `pad` zero samples appended on the device."""
     if isinstance(raw, (bytes, bytearray, memoryview)):
@@ -76,7 +76,7 @@ def from_int4_iq(packed, pad: int = 0, scale: float = 8.0,
     return torch.view_as_complex(f.contiguous())
 
 
-def from_iq(raw, pad: int = 0, device="cpu", int4: bool = False):
+def from_iq(raw, pad: int = 0, *, device, int4: bool = False):
     """(complex64 chunk on `device`, bytes uploaded): the int8 I/Q bytes
     `raw` through from_int8_iq, or with int4 packed on the host and
     through from_int4_iq."""

@@ -17,7 +17,11 @@ reference's validity mask each sat row may take its own increments.
 Each shard runs the route of acquire/plan.mesh_plan on its device: at the
 2n window of the pad2 and sliding signals, K1's natural-order surface
 (ops/acquire2, reduce=False) on v2 and K7 (ops/acquire) on v1, their plain
-version on a CPU device (acquire/engine.surface).  The samples are copied
+version on a CPU device (acquire/engine.surface), and under
+GNSS_DSP_NO_PALLAS the plain version (route "xla", the reference's XLA
+engine a shard) on a mesh of CPU shards; a mesh with a card refuses the
+switch (device.refuse_no_pallas).  GNSS_DSP_NO_V2P moves nothing: the sharded search has
+no padded route, as in the reference.  The samples are copied
 once to each distinct device.
 
 multihost=True runs the same search over the ranks of a torch.distributed
@@ -42,7 +46,7 @@ import torch.distributed as dist
 
 from gnss_dsp_tpu_torch.acquire import engine, serial
 from gnss_dsp_tpu_torch.acquire.plan import mesh_plan
-from gnss_dsp_tpu_torch.device import refuse_switches
+from gnss_dsp_tpu_torch.device import refuse_no_pallas
 from gnss_dsp_tpu_torch.parallel.mesh import rank_group, this_rank
 
 
@@ -188,11 +192,10 @@ def acquire_signal_sharded(sig, x_int: torch.Tensor, prns, mesh,
     internal-rate samples covering >= ms+2 ms, on any device (every rank
     passes the same samples when multihost).  chan: the FDMA channel whose
     band offset the oscillators carry.  Returns list[AcqResult] in PRN
-    order.  Refuses the reference's route switches, as acquire_signal
-    does, and the serial searches (serial_search_sharded)."""
-    refuse_switches("acquire_signal_sharded",
-                    ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P"))
+    order.  Refuses the serial searches (serial_search_sharded)."""
     engine._serial_refused(sig, "acquire_signal_sharded")
+    refuse_no_pallas("acquire_signal_sharded", x_int.device,
+                     *mesh.devices.flat)
     doppler_search = doppler_search or sig.doppler_default
     n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
     route, window = mesh_plan(sig)
@@ -236,8 +239,9 @@ def acquire_signal_fdma_sharded(sig, x_int: torch.Tensor, chans, mesh,
     same result, the first maximum inside each channel's band
     (grid_search_sharded's per-row increments and group).  Returns
     list[AcqResult] in channel order (prn field = channel)."""
-    refuse_switches("acquire_signal_fdma_sharded", ("GNSS_DSP_NO_PALLAS",))
     engine._serial_refused(sig, "acquire_signal_fdma_sharded")
+    refuse_no_pallas("acquire_signal_fdma_sharded", x_int.device,
+                     *mesh.devices.flat)
     if not sig.fdma_hz:
         raise ValueError(f"{sig.name} is not an FDMA signal")
     doppler_search = doppler_search or sig.doppler_default

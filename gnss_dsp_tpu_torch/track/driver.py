@@ -14,7 +14,12 @@ chooses it (:178-183): the whole-loop kernel K2 (fused_scan) for every
 signal with a code table, every subcarrier family, sub-block and long
 code, coherent or not, unless GNSS_DSP_NO_FUSED is set or recovery is on;
 else the per-step route on K3, or on K4 when GNSS_DSP_PALLAS_V1 is set
-(pallas_v2).  Recovery runs the plain scan (track/engine).
+(pallas_v2).  Recovery runs the plain scan (track/engine).  Under
+GNSS_DSP_NO_PALLAS the reference's _pallas_ok (:108-114) sends every scan
+to its XLA scan: the port's CPU runs the plain scan anyway, and a card
+refuses the switch (device.refuse_no_pallas) in track_file, `track
+multi` and the receiver alike.  GNSS_DSP_NO_V2P is an acquisition switch
+and moves nothing here.
 
 Mixed signals (`sigs`, the CLI's `track multi`, :256-283, 343-480): each
 channel carries its own signal's constants in its sigp row, its own code
@@ -36,8 +41,8 @@ sat axis with clones of channel 0, whose rows are computed but never
 emitted (:311-331), and every chunk runs parallel/track.
 track_scan_sharded; the recovery bins split over it like the state.
 The reference's refusals stand: coherent tracking under a mesh needs
-K2, so not with recovery (:318-324), and a mixed-signal run under a mesh
-needs K2 and no recovery (:280-283).
+K2, so not with recovery or GNSS_DSP_NO_PALLAS (:318-324), and a
+mixed-signal run under a mesh needs K2 and no recovery (:280-283).
 
 Checkpoint/resume (:421-450, 664-690, track/checkpoint): after every
 chunk the state and host counters go to one npz (atomic rename); a
@@ -47,11 +52,18 @@ signal recovers by default, the BeiDou B2b ones, else off) leaves each
 channel's complex bins on TrackChannel.recovered.  GNSS_DSP_UPLOAD_INT4
 uploads each chunk as packed 4-bit I/Q (ops/cplx.from_int4_iq, :623-630).
 
-Not ported here: the preloaded chunks of the batched workload runner
-(`preloaded`, cli/workload.py).  The kernels read the plain [C, L] int8
-code table (long codes too: L2CL's 767,250 and GLONASS P's 5,110,000
-chips stay in device memory), so the JAX package's extended code rows
-have no counterpart.
+Single-chunk mode (`preloaded`, :536-575): the batched workload runner
+(cli/workload) uploads each band once and hands every script on it the
+whole padded band on the device; the scan then runs over that one chunk,
+with no reader, no refill and no rebase, until every channel stalls at
+the data end or max_blocks.  The reference's gate (:538-546) takes the
+streaming reader instead when the pad is short of nmax (the port's
+margin, every route's), the length is not a multiple of 1024, or a
+checkpoint, a resume or a mesh is asked for.
+
+The kernels read the plain [C, L] int8 code table (long codes too: L2CL's
+767,250 and GLONASS P's 5,110,000 chips stay in device memory), so the
+JAX package's extended code rows have no counterpart.
 """
 
 from __future__ import annotations
@@ -64,7 +76,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gnss_dsp_tpu_torch.device import refuse_switches, resolve_device
+from gnss_dsp_tpu_torch.device import refuse_no_pallas, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx, nco
 from gnss_dsp_tpu_torch.parallel.track import track_scan_sharded
 from gnss_dsp_tpu_torch.track import checkpoint
@@ -147,6 +159,7 @@ class TrackChannel:
 def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
                 pll_from_start: bool = False, recover_after: int = -1,
                 coherent_blocks: int = 1) -> TrackParams:
+    use_pallas = not os.environ.get("GNSS_DSP_NO_PALLAS")
     period_ms = sig.code_period_ms
     sub = sig.sub_blocks
     nmax = int(fs * 0.001 * period_ms / sub * 1.5) + 4
@@ -173,8 +186,8 @@ def make_params(sig, fs: float, coffset: float, loop_dwells=(500, 500),
         subcarrier=str(sig.subcarrier),
         recover_after=int(recover_after),
         coh_blocks=int(coherent_blocks),
-        pallas_v2=not os.environ.get("GNSS_DSP_PALLAS_V1"),
-        fused_scan=recover_after < 0
+        pallas_v2=use_pallas and not os.environ.get("GNSS_DSP_PALLAS_V1"),
+        fused_scan=use_pallas and recover_after < 0
         and not os.environ.get("GNSS_DSP_NO_FUSED"),
     )
 
@@ -252,7 +265,7 @@ def channel_setup(sigs, channels, fs: float, coffsets, loop_dwells,
         if "tmboc" in kinds:
             kind = "tmboc"
         params = params._replace(nmax=max(q.nmax for q in alls))
-        if params.pallas_v2:
+        if not os.environ.get("GNSS_DSP_PALLAS_V1"):
             # under GNSS_DSP_PALLAS_V1 the launch keeps the first
             # signal's static family, as the reference's does
             params = params._replace(subcarrier=kind)
@@ -358,7 +371,8 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
                coherent_blocks: int = 1, mesh=None,
                recover_after: int | None = None,
                checkpoint_path: str | None = None,
-               resume_from: str | None = None, sigs=None, coffsets=None):
+               resume_from: str | None = None, sigs=None, coffsets=None,
+               preloaded=None):
     """Track `channels` (list[TrackChannel]) through the int8 I/Q stream
     `fp` on `device` (the card unless the caller asks for the CPU).
     coherent_blocks: the extended-coherent span M (1 = off, -1 = each
@@ -369,13 +383,14 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
     recover_after: unknown-code recovery after that many blocks (None:
     the signals' default), the bins left on each channel's .recovered.
     checkpoint_path: write the state after every chunk; resume_from: go
-    on from such a file (`fp` seekable).
+    on from such a file (`fp` seekable).  preloaded: (x, n) with x the
+    whole stream's n samples on `device`, complex64, zero-padded to a
+    multiple of 1024 (cli/track._preload_chunk): one scan chunk, `fp`
+    unread, unless the gate sends the run to the streaming reader.
 
     emit(channel_index, row_dict) is called once per completed block, in
     block order per chunk.  Returns the channels (rows accumulated when
-    emit is None).  Refuses the route switches GNSS_DSP_NO_PALLAS and
-    GNSS_DSP_NO_V2P (device.refuse_switches)."""
-    refuse_switches("track_file")
+    emit is None)."""
     mixed = sigs is not None and len({s.name for s in sigs}) > 1
     sigs = [sig] * len(channels) if sigs is None else list(sigs)
     if len(sigs) != len(channels):
@@ -391,9 +406,13 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         recover_after = (200 if all(s.recover_default for s in sigs)
                          else -1)
     if mixed and mesh is not None and (os.environ.get("GNSS_DSP_NO_FUSED")
+                                       or os.environ.get("GNSS_DSP_NO_PALLAS")
                                        or recover_after >= 0):
         raise ValueError("a mixed-signal run under a mesh needs the fused "
-                         "kernel K2 and no recovery (drop --mesh)")
+                         "kernel K2 (GNSS_DSP_NO_FUSED and GNSS_DSP_NO_PALLAS "
+                         "unset) and no recovery (drop --mesh)")
+    refuse_no_pallas("track_file", device,
+                     *(mesh.devices.flat if mesh is not None else ()))
     dev = resolve_device(device)
     n_emit = len(channels)
     if mesh is not None:
@@ -409,8 +428,8 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
     params = setup.params
     if mesh is not None and params.coh_blocks > 1 and not params.fused_scan:
         raise ValueError("coherent tracking under a mesh needs the fused "
-                         "kernel K2 (GNSS_DSP_NO_FUSED set, or recovery "
-                         "on: pass recover_after=-1)")
+                         "kernel K2 (GNSS_DSP_NO_FUSED or GNSS_DSP_NO_PALLAS "
+                         "set, or recovery on: pass recover_after=-1)")
     C = len(channels)
 
     abs_buf0 = 0          # the stream sample at the chunk's start
@@ -441,6 +460,31 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
 
     chunk_samples = int(fs * chunk_ms / 1000.0)
     pad_extra = params.nmax
+    if preloaded is not None:
+        x_dev, n_file = preloaded
+        if (resume_from is not None or checkpoint_path is not None
+                or mesh is not None or x_dev.shape[0] % 1024
+                or x_dev.shape[0] < n_file + pad_extra):
+            preloaded = None
+    if preloaded is not None:
+        sub_ms = min(s.code_period_ms / s.sub_blocks for s in sigs)
+        file_blocks = int(n_file / fs * 1000.0 / sub_ms) + 2
+        while True:
+            nb = min(setup.blocks_per_scan, file_blocks)
+            if max_blocks is not None:
+                nb = min(nb, max_blocks - total_blocks)
+            if nb <= 0:
+                break
+            state = state._replace(stalled=torch.zeros_like(state.stalled))
+            state, rows_f, rows_i = track_scan(
+                x_dev, n_file, setup.code_tab, state, params, nb, **scan)
+            total_blocks += nb
+            if not emit_rows(channels, n_emit, emit, rows_f, rows_i, nb):
+                break
+            if bool(state.stalled.all()):
+                break
+        return _recovered(channels, n_emit, state, recover_after)
+
     int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
     buf = np.zeros(0, np.int8)         # interleaved int8 I/Q bytes
     reader = _PrefetchReader(fp, chunk_samples + pad_extra)
@@ -499,6 +543,12 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
             # every channel is frozen at the data end and no samples can
             # arrive: rebasing cannot unstall them
             break
+    return _recovered(channels, n_emit, state, recover_after)
+
+
+def _recovered(channels, n_emit, state, recover_after):
+    """The emitted channels, each with its recovery bins on .recovered
+    when recovery ran."""
     if recover_after >= 0:
         acc_re = state.acc_re.cpu().numpy()
         acc_im = state.acc_im.cpu().numpy()

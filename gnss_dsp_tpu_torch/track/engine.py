@@ -145,7 +145,7 @@ def sigp_row(cf_hi, cf_lo, el, L, spp, sub, subcarrier: str = "none",
                      coh, nov, tm], np.float32)
 
 
-def sigp_from_params(p: TrackParams, C: int, device="cpu") -> torch.Tensor:
+def sigp_from_params(p: TrackParams, C: int, device) -> torch.Tensor:
     row = sigp_row(p.cf_hi, p.cf_lo, p.el_spacing, p.code_length,
                    p.fs * 0.001 * p.code_period_ms, p.sub, p.subcarrier,
                    coh=p.coh_blocks)

@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from gnss_dsp_tpu_torch.device import refuse_switches, resolve_device
+from gnss_dsp_tpu_torch.device import refuse_no_pallas, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx
 from gnss_dsp_tpu_torch.track.driver import (
     _PrefetchReader, channel_setup, emit_rows, first_boundary,
@@ -75,7 +75,6 @@ def track_receiver(bands, fs: float, loop_dwells=(500, 500),
     accumulated on the channels when emit is None).  stats: a dict that
     receives chunks, upload_bytes (a list, one a chunk), seg_cap and the
     walls t_read, t_upload, t_scan in seconds."""
-    refuse_switches("track_receiver")
     sigs, channels, coffsets, band_of = [], [], [], []
     for b, (_fp, bs, bc, bco) in enumerate(bands):
         if not len(bs) == len(bc) == len(bco):
@@ -85,6 +84,7 @@ def track_receiver(bands, fs: float, loop_dwells=(500, 500),
         channels += list(bc)
         coffsets += list(bco)
         band_of += [b] * len(bc)
+    refuse_no_pallas("track_receiver", device)
     dev = resolve_device(device)
     B, C = len(bands), len(channels)
     setup = channel_setup(sigs, channels, fs, coffsets, loop_dwells,

@@ -24,7 +24,11 @@ largest sum (both sum exact float64 products and round once; a sum within
 2^-29 of a rounding tie may round the other way), two launches bit-equal,
 and bit-equal to the host emulation of their order of summation
 (tests/test_torch_track_step_plan.step_sums); a K3 launch replayed from a
-CUDA graph bit-equal to an eager one.
+CUDA graph bit-equal to an eager one.  The squaring detector and the
+correlation-shape probe on card tensors against their CPU results (rtol
+1e-5); K2 on a whole preloaded band (cli/track._preload_chunk) bit-equal
+to the plain scan; K7 at 61380 as the single-card route under
+GNSS_DSP_NO_V2P, with the padded route's winners.
 """
 
 import numpy as np
@@ -1244,3 +1248,113 @@ def test_k3_mixed_code_lengths_match_plain(dev):
     _check_step(got, want)
     full = track_step.epl_correlate_plain(si, sf, x, code, nmax, "none")
     assert not torch.equal(full, want)
+
+
+def test_squaring_and_probe_on_the_card(dev):
+    """ops/squaring and track/probe.correlation_shape on card tensors
+    stay there and give their CPU results: squaring rtol 1e-5 (atol 1e-5
+    n m max|x|^2), the probe rtol 1e-5 (atol 1e-6 n) for every
+    subcarrier kind."""
+    from gnss_dsp_tpu_torch.ops.squaring import squaring
+    from gnss_dsp_tpu_torch.track.probe import correlation_shape
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.complex(torch.randn(3 * 16 * 100 + 9, generator=g),
+                      torch.randn(3 * 16 * 100 + 9, generator=g))
+    r = squaring(x.to(dev), 16, 100)
+    assert r.device.type == "cuda"
+    atol = 1e-5 * 1600 * float(x.abs().max()) ** 2
+    torch.testing.assert_close(r.cpu(), squaring(x, 16, 100), rtol=1e-5,
+                               atol=atol)
+    code = torch.from_numpy(np.where(np.random.default_rng(1).random(4092)
+                                     < 0.5, -1, 1).astype(np.int8))
+    n = 8000
+    for kind in ("none", "boc11", "cboc", "tmboc"):
+        c = correlation_shape(x[:n].to(dev), code.to(dev), 4090.3, 0.125,
+                              0.0125, 320, 4092, kind)
+        assert c.device.type == "cuda" and c.shape == (320,)
+        torch.testing.assert_close(
+            c.cpu(), correlation_shape(x[:n], code, 4090.3, 0.125, 0.0125,
+                                       320, 4092, kind),
+            rtol=1e-5, atol=1e-6 * n)
+
+
+def test_preloaded_whole_band_chunk_matches_plain(dev, tmp_path):
+    """A 0.25 s GPS L1 band at 69.984 MHz preloaded whole on the card
+    (cli/track._preload_chunk, one K2 launch over the whole chunk): that
+    scan against the plain version on the same arguments bit for bit,
+    and the rows equal to the streaming run's."""
+    from gnss_dsp_tpu_torch.cli.track import _preload_chunk
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import track_fused
+    from gnss_dsp_tpu_torch.tools.receiver_sky import FS, synth_bands
+    from gnss_dsp_tpu_torch.track import driver, engine
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+
+    seed = ("gps-l1", 21, 2400.0, 817.50, -9334875.0)
+    path = str(tmp_path / "band1.iq")
+    synth_bands({1: path}, 0.25, bands={1: [seed]}, device=dev)
+    x, n = _preload_chunk(path, FS, 2000.0, {}, device=dev)
+    assert x.device.type == "cuda" and n == int(FS * 0.25)
+
+    def run(preloaded):
+        ch = [TrackChannel(prn=21, doppler=2400.0, code_offset=817.5)]
+        with open(path, "rb") as fp:
+            track_file(get_signal("gps-l1"), fp, FS, seed[4], ch, device=dev,
+                       preloaded=preloaded)
+        return ch[0].rows
+
+    scan = driver.track_scan
+    held = []
+
+    def both(x, chunk_len, code_tab, state, params, n_blocks, **kw):
+        k = scan(x, chunk_len, code_tab, state, params, n_blocks, **kw)
+        p = engine.track_scan_plain(x, chunk_len, code_tab, state, params,
+                                    n_blocks, **kw)
+        torch.testing.assert_close(k[2], p[2], rtol=0, atol=0)
+        torch.testing.assert_close(k[1], p[1], rtol=0, atol=0,
+                                   equal_nan=True)
+        for a, b in zip(k[0], p[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        held.append((x.shape[0], n_blocks))
+        return k
+
+    n0 = track_fused.LAUNCHES
+    driver.track_scan = both
+    try:
+        rows = run((x, n))
+    finally:
+        driver.track_scan = scan
+    assert held == [(x.shape[0], int(n / FS * 1000.0) + 2)]
+    assert track_fused.LAUNCHES == n0 + 1 and len(rows) >= 240
+    assert rows == run(None)
+
+
+def test_k7_at_61380_on_the_single_card_route(dev, monkeypatch, tmp_path):
+    """GNSS_DSP_NO_V2P: GPS L5I's single-card search takes K7 at its 2n
+    window 61380 (acquire/plan "v1"), K1 not at all; the planted PRNs win
+    the cells the padded v2p route gives."""
+    from gnss_dsp_tpu_torch.acquire.engine import acquire_signal
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire, acquire2
+    from gnss_dsp_tpu_torch.tools.track_all import synth_iq_t
+
+    sig = get_signal("gps-l5i")
+    fs, ms = sig.acq_fs, 6
+    n = int(fs * (ms + 4) / 1000)
+    x = sum(synth_iq_t(sig.code_table((p,))[0], sig.chip_rate, fs, n, d, c,
+                       "none", sig.carrier_ratio, device=dev)
+            for p, d, c in ((25, 1000.0, 5000.25), (7, -2000.0, 88.0)))
+    grid = (-3000.0, 3000.0, 1000.0)
+    padded = acquire_signal(sig, x, [25, 7, 3], grid, ms=ms)
+    monkeypatch.setenv("GNSS_DSP_NO_V2P", "1")
+    n1, n7 = acquire2.LAUNCHES, acquire.LAUNCHES
+    got = acquire_signal(sig, x, [25, 7, 3], grid, ms=ms)
+    assert acquire2.LAUNCHES == n1 and acquire.LAUNCHES > n7
+    for a, b in zip(got[:2], padded[:2]):
+        # the same lag, indexed among v1's 2n lags or v2p's last n of its
+        # padded window: the offsets (mod the code length) may differ in
+        # float64's last bits
+        assert (a.prn, a.doppler) == (b.prn, b.doppler)
+        assert abs(a.code_offset - b.code_offset) < 1e-6
+    assert got[2].metric < min(got[0].metric, got[1].metric)

@@ -43,7 +43,11 @@ def test_port_imports_no_jax():
               "utils.synth", "utils.ranges", "cli.cn0", "ops.track_step",
               "tools.track_all", "parallel.mesh", "parallel.acquire",
               "parallel.track", "tools.multihost_worker", "track.receiver",
-              "track.checkpoint", "track.recover"):
+              "track.checkpoint", "track.recover", "cli.workload",
+              "cli.squaring", "cli.spectrum", "track.probe", "ops.squaring",
+              "utils.io", "utils.profiling", "tools.synth_sky",
+              "tools.packet2wav_3ch", "tools.sky_workload",
+              "tools.gen_compat_scripts"):
         assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
@@ -87,6 +91,65 @@ def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):
         make_mesh()
     assert make_mesh(devices=["cpu"] * 2).shape == {"sat": 1, "time": 2}
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_drop_ins_import_no_jax(tmp_path):
+    """A drop-in wrapper and the demuxer, run as the shell workloads run
+    them, load neither jax nor the JAX package; the wrapper's CLI asks
+    for the card by default, which raises without one."""
+    iq = tmp_path / "x.iq"
+    iq.write_bytes(np.zeros(2 * 400_000, np.int8).tobytes())
+    code = ("import runpy, sys\n"
+            "sys.argv = ['acquire-gps-l1.py', '--prn', '1', '--time', '2',"
+            f" {str(iq)!r}, '4096000', '0', '--device', 'cpu']\n"
+            "try:\n"
+            "    runpy.run_path('gnss_dsp_tpu_torch/scripts/acquire-gps-l1.py',"
+            " run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gnss_dsp_tpu')"
+            " or m.startswith(('jax.', 'gnss_dsp_tpu.')))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("prn   1 doppler")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, os.path.join(
+        "gnss_dsp_tpu_torch", "scripts", "squaring.py"), str(iq), "4096000",
+        "0"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=env)
+    assert r.returncode != 0 and "is_available" in r.stderr
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """cli.workload and cli.squaring ask for CUDA unless --device says
+    otherwise, which raises here; the probe, the squaring op and the
+    preloaded chunk stay on their tensors' device."""
+    from gnss_dsp_tpu_torch.cli import squaring as sq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.cli import workload
+    from gnss_dsp_tpu_torch.ops.squaring import squaring
+    from gnss_dsp_tpu_torch.track.probe import correlation_shape
+
+    iq = tmp_path / "x.iq"
+    iq.write_bytes(np.zeros(2 * 1_700_000, np.int8).tobytes())
+    cap = tmp_path / "c.pcap"
+    cap.write_bytes(np.zeros(3 * 2 * 69984 * 2, np.int8).tobytes())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        sq_cli.main([str(iq), "4096000", "0"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        workload.main(["acquire-all", str(cap), str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="is_available"):
+        workload.main(["track-all", str(cap), str(tmp_path / "o")])
+    with pytest.raises(TypeError):
+        trk_cli._preload_chunk(str(iq), 4.096e6, 2000.0, {})
+    x = torch.ones(64, dtype=torch.complex64)
+    assert squaring(x, 4, 2).device.type == "cpu"
+    c = correlation_shape(x, torch.ones(10, dtype=torch.int8), 0.0, 0.25,
+                          0.5, 5, 10)
+    assert c.device.type == "cpu" and c.shape == (5,)
 
 
 def test_track_file_defaults_to_the_card(monkeypatch):
@@ -227,7 +290,7 @@ def test_track_kernel_wrapper_refuses_cpu_tensors():
             torch.from_numpy(sig.code_table((5,)).astype(np.int8)),
             init_state([3.0], [0.0], [0.0], [500.0]), p, 3,
             torch.full((1,), 1540.0), torch.zeros(1, dtype=torch.int32),
-            sigp_from_params(p, 1))
+            sigp_from_params(p, 1, device="cpu"))
     assert track_fused.LAUNCHES == n0
 
 

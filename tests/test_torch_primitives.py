@@ -227,7 +227,7 @@ def test_interop_state_round_trip():
                     ptr=[3, 4])
     st = st._replace(coffset_p=jnp.asarray(
         np.array([2**31 + 5, 2**32 - 1], np.uint32)))
-    t = interop.state_from_numpy(st)
+    t = interop.state_from_numpy(st, device="cpu")
     assert t.coffset_p.dtype == torch.int64
     assert int(t.coffset_p[1]) == 2**32 - 1
     back = interop.state_to_numpy(t)

@@ -141,7 +141,7 @@ def test_int4_pack_unpack_matches_jax():
     v4 = np.clip((raw.astype(np.int16) + 4) >> 3, -7, 7).astype(np.float32)
     np.testing.assert_array_equal(x.real.numpy()[:4096], 8.0 * v4[0::2])
     assert not x[4096:].abs().any()
-    y, nbytes = cplx.from_iq(raw, pad=7, int4=True)
+    y, nbytes = cplx.from_iq(raw, pad=7, device="cpu", int4=True)
     assert nbytes == 4096 and bool((y == x).all())
 
 

@@ -1,19 +1,26 @@
-"""The reference's environment switches: each entry point that a
-switch would move and that the port does not follow refuses to run
-while it is set, naming the switch, instead of running the route the
-caller asked to leave (gnss_dsp_tpu_torch/device.refuse_switches).
+"""The reference's environment switches, honoured by every entry point as
+the reference reads them (set means non-empty), each case held against
+the JAX package under the same switch, on the CPU:
 
-  GNSS_DSP_NO_PALLAS    the reference's acquisition and tracking take its
-                        XLA engine (acquire/engine.py:307,
-                        acquire/coherent.py:356, track/driver.py:112)
-  GNSS_DSP_NO_V2P       its pad2 signals take the v1 route at the
-                        unpadded 2n window (acquire/engine.py:318)
-  GNSS_DSP_UPLOAD_INT4  its track_file quantises each chunk to 4 bits
-                        (track/driver.py:623-627); the port's track_file
-                        now does the same, so that case is a parity test:
-                        the rows equal the JAX package's under the switch
+  GNSS_DSP_NO_PALLAS    acquisition takes the XLA engine: the circular
+                        search at the data window (acquire/plan route
+                        "xla"), the coherent search its XLA engine, and
+                        tracking the plain scan (the reference's
+                        acquire/engine.py:307, acquire/coherent.py:356,
+                        track/driver.py:112), on the CPU only: given a
+                        card, every entry point refuses it
+                        (device.refuse_no_pallas), since the port runs
+                        nothing but its kernels there
+  GNSS_DSP_NO_V2P       the pad2 signals take the circular search at
+                        their 2n window (route "v1", K7 on the card;
+                        acquire/engine.py:318); tracking and the coherent
+                        search do not read it
+  GNSS_DSP_UPLOAD_INT4  track_file quantises each chunk to 4 bits
+                        (track/driver.py:623-627)
 
-An empty value is unset, as the reference reads them.  All on the CPU.
+The JAX package on a CPU takes its XLA engines whatever the switches say,
+so a port search under a switch that routes it to the same circular
+search must give the JAX package's cells.
 """
 
 import io
@@ -25,8 +32,11 @@ import torch
 from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
 from gnss_dsp_tpu_torch.acquire.engine import (
     acquire_signal, acquire_signal_fdma)
+from gnss_dsp_tpu_torch.acquire.plan import acq_plan, coh_plan, mesh_plan
 from gnss_dsp_tpu_torch.models import get_signal
-from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+from gnss_dsp_tpu_torch.track.driver import (
+    TrackChannel, make_params, track_file)
+from gnss_dsp_tpu_torch.utils.synth import synth_iq
 
 ALL = ("GNSS_DSP_NO_PALLAS", "GNSS_DSP_NO_V2P", "GNSS_DSP_UPLOAD_INT4")
 
@@ -38,25 +48,84 @@ def clean_env(monkeypatch):
     return monkeypatch
 
 
-def _acquire(name="gps-l5i"):
+def _planted(name, ms, plants, chan_of=lambda prn: 0):
+    """ms + 4 ms of `name` at its acq_fs, one unit signal a plant (prn,
+    doppler, code phase), no noise; an FDMA plant's carrier carries its
+    channel's band offset."""
     sig = get_signal(name)
-    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
-    x = torch.zeros(n * 8, dtype=torch.complex64)
-    return acquire_signal(sig, x, [1], (-500.0, 500.0, 500.0), ms=3)
+    fs = sig.acq_fs
+    n = int(fs * (ms + 4) / 1000.0)
+    x = np.zeros(n, np.complex64)
+    for prn, dop, cp in plants:
+        ch = chan_of(prn)
+        x += synth_iq(sig.code_table((prn,))[0], sig.chip_rate, fs, n,
+                      doppler_hz=dop + sig.fdma_hz * ch, code_phase=cp,
+                      cn0_dbhz=None, carrier_ratio=sig.track_carrier_ratio(ch),
+                      code_doppler_hz=dop)
+    x += 0.05 * (np.random.default_rng(len(plants)).standard_normal(n)
+                 + 1j * np.random.default_rng(9).standard_normal(n)
+                 ).astype(np.complex64)
+    return sig, x
+
+
+# (name, ms, prns, plants, grid) of the non-coherent searches held here:
+# GPS L1 (circular n) and GPS L5I (pad2: 2n = 61380, no aligned split)
+ACQ = {"gps-l1": ("gps-l1", 3, [3, 7], [(3, 1010.0, 100.25)],
+                  (-1500.0, 1500.0, 500.0)),
+       "gps-l5i": ("gps-l5i", 3, [25, 7], [(25, 1010.0, 5000.25)],
+                   (-1000.0, 2000.0, 1000.0))}
+
+
+def _acquire(name="gps-l5i"):
+    name, ms, prns, plants, grid = ACQ[name]
+    sig, x = _planted(name, ms, plants)
+    return acquire_signal(sig, torch.from_numpy(x), prns, grid, ms=ms)
+
+
+def _jax_acquire(name="gps-l5i"):
+    from gnss_dsp_tpu.acquire.engine import acquire_signal as jacq
+    from gnss_dsp_tpu.models import get_signal as jsig
+
+    name, ms, prns, plants, grid = ACQ[name]
+    _, x = _planted(name, ms, plants)
+    return jacq(jsig(name), x, prns, doppler_search=grid, ms=ms)
+
+
+FDMA = ([-1, 0, 2], [(2, 505.0, 200.5)], (-1000.0, 1000.0, 500.0), 2)
 
 
 def _acquire_fdma():
-    sig = get_signal("glonass-l1")
-    x = torch.zeros(16384 * 4, dtype=torch.complex64)
-    return acquire_signal_fdma(sig, x, [-1, 0], (-500.0, 500.0, 500.0),
-                               ms=2)
+    chans, plants, grid, ms = FDMA
+    sig, x = _planted("glonass-l1", ms, plants, chan_of=lambda c: c)
+    return acquire_signal_fdma(sig, torch.from_numpy(x), chans, grid, ms=ms)
 
 
-def _acquire_coherent(name="gps-l1"):
-    sig = get_signal(name)
-    x = torch.zeros(4096 * 12, dtype=torch.complex64)
-    return acquire_signal_coherent(sig, x, [1], (-250.0, 250.0, 250.0),
-                                   m_coh=2, ms=4, engine="xla")
+def _jax_acquire_fdma():
+    from gnss_dsp_tpu.acquire.engine import acquire_signal_fdma as jfdma
+    from gnss_dsp_tpu.models import get_signal as jsig
+
+    chans, plants, grid, ms = FDMA
+    _, x = _planted("glonass-l1", ms, plants, chan_of=lambda c: c)
+    return jfdma(jsig("glonass-l1"), x, chans, doppler_search=grid, ms=ms)
+
+
+COH = ([1, 3], [(3, 255.0, 300.5)], (-250.0, 500.0, 250.0), 2, 4)
+
+
+def _acquire_coherent():
+    prns, plants, grid, m, ms = COH
+    sig, x = _planted("gps-l1", ms, plants)
+    return acquire_signal_coherent(sig, torch.from_numpy(x), prns, grid,
+                                   m_coh=m, ms=ms)
+
+
+def _jax_acquire_coherent():
+    from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent as jcoh
+    from gnss_dsp_tpu.models import get_signal as jsig
+
+    prns, plants, grid, m, ms = COH
+    _, x = _planted("gps-l1", ms, plants)
+    return jcoh(jsig("gps-l1"), x, prns, grid, m_coh=m, ms=ms)
 
 
 def _capture():
@@ -76,10 +145,6 @@ def _track():
     return ch[0].rows
 
 
-# switches an entry point follows, as the reference does
-HONOURED = {("track_file", "GNSS_DSP_UPLOAD_INT4")}
-
-
 def _jax_track():
     from gnss_dsp_tpu.models import get_signal as jsig
     from gnss_dsp_tpu.track.driver import TrackChannel as JChannel
@@ -91,10 +156,34 @@ def _jax_track():
     return ch[0].rows
 
 
-ENTRIES = {"acquire_signal": _acquire,
-           "acquire_signal_fdma": _acquire_fdma,
-           "acquire_signal_coherent": _acquire_coherent,
-           "track_file": _track}
+def same_acquisition(got, want, rtol=1e-5):
+    """Winning cells equal (id, doppler, code offset), metric within
+    rtol."""
+    assert [r.prn for r in got] == [r.prn for r in want]
+    for a, b in zip(got, want):
+        assert (a.doppler, a.code_offset) == (b.doppler, b.code_offset), \
+            (a, b)
+        np.testing.assert_allclose(a.metric, b.metric, rtol=rtol)
+
+
+def same_rows(got, want):
+    """The tracking tolerance: integers equal, floats rtol 2e-5 /
+    atol 2e-4."""
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert [a[k] for k in ("block", "samp", "code_cyc")] == \
+            [b[k] for k in ("block", "samp", "code_cyc")]
+        for k in ("p_re", "p_im", "carrier_f", "prompt", "code_p"):
+            np.testing.assert_allclose(a[k], b[k], rtol=2e-5, atol=2e-4)
+
+
+ENTRIES = {"acquire_signal": (_acquire, _jax_acquire, same_acquisition),
+           "acquire_signal_fdma": (_acquire_fdma, _jax_acquire_fdma,
+                                   same_acquisition),
+           "acquire_signal_coherent": (_acquire_coherent,
+                                       _jax_acquire_coherent,
+                                       same_acquisition),
+           "track_file": (_track, _jax_track, same_rows)}
 CASES = [("acquire_signal", "GNSS_DSP_NO_PALLAS"),
          ("acquire_signal", "GNSS_DSP_NO_V2P"),
          ("acquire_signal_fdma", "GNSS_DSP_NO_PALLAS"),
@@ -103,44 +192,217 @@ CASES = [("acquire_signal", "GNSS_DSP_NO_PALLAS"),
          ("track_file", "GNSS_DSP_NO_PALLAS"),
          ("track_file", "GNSS_DSP_NO_V2P"),
          ("track_file", "GNSS_DSP_UPLOAD_INT4")]
+# the cases whose result the switch leaves as it was unset
+UNMOVED = {("acquire_signal_coherent", "GNSS_DSP_NO_V2P"),
+           ("track_file", "GNSS_DSP_NO_V2P"),
+           ("track_file", "GNSS_DSP_NO_PALLAS")}
 
 
 @pytest.mark.parametrize("entry,switch", CASES)
 def test_entry_point_refuses_a_set_switch(clean_env, entry, switch):
-    """A switch the port does not follow is refused; one it follows
-    (HONOURED) gives the JAX package's rows under the same switch:
-    integers equal, floats rtol 2e-5 / atol 2e-4, and not the rows of
-    the int8 route."""
+    """Every entry point runs under each switch it could read (none
+    refuses any more) and gives the JAX package's result under the same
+    switch: acquisitions the same winning cells with the metric within
+    rtol 1e-5 (the same circular search), tracks the tracking tolerance.
+    A switch the reference does not route this entry point by, and
+    NO_PALLAS on a CPU run of track_file (already the plain scan), leave
+    the result exactly as unset; the int4 front end changes the rows."""
+    port, jax_fn, same = ENTRIES[entry]
+    unset = port()
     clean_env.setenv(switch, "1")
-    if (entry, switch) in HONOURED:
-        got, want = ENTRIES[entry](), _jax_track()
-        assert len(got) == len(want) == 6
-        for a, b in zip(got, want):
-            assert [a[k] for k in ("block", "samp", "code_cyc")] == \
-                [b[k] for k in ("block", "samp", "code_cyc")]
-            for k in ("p_re", "p_im", "carrier_f", "prompt", "code_p"):
-                np.testing.assert_allclose(a[k], b[k], rtol=2e-5, atol=2e-4)
-        clean_env.delenv(switch)
-        assert [r["p_re"] for r in ENTRIES[entry]()] != \
-            [r["p_re"] for r in got]
-        return
-    with pytest.raises(NotImplementedError, match=switch):
-        ENTRIES[entry]()
+    got = port()
+    if (entry, switch) in UNMOVED:
+        assert got == unset
+    if entry == "acquire_signal_coherent" and switch == "GNSS_DSP_NO_V2P":
+        return        # the JAX package's CPU run is its XLA engine
+    same(got, jax_fn())
+    if switch == "GNSS_DSP_UPLOAD_INT4":
+        assert [r["p_re"] for r in got] != [r["p_re"] for r in unset]
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_entry_point_runs_with_the_switches_empty(clean_env, entry):
-    """An empty value is unset (os.environ.get is falsy), and an entry
-    point does not read a switch outside its list: acquisition runs with
-    GNSS_DSP_UPLOAD_INT4 set, and track_file with it empty gives the
-    int8 route's rows."""
-    if entry == "track_file":
-        unset = ENTRIES[entry]()
+    """An empty value is unset (os.environ.get is falsy): with every
+    switch empty each entry point gives exactly its unset result.  An
+    entry point does not read a switch outside its list: each
+    acquisition gives exactly its unset result with GNSS_DSP_UPLOAD_INT4
+    set."""
+    unset = ENTRIES[entry][0]()
     for name in ALL:
         clean_env.setenv(name, "")
+    assert ENTRIES[entry][0]() == unset
     if entry != "track_file":
         clean_env.setenv("GNSS_DSP_UPLOAD_INT4", "1")
-    got = ENTRIES[entry]()
-    assert got
-    if entry == "track_file":
-        assert got == unset
+        assert ENTRIES[entry][0]() == unset
+
+
+def test_no_pallas_gps_l1_acquire_matches_jax(clean_env):
+    """GPS L1 (circular n = 4096) under NO_PALLAS: the xla route, the JAX
+    package's cells, metric rtol 1e-5."""
+    clean_env.setenv("GNSS_DSP_NO_PALLAS", "1")
+    assert acq_plan(get_signal("gps-l1"))[0] == "xla"
+    same_acquisition(_acquire("gps-l1"), _jax_acquire("gps-l1"))
+
+
+def test_no_v2p_gps_l5i_takes_the_circular_2n_search(clean_env):
+    """Under NO_V2P GPS L5I searches all 2n = 61380 circular lags (v1);
+    unset it searches the padded 65536 window masked to n lags (v2p),
+    whose planted cell is the same."""
+    sig = get_signal("gps-l5i")
+    v2p = acq_plan(sig)
+    clean_env.setenv("GNSS_DSP_NO_V2P", "1")
+    assert v2p == ("v2p", 65536, 61380, 30690)
+    assert acq_plan(sig) == ("v1", 61380, 61380, 0)
+    got = _acquire("gps-l5i")
+    clean_env.delenv("GNSS_DSP_NO_V2P")
+    padded = _acquire("gps-l5i")
+    assert (got[0].doppler, got[0].code_offset) == \
+        (padded[0].doppler, padded[0].code_offset)
+
+
+@pytest.mark.parametrize("name", ["gps-l1", "gps-l5i", "xona-x5d",
+                                  "galileo-e1b", "gps-l2cm", "glonass-l1"])
+def test_routes_under_the_switches(clean_env, name):
+    """The routes each switch gives, and with none set the routes as
+    before (v2, v2p or v1 by the window; K2 for tracking)."""
+    sig = get_signal(name)
+    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
+    dw = 2 * n if (sig.acq_pad2 or sig.acq_sliding) else n
+    route, window, data_window, _ = acq_plan(sig)
+    assert route in ("v2", "v2p", "v1") and data_window == dw
+    assert mesh_plan(sig)[0] in ("v2", "v1")
+    p = make_params(sig, sig.acq_fs, 0.0)
+    assert p.fused_scan and p.pallas_v2
+
+    clean_env.setenv("GNSS_DSP_NO_V2P", "1")
+    assert acq_plan(sig) == ((route, window, dw, 0) if route != "v2p"
+                             else ("v1", dw, dw, 0))
+    assert make_params(sig, sig.acq_fs, 0.0) == p
+    clean_env.delenv("GNSS_DSP_NO_V2P")
+
+    clean_env.setenv("GNSS_DSP_NO_PALLAS", "1")
+    assert acq_plan(sig) == ("xla", dw, dw, 0)
+    assert mesh_plan(sig) == ("xla", dw)
+    assert coh_plan(sig, n, 2, 1) is None
+    q = make_params(sig, sig.acq_fs, 0.0)
+    assert not (q.fused_scan or q.pallas_v2)
+    assert q._replace(fused_scan=True, pallas_v2=True) == p
+
+
+def test_no_pallas_sharded_search_matches_the_single_search(clean_env):
+    """The sharded twin under NO_PALLAS (each shard's surface in plain
+    torch) gives the single search's cells on a 2 x 2 mesh of CPU
+    shards, metric rtol 1e-5."""
+    from gnss_dsp_tpu_torch.parallel.acquire import acquire_signal_sharded
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+
+    clean_env.setenv("GNSS_DSP_NO_PALLAS", "1")
+    name, ms, prns, plants, grid = ACQ["gps-l1"]
+    sig, x = _planted(name, ms, plants)
+    mesh = make_mesh(4, time_shards=2, devices=[torch.device("cpu")] * 4)
+    got = acquire_signal_sharded(sig, torch.from_numpy(x), prns, mesh,
+                                 doppler_search=grid, ms=ms)
+    same_acquisition(got, _acquire("gps-l1"))
+
+
+def test_no_pallas_keeps_the_reference_mesh_refusals(clean_env):
+    """Under NO_PALLAS the reference's mesh needs its fused kernel for a
+    mixed-signal run and for coherent tracking (driver.py:280-283,
+    318-324): the port refuses both as it does, and the single-signal
+    mesh runs the plain scan a shard."""
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+
+    clean_env.setenv("GNSS_DSP_NO_PALLAS", "1")
+    mesh = make_mesh(2, time_shards=1, devices=[torch.device("cpu")] * 2)
+    sig, l1c = get_signal("gps-l1"), get_signal("gps-l1cp")
+
+    def chans():
+        return [TrackChannel(prn=3, doppler=1000.0, code_offset=10.0),
+                TrackChannel(prn=5, doppler=0.0, code_offset=0.0)]
+
+    with pytest.raises(ValueError, match="NO_PALLAS"):
+        track_file(sig, io.BytesIO(_capture()), 4.096e6, 0.0, chans(),
+                   max_blocks=4, device="cpu", mesh=mesh, sigs=[sig, l1c])
+    with pytest.raises(ValueError, match="NO_PALLAS"):
+        track_file(get_signal("beidou-b1i"), io.BytesIO(_capture()),
+                   4.096e6, 0.0, chans(), max_blocks=4, device="cpu",
+                   mesh=mesh, coherent_blocks=20)
+    ch = chans()
+    track_file(sig, io.BytesIO(_capture()), 4.096e6, 0.0, ch, max_blocks=6,
+               device="cpu", mesh=mesh)
+    assert ch[0].rows == _track()
+
+
+def _card_calls():
+    """(name, call) of every entry point the switch reaches, each given a
+    device that is not the CPU: a "meta" tensor for the acquisitions
+    (nothing is computed before the refusal), device="cuda" for the
+    tracks (refused before the device is resolved)."""
+    from gnss_dsp_tpu_torch.parallel.acquire import (
+        acquire_signal_fdma_sharded, acquire_signal_sharded)
+    from gnss_dsp_tpu_torch.parallel.mesh import make_mesh
+    from gnss_dsp_tpu_torch.track.receiver import track_receiver
+
+    x = torch.empty(4096 * 8, dtype=torch.complex64, device="meta")
+    l1, glo = get_signal("gps-l1"), get_signal("glonass-l1")
+    grid = (-500.0, 500.0, 500.0)
+    mesh = make_mesh(1, devices=[torch.device("cpu")])
+
+    def ch():
+        return [TrackChannel(prn=3, doppler=1000.0, code_offset=10.0)]
+
+    return [
+        ("acquire_signal", lambda: acquire_signal(l1, x, [1], grid, ms=3)),
+        ("acquire_signal_fdma",
+         lambda: acquire_signal_fdma(glo, x, [0], grid, ms=2)),
+        ("acquire_signal_coherent",
+         lambda: acquire_signal_coherent(l1, x, [1], grid, m_coh=2, ms=4)),
+        ("acquire_signal_sharded",
+         lambda: acquire_signal_sharded(l1, x, [1], mesh, grid, ms=3)),
+        ("acquire_signal_fdma_sharded",
+         lambda: acquire_signal_fdma_sharded(glo, x, [0], mesh, grid,
+                                             ms=2)),
+        ("track_file",
+         lambda: track_file(l1, io.BytesIO(_capture()), 4.096e6, 0.0, ch(),
+                            max_blocks=2, device="cuda")),
+        ("track_receiver",
+         lambda: track_receiver([(io.BytesIO(_capture()), [l1], ch(),
+                                  [0.0])], 4.096e6, max_blocks=2,
+                                device="cuda")),
+    ]
+
+
+@pytest.mark.parametrize("k", range(7))
+def test_no_pallas_is_refused_on_a_card(clean_env, k):
+    """GNSS_DSP_NO_PALLAS with a card: every entry point raises, naming
+    the switch, before any work; the port never runs a plain version on
+    the card.  The same call with the switch unset passes the check
+    (it then fails further on, for want of a card or of data)."""
+    name, call = _card_calls()[k]
+    try:
+        call()
+    except RuntimeError as e:
+        assert "GNSS_DSP_NO_PALLAS" not in str(e), name
+    except Exception:
+        pass
+    clean_env.setenv("GNSS_DSP_NO_PALLAS", "1")
+    with pytest.raises(RuntimeError, match=f"{name}: GNSS_DSP_NO_PALLAS"):
+        call()
+
+
+def test_no_pallas_is_refused_on_a_mesh_with_a_card(clean_env):
+    """A CPU tensor sharded over a mesh that holds a card refuses the
+    switch too, as does track_file under such a mesh."""
+    from gnss_dsp_tpu_torch.parallel.acquire import acquire_signal_sharded
+    from gnss_dsp_tpu_torch.parallel.mesh import Mesh
+
+    clean_env.setenv("GNSS_DSP_NO_PALLAS", "1")
+    mesh = Mesh([[torch.device("cpu"), torch.device("cuda")]], [[0, 0]])
+    x = torch.zeros(4096 * 8, dtype=torch.complex64)
+    with pytest.raises(RuntimeError, match="GNSS_DSP_NO_PALLAS"):
+        acquire_signal_sharded(get_signal("gps-l1"), x, [1], mesh,
+                               (-500.0, 500.0, 500.0), ms=3)
+    with pytest.raises(RuntimeError, match="GNSS_DSP_NO_PALLAS"):
+        track_file(get_signal("gps-l1"), io.BytesIO(_capture()), 4.096e6,
+                   0.0, [TrackChannel(prn=3, doppler=0.0, code_offset=0.0)],
+                   max_blocks=2, device="cpu", mesh=mesh)

@@ -84,7 +84,7 @@ def _run_port(s, nb, chunk_len=None, st=None):
     st2, rf, ri = teng.track_scan(
         torch.from_numpy(s["xp"]), chunk_len or s["n"],
         torch.from_numpy(s["code"]),
-        st if st is not None else interop.state_from_numpy(s["st"]),
+        st if st is not None else interop.state_from_numpy(s["st"], device="cpu"),
         interop.params_from_jax(s["params"]), nb,
         ratios=torch.full((s["C"],), 1540.0),
         coffset_df=torch.from_numpy(s["cdf"]))

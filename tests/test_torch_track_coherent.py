@@ -116,7 +116,7 @@ def _port_scan(s, st, nb, correlate=None):
         st2, rf, ri = teng._scan(
             t(s["xp"]), torch.full((2,), s["n"], dtype=torch.int32),
             t(s["code"]), st, p, nb, t(s["ratios"]), t(s["cdf"]),
-            teng.sigp_from_params(p, 2), correlate(p), t(_OVERLAY))
+            teng.sigp_from_params(p, 2, device="cpu"), correlate(p), t(_OVERLAY))
     return st2, rf.numpy(), ri.numpy()
 
 
@@ -139,7 +139,7 @@ def test_coherent_scan_matches_jax_xla_scan(route):
     correlate = {"plain": None, "k3_step": _k3_plain,
                  "k4_step": _k4_plain}[route]
     st_j, rf_j, ri_j = _run_jax(s, s["st"], 22)
-    st_t, rf_t, ri_t = _port_scan(s, interop.state_from_numpy(s["st"]), 22,
+    st_t, rf_t, ri_t = _port_scan(s, interop.state_from_numpy(s["st"], device="cpu"), 22,
                                   correlate)
     _check(st_j, rf_j, ri_j, st_t, rf_t, ri_t)
     assert float(np.abs(np.asarray(st_j.cacc)).max()) > 0.0
@@ -154,10 +154,10 @@ def test_coherent_m1_is_the_non_coherent_scan():
     s = _setup()
     t = torch.from_numpy
     p = interop.params_from_jax(s["params"])
-    sigp = teng.sigp_from_params(p, 2)
+    sigp = teng.sigp_from_params(p, 2, device="cpu")
     sigp[:, teng.SIGP_COH] = 1.0
     args = (t(s["xp"]), s["n"], t(s["code"]),
-            interop.state_from_numpy(s["st"]))
+            interop.state_from_numpy(s["st"], device="cpu"))
     kw = dict(ratios=t(s["ratios"]), coffset_df=t(s["cdf"]))
     _, rf_c, ri_c = teng.track_scan(*args, p, 12, sigp=sigp,
                                     overlay=torch.ones((2, 1)), **kw)

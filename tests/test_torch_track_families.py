@@ -115,7 +115,7 @@ def _run_jax(s, nb):
 def _run_port(s, nb):
     t = torch.from_numpy
     st, rf, ri = teng.track_scan(
-        t(s["xp"]), s["n"], t(s["code"]), interop.state_from_numpy(s["st"]),
+        t(s["xp"]), s["n"], t(s["code"]), interop.state_from_numpy(s["st"], device="cpu"),
         interop.params_from_jax(s["params"]), nb, ratios=t(s["ratios"]),
         coffset_df=t(s["cdf"]), sigp=t(s["sigp"]))
     return st, rf.numpy(), ri.numpy()

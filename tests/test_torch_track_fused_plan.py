@@ -201,7 +201,7 @@ def _blocks(name, nb=40):
     p = interop.params_from_jax(s["params"])
     x = torch.from_numpy(s["xp"])
     code = torch.from_numpy(s["code"])
-    st = interop.state_from_numpy(s["st"])
+    st = interop.state_from_numpy(s["st"], device="cpu")
     C = s["C"]
     chunk = torch.full((C,), s["n"], dtype=torch.int32)
     ratios = torch.from_numpy(s["ratios"])
