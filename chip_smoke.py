@@ -18,7 +18,10 @@ Runs every phase, in this order:
           16384) and e2e_workload's (every acquisition of acquire-all.sh
           whose launch shape is not among those: BeiDou B1I/B2I 63 x 70 x
           80 x 16384, GLONASS L3OC 64 and Galileo E5 50 x 25 x 80 x 65536
-          with n_valid), with timings, the kernel's plan at
+          with n_valid) and e2e_sensitivity's (BeiDou B1I at 4.096 MHz: 1
+          x 9 x 40 x 8192, the run-time core on one CTA), with timings
+          (the library over slices of the dopplers or of the PRNs where
+          the whole transform does not fit), the kernel's plan at
           each window (core, n1 x n2, cluster size, clusters the card holds
           at once, registers, spills) and the times at the other cluster
           sizes built; then a planted exact tie across cluster ranks at
@@ -62,12 +65,15 @@ Runs every phase, in this order:
           doppler x 200 blocks in groups of 100 x 100 alignments x 4096),
           a planted cell per PRN, two launches bit-equal, with timings,
           the same function in PyTorch calls (matmul, ifft, abs, group
-          sum, finalize_max), the bound and beside it the bound of the
+          sum, finalize_max), and e2e_sensitivity's BeiDou B1I shape (1 x
+          9 x 40 blocks in groups of 20 x 20 alignments x 8192, on K5's
+          register core of 8 CTAs in alignment chunks), the bound and
+          beside it the bound of the
           3xTF32 combine's design, the plan (cluster, alignment chunks)
           and the times with the alignment split off or at 4 chunks (X1P,
           bit-equal); then a planted exact tie across cluster ranks and
           across two alignment chunks, which must report the lower lag,
-          then the lower alignment
+          then the lower alignment (also at 8192)
   k2      fused tracking kernel vs its plain version at the tracking bench
           shape (32 channels x 900 blocks, 4.096 MHz), with timings; then
           at every family shape of e2e_track (galileo-e1b, gps-l1cp,
@@ -213,11 +219,26 @@ Runs every phase, in this order:
           on the card each refuse the switch, naming it, with no kernel
           launched and no plain route called (the port runs only its
           kernels on a card); with the switches unset K1 and K2 launch
-          and the plain routes are never called
+          and the plain routes are never called; GNSS_DSP_CPU, set only
+          there: the GPS L1 acquire (three planted PRNs) and track (100
+          blocks) CLIs without --device print their --device cpu rows and one stderr
+          line naming it, with no kernel launched, and with --device cuda
+          launch K1 once and K2 once, the rows the unset run's;
+          GNSS_DSP_TIMING: the GPS L1 acquire and track (2150 blocks) CLIs
+          on the card print the reference's stage walls, their rows
+          byte-equal to the unset runs'
   e2e_aux the squaring CLI on the card against --device cpu (int16 equal
           but for rounding ties, counted), correlation_shape on the card
           against the CPU (rtol 1e-5), utils/profiling.trace writing the
           card's kernels into its trace
+  e2e_sensitivity
+          tools/sensitivity_curve's default curve on the card (BeiDou B1I
+          at 4.096 MHz, PRN 34, 6 C/N0 points 24-34 dB-Hz x 10 trials, K1
+          and K6 at 8192), then the same tool on the CPU (the plain
+          versions) on the same captures at 28 and 34 dB-Hz: winning
+          cells and lock decisions equal, but for near ties (metrics
+          within rtol 1e-4, printed, at most one a point); coherent locks
+          10/10 at 34 dB-Hz and at least the non-coherent ones in sum
   e2e_workload (last)
           the reference's whole workload, acquire-all.sh's 21
           acquisitions and track-all-gnss-2017-L1L2L5.sh's 11 tracks, in
@@ -244,7 +265,9 @@ peaks put on each kernel's work, the time of one torch.fft.ifft over the
 same product where one exists, for K6 of the same function in PyTorch
 calls), then the nvidia-smi line, then a last line {"ok": true,
 "device": {...}}.  Exits non-zero, without that line, when any phase fails
-or no GPU is present.  Imports nothing of JAX or of the JAX package.
+or no GPU is present, and at its start when GNSS_DSP_CPU is set (it
+would pin the port's CLIs to the CPU).  Imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -391,16 +414,29 @@ def library_ms(code_f, F, reps=2):
     cuFFT's workspace (about three products) fit in four fifths of free
     memory; else consecutive calls over slices of the dopplers, each
     transform and its workspace beside the whole product, in one timed
-    window.  (None, 0) where not even one doppler's transform fits."""
+    window; where the whole product does not fit beside one doppler's
+    transform, the sum of the times over slices of the PRNs, each slice's
+    product (all dopplers) formed and timed on its own.  (None, 0) where
+    not even one PRN's fits."""
     import torch
 
-    DC = F.shape[0]
-    per_d = code_f.shape[0] * F[0].numel() * 8
+    DC, P = F.shape[0], code_f.shape[0]
+    per_d = P * F[0].numel() * 8
     free = 0.8 * torch.cuda.mem_get_info()[0]
     d = DC if 3 * DC * per_d <= free else int((free - DC * per_d)
                                               // (2 * per_d))
     if d < 1:
-        return None, 0
+        pc = int(free // (3 * DC * per_d // P))
+        if pc < 1:
+            return None, 0
+        ms = 0.0
+        for p0 in range(0, P, pc):
+            prod = (code_f[p0:p0 + pc][None, :, None, :]
+                    * torch.conj(F)[:, None])
+            ms += cuda_ms(lambda: torch.fft.ifft(prod, dim=-1), reps)
+            del prod
+            torch.cuda.empty_cache()
+        return ms, -(-P // pc)
     prod = code_f[None, :, None, :] * torch.conj(F)[:, None]
     slices = [prod[d0:d0 + d] for d0 in range(0, DC, d)]
 
@@ -431,10 +467,10 @@ def library_text(lib, ms=None) -> str:
     """library_ms's time, its calls, and the kernel's ms over it."""
     t, calls = lib
     if t is None:
-        return "not run (no doppler's transform fits)"
-    return (f"{t:.3f} ms" + (f" in {calls} calls over doppler slices (the "
-                             f"whole transform does not fit at once)"
-                             if calls > 1 else "")
+        return "not run (no PRN's transform fits)"
+    return (f"{t:.3f} ms" + (f" in {calls} calls over doppler or PRN "
+                             f"slices (the whole transform does not fit at "
+                             f"once)" if calls > 1 else "")
             + (f" (kernel / library {ms / t:.3f})" if ms else ""))
 
 
@@ -726,6 +762,36 @@ def workload_launches() -> dict:
     return out
 
 
+def sensitivity_launches():
+    """The K1 and K6 launch shapes of tools/sensitivity_curve's default
+    curve (BeiDou B1I at acq_fs 4.096 MHz, PRN 34, twice the 20-chip
+    overlay of data, its 9-doppler grid), as the engines plan them:
+    ((P, DC, B, W, n_valid), (P, DC, B, m_coh, overlay, W))."""
+    import dataclasses
+
+    from gnss_dsp_tpu_torch.acquire import engine
+    from gnss_dsp_tpu_torch.acquire.coherent import coh_dop_chunk
+    from gnss_dsp_tpu_torch.acquire.plan import acq_plan, coh_plan
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.tools import sensitivity_curve as sc
+
+    sig = dataclasses.replace(get_signal("beidou-b1i"), acq_fs=4.096e6)
+    sec = sig.secondary(34)
+    m = len(sec)
+    ms = 2 * m
+    D = len(engine.doppler_grid(sig, sc.GRID)[0])
+    route, W, _, n_valid = acq_plan(sig)
+    check(route == "v2", ("sensitivity route", route))
+    B = engine._block_count(sig, ms)
+    n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
+    fast = coh_plan(sig, n, m, m)
+    check(fast is not None and fast[0] == "blk", ("sensitivity", fast))
+    blocks = max(int(ms / sig.acq_coherent_ms) // m, 1) * m
+    return ((1, engine.dop_chunk_for(route, 1, B, W, D), B, W, n_valid),
+            (1, coh_dop_chunk(fast, 1, blocks, m, m, fast[1], D), blocks, m,
+             sec, fast[1]))
+
+
 def _k1_tie(dev, card, W, B=2):
     """K1 on a row whose surface ties exactly at every lag with an even
     row index j mod n1: X = code * conj(F) = delta[0] + delta[(n1/2) n2],
@@ -754,7 +820,8 @@ def _k1_tie(dev, card, W, B=2):
     np.testing.assert_allclose(got[0][2].cpu().numpy(),
                                plain[2].cpu().numpy(), rtol=1e-4)
     log(f"[k1] planted tie at W={W} ({C} CTAs, {nr} rows a rank): lags 0 "
-        f"and {nr} (rank 1) reported over the tied lags of rank 0 "
+        f"and {nr} ({'rank 1' if C > 1 else 'the next row'}) reported over "
+        f"the tied lags of rank 0 "
         f"(idx {idx[0]} from 0, {idx[1]} from lo {nr - 1})  [{card}]")
 
 
@@ -794,6 +861,13 @@ def phase_k1(dev, card, results):
         errs.append(w["max_abs_err"])
         shapes.append(w["shape"])
         windows.add(W)
+    # e2e_sensitivity's non-coherent search: the run-time core at 8192
+    P, DC, B, W, n_valid = sensitivity_launches()[0]
+    w = _k1_case(dev, card, "sensitivity beidou-b1i", P, DC, B, W, 120, 121,
+                 n_valid, reps=20, plain_reps=3)
+    errs.append(w["max_abs_err"])
+    shapes.append(w["shape"])
+    windows.add(W)
     results["acquire2"]["max_abs_err"] = max(errs)
     results["acquire2"]["shapes"] = shapes
     for W in sorted(windows):
@@ -1413,11 +1487,18 @@ def phase_k6(dev, card, results):
     # alignments; the alignment split off, and at 4 chunks
     r2 = _k6_case(dev, card, "xona-x1p --coherent 100", 1, 70, 200, 100,
                   x1p.secondary(x1p.prns()[0]), 4096, 78, ablate=(100, 25))
+    # e2e_sensitivity's coherent search: B1I at 8192, m_coh = A = 20, on
+    # K5's register core of 8 CTAs in alignment chunks
+    P, DC, B, m_coh, sec, W = sensitivity_launches()[1]
+    r3 = _k6_case(dev, card, "sensitivity beidou-b1i --coherent 20", P, DC,
+                  B, m_coh, sec, W, 79)
     _k6_tie(dev, card)
+    _k6_tie(dev, card, W=W)
     # the kernels line keeps the GPS L1 case's numbers (the e2e shape)
-    shapes = [r.pop("shape"), r2.pop("shape")]
+    shapes = [r.pop("shape"), r2.pop("shape"), r3.pop("shape")]
     results["acquire_coh"].update(r, max_abs_err=max(r["max_abs_err"],
-                                                     r2["max_abs_err"]),
+                                                     r2["max_abs_err"],
+                                                     r3["max_abs_err"]),
                                   shapes=shapes,
                                   design_bound=K6_DESIGN_BOUND)
 
@@ -3907,9 +3988,106 @@ def phase_e2e_switches(dev, card, results, work, e2e):
         f"called.  Unset: K1 {k1_unset} launches / K2 {k2_unset}, no plain "
         f"route, the rows K2's of phase e2e, {len(hits)} PRNs searched; "
         f"walls acquire {t_a:.2f} s / track {t_t:.2f} s  [{card}]")
+    _cpu_switch(dev, card, e2e, trk, t)
+    _timing_split(dev, card, e2e, acq, a)
     results["acquire_61380"]["launches"] += k7
     results["acquire_61380"]["single_card"]["launches"] = k7
     return k7
+
+
+def _cli_err(main, signal, argv):
+    """(stdout, stderr) of a CLI call in this process."""
+    from gnss_dsp_tpu_torch.tools.main_path import run_cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = run_cli(main, signal, list(argv))
+    return out, err.getvalue()
+
+
+def _cpu_switch(dev, card, e2e, trk, t):
+    """GNSS_DSP_CPU on the card's machine, set only inside this block:
+    the GPS L1 acquire CLI (three planted PRNs) and track CLI (100
+    blocks) without --device run on the CPU, their rows those of
+    --device cpu, no kernel launched, one stderr line naming the switch
+    each; with --device cuda they run on the card as unset (K1 once, K2
+    once for `trk`'s 300 blocks, the rows the unset card run's `t`)."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.tools.main_path import environ, run_cli
+
+    tag = "e2e_switches"
+    path, fs, specs, _out, truth = e2e
+    prns = ["--prn", ",".join(str(p) for p in truth["prns"][:3])]
+    sub = prns + [path, str(fs), "0"]
+    trk_nodev = ["--blocks", "100", path, str(fs), "0", specs]
+    card_acq = run_cli(acq_cli.main, "gps-l1", sub + ["--device", str(dev)])
+    with environ({"GNSS_DSP_CPU": "1"}):
+        n0 = _kernel_counts()
+        t0 = time.perf_counter()
+        a_sw, err_a = _cli_err(acq_cli.main, "gps-l1", sub)
+        t_t0 = time.perf_counter()
+        t_sw, err_t = _cli_err(trk_cli.main, "gps-l1", trk_nodev)
+        t_cpu = time.perf_counter()
+        d = _delta(n0)
+        check(not any(d.values()), (tag, "GNSS_DSP_CPU launched kernels", d))
+        for label, err in (("acquire", err_a), ("track", err_t)):
+            named = [ln for ln in err.splitlines() if "GNSS_DSP_CPU" in ln]
+            check(len(named) == 1, (tag, label, "stderr", err))
+            log(f"[{tag}] GNSS_DSP_CPU {label} stderr: {named[0]}")
+        a_cpu, err = _cli_err(acq_cli.main, "gps-l1", sub + ["--device",
+                                                              "cpu"])
+        t_cpu_rows, err2 = _cli_err(trk_cli.main, "gps-l1",
+                                    trk_nodev + ["--device", "cpu"])
+        check("GNSS_DSP_CPU" not in err + err2, (tag, err, err2))
+        check(a_sw == a_cpu and t_sw == t_cpu_rows,
+              (tag, "GNSS_DSP_CPU rows differ from --device cpu"))
+        n0 = _kernel_counts()
+        a_cu = run_cli(acq_cli.main, "gps-l1", sub + ["--device", str(dev)])
+        t_cu = run_cli(trk_cli.main, "gps-l1", list(trk))
+        torch.cuda.synchronize()
+        d = _delta(n0)
+    check(d["acquire2"] == 1 and d["track_fused"] == 1
+          and sum(d.values()) == 2, (tag, "--device cuda", d))
+    check(a_cu == card_acq and t_cu == t,
+          (tag, "--device cuda under GNSS_DSP_CPU: rows differ"))
+    log(f"[{tag}] GNSS_DSP_CPU: acquire (3 PRNs) and "
+        f"track (100 blocks) on the CPU, no kernel launched, rows equal to "
+        f"--device cpu (walls {t_t0 - t0:.2f} s / {t_cpu - t_t0:.2f} s); "
+        f"--device cuda wins: K1 {d['acquire2']}, K2 {d['track_fused']} "
+        f"launches, rows the unset card run's  [{card}]")
+
+
+def _timing_split(dev, card, e2e, acq, a):
+    """GNSS_DSP_TIMING on the card: the GPS L1 acquire CLI (all 32 PRNs)
+    and the track CLI (2150 blocks, two chunks) print the reference's
+    stage walls, their rows byte-equal to the unset runs'."""
+    import torch
+
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+    from gnss_dsp_tpu_torch.tools.main_path import environ
+
+    tag = "e2e_switches"
+    path, fs, specs, k2_out, _truth = e2e
+    trk = ["--blocks", "2150", "--device", str(dev), path, str(fs), "0",
+           specs]
+    with environ({"GNSS_DSP_TIMING": "1"}):
+        for label, main, signal, argv, want in (
+                ("acquire", acq_cli.main, "gps-l1", acq, a),
+                ("track", trk_cli.main, "gps-l1", trk, k2_out)):
+            t0 = time.perf_counter()
+            out, err = _cli_err(main, signal, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lines = [ln for ln in err.splitlines() if "timing]" in ln]
+            check(out == want and lines,
+                  (tag, "GNSS_DSP_TIMING", label, err))
+            log(f"[{tag}] GNSS_DSP_TIMING gps-l1 {label} on the card (wall "
+                f"{wall:.3f} s, rows equal to the unset run's): "
+                f"{' | '.join(lines)}  [{card}]")
 
 
 # ---------------------------------------------------------- phase e2e_aux
@@ -4026,6 +4204,82 @@ def phase_e2e_aux(dev, card, work, e2e):
         os.remove(os.path.join(work, f"sq_{d[:3]}.bin"))
 
 
+# ------------------------------------------------------ phase e2e_sensitivity
+
+SENS_CPU_POINTS = (28, 34)     # held against the CPU's plain versions
+
+
+def phase_e2e_sensitivity(dev, card):
+    """The sensitivity curve on the card (tools/sensitivity_curve's
+    default: BeiDou B1I at 4.096 MHz, 6 C/N0 points x 10 trials, K1 and
+    K6 at W = 8192), every launch at a shape phase k1 or k6 checked;
+    then the same tool on the CPU (the plain versions) at 28 and 34
+    dB-Hz on the same captures: each trial's winning cells equal (metric
+    within rtol 1e-4) and its lock decisions equal, but where the card's
+    and the CPU's cells differ at a near tie (metrics within rtol 1e-4),
+    printed, at most one a point.  Coherent locks 10/10 at 34 dB-Hz and
+    at least the non-coherent locks over the curve.  Returns (K1, K6)
+    launches."""
+    from gnss_dsp_tpu_torch.tools import sensitivity_curve as sc
+
+    tag = "e2e_sensitivity"
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    _zero_counts()
+    with recording() as calls, contextlib.redirect_stdout(text):
+        curve = sc.run(device=dev)
+    counts = _kernel_counts()
+    t_card = time.perf_counter() - t0
+    check_covered(tag, calls)
+    n = len(curve.trials)
+    check(counts["acquire2"] == n and counts["blk"] == n
+          and sum(counts.values()) == 2 * n, (tag, "launches", counts))
+    for line in text.getvalue().splitlines():
+        log(f"[{tag}] {line}")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = sc.run(device="cpu", searched=SENS_CPU_POINTS)
+    t_cpu = time.perf_counter() - t1
+    ties = {p: 0 for p in SENS_CPU_POINTS}
+    for k, (g, c) in enumerate(zip(curve.trials, cpu.trials)):
+        check((g.cn0, g.code_phase, g.doppler, g.roll)
+              == (c.cn0, c.code_phase, c.doppler, c.roll), (tag, k))
+        if c.cn0 not in SENS_CPU_POINTS:
+            continue
+        tied = False
+        for kind in ("nc", "co"):
+            a, b = getattr(g, kind), getattr(c, kind)
+            cell = ((a.doppler, a.code_offset, getattr(a, "align", 0))
+                    == (b.doppler, b.code_offset, getattr(b, "align", 0)))
+            check(abs(a.metric - b.metric) <= 1e-4 * abs(b.metric),
+                  (tag, k, kind, "metric", a, b))
+            if not cell:
+                tied = True
+                log(f"[{tag}] trial {k} ({c.cn0} dB-Hz) {kind}: near tie, "
+                    f"card {a} against CPU {b}")
+        if tied:
+            ties[c.cn0] += 1
+        else:
+            check((g.lock_nc, g.lock_co) == (c.lock_nc, c.lock_co),
+                  (tag, k, "lock decisions differ"))
+    check(all(v <= 1 for v in ties.values()), (tag, "near ties", ties))
+    rows = {cn0: (hn, hc) for cn0, hn, hc, _ in curve.rows}
+    check(rows[34][1] == curve.trials_per_point,
+          (tag, "coherent locks at 34 dB-Hz", rows[34]))
+    check(sum(v[1] for v in rows.values())
+          >= sum(v[0] for v in rows.values()), (tag, "no gain", rows))
+    held = sum(c.cn0 in SENS_CPU_POINTS for c in cpu.trials)
+    log(f"[{tag}] {n} trials: K1 {counts['acquire2']} and K6 "
+        f"{counts['blk']} launches, every launch shape checked; the CPU's "
+        f"plain versions on the same {held} "
+        f"trials at {SENS_CPU_POINTS} dB-Hz: the same cells and lock "
+        f"decisions (near ties {ties}); coherent locks "
+        f"{sum(v[1] for v in rows.values())} against non-coherent "
+        f"{sum(v[0] for v in rows.values())}; wall {t_card:.2f} s on the "
+        f"card, {t_cpu:.2f} s on the CPU  [{card}]")
+    return counts["acquire2"], counts["blk"]
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -4033,6 +4287,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join("_work", "smoke"),
                     help="scratch directory for the synthetic capture")
     args = ap.parse_args(argv)
+    if os.environ.get("GNSS_DSP_CPU"):
+        # the port's CLIs would run on the CPU: this script holds the card
+        print("chip_smoke: GNSS_DSP_CPU is set, which pins the port's CLIs "
+              "to the CPU; unset it to run on the card", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -4106,6 +4365,11 @@ def main(argv=None) -> int:
                                                   args.out)
     k2_slice["e2e_multi"] = phase_e2e_multi(dev, card, args.out)
     phase_e2e_recover(dev, card, args.out)
+    k1_sens, k6_sens = phase_e2e_sensitivity(dev, card)
+    log(f"[e2e_sensitivity] launches: acquire2 {k1_sens}, acquire_coh "
+        f"{k6_sens}")
+    results["acquire2"]["launches"] += k1_sens
+    results["acquire_coh"]["launches"] += k6_sens
     k1_wl, k2_slice["e2e_workload"] = phase_e2e_workload(dev, card, results,
                                                         args.out)
     log(f"[e2e_workload] acquire2 launches: {k1_wl}")

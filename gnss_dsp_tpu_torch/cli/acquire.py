@@ -9,8 +9,14 @@ Counterpart: gnss_dsp_tpu/cli/acquire.py:26-211 (`read_samples` with its
   python -m gnss_dsp_tpu_torch.cli.acquire glonass-l1-p [options] input_file fs coffset chan doppler ca_code_phase
 
 Output rows are the reference workers' (acquire-gps-l1.py:102).  Adds
---device (default cuda); a CUDA device that does not exist is an error,
-never a silent CPU run.  --coherent M runs the extended-coherent search
+--device (default cuda, or cpu while GNSS_DSP_CPU is set, as the
+reference pins itself; the switch is named on stderr); a CUDA device
+that does not exist is an error, never a silent CPU run.
+GNSS_DSP_TIMING prints the reference's stage walls to stderr (:111-128,
+177-179): "[timing] SIG: read+upload .. frontend .." after the front end
+on every branch (the device synchronised first) and "[timing] SIG:
+search .." after the default CDMA search's rows; the serial searches
+print neither.  --coherent M runs the extended-coherent search
 (acquire/coherent.py; M = -1: the full overlay length) on every CDMA
 signal with an FFT search, on the card through kernel K5 or K6 where the
 route takes one (K5 at every window up to GPS L2CM's 163840).  --mesh N
@@ -42,18 +48,21 @@ from __future__ import annotations
 import optparse
 import os
 import sys
+import time
 
 from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
 from gnss_dsp_tpu_torch.acquire.engine import (
     acquire_signal, acquire_signal_fdma)
 from gnss_dsp_tpu_torch.acquire.serial import serial_search
-from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
+from gnss_dsp_tpu_torch.device import (
+    default_device, pop_device_arg, resolve_device)
 from gnss_dsp_tpu_torch.ops import cplx
 from gnss_dsp_tpu_torch.ops.frontend import mix_long, prepare_baseband
 from gnss_dsp_tpu_torch.parallel.acquire import (
     acquire_signal_fdma_sharded, acquire_signal_sharded)
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
+from gnss_dsp_tpu_torch.utils.profiling import device_sync
 
 
 def read_samples(filename, n: int, device, cache: dict | None = None):
@@ -92,7 +101,7 @@ def _fmt_row(sig, r) -> str:
 def _device_option(parser):
     # --device is taken out of argv by pop_device_arg before parsing, so
     # that it may follow the positionals; the option is here for --help
-    parser.add_option("--device", default="cuda",
+    parser.add_option("--device", default=default_device(),
                       help="torch device, anywhere on the line "
                       "(default %default)")
 
@@ -128,7 +137,7 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
                       help="shard the search over an N-device mesh (0 = "
                       "single device, -1 = all devices)")
     _device_option(parser)
-    device, argv = pop_device_arg(argv)
+    device, argv = pop_device_arg(argv, f"acquire {sig.name}")
     options, args = parser.parse_args(argv)
     if len(args) != 3:
         parser.error("expected input_filename sample_rate carrier_offset")
@@ -140,12 +149,21 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     dops = tuple(float(v) for v in options.doppler_search.split(","))
     prns = sig.prns(options.prn)
 
+    timing = os.environ.get("GNSS_DSP_TIMING")
+    t0 = time.perf_counter()
     x = read_samples(filename, int((ms + 5) * fs / 1000), dev, x_cache)
     if x is None:
         print("insufficient samples", file=sys.stderr)
         return 1
+    t1 = time.perf_counter()
     xb = prepare_baseband(x, fs, coffset, sig.acq_fs, sig.acq_lowpass_hz,
                           ms + 2)
+    if timing:
+        device_sync(xb)
+        t2 = time.perf_counter()
+        print(f"[timing] {signal}: read+upload {t1 - t0:.2f}s "
+              f"frontend {t2 - t1:.2f}s", file=sys.stderr)
+        t1 = t2
     if options.mesh:
         mesh = make_mesh(None if options.mesh < 0 else options.mesh,
                          devices=cli_devices(dev, options.mesh))
@@ -165,6 +183,9 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     run = acquire_signal_fdma if fdma else acquire_signal
     for r in run(sig, xb, prns, doppler_search=dops, ms=ms):
         print(_fmt_row(sig, r))
+    if timing and not fdma:       # the reference times the CDMA search only
+        print(f"[timing] {signal}: search {time.perf_counter() - t1:.2f}s",
+              file=sys.stderr)
     return 0
 
 
@@ -179,7 +200,7 @@ def _main_serial(sig, argv, x_cache: dict | None = None) -> int:
                       default=40 if sig.acq_serial == 75 else 80,
                       help="integration time in ms (default %default)")
     _device_option(parser)
-    device, argv = pop_device_arg(argv)
+    device, argv = pop_device_arg(argv, f"acquire {sig.name}")
     options, args = parser.parse_args(argv)
     if len(args) != 6:
         parser.error("expected file fs coffset %s doppler code_phase" % label)

@@ -12,7 +12,8 @@ Each round reads b * n * m = 1000 * 16 * 100 samples through utils/io
 (short read: EOF), wipes the carrier with ops/frontend.mix_long, its
 phase carried over from round to round, runs ops/squaring on the device
 and writes round(20 * r) as interleaved int16 I/Q.  --device (default
-cuda) may stand anywhere on the line.
+cuda, or cpu while GNSS_DSP_CPU is set, named on stderr) may stand
+anywhere on the line.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ B, N, M = 1000, 16, 100
 
 
 def main(argv=None) -> int:
-    device, argv = pop_device_arg(sys.argv[1:] if argv is None else argv)
+    device, argv = pop_device_arg(sys.argv[1:] if argv is None else argv,
+                                  "squaring")
     if len(argv) != 3:
         print("usage: squaring file sample_rate carrier_offset "
               "[--device cuda|cpu]", file=sys.stderr)

@@ -14,11 +14,12 @@ Counterpart: gnss_dsp_tpu/cli/track.py (`_preload_chunk` :25-55, `main`
 Prints one row per tracked block in the reference's 9- or 14-column text
 format (track-gps-l1.py:176-177); with several channels each row starts
 "ch<prn> ", under `multi` "SIG:prn " in each signal's own format.  Adds
---device (default cuda).  Every signal with a code table tracks, with
-its subcarrier, sub-blocks and long code: on the card kernel K2 runs the
-whole loop, as the reference routes it; under GNSS_DSP_NO_FUSED one
-launch of K3 a block, or of K4 under GNSS_DSP_PALLAS_V1; --device cpu
-runs the plain versions.  `multi` tracks channels of different signals
+--device (default cuda, or cpu while GNSS_DSP_CPU is set, as the
+reference pins itself; the switch is named on stderr).  Every signal
+with a code table tracks, with its subcarrier, sub-blocks and long
+code: on the card kernel K2 runs the whole loop, as the reference routes
+it; under GNSS_DSP_NO_FUSED one launch of K3 a block, or of K4 under
+GNSS_DSP_PALLAS_V1; --device cpu runs the plain versions.  `multi` tracks channels of different signals
 in one scan (one K2 launch a chunk), each with its own carrier offset
 (the fifth field, default the carrier_offset argument).
 --coherent M (M = -1: each signal's own overlay length) tracks with
@@ -54,7 +55,8 @@ import sys
 import numpy as np
 
 from gnss_dsp_tpu_torch.models import get_signal
-from gnss_dsp_tpu_torch.device import pop_device_arg, resolve_device
+from gnss_dsp_tpu_torch.device import (
+    default_device, pop_device_arg, resolve_device)
 from gnss_dsp_tpu_torch.ops import cplx
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 from gnss_dsp_tpu_torch.track.driver import (
@@ -99,7 +101,7 @@ def _common_options(parser):
                       "padded up to the mesh)")
     # --device is taken out of argv by pop_device_arg before parsing, so
     # that it may follow the positionals; the option is here for --help
-    parser.add_option("--device", default="cuda",
+    parser.add_option("--device", default=default_device(),
                       help="torch device, anywhere on the line "
                       "(default %default)")
 
@@ -141,7 +143,8 @@ def main_multi(argv=None, x_cache: dict | None = None) -> int:
     parser.add_option("--recover", action="store_true", default=False,
                       help="unknown-code recovery for every channel; bins "
                            "land in RECOVER_FILE-SIG-PRN.dat per channel")
-    device, argv = pop_device_arg(sys.argv[2:] if argv is None else argv)
+    device, argv = pop_device_arg(sys.argv[2:] if argv is None else argv,
+                                  "track multi")
     options, args = parser.parse_args(argv)
     if len(args) != 4:
         parser.error("expected file fs coffset SIG:prn:dop:code[,...]")
@@ -224,7 +227,8 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
                            "a seekable file, not a pipe); continues "
                            "bit-exactly and re-emits from the checkpointed "
                            "block")
-    device, argv = pop_device_arg(sys.argv[2:] if argv is None else argv)
+    device, argv = pop_device_arg(sys.argv[2:] if argv is None else argv,
+                                  f"track {signal}")
     options, args = parser.parse_args(argv)
     dwells = tuple(int(v) for v in options.loop_dwells.split(","))
     carrier_phase = (float(options.carrier_phase)

@@ -14,7 +14,8 @@ exactly the bytes the same CLI call writes without the cache.
     python -m gnss_dsp_tpu_torch.cli.workload track-all   DATA DEST_DIR
     python -m gnss_dsp_tpu_torch.cli.workload all         DATA DEST_DIR
 
---device NAME (default cuda) may stand anywhere and goes to every call.
+--device NAME (default cuda, or cpu while GNSS_DSP_CPU is set, named
+on stderr once) may stand anywhere and goes to every call.
 The stage walls print to stderr.  Both stages run their scripts one
 after another.
 """
@@ -171,7 +172,8 @@ def run_track_all(data: str, dest: str, device: str = "cuda") -> None:
 
 
 def main(argv=None) -> int:
-    device, argv = pop_device_arg(sys.argv[1:] if argv is None else argv)
+    device, argv = pop_device_arg(sys.argv[1:] if argv is None else argv,
+                                  "workload")
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2

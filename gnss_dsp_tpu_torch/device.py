@@ -9,11 +9,18 @@ GNSS_DSP_NO_PALLAS, the reference's switch to its XLA engines, is
 honoured on the CPU only (the plain versions, acquire/plan's "xla"
 route): on a card the port runs its kernels and nothing else, so every
 entry point given a card refuses the switch (refuse_no_pallas).
+
+GNSS_DSP_CPU, the reference's pin of its CLIs to the CPU, moves the
+default of the port's CLIs (default_device): set, they run the plain
+versions on the CPU and say so on stderr (pop_device_arg); an explicit
+--device wins over it.  Library entry points take their device from the
+caller and do not read it.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 
@@ -49,12 +56,21 @@ def resolve_device(name="cuda") -> torch.device:
     return dev
 
 
-def pop_device_arg(argv, default="cuda"):
+def default_device() -> str:
+    """The CLIs' device when the line names none: "cpu" while GNSS_DSP_CPU
+    is set (non-empty, as the reference reads it), else "cuda"."""
+    return "cpu" if os.environ.get("GNSS_DSP_CPU") else "cuda"
+
+
+def pop_device_arg(argv, what: str):
     """Take `--device NAME` / `--device=NAME` out of a CLI argv wherever it
     stands (the CLIs stop option parsing at the first positional, so that
-    a negative carrier offset reads as a number).  Returns (name, rest)."""
+    a negative carrier offset reads as a number).  Returns (name, rest).
+    Without --device the name is default_device(); when that is the CPU
+    because GNSS_DSP_CPU is set, one line on stderr says so, naming the
+    CLI `what`."""
     argv = list(argv)
-    name = default
+    name = None
     out = []
     i = 0
     while i < len(argv):
@@ -70,4 +86,10 @@ def pop_device_arg(argv, default="cuda"):
         else:
             out.append(a)
         i += 1
+    if name is None:
+        name = default_device()
+        if name == "cpu":
+            print(f"{what}: GNSS_DSP_CPU is set: running on the CPU (the "
+                  "plain versions); --device cuda overrides it",
+                  file=sys.stderr)
     return name, out

@@ -6,13 +6,17 @@
 #
 #   sh acquire-all.sh DATA [DEST_DIR [DEVICE]]
 #
-# DEVICE: cuda (the default) or cpu.
+# DEVICE: cuda or cpu (default cuda, or cpu while GNSS_DSP_CPU is set).
 # DATA is the three-band 69.984 MHz container (tools/synth_sky.py), each
 # band demuxed by tools/packet2wav_3ch.py, one process a script.
 
 DATA=$1
 DEST_DIR=${2:-acq-out}
 DEVICE=${3:-cuda}
+if [ -z "$3" ] && [ -n "$GNSS_DSP_CPU" ]; then
+    DEVICE=cpu
+    echo "acquire-all.sh: GNSS_DSP_CPU is set: every script runs on the CPU (the plain versions); DEVICE overrides it" >&2
+fi
 S=$(dirname "$0")
 P2W="python3 $S/../tools/packet2wav_3ch.py"
 mkdir -p "${DEST_DIR}"

@@ -13,7 +13,8 @@ tools/packet2wav_3ch.py as their demuxer.
     python -m gnss_dsp_tpu_torch.tools.gen_compat_scripts [OUT_DIR]
 
 The wrappers take the reference's argv, and --device anywhere (default
-cuda); the shell workloads take DATA [DEST_DIR [DEVICE]].
+cuda, or cpu while GNSS_DSP_CPU is set); the shell workloads take DATA
+[DEST_DIR [DEVICE]], DEVICE likewise.
 """
 
 from __future__ import annotations
@@ -69,13 +70,17 @@ SHELL_HEAD = """#!/bin/sh
 #
 #   sh {name} DATA [DEST_DIR [DEVICE]]
 #
-# DEVICE: cuda (the default) or cpu.
+# DEVICE: cuda or cpu (default cuda, or cpu while GNSS_DSP_CPU is set).
 # DATA is the three-band 69.984 MHz container (tools/synth_sky.py), each
 # band demuxed by tools/packet2wav_3ch.py, one process a script.
 
 DATA=$1
 DEST_DIR=${{2:-{dest}}}
 DEVICE=${{3:-cuda}}
+if [ -z "$3" ] && [ -n "$GNSS_DSP_CPU" ]; then
+    DEVICE=cpu
+    echo "{name}: GNSS_DSP_CPU is set: every script runs on the CPU (the plain versions); DEVICE overrides it" >&2
+fi
 S=$(dirname "$0")
 P2W="python3 $S/../tools/packet2wav_3ch.py"
 mkdir -p "${{DEST_DIR}}"

@@ -49,8 +49,11 @@ chunk the state and host counters go to one npz (atomic rename); a
 resume seeks the stream to the checkpoint's sample and goes on bit for
 bit.  Unknown-code recovery (recover_after; None: 200 blocks where every
 signal recovers by default, the BeiDou B2b ones, else off) leaves each
-channel's complex bins on TrackChannel.recovered.  GNSS_DSP_UPLOAD_INT4
-uploads each chunk as packed 4-bit I/Q (ops/cplx.from_int4_iq, :623-630).
+channel's complex bins on TrackChannel.recovered.  GNSS_DSP_TIMING prints
+the streaming loop's wall split (read-wait, upload+convert, scan+rows;
+:585-694) to stderr once at the end, the preloaded chunk nothing, as in
+the reference.  GNSS_DSP_UPLOAD_INT4 uploads each chunk as packed 4-bit
+I/Q (ops/cplx.from_int4_iq, :623-630).
 
 Single-chunk mode (`preloaded`, :536-575): the batched workload runner
 (cli/workload) uploads each band once and hands every script on it the
@@ -70,7 +73,9 @@ from __future__ import annotations
 
 import os
 import queue
+import sys
 import threading
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -78,6 +83,7 @@ import torch
 
 from gnss_dsp_tpu_torch.device import refuse_no_pallas, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx, nco
+from gnss_dsp_tpu_torch.utils.profiling import device_sync
 from gnss_dsp_tpu_torch.parallel.track import track_scan_sharded
 from gnss_dsp_tpu_torch.track import checkpoint
 from gnss_dsp_tpu_torch.track.engine import (
@@ -486,11 +492,17 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         return _recovered(channels, n_emit, state, recover_after)
 
     int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
+    # GNSS_DSP_TIMING: the reference's wall split of the streaming loop
+    # (read wait, upload and conversion, scan and rows), one stderr line
+    # at the end; the upload is synchronised only then
+    timing = bool(os.environ.get("GNSS_DSP_TIMING"))
+    t_read = t_up = t_scan = 0.0
     buf = np.zeros(0, np.int8)         # interleaved int8 I/Q bytes
     reader = _PrefetchReader(fp, chunk_samples + pad_extra)
     while True:
         # refill the chunk (the next read already ran on the prefetch
         # thread while the previous scan ran)
+        t0 = time.perf_counter()
         nbuf = len(buf) // 2
         want = chunk_samples + params.nmax - nbuf
         if want > 0:
@@ -500,6 +512,7 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
                 nbuf = len(buf) // 2
         if nbuf == 0:
             break
+        t_read += time.perf_counter() - t0
         nb = setup.blocks_per_scan
         if max_blocks is not None:
             nb = min(nb, max_blocks - total_blocks)
@@ -508,8 +521,13 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         # tail pad >= nmax so every block a channel can start fits; the
         # raw bytes upload as they are (or packed to 4 bits) and the pad
         # is appended on the device
+        t0 = time.perf_counter()
         tail = pad_extra + (-(nbuf + pad_extra)) % 1024
         x_dev, _ = cplx.from_iq(buf, pad=tail, device=dev, int4=int4)
+        if timing:
+            device_sync(x_dev)                # the upload's end
+            t_up += time.perf_counter() - t0
+            t0 = time.perf_counter()
         state = state._replace(stalled=torch.zeros_like(state.stalled))
         if mesh is not None:
             state, rows_f, rows_i = track_scan_sharded(
@@ -518,6 +536,8 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
             state, rows_f, rows_i = track_scan(
                 x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
         emitted_any = emit_rows(channels, n_emit, emit, rows_f, rows_i, nb)
+        if timing:
+            t_scan += time.perf_counter() - t0
         total_blocks += nb
         if max_blocks is not None and total_blocks >= max_blocks:
             break
@@ -543,6 +563,10 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
             # every channel is frozen at the data end and no samples can
             # arrive: rebasing cannot unstall them
             break
+    if timing:
+        print(f"[track_file timing] read-wait {t_read:.2f} s  "
+              f"upload+convert {t_up:.2f} s  scan+rows {t_scan:.2f} s",
+              file=sys.stderr)
     return _recovered(channels, n_emit, state, recover_after)
 
 

@@ -403,6 +403,45 @@ def test_k6_combines_match_plain(dev, W, P, DC, A, m_coh, G, n_valid):
     _check_planted(got, plain, plants, W, n_valid)
 
 
+def test_k1_and_k6_at_the_sensitivity_window(dev):
+    """The sensitivity curve's kernels at W = 8192 (BeiDou B1I at 4.096
+    MHz, tools/sensitivity_curve), at its launch shape of one PRN x 9
+    dopplers x 40 blocks: K1 on the run-time core, one CTA (8192 has no
+    register build), and K6 at m_coh = A = 20 (the B1I overlay) on K5's
+    register core of 8 CTAs in alignment chunks: each core the host's
+    plan, planted cells exact, metrics rtol 1e-4, two launches
+    bit-equal."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.ops import acquire2, acquire_coh
+
+    W = 8192
+    info = acquire2.launch_info(W, dev.index or 0)
+    assert (info["core"], info["n1"], info["n2"], info["cluster"]) == \
+        acquire2.core_plan(W) == ("wide", 64, 128, 1)
+    code, F, lags = _planted(dev, 1, 9, 40, W, 0, W)
+    got = acquire2.corr_surface2(F, code)
+    plain = acquire2.corr_surface2_plain(F, code)
+    assert int(got[1][0, 0]) == int(plain[1][0, 0]) == lags[0]
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[2], plain[2], rtol=1e-4, atol=0)
+    for a, b in zip(got, acquire2.corr_surface2(F, code)):
+        assert torch.equal(a, b)
+    sinfo = acquire_coh.spec_launch_info(W, dev.index or 0)
+    assert (sinfo["core"], sinfo["cluster"], sinfo["n1"], sinfo["n2"]) == \
+        ("split", 8, 64, 128)
+    b1i = get_signal("beidou-b1i")
+    code, F, c, s, sec_mat, plants = _coh_inputs(
+        dev, 1, 9, 40, W, 20, 0, W + 20, sec=b1i.secondary(34))
+    n0 = acquire_coh.LAUNCHES_BLK
+    got = acquire_coh.corr_surface_coh(F, code, c, s, sec_mat, 20)
+    assert acquire_coh.LAUNCHES_BLK == n0 + 1
+    plain = acquire_coh.corr_surface_coh_plain(F, code, c, s, sec_mat, 20)
+    _check_planted(got, plain, plants, W, 0)
+    for a, b in zip(got, acquire_coh.corr_surface_coh(F, code, c, s,
+                                                      sec_mat, 20)):
+        assert torch.equal(a, b)
+
+
 def test_k6_surface_takes_k1s_build_at_4096(dev):
     """K6's surface stage is K5's launch, on K1's 2-CTA build at 4096 (the
     card's plan equals the host's), against the plain version at the GPS

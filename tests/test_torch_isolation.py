@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
               "cli.squaring", "cli.spectrum", "track.probe", "ops.squaring",
               "utils.io", "utils.profiling", "tools.synth_sky",
               "tools.packet2wav_3ch", "tools.sky_workload",
-              "tools.gen_compat_scripts"):
+              "tools.gen_compat_scripts", "tools.sensitivity_curve"):
         assert "gnss_dsp_tpu_torch." + m in names
     code = ("import importlib, sys\n"
             f"for n in {names!r} + ['chip_smoke']:\n"
@@ -392,3 +392,20 @@ def test_chip_smoke_fails_without_a_card():
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
 
+
+
+def test_chip_smoke_refuses_gnss_dsp_cpu(monkeypatch, capsys):
+    """chip_smoke.py holds the card: with GNSS_DSP_CPU set (which pins the
+    port's CLIs to the CPU) it stops at its start, naming the switch,
+    before it asks for the card, and prints no result."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setenv("GNSS_DSP_CPU", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert smoke.main([]) != 0
+    out = capsys.readouterr()
+    assert "GNSS_DSP_CPU" in out.err and '"ok"' not in out.out

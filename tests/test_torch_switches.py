@@ -17,6 +17,11 @@ the JAX package under the same switch, on the CPU:
                         search do not read it
   GNSS_DSP_UPLOAD_INT4  track_file quantises each chunk to 4 bits
                         (track/driver.py:623-627)
+  GNSS_DSP_CPU          the CLIs' default device is the CPU (the
+                        reference's cli/acquire.py:64-68, cli/track.py:76
+                        and :152-157, cli/squaring.py:22-28), named on
+                        stderr; an explicit --device wins (held against
+                        the same CLI's --device cpu rows)
 
 The JAX package on a CPU takes its XLA engines whatever the switches say,
 so a port search under a switch that routes it to the same circular
@@ -406,3 +411,201 @@ def test_no_pallas_is_refused_on_a_mesh_with_a_card(clean_env):
         track_file(get_signal("gps-l1"), io.BytesIO(_capture()), 4.096e6,
                    0.0, [TrackChannel(prn=3, doppler=0.0, code_offset=0.0)],
                    max_blocks=2, device="cpu", mesh=mesh)
+
+
+# ---------------------------------------------------------- GNSS_DSP_CPU
+
+def _run_cli(main, args, out_path=None):
+    """(stdout, stderr) of main(*args); with out_path the CLI's binary
+    stdout goes to that file and stdout is its bytes."""
+    import contextlib
+    import types
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        if out_path is None:
+            rc = main(*args)
+        else:
+            import sys
+
+            with open(out_path, "wb") as f:
+                saved = sys.stdout
+                sys.stdout = types.SimpleNamespace(buffer=f)
+                try:
+                    rc = main(*args)
+                finally:
+                    sys.stdout = saved
+            with open(out_path, "rb") as f:
+                out = io.BytesIO(f.read())
+    assert rc in (0, None)
+    return out.getvalue(), err.getvalue()
+
+
+def _file(tmp_path, name, data):
+    path = tmp_path / name
+    path.write_bytes(data)
+    return str(path)
+
+
+def _fdma_capture():
+    sig = get_signal("glonass-l1")
+    fs = sig.acq_fs
+    x = synth_iq(sig.code_table((0,))[0], sig.chip_rate, fs, int(fs * 0.008),
+                 doppler_hz=300.0 + sig.fdma_hz, code_phase=100.0,
+                 cn0_dbhz=None, carrier_ratio=sig.track_carrier_ratio(1),
+                 code_doppler_hz=300.0)
+    from gnss_dsp_tpu_torch.utils.synth import to_int8_iq
+
+    return to_int8_iq(x, scale=24.0), fs
+
+
+def _cpu_cli(case, tmp_path):
+    """(main, argv without --device, binary) of one CLI call on a small
+    capture."""
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import squaring as sq_cli
+    from gnss_dsp_tpu_torch.cli import track as trk_cli
+
+    l1 = _file(tmp_path, "l1.iq", _capture())
+    acq = ["--prn", "3,7", "--doppler-search", "-1500,1500,500"]
+    if case == "acquire":
+        return acq_cli.main, ("gps-l1", acq + ["--time", "3", l1, "4096000",
+                                               "0"]), False
+    if case == "acquire --coherent":
+        return acq_cli.main, ("gps-l1", acq + ["--time", "4", "--coherent",
+                                               "2", l1, "4096000", "0"]), False
+    if case == "acquire fdma":
+        data, fs = _fdma_capture()
+        return acq_cli.main, ("glonass-l1", [
+            "--channel", "0,1", "--doppler-search", "-500,501,250", "--time",
+            "2", _file(tmp_path, "glo.iq", data), str(fs), "0"]), False
+    if case == "track":
+        return trk_cli.main, ("gps-l1", ["--blocks", "6", l1, "4096000", "0",
+                                         "3", "1000.0", "10.0"]), False
+    if case == "track multi":
+        return trk_cli.main, ("multi", ["--blocks", "6", l1, "4096000", "0",
+                                        "gps-l1:3:1000.0:10.0"]), False
+    assert case == "squaring"
+    n = sq_cli.B * sq_cli.N * sq_cli.M + 100
+    raw = np.random.default_rng(3).integers(-20, 21, 2 * n).astype(np.int8)
+    return sq_cli.main, ([_file(tmp_path, "sq.iq", raw.tobytes()),
+                          "4000000", "2500"],), True
+
+
+def _with_device(args, device):
+    return args[:-1] + (list(args[-1]) + ["--device", device],)
+
+
+@pytest.fixture
+def cpu_env(monkeypatch):
+    for name in ALL + ("GNSS_DSP_CPU", "GNSS_DSP_TIMING"):
+        monkeypatch.delenv(name, raising=False)
+    return monkeypatch
+
+
+CPU_CASES = ("acquire", "acquire --coherent", "acquire fdma", "track",
+             "track multi", "squaring")
+
+
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_gnss_dsp_cpu_pins_the_cli_to_the_cpu(cpu_env, tmp_path, case):
+    """GNSS_DSP_CPU set (the reference pins its CLIs to the CPU with it):
+    with no card (torch.cuda.is_available False) each CLI runs on the
+    CPU without --device, prints its --device cpu rows byte for byte and
+    one stderr line naming the switch; an explicit --device wins over the
+    switch: --device cpu prints no such line, --device cuda still asks
+    for the card, which raises."""
+    main, args, binary = _cpu_cli(case, tmp_path)
+    out = str(tmp_path / "out.bin") if binary else None
+    want, err = _run_cli(main, _with_device(args, "cpu"), out)
+    assert want and "GNSS_DSP_CPU" not in err
+    cpu_env.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_env.setenv("GNSS_DSP_CPU", "1")
+    got, err = _run_cli(main, args, out)
+    assert got == want
+    named = [line for line in err.splitlines() if "GNSS_DSP_CPU" in line]
+    assert len(named) == 1 and "CPU" in named[0].split("GNSS_DSP_CPU")[1]
+    got, err = _run_cli(main, _with_device(args, "cpu"), out)
+    assert got == want and "GNSS_DSP_CPU" not in err
+    with pytest.raises(RuntimeError, match="is_available"):
+        _run_cli(main, _with_device(args, "cuda"), out)
+
+
+def test_gnss_dsp_cpu_pins_the_workload(cpu_env, tmp_path):
+    """cli.workload acquire-all under GNSS_DSP_CPU and no card: every
+    script gets --device cpu (the mains replaced by recorders, as in
+    tests/test_torch_workload.py), its files those of --device cpu, and
+    the runner names the switch once; --device cuda with the switch set
+    still reaches the card's check in the first acquisition."""
+    from gnss_dsp_tpu_torch.cli import acquire as acq_cli
+    from gnss_dsp_tpu_torch.cli import workload
+
+    cap = _file(tmp_path, "c.pcap", np.zeros(3 * 3 * 2 * 69984, np.int8)
+                .tobytes())
+    real = acq_cli.main
+
+    def acq(signal, argv, x_cache=None):
+        print(f"{signal} {' '.join(argv[1:])}")
+        return 0
+
+    def files(dest):
+        return {row[3]: (tmp_path / dest / row[3]).read_text()
+                for row in workload.ACQUIRE_ALL}
+
+    cpu_env.setattr(acq_cli, "main", acq)
+    _run_cli(workload.main, (["acquire-all", cap, str(tmp_path / "a"),
+                              "--device", "cpu"],))
+    want = files("a")
+    assert all(v.endswith("--device cpu\n") for v in want.values())
+    cpu_env.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_env.setenv("GNSS_DSP_CPU", "1")
+    _, err = _run_cli(workload.main, (["acquire-all", cap,
+                                       str(tmp_path / "b")],))
+    assert files("b") == want
+    assert sum("GNSS_DSP_CPU" in line for line in err.splitlines()) == 1
+    cpu_env.setattr(acq_cli, "main", real)
+    with pytest.raises(RuntimeError, match="is_available"):
+        workload.main(["acquire-all", cap, str(tmp_path / "c"), "--device",
+                       "cuda"])
+
+
+def test_gnss_dsp_cpu_moves_the_shell_workloads(cpu_env, tmp_path):
+    """The shell workloads pass DEVICE to every script: unset, cuda; with
+    GNSS_DSP_CPU set and no DEVICE given, cpu, named once on stderr; a
+    DEVICE given wins.  (The demuxer and the scripts are replaced by
+    stubs that print their argv.)"""
+    import os
+    import shutil
+    import subprocess
+
+    from gnss_dsp_tpu_torch.tools.gen_compat_scripts import acquire_all_sh
+
+    d = tmp_path / "s"
+    (d / "scripts").mkdir(parents=True)
+    (d / "tools").mkdir()
+    (d / "tools" / "packet2wav_3ch.py").write_text("")
+    (d / "scripts" / "acquire-all.sh").write_text(acquire_all_sh())
+    for line in acquire_all_sh().splitlines():
+        if '"$S"/' in line:
+            name = line.split('"$S"/')[1].split()[0]
+            (d / "scripts" / name).write_text(
+                "import sys\nprint(' '.join(sys.argv[1:]))\n")
+    data = _file(tmp_path, "data", b"")
+
+    def run(*extra, cpu=None):
+        env = {k: v for k, v in os.environ.items() if k != "GNSS_DSP_CPU"}
+        if cpu:
+            env["GNSS_DSP_CPU"] = cpu
+        dest = tmp_path / f"o{len(list(tmp_path.iterdir()))}"
+        r = subprocess.run(["sh", str(d / "scripts" / "acquire-all.sh"),
+                            data, str(dest), *extra], env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr
+        outs = {p.read_text().split()[-1] for p in dest.iterdir()}
+        return outs, r.stderr
+
+    assert shutil.which("sh")
+    assert run() == ({"cuda"}, "")
+    outs, err = run(cpu="1")
+    assert outs == {"cpu"} and err.count("GNSS_DSP_CPU") == 1
+    assert run("cuda", cpu="1") == ({"cuda"}, "")
