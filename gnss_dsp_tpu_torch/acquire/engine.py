@@ -61,6 +61,7 @@ from gnss_dsp_tpu_torch.acquire.plan import acq_plan
 from gnss_dsp_tpu_torch.device import refuse_no_pallas
 from gnss_dsp_tpu_torch.models.codes import resample_host
 from gnss_dsp_tpu_torch.ops import acquire, acquire2, nco
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -267,9 +268,12 @@ _CODE_FFTS_CAP = 4
 
 def device_code_ffts(sig, prns, n: int, window: int, device,
                      route: str = "v2") -> torch.Tensor:
-    """build_code_ffts as complex64 on `device`, through the LRU."""
+    """build_code_ffts as complex64 on `device`, through the LRU (its hits
+    and misses counted as acq.code_ffts.hit / .miss, utils/profiling)."""
     key = (sig.name, tuple(prns), n, route, window, torch.device(device))
     code_ffts = _CODE_FFTS_DEV.pop(key, None)
+    profiling.count("acq.code_ffts.miss" if code_ffts is None
+                    else "acq.code_ffts.hit")
     if code_ffts is None:
         cf_host = build_code_ffts(sig, prns, n, window).astype(np.complex64)
         code_ffts = torch.from_numpy(cf_host).to(device)

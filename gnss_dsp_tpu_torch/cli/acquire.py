@@ -16,7 +16,10 @@ GNSS_DSP_TIMING prints the reference's stage walls to stderr (:111-128,
 177-179): "[timing] SIG: read+upload .. frontend .." after the front end
 on every branch (the device synchronised first) and "[timing] SIG:
 search .." after the default CDMA search's rows; the serial searches
-print neither.  --coherent M runs the extended-coherent search
+print neither.  The walls are this call's spans (utils/profiling):
+read+upload `acquire.read` and `upload`, frontend `frontend`, search from
+the front end's end to the rows written; the call is the span
+`cli.acquire`.  --coherent M runs the extended-coherent search
 (acquire/coherent.py; M = -1: the full overlay length) on every CDMA
 signal with an FFT search, on the card through kernel K5 or K6 where the
 route takes one (K5 at every window up to GPS L2CM's 163840).  --mesh N
@@ -48,7 +51,6 @@ from __future__ import annotations
 import optparse
 import os
 import sys
-import time
 
 from gnss_dsp_tpu_torch.models import get_signal
 from gnss_dsp_tpu_torch.acquire.coherent import acquire_signal_coherent
@@ -62,7 +64,7 @@ from gnss_dsp_tpu_torch.ops.frontend import mix_long, prepare_baseband
 from gnss_dsp_tpu_torch.parallel.acquire import (
     acquire_signal_fdma_sharded, acquire_signal_sharded)
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
-from gnss_dsp_tpu_torch.utils.profiling import device_sync
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 def read_samples(filename, n: int, device, cache: dict | None = None):
@@ -70,18 +72,20 @@ def read_samples(filename, n: int, device, cache: dict | None = None):
     `device` (raw int8 uploaded, converted on the device); None when the
     input is short.  With `cache` (file name -> the whole file on the
     device; one device a cache) a file is read and uploaded once, and
-    each call slices its first n samples there."""
+    each call slices its first n samples there.  The file read is the
+    span `acquire.read` (utils/profiling), the upload cplx's `upload`."""
     if cache is not None and filename != "-":
         ent = cache.get(filename)
         if ent is None:
-            with open(filename, "rb") as fp:
+            with profiling.span("acquire.read"), open(filename, "rb") as fp:
                 z = fp.read(2 * (os.path.getsize(filename) // 2))
             ent = cache[filename] = cplx.from_int8_iq(z, device=device)
         return ent[:n] if ent.shape[0] >= n else None
-    fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
-    z = fp.read(2 * int(n))
-    if filename != "-":
-        fp.close()
+    with profiling.span("acquire.read"):
+        fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
+        z = fp.read(2 * int(n))
+        if filename != "-":
+            fp.close()
     if len(z) != 2 * int(n):
         return None
     return cplx.from_int8_iq(z, device=device)
@@ -106,6 +110,7 @@ def _device_option(parser):
                       "(default %default)")
 
 
+@profiling.span("cli.acquire")
 def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     sig = get_signal(signal)
     argv = sys.argv[2:] if argv is None else argv
@@ -149,21 +154,19 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     dops = tuple(float(v) for v in options.doppler_search.split(","))
     prns = sig.prns(options.prn)
 
-    timing = os.environ.get("GNSS_DSP_TIMING")
-    t0 = time.perf_counter()
-    x = read_samples(filename, int((ms + 5) * fs / 1000), dev, x_cache)
-    if x is None:
-        print("insufficient samples", file=sys.stderr)
-        return 1
-    t1 = time.perf_counter()
-    xb = prepare_baseband(x, fs, coffset, sig.acq_fs, sig.acq_lowpass_hz,
-                          ms + 2)
-    if timing:
-        device_sync(xb)
-        t2 = time.perf_counter()
-        print(f"[timing] {signal}: read+upload {t1 - t0:.2f}s "
-              f"frontend {t2 - t1:.2f}s", file=sys.stderr)
-        t1 = t2
+    # GNSS_DSP_TIMING: the reference's stage walls, read from this call's
+    # spans; the front end's span ends with the device synchronised
+    with profiling.Timing("frontend") as timed:
+        x = read_samples(filename, int((ms + 5) * fs / 1000), dev, x_cache)
+        if x is None:
+            print("insufficient samples", file=sys.stderr)
+            return 1
+        xb = prepare_baseband(x, fs, coffset, sig.acq_fs, sig.acq_lowpass_hz,
+                              ms + 2)
+    if timed.printing:
+        print(f"[timing] {signal}: read+upload "
+              f"{timed.seconds('acquire.read', 'upload'):.2f}s "
+              f"frontend {timed.seconds('frontend'):.2f}s", file=sys.stderr)
     if options.mesh:
         mesh = make_mesh(None if options.mesh < 0 else options.mesh,
                          devices=cli_devices(dev, options.mesh))
@@ -183,12 +186,13 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     run = acquire_signal_fdma if fdma else acquire_signal
     for r in run(sig, xb, prns, doppler_search=dops, ms=ms):
         print(_fmt_row(sig, r))
-    if timing and not fdma:       # the reference times the CDMA search only
-        print(f"[timing] {signal}: search {time.perf_counter() - t1:.2f}s",
+    if timed.printing and not fdma:   # the reference times CDMA only
+        print(f"[timing] {signal}: search {timed.since('frontend'):.2f}s",
               file=sys.stderr)
     return 0
 
 
+@profiling.span("cli.acquire")
 def _main_serial(sig, argv, x_cache: dict | None = None) -> int:
     fdma = bool(sig.fdma_hz)
     label = "chan" if fdma else "prn"

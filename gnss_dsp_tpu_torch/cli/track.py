@@ -43,7 +43,7 @@ workload runner's call (cli/workload): a file of at most one --chunk-ms
 chunk is uploaded once (_preload_chunk) and tracked in single-chunk mode
 (track/driver.track_file's `preloaded`); not under --mesh, --checkpoint
 or --resume, nor from stdin.  The rows are those of the same call
-without the cache.
+without the cache.  A call is the span `cli.track` (utils/profiling).
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
 from gnss_dsp_tpu_torch.track.driver import (
     TrackChannel, format_row_9, format_row_14, track_file,
 )
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 def _preload_chunk(path: str, fs: float, chunk_ms: float, cache: dict, *,
@@ -121,6 +122,7 @@ def _write_bins(path, bins):
             f.write("%f %f\n" % (v.real, v.imag))
 
 
+@profiling.span("cli.track")
 def main_multi(argv=None, x_cache: dict | None = None) -> int:
     """Channels of different signals in one scan over one stream:
 
@@ -190,6 +192,7 @@ def main_multi(argv=None, x_cache: dict | None = None) -> int:
     return 0
 
 
+@profiling.span("cli.track")
 def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     if signal == "multi":
         return main_multi(argv, x_cache)

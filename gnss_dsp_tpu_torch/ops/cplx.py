@@ -13,6 +13,9 @@ and track/receiver.track_receiver) packs each sample into one byte on
 the host and unpacks it on the device with elementwise torch operations,
 as the reference does with XLA's (not a Pallas kernel there, so no CUDA
 kernel here).
+
+Each upload is the span `upload` (on the device's stream too) and counts
+its bytes under `h2d.bytes` (utils/profiling).
 """
 
 from __future__ import annotations
@@ -20,20 +23,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gnss_dsp_tpu_torch.utils import profiling
+
 
 def from_int8_iq(raw, pad: int = 0, *, device) -> torch.Tensor:
     """Interleaved int8 I/Q (bytes or int8 array) -> complex64 [n + pad]
     on `device`, with `pad` zero samples appended on the device."""
-    if isinstance(raw, (bytes, bytearray, memoryview)):
-        raw = np.frombuffer(raw, np.int8)
-    raw = np.ascontiguousarray(raw, dtype=np.int8)
-    if not raw.flags.writeable:       # torch.from_numpy wants writable memory
-        raw = raw.copy()
-    d = torch.from_numpy(raw).to(device)                 # [2n] int8 upload
-    f = d.view(-1, 2).to(torch.float32)
-    if pad:
-        f = torch.nn.functional.pad(f, (0, 0, 0, int(pad)))
-    return torch.view_as_complex(f.contiguous())
+    with profiling.span("upload", device=device):
+        if isinstance(raw, (bytes, bytearray, memoryview)):
+            raw = np.frombuffer(raw, np.int8)
+        raw = np.ascontiguousarray(raw, dtype=np.int8)
+        if not raw.flags.writeable:   # torch.from_numpy wants writable memory
+            raw = raw.copy()
+        profiling.count("h2d.bytes", raw.nbytes)
+        d = torch.from_numpy(raw).to(device)             # [2n] int8 upload
+        f = d.view(-1, 2).to(torch.float32)
+        if pad:
+            f = torch.nn.functional.pad(f, (0, 0, 0, int(pad)))
+        return torch.view_as_complex(f.contiguous())
 
 
 _PACK4_LUT = None
@@ -60,27 +67,30 @@ def from_int4_iq(packed, pad: int = 0, scale: float = 8.0,
     `device`: one byte a sample uploaded, the nibbles sign-extended
     ((v ^ 8) - 8) and times `scale` (back to the int8 range) on the
     device, `pad` zero samples appended there."""
-    if isinstance(packed, (bytes, bytearray, memoryview)):
-        packed = np.frombuffer(packed, np.uint8)
-    packed = np.ascontiguousarray(packed, dtype=np.uint8)
-    if not packed.flags.writeable:
-        packed = packed.copy()
-    u = torch.from_numpy(packed).to(device).to(torch.int32)   # 1 B a sample
-    i4 = (((u >> 4) & 15) ^ 8) - 8
-    q4 = ((u & 15) ^ 8) - 8
-    sc = float(np.float32(scale))
-    f = torch.stack([i4.to(torch.float32) * sc, q4.to(torch.float32) * sc],
-                    dim=1)
-    if pad:
-        f = torch.nn.functional.pad(f, (0, 0, 0, int(pad)))
-    return torch.view_as_complex(f.contiguous())
+    with profiling.span("upload", device=device):
+        if isinstance(packed, (bytes, bytearray, memoryview)):
+            packed = np.frombuffer(packed, np.uint8)
+        packed = np.ascontiguousarray(packed, dtype=np.uint8)
+        if not packed.flags.writeable:
+            packed = packed.copy()
+        profiling.count("h2d.bytes", packed.nbytes)
+        u = torch.from_numpy(packed).to(device).to(torch.int32)  # 1 B/sample
+        i4 = (((u >> 4) & 15) ^ 8) - 8
+        q4 = ((u & 15) ^ 8) - 8
+        sc = float(np.float32(scale))
+        f = torch.stack([i4.to(torch.float32) * sc,
+                         q4.to(torch.float32) * sc], dim=1)
+        if pad:
+            f = torch.nn.functional.pad(f, (0, 0, 0, int(pad)))
+        return torch.view_as_complex(f.contiguous())
 
 
 def from_iq(raw, pad: int = 0, *, device, int4: bool = False):
     """(complex64 chunk on `device`, bytes uploaded): the int8 I/Q bytes
     `raw` through from_int8_iq, or with int4 packed on the host and
-    through from_int4_iq."""
+    through from_int4_iq (the host pack inside the same `upload` span)."""
     if int4:
-        packed = pack_int4_host(np.asarray(raw, np.int8))
-        return from_int4_iq(packed, pad=pad, device=device), packed.nbytes
+        with profiling.span("upload", device=device):
+            packed = pack_int4_host(np.asarray(raw, np.int8))
+            return from_int4_iq(packed, pad=pad, device=device), packed.nbytes
     return from_int8_iq(raw, pad=pad, device=device), len(raw)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from gnss_dsp_tpu_torch.ops import nco
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 def design_lowpass(fs: float, cutoff_hz: float, ntaps: int = 161) -> np.ndarray:
@@ -100,9 +101,11 @@ def prepare_baseband(x: torch.Tensor, fs: float, coffset: float,
     """Full acquisition front end: wipeoff + zero-phase lowpass + resample.
 
     x: complex64 samples at fs (>= ms_total ms worth), on the device the
-    work should run on.  Returns complex64 [ms_total * acq_fs / 1000]."""
-    x = mix_long(x, -coffset / fs)
-    h = design_lowpass(fs, cutoff_hz, ntaps)
-    x = filtfilt_fir(h, x)
-    n_out = int(round(ms_total * acq_fs / 1000.0))
-    return resample_linear(x, fs, acq_fs, n_out)
+    work should run on.  Returns complex64 [ms_total * acq_fs / 1000].
+    The span `frontend` (utils/profiling)."""
+    with profiling.span("frontend", device=x.device):
+        x = mix_long(x, -coffset / fs)
+        h = design_lowpass(fs, cutoff_hz, ntaps)
+        x = filtfilt_fir(h, x)
+        n_out = int(round(ms_total * acq_fs / 1000.0))
+        return resample_linear(x, fs, acq_fs, n_out)

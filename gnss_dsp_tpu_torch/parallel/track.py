@@ -30,15 +30,17 @@ import torch
 import torch.distributed as dist
 
 from gnss_dsp_tpu_torch.track.engine import TrackState, scan_args, track_scan
+from gnss_dsp_tpu_torch.utils import profiling
 
 
+@profiling.span("track.scan")
 def track_scan_sharded(mesh, x_chunk: torch.Tensor, chunk_len, code_tab,
                        state: TrackState, params, n_blocks: int, ratios=None,
                        coffset_df=None, sigp=None, overlay=None,
                        multihost: bool = False):
     """track_scan with the C channels split over mesh.shape["sat"] (C a
     multiple of it).  Arguments and returns as track_scan's; the results
-    lie on x_chunk's device."""
+    lie on x_chunk's device.  The span `track.scan`, as track_scan's."""
     args, overlay = scan_args(x_chunk, chunk_len, code_tab, state, params,
                               n_blocks, ratios, coffset_df, sigp, overlay)
     x_chunk, chunk_len, code_tab, state, params, n_blocks = args[:6]

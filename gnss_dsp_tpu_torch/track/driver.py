@@ -52,8 +52,10 @@ signal recovers by default, the BeiDou B2b ones, else off) leaves each
 channel's complex bins on TrackChannel.recovered.  GNSS_DSP_TIMING prints
 the streaming loop's wall split (read-wait, upload+convert, scan+rows;
 :585-694) to stderr once at the end, the preloaded chunk nothing, as in
-the reference.  GNSS_DSP_UPLOAD_INT4 uploads each chunk as packed 4-bit
-I/Q (ops/cplx.from_int4_iq, :623-630).
+the reference: the loop's spans `track.refill`, `upload` (its device
+synchronised then) and `track.scan` with `track.rows` (utils/profiling;
+the call is the span `track.file`).  GNSS_DSP_UPLOAD_INT4 uploads each
+chunk as packed 4-bit I/Q (ops/cplx.from_int4_iq, :623-630).
 
 Single-chunk mode (`preloaded`, :536-575): the batched workload runner
 (cli/workload) uploads each band once and hands every script on it the
@@ -75,7 +77,6 @@ import os
 import queue
 import sys
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -83,13 +84,13 @@ import torch
 
 from gnss_dsp_tpu_torch.device import refuse_no_pallas, resolve_device
 from gnss_dsp_tpu_torch.ops import cplx, nco
-from gnss_dsp_tpu_torch.utils.profiling import device_sync
 from gnss_dsp_tpu_torch.parallel.track import track_scan_sharded
 from gnss_dsp_tpu_torch.track import checkpoint
 from gnss_dsp_tpu_torch.track.engine import (
     SIGP_COH, SIGP_NOV, TrackParams, init_state, sigp_row, track_scan,
 )
 from gnss_dsp_tpu_torch.ops.track_step import subc_kind
+from gnss_dsp_tpu_torch.utils import profiling
 from gnss_dsp_tpu_torch.utils.twofloat import tf_from_f64
 
 
@@ -97,8 +98,10 @@ class _PrefetchReader:
     """Double-buffered host ingest: the next chunk's file read runs on a
     worker thread while the device works on the current chunk.  Yields
     raw interleaved int8 I/Q bytes; the conversion happens on the device
-    (cplx.from_int8_iq)."""
+    (cplx.from_int8_iq).  Starting one is part of the span `track.setup`,
+    take's wait for the worker the span `track.read_wait`."""
 
+    @profiling.span("track.setup")
     def __init__(self, fp, ahead_samples: int):
         self.fp = fp
         self.q = queue.Queue(maxsize=2)
@@ -128,13 +131,14 @@ class _PrefetchReader:
         if got:
             parts.append(self.leftover)
             self.leftover = np.zeros(0, np.int8)
-        while got < want and not self.done:
-            nxt = self.q.get()
-            if nxt is None:
-                self.done = True
-                break
-            parts.append(nxt)
-            got += len(nxt) // 2
+        with profiling.span("track.read_wait"):
+            while got < want and not self.done:
+                nxt = self.q.get()
+                if nxt is None:
+                    self.done = True
+                    break
+                parts.append(nxt)
+                got += len(nxt) // 2
         if not parts:
             return None
         x = parts[0] if len(parts) == 1 else np.concatenate(parts)
@@ -249,6 +253,7 @@ class ChannelSetup:
     blocks_per_scan: int
 
 
+@profiling.span("track.setup")
 def channel_setup(sigs, channels, fs: float, coffsets, loop_dwells,
                   coherent_blocks: int, recover_after: int, chunk_ms: float,
                   mixed: bool, dev) -> ChannelSetup:
@@ -313,6 +318,7 @@ def channel_setup(sigs, channels, fs: float, coffsets, loop_dwells,
                         int(chunk_ms / sub_ms) + 2)
 
 
+@profiling.span("track.setup")
 def first_boundary(sigs, channels, fs: float, offsets=None):
     """(ptr int32 [C], code_p float64 [C]): each channel's alignment to
     its first code boundary (:434-442); offsets: each channel's
@@ -327,12 +333,15 @@ def first_boundary(sigs, channels, fs: float, offsets=None):
     return ptr0, code_p0
 
 
+@profiling.span("track.rows")
 def emit_rows(channels, n_emit, emit, rows_f, rows_i, nb) -> bool:
     """Accumulate the host counters and emit (or keep) each channel's
     rows of a scan, block by block (:505-536); channels from n_emit on
-    are clones, computed but never emitted.  True if any channel ran."""
-    rows_f = rows_f.cpu().numpy()
-    rows_i = rows_i.cpu().numpy()
+    are clones, computed but never emitted.  True if any channel ran.
+    The span `track.rows`, the rows' read-back `track.readback`."""
+    with profiling.span("track.readback"):
+        rows_f = rows_f.cpu().numpy()
+        rows_i = rows_i.cpu().numpy()
     any_row = False
     for b in range(nb):
         for k, ch in enumerate(channels):
@@ -371,6 +380,7 @@ def _clone(c0):
                         pll_from_start=c0.pll_from_start)
 
 
+@profiling.span("track.file")
 def track_file(sig, fp, fs: float, coffset: float, channels,
                loop_dwells=(500, 500), chunk_ms: float = 2000.0,
                max_blocks: int | None = None, emit=None, device="cuda",
@@ -492,80 +502,75 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         return _recovered(channels, n_emit, state, recover_after)
 
     int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
-    # GNSS_DSP_TIMING: the reference's wall split of the streaming loop
-    # (read wait, upload and conversion, scan and rows), one stderr line
-    # at the end; the upload is synchronised only then
-    timing = bool(os.environ.get("GNSS_DSP_TIMING"))
-    t_read = t_up = t_scan = 0.0
     buf = np.zeros(0, np.int8)         # interleaved int8 I/Q bytes
     reader = _PrefetchReader(fp, chunk_samples + pad_extra)
-    while True:
-        # refill the chunk (the next read already ran on the prefetch
-        # thread while the previous scan ran)
-        t0 = time.perf_counter()
-        nbuf = len(buf) // 2
-        want = chunk_samples + params.nmax - nbuf
-        if want > 0:
-            xx = reader.take(want)
-            if xx is not None and len(xx):
-                buf = np.concatenate([buf, xx])
+    # GNSS_DSP_TIMING: the reference's wall split of the streaming loop
+    # (read wait, upload and conversion, scan and rows), read from its
+    # spans, one stderr line at the end; the upload synchronised only then
+    with profiling.Timing("upload") as timed:
+        while True:
+            # refill the chunk (the next read already ran on the prefetch
+            # thread while the previous scan ran)
+            with profiling.span("track.refill"):
                 nbuf = len(buf) // 2
-        if nbuf == 0:
-            break
-        t_read += time.perf_counter() - t0
-        nb = setup.blocks_per_scan
-        if max_blocks is not None:
-            nb = min(nb, max_blocks - total_blocks)
-            if nb <= 0:
+                want = chunk_samples + params.nmax - nbuf
+                if want > 0:
+                    xx = reader.take(want)
+                    if xx is not None and len(xx):
+                        buf = np.concatenate([buf, xx])
+                        nbuf = len(buf) // 2
+            if nbuf == 0:
                 break
-        # tail pad >= nmax so every block a channel can start fits; the
-        # raw bytes upload as they are (or packed to 4 bits) and the pad
-        # is appended on the device
-        t0 = time.perf_counter()
-        tail = pad_extra + (-(nbuf + pad_extra)) % 1024
-        x_dev, _ = cplx.from_iq(buf, pad=tail, device=dev, int4=int4)
-        if timing:
-            device_sync(x_dev)                # the upload's end
-            t_up += time.perf_counter() - t0
-            t0 = time.perf_counter()
-        state = state._replace(stalled=torch.zeros_like(state.stalled))
-        if mesh is not None:
-            state, rows_f, rows_i = track_scan_sharded(
-                mesh, x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
-        else:
-            state, rows_f, rows_i = track_scan(
-                x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
-        emitted_any = emit_rows(channels, n_emit, emit, rows_f, rows_i, nb)
-        if timing:
-            t_scan += time.perf_counter() - t0
-        total_blocks += nb
-        if max_blocks is not None and total_blocks >= max_blocks:
-            break
+            nb = setup.blocks_per_scan
+            if max_blocks is not None:
+                nb = min(nb, max_blocks - total_blocks)
+                if nb <= 0:
+                    break
+            # tail pad >= nmax so every block a channel can start fits; the
+            # raw bytes upload as they are (or packed to 4 bits) and the
+            # pad is appended on the device
+            tail = pad_extra + (-(nbuf + pad_extra)) % 1024
+            x_dev, _ = cplx.from_iq(buf, pad=tail, device=dev, int4=int4)
+            state = state._replace(stalled=torch.zeros_like(state.stalled))
+            if mesh is not None:
+                state, rows_f, rows_i = track_scan_sharded(
+                    mesh, x_dev, nbuf, setup.code_tab, state, params, nb,
+                    **scan)
+            else:
+                state, rows_f, rows_i = track_scan(
+                    x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
+            emitted_any = emit_rows(channels, n_emit, emit, rows_f, rows_i,
+                                    nb)
+            total_blocks += nb
+            if max_blocks is not None and total_blocks >= max_blocks:
+                break
 
-        # drop fully-consumed samples, rebase pointers (2 bytes/sample)
-        consumed = int(state.ptr.min())
-        buf = buf[2 * consumed:]
-        state = state._replace(ptr=state.ptr - consumed)
-        abs_buf0 += consumed
-        if checkpoint_path is not None:
-            # the pointers are relative to the stream sample abs_buf0, so
-            # a resume needs only a seek: no sample is stored
-            tmp = checkpoint_path + ".tmp"
-            with open(tmp, "wb") as f:
-                checkpoint.save(f, state, channels,
-                                meta={"abs_buf0": abs_buf0,
-                                      "total_blocks": total_blocks})
-            os.replace(tmp, checkpoint_path)
+            # drop fully-consumed samples, rebase pointers (2 bytes/sample)
+            consumed = int(state.ptr.min())
+            buf = buf[2 * consumed:]
+            state = state._replace(ptr=state.ptr - consumed)
+            abs_buf0 += consumed
+            if checkpoint_path is not None:
+                # the pointers are relative to the stream sample abs_buf0,
+                # so a resume needs only a seek: no sample is stored
+                tmp = checkpoint_path + ".tmp"
+                with open(tmp, "wb") as f:
+                    checkpoint.save(f, state, channels,
+                                    meta={"abs_buf0": abs_buf0,
+                                          "total_blocks": total_blocks})
+                os.replace(tmp, checkpoint_path)
 
-        if reader.done and not emitted_any:
-            break
-        if reader.done and bool(state.stalled.all()):
-            # every channel is frozen at the data end and no samples can
-            # arrive: rebasing cannot unstall them
-            break
-    if timing:
-        print(f"[track_file timing] read-wait {t_read:.2f} s  "
-              f"upload+convert {t_up:.2f} s  scan+rows {t_scan:.2f} s",
+            if reader.done and not emitted_any:
+                break
+            if reader.done and bool(state.stalled.all()):
+                # every channel is frozen at the data end and no samples
+                # can arrive: rebasing cannot unstall them
+                break
+    if timed.printing:
+        print(f"[track_file timing] read-wait "
+              f"{timed.seconds('track.refill'):.2f} s  upload+convert "
+              f"{timed.seconds('upload'):.2f} s  scan+rows "
+              f"{timed.seconds('track.scan', 'track.rows'):.2f} s",
               file=sys.stderr)
     return _recovered(channels, n_emit, state, recover_after)
 

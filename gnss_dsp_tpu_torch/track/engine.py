@@ -71,6 +71,7 @@ import torch
 
 from gnss_dsp_tpu_torch.ops import discriminators as disc
 from gnss_dsp_tpu_torch.ops import nco, track_fused, track_step
+from gnss_dsp_tpu_torch.utils import profiling
 from gnss_dsp_tpu_torch.utils import twofloat as tf
 
 ROW_FIELDS = (
@@ -175,6 +176,7 @@ class TrackState(NamedTuple):
                                # E, P, L; zeros when coh_blocks == 1)
 
 
+@profiling.span("track.setup")
 def init_state(code_p, code_f_off, carrier_p, carrier_f, ptr=0,
                device="cpu", recover_bins: int = 1) -> TrackState:
     c = np.shape(np.atleast_1d(code_p))[0]
@@ -531,6 +533,7 @@ def track_scan_plain(x, chunk_len, code_tab, state, params,
                  coffset_df, sigp, plain_correlate(params), overlay)
 
 
+@profiling.span("track.scan")
 def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
                state: TrackState, params: TrackParams, n_blocks: int,
                ratios=None, coffset_df=None, sigp=None, overlay=None):
@@ -550,7 +553,8 @@ def track_scan(x_chunk: torch.Tensor, chunk_len, code_tab: torch.Tensor,
     this is one launch of kernel K2 (params.fused_scan) or one launch of
     K3 or K4 a block; on a CPU chunk, and only there, the plain loop.
     Recovery (params.recover_after >= 0) runs the plain loop on either
-    device, as the reference runs it on its XLA correlator."""
+    device, as the reference runs it on its XLA correlator.  The span
+    `track.scan` (utils/profiling): the host set-up and the launches."""
     args, overlay = scan_args(x_chunk, chunk_len, code_tab, state, params,
                               n_blocks, ratios, coffset_df, sigp, overlay)
     if x_chunk.device.type == "cpu" or params.recover_after >= 0:

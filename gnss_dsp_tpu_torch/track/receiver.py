@@ -31,13 +31,16 @@ a row nor a rebase.
 A caller's `stats` dict receives the run's chunks, bytes uploaded a
 chunk and the wall split (read wait, upload, scan and rows), which
 GNSS_DSP_TIMING=1 prints to stderr at the end, as the reference does.
+The walls are the call's spans (utils/profiling): read wait
+`track.refill`, upload the segmented chunk's assembly `track.assemble`
+with `upload`, scan and rows `track.scan` with `track.rows`; the call is
+the span `track.receiver`.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -48,6 +51,7 @@ from gnss_dsp_tpu_torch.track.driver import (
     _PrefetchReader, channel_setup, emit_rows, first_boundary,
 )
 from gnss_dsp_tpu_torch.track.engine import init_state, track_scan
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 def segment_capacity(fs: float, chunk_ms: float, nmax: int) -> int:
@@ -57,6 +61,7 @@ def segment_capacity(fs: float, chunk_ms: float, nmax: int) -> int:
     return cap + (-cap) % 1024
 
 
+@profiling.span("track.receiver")
 def track_receiver(bands, fs: float, loop_dwells=(500, 500),
                    chunk_ms: float = 2000.0, emit=None,
                    max_blocks: int | None = None, coherent_blocks: int = 1,
@@ -105,75 +110,74 @@ def track_receiver(bands, fs: float, loop_dwells=(500, 500),
     seg_t = torch.tensor(seg_off, dtype=torch.int32, device=dev)
 
     int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
-    timing = bool(os.environ.get("GNSS_DSP_TIMING"))
     readers = [_PrefetchReader(fp, chunk_samples + params.nmax)
                for fp, *_ in bands]
     bufs = [np.zeros(0, np.int8) for _ in range(B)]
     info = {} if stats is None else stats
-    info.update(chunks=0, upload_bytes=[], t_read=0.0, t_upload=0.0,
-               t_scan=0.0, seg_cap=seg_cap)
+    info.update(chunks=0, upload_bytes=[], seg_cap=seg_cap)
     total_blocks = 0
-    while True:
-        t0 = time.perf_counter()
-        nbufs = []
-        for b in range(B):
-            want = chunk_samples + params.nmax - len(bufs[b]) // 2
-            if want > 0:
-                xx = readers[b].take(want)
-                if xx is not None and len(xx):
-                    bufs[b] = np.concatenate([bufs[b], xx])
-            nbufs.append(len(bufs[b]) // 2)
-        if not any(nbufs):
-            break
-        info["t_read"] += time.perf_counter() - t0
-        nb = setup.blocks_per_scan
-        if max_blocks is not None:
-            nb = min(nb, max_blocks - total_blocks)
-            if nb <= 0:
+    # the walls (GNSS_DSP_TIMING's line, the caller's stats) are the loop's
+    # spans; the upload synchronised only while the line prints
+    with profiling.Timing("upload", keep=stats is not None) as timed:
+        while True:
+            with profiling.span("track.refill"):
+                nbufs = []
+                for b in range(B):
+                    want = chunk_samples + params.nmax - len(bufs[b]) // 2
+                    if want > 0:
+                        xx = readers[b].take(want)
+                        if xx is not None and len(xx):
+                            bufs[b] = np.concatenate([bufs[b], xx])
+                    nbufs.append(len(bufs[b]) // 2)
+            if not any(nbufs):
+                break
+            nb = setup.blocks_per_scan
+            if max_blocks is not None:
+                nb = min(nb, max_blocks - total_blocks)
+                if nb <= 0:
+                    break
+
+            # the segmented chunk: band b's bytes at its offset, zeros
+            # after them (0.0 samples on the device)
+            with profiling.span("track.assemble"):
+                assembled = np.zeros(2 * B * seg_cap, np.int8)
+                for b in range(B):
+                    o = 2 * seg_off[b]
+                    assembled[o:o + len(bufs[b])] = bufs[b]
+                chunk_end = seg_t[band_t] + torch.tensor(
+                    nbufs, dtype=torch.int32, device=dev)[band_t]
+            x_dev, nbytes = cplx.from_iq(assembled, device=dev, int4=int4)
+            info["upload_bytes"].append(nbytes)
+            state = state._replace(stalled=torch.zeros_like(state.stalled))
+            state, rows_f, rows_i = track_scan(
+                x_dev, chunk_end, setup.code_tab, state, params, nb,
+                ratios=setup.ratios, coffset_df=setup.coffset_df,
+                sigp=setup.sigp, overlay=setup.overlay)
+            emitted_any = emit_rows(channels, C, emit, rows_f, rows_i, nb)
+            info["chunks"] += 1
+            total_blocks += nb
+            if max_blocks is not None and total_blocks >= max_blocks:
                 break
 
-        # the segmented chunk: band b's bytes at its offset, zeros after
-        # them (0.0 samples on the device)
-        t0 = time.perf_counter()
-        assembled = np.zeros(2 * B * seg_cap, np.int8)
-        for b in range(B):
-            assembled[2 * seg_off[b]:2 * seg_off[b] + len(bufs[b])] = bufs[b]
-        x_dev, nbytes = cplx.from_iq(assembled, device=dev, int4=int4)
-        chunk_end = seg_t[band_t] + torch.tensor(
-            nbufs, dtype=torch.int32, device=dev)[band_t]
-        if timing and dev.type == "cuda":
-            torch.cuda.synchronize(dev)      # the upload's end
-        info["t_upload"] += time.perf_counter() - t0
-        info["upload_bytes"].append(nbytes)
-        t0 = time.perf_counter()
-        state = state._replace(stalled=torch.zeros_like(state.stalled))
-        state, rows_f, rows_i = track_scan(
-            x_dev, chunk_end, setup.code_tab, state, params, nb,
-            ratios=setup.ratios, coffset_df=setup.coffset_df,
-            sigp=setup.sigp, overlay=setup.overlay)
-        emitted_any = emit_rows(channels, C, emit, rows_f, rows_i, nb)
-        info["t_scan"] += time.perf_counter() - t0
-        info["chunks"] += 1
-        total_blocks += nb
-        if max_blocks is not None and total_blocks >= max_blocks:
-            break
+            # each band drops the samples all of its channels have passed
+            ptrs = state.ptr.cpu().numpy()
+            shift = np.zeros(C, np.int32)
+            for b in range(B):
+                consumed = max(int(ptrs[members[b]].min()) - seg_off[b], 0)
+                bufs[b] = bufs[b][2 * consumed:]
+                shift[members[b]] = consumed
+            state = state._replace(
+                ptr=state.ptr - torch.from_numpy(shift).to(dev))
 
-        # each band drops the samples all of its channels have passed
-        ptrs = state.ptr.cpu().numpy()
-        shift = np.zeros(C, np.int32)
-        for b in range(B):
-            consumed = max(int(ptrs[members[b]].min()) - seg_off[b], 0)
-            bufs[b] = bufs[b][2 * consumed:]
-            shift[members[b]] = consumed
-        state = state._replace(
-            ptr=state.ptr - torch.from_numpy(shift).to(dev))
-
-        done = all(r.done for r in readers)
-        if done and not emitted_any:
-            break
-        if done and bool(state.stalled.all()):
-            break
-    if timing:
+            done = all(r.done for r in readers)
+            if done and not emitted_any:
+                break
+            if done and bool(state.stalled.all()):
+                break
+    info.update(t_read=timed.seconds("track.refill"),
+                t_upload=timed.seconds("track.assemble", "upload"),
+                t_scan=timed.seconds("track.scan", "track.rows"))
+    if timed.printing:
         print(f"[track_receiver timing] read-wait {info['t_read']:.2f} s  "
               f"upload+convert {info['t_upload']:.2f} s  scan+rows "
               f"{info['t_scan']:.2f} s", file=sys.stderr)

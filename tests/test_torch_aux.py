@@ -11,8 +11,8 @@
     three blocks; the probe's peak at the true code offset
     (tests/test_utils.py:45);
   * cli/spectrum --text rows byte-equal to the JAX CLI's;
-  * utils/profiling: Counters.report's format (tests/test_utils.py:67),
-    device_sync a no-op on the CPU, trace writing its trace file.
+  * utils/profiling: device_sync a no-op on the CPU, trace writing its
+    trace file (its spans and counters: tests/test_torch_spans.py).
 """
 
 import contextlib
@@ -200,22 +200,6 @@ def test_spectrum_text_rows_match_jax_cli(tmp_path, capsys):
     assert jspec.main(list(argv)) == 0
     want = capsys.readouterr().out
     assert got == want and len(got.splitlines()) == 1024
-
-
-def test_counters_report_format():
-    from gnss_dsp_tpu.utils.profiling import Counters as JCounters
-    from gnss_dsp_tpu_torch.utils.profiling import Counters
-
-    c, j = Counters(t0=0.0), JCounters(t0=0.0)
-    for k in (c, j):
-        k.samples += 1000
-        k.cells += 5000
-        k.blocks += 7
-    r, w = c.report(), j.report()
-    assert "Msamples/s" in r and "Gcells/s" in r and "blocks/s" in r
-    assert [t.split()[-1] for t in r.split("  ")] == \
-        [t.split()[-1] for t in w.split("  ")]
-    assert Counters().report().startswith("wall ")
 
 
 def test_profiling_sync_and_trace_on_the_cpu(tmp_path):
