@@ -15,7 +15,11 @@ as the reference does with XLA's (not a Pallas kernel there, so no CUDA
 kernel here).
 
 Each upload is the span `upload` (on the device's stream too) and counts
-its bytes under `h2d.bytes` (utils/profiling).
+its bytes under `h2d.bytes` (utils/profiling).  The streaming tracking
+loops upload each chunk's new parts with from_iq(..., into=slice):
+straight from the prefetch reader's staging slots, with no host copy, an
+asynchronous copy where a slot is pinned (counter `h2d.pinned_bytes`),
+converted into the given slice of the chunk on the device.
 """
 
 from __future__ import annotations
@@ -74,21 +78,68 @@ def from_int4_iq(packed, pad: int = 0, scale: float = 8.0,
         if not packed.flags.writeable:
             packed = packed.copy()
         profiling.count("h2d.bytes", packed.nbytes)
-        u = torch.from_numpy(packed).to(device).to(torch.int32)  # 1 B/sample
-        i4 = (((u >> 4) & 15) ^ 8) - 8
-        q4 = ((u & 15) ^ 8) - 8
-        sc = float(np.float32(scale))
-        f = torch.stack([i4.to(torch.float32) * sc,
-                         q4.to(torch.float32) * sc], dim=1)
+        f = _deint4(torch.from_numpy(packed).to(device), scale)  # 1 B/sample
         if pad:
             f = torch.nn.functional.pad(f, (0, 0, 0, int(pad)))
         return torch.view_as_complex(f.contiguous())
 
 
-def from_iq(raw, pad: int = 0, *, device, int4: bool = False):
+def _deint4(u: torch.Tensor, scale: float = 8.0) -> torch.Tensor:
+    """Packed 4-bit I/Q bytes on the device -> float32 [n, 2]: the
+    nibbles sign-extended ((v ^ 8) - 8) and times `scale`."""
+    u = u.to(torch.int32)
+    i4 = (((u >> 4) & 15) ^ 8) - 8
+    q4 = ((u & 15) ^ 8) - 8
+    sc = float(np.float32(scale))
+    return torch.stack([i4.to(torch.float32) * sc,
+                        q4.to(torch.float32) * sc], dim=1)
+
+
+def _upload_into(parts, into: torch.Tensor, int4: bool) -> int:
+    """Write the int8 I/Q parts, in order, into the complex64 slice `into`
+    on its device; the bytes uploaded.  On a card the parts (packed to 4
+    bits with int4) go up into one staging buffer by non_blocking copies,
+    asynchronous from pinned memory, and are converted into place there;
+    on the CPU each part is converted into place from where it lies."""
+    dev = into.device
+    with profiling.span("upload", device=dev):
+        if int4:
+            parts = [pack_int4_host(p) for p in parts]
+        src = [torch.from_numpy(p) for p in parts]
+        nbytes = sum(s.numel() for s in src)
+        pinned = 0
+        if dev.type == "cuda":
+            pinned = sum(s.numel() for s in src if s.is_pinned())
+            staged = torch.empty(nbytes, dtype=src[0].dtype, device=dev)
+            o = 0
+            for s in src:
+                staged[o:o + s.numel()].copy_(s, non_blocking=True)
+                o += s.numel()
+            src = [staged]
+        profiling.count("h2d.bytes", nbytes)
+        profiling.count("h2d.pinned_bytes", pinned)
+        o = 0
+        for s in src:
+            f = _deint4(s) if int4 else s.view(-1, 2)
+            torch.view_as_real(into[o:o + f.shape[0]]).copy_(f)
+            o += f.shape[0]
+        if o != into.shape[0]:
+            raise ValueError(f"{o} samples uploaded into a slice of "
+                             f"{into.shape[0]}")
+    return nbytes
+
+
+def from_iq(raw, pad: int = 0, *, device, int4: bool = False, into=None):
     """(complex64 chunk on `device`, bytes uploaded): the int8 I/Q bytes
     `raw` through from_int8_iq, or with int4 packed on the host and
-    through from_int4_iq (the host pack inside the same `upload` span)."""
+    through from_int4_iq (the host pack inside the same `upload` span).
+
+    into: a complex64 slice on `device` to write instead of a new chunk
+    (no pad): `raw` is then a list of int8 I/Q parts (numpy views, such
+    as the prefetch reader's slot views) that fill it in order; each
+    goes up as it lies, packed part by part with int4."""
+    if into is not None:
+        return into, _upload_into(raw, into, int4)
     if int4:
         with profiling.span("upload", device=device):
             packed = pack_int4_host(np.asarray(raw, np.int8))

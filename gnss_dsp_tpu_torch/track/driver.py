@@ -55,7 +55,17 @@ the streaming loop's wall split (read-wait, upload+convert, scan+rows;
 the reference: the loop's spans `track.refill`, `upload` (its device
 synchronised then) and `track.scan` with `track.rows` (utils/profiling;
 the call is the span `track.file`).  GNSS_DSP_UPLOAD_INT4 uploads each
-chunk as packed 4-bit I/Q (ops/cplx.from_int4_iq, :623-630).
+chunk's new bytes as packed 4-bit I/Q (ops/cplx, :623-630).
+
+The chunk refill copies no sample on the host (the reference joins the
+carried bytes to each read, :74 and :603): the prefetch reader's thread
+reads the stream straight into staging slots, pinned on a card (torch's
+caching host allocator keeps them for the next call), and each chunk is
+built on the device, the samples the last scan left moved over from the
+other of two device buffers, the new slot views uploaded after them
+(cplx.from_iq with into), the zero tail pad written there.  The rows
+are the same bits: int8 samples are exact in complex64 wherever they
+are moved.
 
 Single-chunk mode (`preloaded`, :536-575): the batched workload runner
 (cli/workload) uploads each band once and hands every script on it the
@@ -94,58 +104,171 @@ from gnss_dsp_tpu_torch.utils import profiling
 from gnss_dsp_tpu_torch.utils.twofloat import tf_from_f64
 
 
+class _Slot:
+    """A staging slot: `a`, room for int8 I/Q bytes (a view of its
+    reader's staging block); `event`: the CUDA event recorded after the
+    last upload from it (None: nothing in flight)."""
+
+    __slots__ = ("a", "event")
+
+    def __init__(self, a: np.ndarray):
+        self.a, self.event = a, None
+
+    def wait(self):
+        """Return once no upload reads the slot any more."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def _read_into(fp, a: np.ndarray) -> int:
+    """The bytes read into the int8 array a with fp.readinto: as many as
+    fill it unless the stream ends first."""
+    buf = memoryview(a).cast("B")
+    got = 0
+    while got < len(buf):
+        n = fp.readinto(buf[got:])
+        if not n:
+            break
+        got += n
+    return got
+
+
 class _PrefetchReader:
-    """Double-buffered host ingest: the next chunk's file read runs on a
-    worker thread while the device works on the current chunk.  Yields
-    raw interleaved int8 I/Q bytes; the conversion happens on the device
-    (cplx.from_int8_iq).  Starting one is part of the span `track.setup`,
-    take's wait for the worker the span `track.read_wait`."""
+    """Prefetched host ingest: a worker thread reads the stream ahead,
+    each read straight into a staging slot (SLOTS of them, each
+    `ahead_samples` samples) with fp.readinto, while the device works on
+    the current chunk.  take hands out views of the slots: raw
+    interleaved int8 I/Q bytes, converted on the device (cplx.from_iq
+    with into).  uploaded(), once they are uploaded, records a CUDA event
+    after the copies and gives the slots wholly taken back to the worker,
+    which waits on that event before it reads into one again.
+
+    The slots are cut from one block, on a CUDA device pinned
+    (page-locked, so that an upload from it is an asynchronous DMA).
+    torch's caching host allocator keeps the pinned block a reader lets
+    go of and hands it to the next reader, so a call after the process's
+    first pins nothing new (counter `track.pinned.alloc`: the pinned
+    blocks that allocator created for a reader).  Where pinning is
+    refused the block is a plain array, uploaded as pageable memory, and
+    one stderr line says why.  Starting a reader is part of the span
+    `track.setup`, take's wait for the worker the span
+    `track.read_wait`."""
+
+    SLOTS = 3
 
     @profiling.span("track.setup")
-    def __init__(self, fp, ahead_samples: int):
+    def __init__(self, fp, ahead_samples: int, device="cpu"):
         self.fp = fp
-        self.q = queue.Queue(maxsize=2)
-        self.leftover = np.zeros(0, np.int8)
+        self.dev = torch.device(device)
         self.done = False
-        self._chunk = int(ahead_samples)
+        self._slots = self._staging(2 * int(ahead_samples))
+        self._free = queue.Queue()         # slots the worker may read into
+        for slot in self._slots:
+            self._free.put(slot)
+        self._filled = queue.Queue()       # (slot, samples), None, error
+        self._stop = threading.Event()
+        self._cur = None                   # [slot, samples taken, read]
+        self._taken, self._spent = [], []  # the last take's slots
         self._t = threading.Thread(target=self._worker, daemon=True)
         self._t.start()
 
+    def _staging(self, nbytes: int) -> list:
+        """SLOTS slots of nbytes each, cut from one block (a numpy view
+        of a pinned tensor on a CUDA device, which it keeps alive)."""
+        block = None
+        if self.dev.type == "cuda":
+            torch.cuda.init()                  # else the stats read {}
+            made = torch.cuda.host_memory_stats
+            before = made().get("num_host_alloc", 0)
+            try:
+                block = torch.empty(self.SLOTS * nbytes, dtype=torch.int8,
+                                    pin_memory=True).numpy()
+            except RuntimeError as e:          # cudaHostAlloc refused
+                print(f"track: pinning refused ({e}); the staging slots "
+                      f"are pageable", file=sys.stderr)
+            profiling.count("track.pinned.alloc",
+                            made().get("num_host_alloc", 0) - before)
+        if block is None:
+            block = np.empty(self.SLOTS * nbytes, np.int8)
+        return [_Slot(block[k * nbytes:(k + 1) * nbytes])
+                for k in range(self.SLOTS)]
+
     def _worker(self):
-        while True:
-            raw = self.fp.read(2 * self._chunk)
-            if not raw:
-                self.q.put(None)
-                return
-            n2 = 2 * (len(raw) // 2)
-            self.q.put(np.frombuffer(raw, np.int8, count=n2))
-            if n2 < 2 * self._chunk:
-                self.q.put(None)
-                return
+        try:
+            while True:
+                slot = self._free.get()
+                if slot is None or self._stop.is_set():
+                    return
+                slot.wait()
+                n = _read_into(self.fp, slot.a)
+                if n >= 2:
+                    self._filled.put((slot, n // 2))
+                if n < len(slot.a):
+                    self._filled.put(None)
+                    return
+        except Exception as e:     # handed to take, which raises it
+            self._filled.put(e)
 
     def take(self, want: int):
-        """Up to `want` samples of int8 I/Q bytes (short only at EOF);
-        None when drained."""
-        parts = []
-        got = len(self.leftover) // 2
-        if got:
-            parts.append(self.leftover)
-            self.leftover = np.zeros(0, np.int8)
+        """Views of the slots holding the next up to `want` samples of
+        int8 I/Q bytes (short only at EOF), in order: one part, or two
+        where they straddle two slots; None when drained.  Nothing is
+        copied: the rest of a slot stays there for the next take."""
+        if self._taken:
+            self.uploaded()
+        parts, got = [], 0
         with profiling.span("track.read_wait"):
-            while got < want and not self.done:
-                nxt = self.q.get()
-                if nxt is None:
-                    self.done = True
-                    break
-                parts.append(nxt)
-                got += len(nxt) // 2
-        if not parts:
-            return None
-        x = parts[0] if len(parts) == 1 else np.concatenate(parts)
-        if len(x) > 2 * want:
-            self.leftover = x[2 * want:]
-            x = x[: 2 * want]
-        return x
+            while got < want:
+                if self._cur is None:
+                    if self.done:
+                        break
+                    item = self._filled.get()
+                    if item is None or isinstance(item, Exception):
+                        self.done = True
+                        if item is None:
+                            break
+                        raise item
+                    self._cur = [item[0], 0, item[1]]
+                slot, at, n = self._cur
+                k = min(want - got, n - at)
+                parts.append(slot.a[2 * at:2 * (at + k)])
+                self._taken.append(slot)
+                got += k
+                if at + k == n:
+                    self._spent.append(slot)
+                    self._cur = None
+                else:
+                    self._cur[1] = at + k
+        return parts or None
+
+    def uploaded(self):
+        """The last take's parts are uploaded (their copies enqueued on
+        the device's current stream): record an event after them on a
+        CUDA device, and give the slots wholly taken back to the worker,
+        which waits on it before reading into one."""
+        ev = None
+        if self.dev.type == "cuda" and self._taken:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.dev))
+        for slot in self._taken:
+            slot.event = ev
+        for slot in self._spent:
+            self._free.put(slot)
+        self._taken, self._spent = [], []
+
+    def close(self):
+        """Stop the worker and wait for the uploads from the slots, not
+        for the worker's read in flight (a pipe may hold it for a chunk,
+        or for ever): the worker ends when that read returns.  The
+        uploads are waited for because a dropped slot's pinned block goes
+        back to torch's host allocator, which has seen no copy from it
+        and may hand it out at once."""
+        if self._taken:
+            self.uploaded()
+        self._stop.set()
+        self._free.put(None)
+        for slot in self._slots:
+            slot.wait()
 
 
 @dataclass
@@ -502,70 +625,87 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
         return _recovered(channels, n_emit, state, recover_after)
 
     int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
-    buf = np.zeros(0, np.int8)         # interleaved int8 I/Q bytes
-    reader = _PrefetchReader(fp, chunk_samples + pad_extra)
+    # each chunk is built on the device in one of two buffers in turn: the
+    # samples the last scan left (moved over from the other buffer), the
+    # new parts uploaded after them, then the zero tail pad (>= nmax, so
+    # every block a channel can start fits, up to a multiple of 1024)
+    room = chunk_samples + params.nmax + pad_extra
+    xbufs = [torch.empty(room + (-room) % 1024, dtype=torch.complex64,
+                         device=dev) for _ in range(2)]
+    x_dev, nbuf, consumed, turn = None, 0, 0, 0
+    reader = _PrefetchReader(fp, chunk_samples + pad_extra, dev)
     # GNSS_DSP_TIMING: the reference's wall split of the streaming loop
     # (read wait, upload and conversion, scan and rows), read from its
     # spans, one stderr line at the end; the upload synchronised only then
-    with profiling.Timing("upload") as timed:
-        while True:
-            # refill the chunk (the next read already ran on the prefetch
-            # thread while the previous scan ran)
-            with profiling.span("track.refill"):
-                nbuf = len(buf) // 2
-                want = chunk_samples + params.nmax - nbuf
-                if want > 0:
-                    xx = reader.take(want)
-                    if xx is not None and len(xx):
-                        buf = np.concatenate([buf, xx])
-                        nbuf = len(buf) // 2
-            if nbuf == 0:
-                break
-            nb = setup.blocks_per_scan
-            if max_blocks is not None:
-                nb = min(nb, max_blocks - total_blocks)
-                if nb <= 0:
+    try:
+        with profiling.Timing("upload") as timed:
+            while True:
+                # refill the chunk (the next read already ran on the
+                # prefetch thread while the previous scan ran)
+                with profiling.span("track.refill"):
+                    keep = max(nbuf - consumed, 0)
+                    want = chunk_samples + params.nmax - keep
+                    parts = reader.take(want) if want > 0 else None
+                    nbuf = keep + sum(len(p) for p in parts or ()) // 2
+                    if nbuf:
+                        prev, buf = x_dev, xbufs[turn % 2]
+                        if keep:
+                            buf[:keep].copy_(prev[consumed:consumed + keep])
+                        tail = pad_extra + (-(nbuf + pad_extra)) % 1024
+                        buf[nbuf:nbuf + tail].zero_()
+                        x_dev = buf[:nbuf + tail]
+                        turn += 1
+                if nbuf == 0:
                     break
-            # tail pad >= nmax so every block a channel can start fits; the
-            # raw bytes upload as they are (or packed to 4 bits) and the
-            # pad is appended on the device
-            tail = pad_extra + (-(nbuf + pad_extra)) % 1024
-            x_dev, _ = cplx.from_iq(buf, pad=tail, device=dev, int4=int4)
-            state = state._replace(stalled=torch.zeros_like(state.stalled))
-            if mesh is not None:
-                state, rows_f, rows_i = track_scan_sharded(
-                    mesh, x_dev, nbuf, setup.code_tab, state, params, nb,
-                    **scan)
-            else:
-                state, rows_f, rows_i = track_scan(
-                    x_dev, nbuf, setup.code_tab, state, params, nb, **scan)
-            emitted_any = emit_rows(channels, n_emit, emit, rows_f, rows_i,
-                                    nb)
-            total_blocks += nb
-            if max_blocks is not None and total_blocks >= max_blocks:
-                break
+                nb = setup.blocks_per_scan
+                if max_blocks is not None:
+                    nb = min(nb, max_blocks - total_blocks)
+                    if nb <= 0:
+                        break
+                if parts:
+                    cplx.from_iq(parts, device=dev, int4=int4,
+                                 into=x_dev[keep:nbuf])
+                    reader.uploaded()
+                state = state._replace(
+                    stalled=torch.zeros_like(state.stalled))
+                if mesh is not None:
+                    state, rows_f, rows_i = track_scan_sharded(
+                        mesh, x_dev, nbuf, setup.code_tab, state, params,
+                        nb, **scan)
+                else:
+                    state, rows_f, rows_i = track_scan(
+                        x_dev, nbuf, setup.code_tab, state, params, nb,
+                        **scan)
+                emitted_any = emit_rows(channels, n_emit, emit, rows_f,
+                                        rows_i, nb)
+                total_blocks += nb
+                if max_blocks is not None and total_blocks >= max_blocks:
+                    break
 
-            # drop fully-consumed samples, rebase pointers (2 bytes/sample)
-            consumed = int(state.ptr.min())
-            buf = buf[2 * consumed:]
-            state = state._replace(ptr=state.ptr - consumed)
-            abs_buf0 += consumed
-            if checkpoint_path is not None:
-                # the pointers are relative to the stream sample abs_buf0,
-                # so a resume needs only a seek: no sample is stored
-                tmp = checkpoint_path + ".tmp"
-                with open(tmp, "wb") as f:
-                    checkpoint.save(f, state, channels,
-                                    meta={"abs_buf0": abs_buf0,
-                                          "total_blocks": total_blocks})
-                os.replace(tmp, checkpoint_path)
+                # the samples every channel has passed are dropped (the
+                # next chunk keeps the rest); rebase the pointers
+                consumed = int(state.ptr.min())
+                state = state._replace(ptr=state.ptr - consumed)
+                abs_buf0 += consumed
+                if checkpoint_path is not None:
+                    # the pointers are relative to the stream sample
+                    # abs_buf0, so a resume needs only a seek: no sample
+                    # is stored
+                    tmp = checkpoint_path + ".tmp"
+                    with open(tmp, "wb") as f:
+                        checkpoint.save(f, state, channels,
+                                        meta={"abs_buf0": abs_buf0,
+                                              "total_blocks": total_blocks})
+                    os.replace(tmp, checkpoint_path)
 
-            if reader.done and not emitted_any:
-                break
-            if reader.done and bool(state.stalled.all()):
-                # every channel is frozen at the data end and no samples
-                # can arrive: rebasing cannot unstall them
-                break
+                if reader.done and not emitted_any:
+                    break
+                if reader.done and bool(state.stalled.all()):
+                    # every channel is frozen at the data end and no
+                    # samples can arrive: rebasing cannot unstall them
+                    break
+    finally:
+        reader.close()
     if timed.printing:
         print(f"[track_file timing] read-wait "
               f"{timed.seconds('track.refill'):.2f} s  upload+convert "

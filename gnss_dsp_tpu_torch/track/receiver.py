@@ -17,9 +17,15 @@ The setup is track/driver.track_file's for mixed signals
 (driver.channel_setup: each channel's own sigp row, code row, ratio,
 carrier offset and coherent span; the launch's subcarrier kind the
 mix's; the loop constants the first signal's, nmax the largest).  Every
-band is read by its own prefetch thread; GNSS_DSP_UPLOAD_INT4 uploads
-each chunk as packed 4-bit I/Q (:283-288).  No recovery, checkpoint or
-mesh, as in the reference: run the per-band `track multi` for those.
+band is read by its own prefetch thread into its own staging slots
+(track/driver._PrefetchReader), and the segmented chunk is built on the
+device, not on the host as the reference assembles it (:264, 280): in
+each segment the band's samples its channels have not yet passed, moved
+over from the other of two device buffers, then its new bytes uploaded
+from the slots (one cplx.from_iq a band), then zeros, written there; no
+zero crosses the bus.  GNSS_DSP_UPLOAD_INT4 uploads the new bytes as
+packed 4-bit I/Q (:283-288).  No recovery, checkpoint or mesh, as in
+the reference: run the per-band `track multi` for those.
 
 Not carried: the reference pads the channel list to a multiple of four
 with clones of channel 0 (:75-92) so that its TPU kernel's grid steps
@@ -32,9 +38,9 @@ A caller's `stats` dict receives the run's chunks, bytes uploaded a
 chunk and the wall split (read wait, upload, scan and rows), which
 GNSS_DSP_TIMING=1 prints to stderr at the end, as the reference does.
 The walls are the call's spans (utils/profiling): read wait
-`track.refill`, upload the segmented chunk's assembly `track.assemble`
-with `upload`, scan and rows `track.scan` with `track.rows`; the call is
-the span `track.receiver`.
+`track.refill` (the takes and the carried samples), upload the
+segments' zeros `track.assemble` with `upload`, scan and rows
+`track.scan` with `track.rows`; the call is the span `track.receiver`.
 """
 
 from __future__ import annotations
@@ -110,70 +116,95 @@ def track_receiver(bands, fs: float, loop_dwells=(500, 500),
     seg_t = torch.tensor(seg_off, dtype=torch.int32, device=dev)
 
     int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
-    readers = [_PrefetchReader(fp, chunk_samples + params.nmax)
-               for fp, *_ in bands]
-    bufs = [np.zeros(0, np.int8) for _ in range(B)]
+    readers = []
     info = {} if stats is None else stats
     info.update(chunks=0, upload_bytes=[], seg_cap=seg_cap)
     total_blocks = 0
-    # the walls (GNSS_DSP_TIMING's line, the caller's stats) are the loop's
-    # spans; the upload synchronised only while the line prints
-    with profiling.Timing("upload", keep=stats is not None) as timed:
-        while True:
-            with profiling.span("track.refill"):
-                nbufs = []
+    # the segmented chunk is built on the device in one of two buffers in
+    # turn: in each band's segment the samples its channels have not yet
+    # passed (moved over from the other buffer), its new parts uploaded
+    # after them, zeros to the segment's end
+    xbufs = [torch.empty(B * seg_cap, dtype=torch.complex64, device=dev)
+             for _ in range(2)]
+    x_dev = None
+    nbufs, consumed = [0] * B, [0] * B
+    try:
+        readers += [_PrefetchReader(fp, chunk_samples + params.nmax, dev)
+                    for fp, *_ in bands]
+        # the walls (GNSS_DSP_TIMING's line, the caller's stats) are the
+        # loop's spans; the upload synchronised only while the line prints
+        with profiling.Timing("upload", keep=stats is not None) as timed:
+            while True:
+                with profiling.span("track.refill"):
+                    prev, x_dev = x_dev, xbufs[info["chunks"] % 2]
+                    parts, keeps = [], []
+                    for b in range(B):
+                        keep = max(nbufs[b] - consumed[b], 0)
+                        want = chunk_samples + params.nmax - keep
+                        got = readers[b].take(want) if want > 0 else None
+                        nbufs[b] = keep + sum(len(p) for p in got or ()) // 2
+                        parts.append(got)
+                        keeps.append(keep)
+                        if keep:
+                            o = seg_off[b]
+                            x_dev[o:o + keep].copy_(
+                                prev[o + consumed[b]:o + consumed[b] + keep])
+                if not any(nbufs):
+                    break
+                nb = setup.blocks_per_scan
+                if max_blocks is not None:
+                    nb = min(nb, max_blocks - total_blocks)
+                    if nb <= 0:
+                        break
+
+                # zeros after each band's samples (0.0 samples)
+                with profiling.span("track.assemble"):
+                    for b in range(B):
+                        x_dev[seg_off[b] + nbufs[b]:
+                              seg_off[b] + seg_cap].zero_()
+                    chunk_end = seg_t[band_t] + torch.tensor(
+                        nbufs, dtype=torch.int32, device=dev)[band_t]
+                nbytes = 0
                 for b in range(B):
-                    want = chunk_samples + params.nmax - len(bufs[b]) // 2
-                    if want > 0:
-                        xx = readers[b].take(want)
-                        if xx is not None and len(xx):
-                            bufs[b] = np.concatenate([bufs[b], xx])
-                    nbufs.append(len(bufs[b]) // 2)
-            if not any(nbufs):
-                break
-            nb = setup.blocks_per_scan
-            if max_blocks is not None:
-                nb = min(nb, max_blocks - total_blocks)
-                if nb <= 0:
+                    if parts[b]:
+                        o = seg_off[b]
+                        nbytes += cplx.from_iq(
+                            parts[b], device=dev, int4=int4,
+                            into=x_dev[o + keeps[b]:o + nbufs[b]])[1]
+                        readers[b].uploaded()
+                info["upload_bytes"].append(nbytes)
+                state = state._replace(
+                    stalled=torch.zeros_like(state.stalled))
+                state, rows_f, rows_i = track_scan(
+                    x_dev, chunk_end, setup.code_tab, state, params, nb,
+                    ratios=setup.ratios, coffset_df=setup.coffset_df,
+                    sigp=setup.sigp, overlay=setup.overlay)
+                emitted_any = emit_rows(channels, C, emit, rows_f, rows_i,
+                                        nb)
+                info["chunks"] += 1
+                total_blocks += nb
+                if max_blocks is not None and total_blocks >= max_blocks:
                     break
 
-            # the segmented chunk: band b's bytes at its offset, zeros
-            # after them (0.0 samples on the device)
-            with profiling.span("track.assemble"):
-                assembled = np.zeros(2 * B * seg_cap, np.int8)
+                # each band drops the samples all of its channels have
+                # passed (the next chunk keeps the rest)
+                ptrs = state.ptr.cpu().numpy()
+                shift = np.zeros(C, np.int32)
                 for b in range(B):
-                    o = 2 * seg_off[b]
-                    assembled[o:o + len(bufs[b])] = bufs[b]
-                chunk_end = seg_t[band_t] + torch.tensor(
-                    nbufs, dtype=torch.int32, device=dev)[band_t]
-            x_dev, nbytes = cplx.from_iq(assembled, device=dev, int4=int4)
-            info["upload_bytes"].append(nbytes)
-            state = state._replace(stalled=torch.zeros_like(state.stalled))
-            state, rows_f, rows_i = track_scan(
-                x_dev, chunk_end, setup.code_tab, state, params, nb,
-                ratios=setup.ratios, coffset_df=setup.coffset_df,
-                sigp=setup.sigp, overlay=setup.overlay)
-            emitted_any = emit_rows(channels, C, emit, rows_f, rows_i, nb)
-            info["chunks"] += 1
-            total_blocks += nb
-            if max_blocks is not None and total_blocks >= max_blocks:
-                break
+                    consumed[b] = max(int(ptrs[members[b]].min())
+                                      - seg_off[b], 0)
+                    shift[members[b]] = consumed[b]
+                state = state._replace(
+                    ptr=state.ptr - torch.from_numpy(shift).to(dev))
 
-            # each band drops the samples all of its channels have passed
-            ptrs = state.ptr.cpu().numpy()
-            shift = np.zeros(C, np.int32)
-            for b in range(B):
-                consumed = max(int(ptrs[members[b]].min()) - seg_off[b], 0)
-                bufs[b] = bufs[b][2 * consumed:]
-                shift[members[b]] = consumed
-            state = state._replace(
-                ptr=state.ptr - torch.from_numpy(shift).to(dev))
-
-            done = all(r.done for r in readers)
-            if done and not emitted_any:
-                break
-            if done and bool(state.stalled.all()):
-                break
+                done = all(r.done for r in readers)
+                if done and not emitted_any:
+                    break
+                if done and bool(state.stalled.all()):
+                    break
+    finally:
+        for r in readers:
+            r.close()
     info.update(t_read=timed.seconds("track.refill"),
                 t_upload=timed.seconds("track.assemble", "upload"),
                 t_scan=timed.seconds("track.scan", "track.rows"))

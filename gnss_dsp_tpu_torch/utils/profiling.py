@@ -54,17 +54,23 @@ The program's spans and counters:
   acquire.read                the capture's file read (cli/acquire)
   upload (device)             the int8 or int4 upload and its conversion
                               (ops/cplx); counter h2d.bytes: the bytes
-                              each upload hands to the device
+                              each upload hands to the device, of them
+                              h2d.pinned_bytes from pinned memory (the
+                              tracking loops' uploads into place)
   frontend (device)           ops/frontend.prepare_baseband
   acq.code_ffts.hit, .miss    counters: acquire/engine's code-spectra LRU
   track.file, track.receiver  track/driver.track_file,
                               track/receiver.track_receiver
   track.setup                 the channels' set-up, first boundaries,
-                              state and prefetch readers
-  track.refill                a chunk's refill: take and concatenation
+                              state and prefetch readers; counter
+                              track.pinned.alloc: the pinned blocks
+                              torch's caching host allocator created
+                              for the readers' staging slots
+  track.refill                a chunk's refill: the takes and the
+                              carried samples moved on the device
     track.read_wait           the wait for the prefetch reader's bytes
-  track.assemble              the receiver's segmented chunk, zeroed
-                              and filled
+  track.assemble              the receiver's segments' zeros, written
+                              on the device
   track.scan                  track/engine.track_scan: host set-up and
                               launches
   track.rows                  track/driver.emit_rows

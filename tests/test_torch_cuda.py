@@ -28,7 +28,12 @@ CUDA graph bit-equal to an eager one.  The squaring detector and the
 correlation-shape probe on card tensors against their CPU results (rtol
 1e-5); K2 on a whole preloaded band (cli/track._preload_chunk) bit-equal
 to the plain scan; K7 at 61380 as the single-card route under
-GNSS_DSP_NO_V2P, with the padded route's winners.
+GNSS_DSP_NO_V2P, with the padded route's winners.  The streaming track
+ingest (pinned staging slots, chunks built on the card): every chunk
+track_file and track_receiver hand the scan bit-equal to the CPU run's,
+the rows equal to one chunk over the whole capture on the card, and a
+second call in the process allocating no pinned memory and uploading
+every byte from it.
 """
 
 import numpy as np
@@ -1397,3 +1402,165 @@ def test_k7_at_61380_on_the_single_card_route(dev, monkeypatch, tmp_path):
         assert (a.prn, a.doppler) == (b.prn, b.doppler)
         assert abs(a.code_offset - b.code_offset) < 1e-6
     assert got[2].metric < min(got[0].metric, got[1].metric)
+
+
+def _ingest_capture(seconds, seed=29):
+    """GPS L1 at 4.096 MHz, two PRNs at 45 dB-Hz, int8 I/Q bytes."""
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.utils.synth import synth_iq, to_int8_iq
+
+    sig = get_signal("gps-l1")
+    fs = 4.096e6
+    n = int(fs * seconds)
+    rng = np.random.default_rng(seed)
+    x = np.zeros(n, np.complex64)
+    for prn, dop, cp in ((7, 900.0, 317.25), (13, -2200.0, 5.0)):
+        x += synth_iq(sig.code_table((prn,))[0], sig.chip_rate, fs, n,
+                      doppler_hz=dop, code_phase=cp, cn0_dbhz=45.0,
+                      carrier_ratio=sig.carrier_ratio, rng=rng)
+    return to_int8_iq(x, scale=16.0), fs
+
+
+def _rows(chans):
+    return [np.array([list(r.values()) for r in ch.rows], np.float64)
+            for ch in chans]
+
+
+def _chunks_seen(monkeypatch, module):
+    """Every chunk `module`.track_scan is handed, as (samples on the CPU,
+    chunk_len on the CPU)."""
+    import torch
+
+    seen = []
+    scan = module.track_scan
+
+    def spy(x, chunk_len, *a, **k):
+        seen.append((x.cpu().clone(), torch.as_tensor(chunk_len).cpu()))
+        return scan(x, chunk_len, *a, **k)
+    monkeypatch.setattr(module, "track_scan", spy)
+    return seen
+
+
+def _same_chunks(a, b):
+    assert len(a) == len(b) >= 2
+    for (xa, na), (xb, nb) in zip(a, b):
+        assert xa.shape == xb.shape and torch.equal(na, nb)
+        assert torch.equal(torch.view_as_real(xa), torch.view_as_real(xb))
+
+
+def _stream(data, fs, device, preloaded=None):
+    import io
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+
+    chans = [TrackChannel(prn=p, doppler=d, code_offset=cp)
+             for p, d, cp in ((7, 900.0, 317.25), (13, -2200.0, 5.0))]
+    track_file(get_signal("gps-l1"), io.BytesIO(data), fs, 0.0, chans,
+               loop_dwells=(8, 8), chunk_ms=10.0, device=device,
+               preloaded=preloaded)
+    return _rows(chans)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_streaming_track_file_on_the_card_builds_the_cpus_chunks(
+        dev, int4, monkeypatch):
+    """track_file streaming 10 ms chunks over 95 ms on the card: nine
+    chunks or more, so each of a reader's three pinned slots is read
+    into three times, every read gated on the upload from it.  Every
+    chunk the scan is handed (the carried samples, the new bytes, the
+    pad) is the CPU run's, bit for bit, with int8 and 4-bit uploads; the
+    rows are those of the scan over the whole capture in one chunk on
+    the card (the preloaded path).  (The rows are not compared with the
+    CPU's: the plain scan there rounds its trigonometry otherwise.)"""
+    from gnss_dsp_tpu_torch.ops import cplx
+    from gnss_dsp_tpu_torch.track import driver
+
+    if int4:
+        monkeypatch.setenv("GNSS_DSP_UPLOAD_INT4", "1")
+    else:
+        monkeypatch.delenv("GNSS_DSP_UPLOAD_INT4", raising=False)
+    data, fs = _ingest_capture(0.095)
+    raw = np.frombuffer(data, np.int8)
+    n = len(raw) // 2
+    pad = int(fs * 0.006) + 16384
+    pad += (-(n + pad)) % 1024
+    x = (cplx.from_int4_iq(cplx.pack_int4_host(raw), pad=pad, device=dev)
+         if int4 else cplx.from_int8_iq(raw, pad=pad, device=dev))
+    whole = _stream(b"", fs, dev, preloaded=(x, n))
+    calls = []
+    from_iq = cplx.from_iq
+
+    def spy(*a, **k):
+        calls.append(k["into"].device.type)
+        return from_iq(*a, **k)
+    monkeypatch.setattr(cplx, "from_iq", spy)
+    seen = _chunks_seen(monkeypatch, driver)
+    card = _stream(data, fs, dev)
+    on_card = list(seen)
+    seen.clear()
+    _stream(data, fs, "cpu")
+    _same_chunks(on_card, seen)
+    for a, b in zip(card, whole):
+        assert len(a) >= 90
+        np.testing.assert_array_equal(a, b)
+    assert calls.count("cuda") >= 9
+
+
+def test_second_streaming_call_allocates_no_pinned_memory(dev, tmp_path,
+                                                          monkeypatch):
+    """A second streaming call in the process pins nothing new: torch's
+    caching host allocator hands it the blocks the first call's slots
+    let go of (track.pinned.alloc 0), and every byte goes up from pinned
+    memory (h2d.pinned_bytes == h2d.bytes)."""
+    from gnss_dsp_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("GNSS_DSP_UPLOAD_INT4", raising=False)
+    data, fs = _ingest_capture(0.045, seed=31)
+    with profiling.trace(str(tmp_path / "t")):
+        first = _stream(data, fs, dev)
+        profiling.reset()
+        again = _stream(data, fs, dev)
+        c = profiling.counts()
+    assert c["track.pinned.alloc"] == 0
+    assert c["h2d.pinned_bytes"] == c["h2d.bytes"] == len(data)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_streaming_receiver_on_the_card_builds_the_cpus_chunks(
+        dev, monkeypatch):
+    """track_receiver over two bands (45 and 30 ms) in 10 ms chunks on
+    the card, the segments built there: every segmented chunk is the CPU
+    run's, bit for bit, and the rows are those of one chunk over the
+    whole captures on the card."""
+    import io
+
+    from gnss_dsp_tpu_torch.models import get_signal
+    from gnss_dsp_tpu_torch.track import receiver
+    from gnss_dsp_tpu_torch.track.driver import TrackChannel
+
+    monkeypatch.delenv("GNSS_DSP_UPLOAD_INT4", raising=False)
+    a, fs = _ingest_capture(0.045, seed=37)
+    b, _fs = _ingest_capture(0.030, seed=41)
+
+    def run(device, chunk_ms=10.0):
+        bands = [(io.BytesIO(d), [get_signal("gps-l1")] * 2,
+                  [TrackChannel(prn=p, doppler=dp, code_offset=cp)
+                   for p, dp, cp in ((7, 900.0, 317.25),
+                                     (13, -2200.0, 5.0))], [0.0, 0.0])
+                 for d in (a, b)]
+        return _rows(receiver.track_receiver(
+            bands, fs, loop_dwells=(8, 8), chunk_ms=chunk_ms,
+            device=device))
+    whole = run(dev, chunk_ms=100.0)
+    seen = _chunks_seen(monkeypatch, receiver)
+    card = run(dev)
+    on_card = list(seen)
+    seen.clear()
+    run("cpu")
+    assert len(on_card) >= 4
+    _same_chunks(on_card, seen)
+    for x, y in zip(card, whole):
+        assert len(x) >= 25
+        np.testing.assert_array_equal(x, y)

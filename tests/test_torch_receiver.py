@@ -13,6 +13,7 @@ Tolerances:
 """
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -200,3 +201,69 @@ def test_int4_receiver_halves_the_upload(monkeypatch):
     assert [2 * b for b in int4["upload_bytes"]] == int8["upload_bytes"]
     cf = np.median([r["carrier_f"] for r in ch.rows[-100:]])
     assert abs(cf - dop) < 5.0, cf
+
+
+def _plain_band(rows, raw):
+    """A band's channels by the plain scan over its whole capture in one
+    chunk (track_file's preloaded path: no reader, no refill)."""
+    n = len(raw) // 2
+    pad = int(FS * 0.006) + 16384
+    pad += (-(n + pad)) % 1024
+    if os.environ.get("GNSS_DSP_UPLOAD_INT4"):
+        x = cplx.from_int4_iq(cplx.pack_int4_host(raw), pad=pad)
+    else:
+        x = cplx.from_int8_iq(raw, pad=pad, device="cpu")
+    sigs = [tsig(r[0]) for r in rows]
+    chans = [TrackChannel(prn=p, doppler=d, code_offset=cp)
+             for _, p, d, cp, _c in rows]
+    track_file(sigs[0], io.BytesIO(), FS, 0.0, chans, sigs=sigs,
+               coffsets=[r[4] for r in rows], loop_dwells=(8, 8),
+               chunk_ms=100.0, device="cpu", preloaded=(x, n))
+    return chans
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_receiver_streams_into_device_segments(int4, monkeypatch, tmp_path):
+    """10 ms chunks over bands of 50 and 35 ms: the takes straddle two
+    staging slots, each band's segment is built on the device, and the
+    rows are the plain scan's over each band's whole capture, bit for
+    bit.  Every sample crosses once (h2d.bytes the files' bytes, half
+    of them under GNSS_DSP_UPLOAD_INT4: no segment zeros)."""
+    from gnss_dsp_tpu_torch.track import driver
+    from gnss_dsp_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("GNSS_DSP_TIMING", raising=False)
+    if int4:
+        monkeypatch.setenv("GNSS_DSP_UPLOAD_INT4", "1")
+    else:
+        monkeypatch.delenv("GNSS_DSP_UPLOAD_INT4", raising=False)
+    data = {0: np.frombuffer(band_stream(BANDS[0], 0.05), np.int8),
+            1: np.frombuffer(band_stream(BANDS[1], 0.035), np.int8)}
+    parts = []
+    take = driver._PrefetchReader.take
+
+    def spy(self, want):
+        got = take(self, want)
+        parts.append(len(got or ()))
+        return got
+    monkeypatch.setattr(driver._PrefetchReader, "take", spy)
+    stats = {}
+    with profiling.trace(str(tmp_path / "t")):
+        got = receiver.track_receiver(
+            _bands(BANDS, {b: d.tobytes() for b, d in data.items()}, tsig,
+                   TrackChannel), FS, loop_dwells=(8, 8), chunk_ms=10.0,
+            device="cpu", stats=stats)
+    c = profiling.counts()
+    profiling.reset()
+    assert stats["chunks"] >= 5 and 2 in parts
+    nbytes = sum(d.nbytes for d in data.values())
+    assert c["h2d.bytes"] == sum(stats["upload_bytes"]) == (
+        nbytes // 2 if int4 else nbytes)
+    keys = INT_KEYS + FLOAT_KEYS
+    k = 0
+    for b, rows in BANDS.items():
+        for ch in _plain_band(rows, data[b]):
+            assert len(ch.rows) >= 25
+            np.testing.assert_array_equal(table(got[k].rows, keys),
+                                          table(ch.rows, keys))
+            k += 1
