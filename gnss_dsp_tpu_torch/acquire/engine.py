@@ -27,7 +27,8 @@ Per doppler chunk: mix the block windows with each doppler's
 oscillator, forward FFT (torch.fft, outside the kernels as in the JAX
 package), then the surface kernel.  Across chunks a strict `>` keeps
 the earliest best doppler, and inside a chunk argmax takes the first
-maximum, so the winning cell does not depend on the chunking.
+maximum, so the winning cell does not depend on the chunking.  Each
+search counts its route (acq.route.v2, .v2p, .v1, .xla; utils/profiling).
 
 The sharded search (parallel/acquire) takes its parts from here: the
 block windows of one time shard (shard_block_windows, the reference's
@@ -117,12 +118,14 @@ def shard_block_windows(x: torch.Tensor, n: int, window: int, blocks: int,
 
 def mix_fft(xb: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     """Doppler-mix the [B, W] block windows with each increment of df
-    (int64 [dc]) and forward-FFT them: complex64 [dc, B, W] spectra."""
-    w = nco.nco_wave(df, torch.zeros_like(df), xb.shape[-1])   # [dc, W]
-    xr, xi = xb.real[None], xb.imag[None]
-    wr, wi = w.real[:, None], w.imag[:, None]
-    xw = torch.complex(xr * wr - xi * wi, xr * wi + xi * wr)  # [dc, B, W]
-    return torch.fft.fft(xw, dim=-1)
+    (int64 [dc]) and forward-FFT them: complex64 [dc, B, W] spectra.
+    The span `acq.mix_fft` (utils/profiling, with its stream seconds)."""
+    with profiling.span("acq.mix_fft", device=xb.device):
+        w = nco.nco_wave(df, torch.zeros_like(df), xb.shape[-1])  # [dc, W]
+        xr, xi = xb.real[None], xb.imag[None]
+        wr, wi = w.real[:, None], w.imag[:, None]
+        xw = torch.complex(xr * wr - xi * wi, xr * wi + xi * wr)  # [dc, B, W]
+        return torch.fft.fft(xw, dim=-1)
 
 
 def _block_count(sig, ms: int) -> int:
@@ -269,14 +272,17 @@ _CODE_FFTS_CAP = 4
 def device_code_ffts(sig, prns, n: int, window: int, device,
                      route: str = "v2") -> torch.Tensor:
     """build_code_ffts as complex64 on `device`, through the LRU (its hits
-    and misses counted as acq.code_ffts.hit / .miss, utils/profiling)."""
+    and misses counted as acq.code_ffts.hit / .miss, a miss's host build
+    and upload the span acq.code_spectra, utils/profiling)."""
     key = (sig.name, tuple(prns), n, route, window, torch.device(device))
     code_ffts = _CODE_FFTS_DEV.pop(key, None)
     profiling.count("acq.code_ffts.miss" if code_ffts is None
                     else "acq.code_ffts.hit")
     if code_ffts is None:
-        cf_host = build_code_ffts(sig, prns, n, window).astype(np.complex64)
-        code_ffts = torch.from_numpy(cf_host).to(device)
+        with profiling.span("acq.code_spectra"):
+            cf_host = build_code_ffts(sig, prns, n, window).astype(
+                np.complex64)
+            code_ffts = torch.from_numpy(cf_host).to(device)
     _CODE_FFTS_DEV[key] = code_ffts            # re-insert = most recent
     while len(_CODE_FFTS_DEV) > _CODE_FFTS_CAP:
         _CODE_FFTS_DEV.pop(next(iter(_CODE_FFTS_DEV)))
@@ -312,6 +318,7 @@ def _search(sig, x_int: torch.Tensor, code_ids, ids, dops, fixed,
     dops[i % G]."""
     n = int(round(sig.acq_fs * sig.acq_coherent_ms / 1000.0))
     route, window, data_window, n_valid = acq_plan(sig)
+    profiling.count(f"acq.route.{route}")
     code_ffts = device_code_ffts(sig, code_ids, n, window, x_int.device,
                                  route)
     metric, code_idx, dop_idx = grid_search(

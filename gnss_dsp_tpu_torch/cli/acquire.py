@@ -41,15 +41,15 @@ offset off the native-rate samples with no front end, and print one
 reduced mod L.
 
 main(signal, argv, x_cache=dict) is the batched workload runner's call
-(cli/workload): each input file is uploaded once, as int8 converted on
-the device, and every later call on that file slices the device tensor;
+(cli/workload): each input file's first samples, as many as the
+longest call asks for, are uploaded once, as int8 converted on the
+device, and every later call on that file slices the device tensor;
 the rows are those of the same call without the cache.
 """
 
 from __future__ import annotations
 
 import optparse
-import os
 import sys
 
 from gnss_dsp_tpu_torch.models import get_signal
@@ -70,17 +70,22 @@ from gnss_dsp_tpu_torch.utils import profiling
 def read_samples(filename, n: int, device, cache: dict | None = None):
     """n complex samples from `filename` ("-" = stdin) as complex64 on
     `device` (raw int8 uploaded, converted on the device); None when the
-    input is short.  With `cache` (file name -> the whole file on the
-    device; one device a cache) a file is read and uploaded once, and
-    each call slices its first n samples there.  The file read is the
-    span `acquire.read` (utils/profiling), the upload cplx's `upload`."""
+    input is short.  With `cache` (file name -> the file's first samples
+    on the device; one device a cache) a file's first n samples are read
+    and uploaded once, and each later call for no more slices them
+    there; a call for more reads the file again from its start and
+    replaces the entry, so an entry never holds more than the longest
+    call asked for (a recorded band runs to tens of GB).  The file read
+    is the span `acquire.read` (utils/profiling), the upload cplx's
+    `upload`."""
     if cache is not None and filename != "-":
         ent = cache.get(filename)
-        if ent is None:
-            with profiling.span("acquire.read"), open(filename, "rb") as fp:
-                z = fp.read(2 * (os.path.getsize(filename) // 2))
-            ent = cache[filename] = cplx.from_int8_iq(z, device=device)
-        return ent[:n] if ent.shape[0] >= n else None
+        if ent is None or ent.shape[0] < n:
+            ent = read_samples(filename, n, device)
+            if ent is None:
+                return None
+            cache[filename] = ent
+        return ent[:n]
     with profiling.span("acquire.read"):
         fp = open(filename, "rb") if filename != "-" else sys.stdin.buffer
         z = fp.read(2 * int(n))

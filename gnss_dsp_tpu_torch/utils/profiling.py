@@ -59,6 +59,12 @@ The program's spans and counters:
                               tracking loops' uploads into place)
   frontend (device)           ops/frontend.prepare_baseband
   acq.code_ffts.hit, .miss    counters: acquire/engine's code-spectra LRU
+  acq.code_spectra            a miss's host build of the code spectra
+                              and their upload (acquire/engine)
+  acq.mix_fft (device)        acquire/engine.mix_fft: the doppler mix
+                              and forward FFT of the block windows
+  acq.route.v2, .v2p, .v1,    counters: the route of each non-coherent
+  .xla                        search (acquire/plan.acq_plan)
   track.file, track.receiver  track/driver.track_file,
                               track/receiver.track_receiver
   track.setup                 the channels' set-up, first boundaries,

@@ -137,6 +137,7 @@ def test_cli_spans_under_trace(env, capture, tmp_path):
     the track CLI's under theirs, each call one request; self time is the
     span less its children; every span is in the Chrome trace with its
     recorded duration."""
+    env.setattr(engine, "_CODE_FFTS_DEV", {})
     with profiling.trace(str(tmp_path / "tr")):
         _acquire(capture)
         _track(capture)
@@ -155,10 +156,12 @@ def test_cli_spans_under_trace(env, capture, tmp_path):
             root = root.parent
         assert s.request == root.request
     assert {s.name for s in spans if s.request == acq.request} == {
-        "cli.acquire", "acquire.read", "upload", "frontend"}
+        "cli.acquire", "acquire.read", "upload", "frontend",
+        "acq.code_spectra", "acq.mix_fft"}
     assert {s.name for s in spans if s.request == trk.request} == \
         TRACK_SPANS
-    for name in ("acquire.read", "upload", "frontend"):
+    for name in ("acquire.read", "upload", "frontend", "acq.code_spectra",
+                 "acq.mix_fft"):
         assert by[name][0].parent is acq
     (tf,) = by["track.file"]
     assert tf.parent is trk
@@ -197,7 +200,7 @@ def test_lru_counters_and_uploaded_bytes(env, capture, tmp_path):
         _acquire(capture)
         first = profiling.counts()
         _acquire(capture)
-    assert first == {"acq.code_ffts.miss": 1,
+    assert first == {"acq.code_ffts.miss": 1, "acq.route.v2": 1,
                      "h2d.bytes": 2 * int((8 + 5) * FS / 1000)}
     c = profiling.counts()
     assert c["acq.code_ffts.miss"] == 1 and c["acq.code_ffts.hit"] == 1
@@ -286,7 +289,9 @@ def test_timing_lines_are_the_span_totals(env, capture, tmp_path):
     (search,) = _line(err, ": search")
     assert ru == round(t["acquire.read"].host_s + t["upload"].host_s, 2)
     assert fe == round(t["frontend"].host_s, 2)
-    assert 0.0 <= search <= t["cli.acquire"].self_s + 0.005
+    engine_s = sum(t[k].host_s for k in ("acq.code_spectra", "acq.mix_fft")
+                   if k in t)
+    assert 0.0 <= search <= t["cli.acquire"].self_s + engine_s + 0.005
     with profiling.trace(str(tmp_path / "t")):
         err = _track(capture)
     t = profiling.totals()

@@ -7,7 +7,8 @@ scripts/), on the CPU:
     tools/synth_sky.py's; packet2wav_3ch.py and demux_bands equal the
     root demuxer and the JAX package's demux_bands;
   * cached reads: cli.acquire.main(x_cache=) prints the uncached rows, a
-    file short of n gives "insufficient samples" either way;
+    file short of n gives "insufficient samples" either way; the cache
+    holds no more than the longest call asked for;
   * the preloaded chunk: _preload_chunk and track_file(preloaded=)
     against the JAX package's on a short GPS L1 capture at 4.096 MHz
     (ints equal, floats rtol 2e-5 / atol 2e-4), equal to the port's own
@@ -141,6 +142,28 @@ def test_cached_acquire_rows_equal_the_uncached(tmp_path):
         finally:
             sys.stderr = saved
         assert err.getvalue() == "insufficient samples\n"
+
+
+def test_cache_holds_no_more_than_the_longest_ask(tmp_path):
+    """read_samples with a cache reads and uploads the samples asked for,
+    never the whole file: a file far longer than any call leaves an
+    entry as long as the longest call so far; a longer call rereads from
+    the start and replaces it; every slice equals the uncached read."""
+    path = _gps_capture(str(tmp_path / "long.iq"), seconds=0.5)
+    whole = os.path.getsize(path) // 2
+    cache = {}
+    for n, held in ((1000, 1000), (400, 1000), (5000, 5000), (3000, 5000)):
+        x = acq_cli.read_samples(path, n, "cpu", cache)
+        assert cache[path].shape[0] == held < whole // 100
+        torch.testing.assert_close(x, acq_cli.read_samples(path, n, "cpu"),
+                                   rtol=0, atol=0)
+    assert acq_cli.read_samples(path, whole + 1, "cpu", cache) is None
+    assert cache[path].shape[0] == 5000
+    # the rows of a search through the cache are the uncached rows
+    argv = ACQ_ARGS + [path, "4096000", "0", "--device", "cpu"]
+    assert run_cli(acq_cli.main, "gps-l1", list(argv), x_cache=cache) == \
+        run_cli(acq_cli.main, "gps-l1", list(argv))
+    assert cache[path].shape[0] == int((4 + 5) * 4096000 / 1000) < whole
 
 
 def _jax_rows(path, fs, preload):
