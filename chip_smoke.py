@@ -107,12 +107,22 @@ Runs every phase, in this order:
   k4      per-step correlator K4 vs its plain version for all six static
           families (none, boc11, cboc, tmboc, rz_even, rz_odd), with the
           same plan, kernel and floor lines
+  track_rows
+          the rows kernel (csrc/track_rows.cu) at gps-l1.track's scan: one
+          K2 scan of 10 GPS L1 channels over a 2 s chunk at 69.984 MHz
+          (2000 blocks, ~20,000 rows, the last blocks stalled), the
+          counters past 2^31: emit_rows with a RowText on the card writes
+          the bytes of the row-by-row path (format_row_14 a row) and
+          leaves its counters and return value, as rows_text's head and
+          text do; the kernel's time (its four launches) beside the bound
+          of the rows read and the text written once, the bulk path's
+          host time a scan and the row-by-row path's
   e2e     the main path through the CLIs: synthesize a 2.2 s GPS L1
           capture (8.184 MHz, 8 satellites, 45 dB-Hz), acquire it, track
           the hits for 2150 blocks (past the 2000 ms chunk refill and the
           FLL -> PLL switch at block 1000), estimate C/N0 with the
           port's cli.cn0; the launch counters must show K1 and K2
-          on that path
+          on that path, and the rows kernel once a K2 launch
   gps_l1_routes
           the same capture tracked again on the per-step route, K3
           (GNSS_DSP_NO_FUSED=1) and K4 (and GNSS_DSP_PALLAS_V1=1): int
@@ -258,7 +268,9 @@ is recorded with its shape, and each must have been held against its
 plain version at that shape in k1, k1s, k2, k3, k4, k5, k6 or k7 (a surface
 launch's doppler count may be smaller; K2's shape is its subcarrier kind,
 channels, nmax, code length and coherent span, its block count a loop
-bound).
+bound).  Every rows-kernel call there is held itself, as it is made: its
+text, line count, flags and final counters against what the row-by-row
+path (emit_rows with a plain emit) makes of the same rows.
 
 Prints a JSON line of per-kernel results (times, the bound the card's
 peaks put on each kernel's work, the time of one torch.fft.ifft over the
@@ -312,9 +324,13 @@ KERNELS = {
     "track_step_v1": dict(route="cuda",
                           source="gnss_dsp_tpu_torch/csrc/track_step.cu",
                           replaces="gnss_dsp_tpu/ops/pallas_track.py:274"),
+    # no TPU kernel: the reference formats a row at a time on the host
+    "track_rows": dict(route="cuda",
+                       source="gnss_dsp_tpu_torch/csrc/track_rows.cu",
+                       replaces="gnss_dsp_tpu/track/driver.py:505 (host)"),
 }
 # kernels no single PyTorch call computes (no library time)
-NO_LIBRARY = ("track_fused", "track_step_v2", "track_step_v1")
+NO_LIBRARY = ("track_fused", "track_step_v2", "track_step_v1", "track_rows")
 
 # the subcarrier, sub-block and long-code families of e2e_track: (signal,
 # channels), each at its acq_fs
@@ -533,7 +549,7 @@ STEP_WRAPPERS = {"track_step_v2": "epl_correlate2",
                  "track_step_v1": "epl_correlate"}
 # shape_key of every case the k phases held against its plain version
 CHECKED = {name: [] for name in (*SURFACE_WRAPPERS, *STEP_WRAPPERS,
-                                 "track_fused")}
+                                 "track_fused", "track_rows")}
 
 
 def shape_key(name, F, code_f, *rest):
@@ -569,27 +585,89 @@ def fused_key(name, x, chunk_len, code_tab, state, params, *rest):
                int(params.nmax), code_tab.shape[1], int(params.coh_blocks))
 
 
+def rows_key(name, rows_f, rows_i, nb, n_emit, *rest):
+    """(blocks, (channels, emitted channels)) of a rows_text call."""
+    return int(nb), (rows_f.shape[1], int(n_emit))
+
+
+def rows_rowwise(rows_f, rows_i, nb, n_emit, prefix, prefix_off, wide,
+                 counters):
+    """What the row-by-row path (track/driver.emit_rows with a plain
+    emit, format_row_14 or format_row_9 a row) makes of rows_text's
+    arguments: (text bytes, lines, any channel ran, each emitted
+    channel's samp, code_cyc and carrier_cyc after the scan)."""
+    from gnss_dsp_tpu_torch.track import driver
+    from gnss_dsp_tpu_torch.track.rows import format_row_9, format_row_14
+
+    pre, off = bytes(prefix.cpu().numpy()), prefix_off.tolist()
+    wd = wide.tolist()
+    chans = [driver.TrackChannel(prn=0, doppler=0.0, code_offset=0.0)
+             for _ in range(rows_f.shape[1])]
+    for ch, (samp, code_cyc, carrier_cyc) in zip(chans, counters.tolist()):
+        ch.samp, ch.code_cyc, ch.carrier_cyc = samp, code_cyc, carrier_cyc
+    lines = []
+
+    def emit(k, row):
+        fmt = format_row_14 if wd[k] else format_row_9
+        lines.append(pre[off[k]:off[k + 1]].decode("ascii") + fmt(row)
+                     + "\n")
+
+    any_row = driver.emit_rows(chans, n_emit, emit, rows_f, rows_i, nb)
+    return ("".join(lines).encode("ascii"), len(lines), any_row,
+            [[c.samp, c.code_cyc, c.carrier_cyc] for c in chans[:n_emit]])
+
+
+def hold_rows(args, out):
+    """One rows_text call of the main path held against the row-by-row
+    path on its own rows: text bytes, lines, the any-row flag and the
+    final counters equal; a flagged scan writes nothing."""
+    head, text = out
+    h = head.cpu().numpy()
+    if h[3]:
+        # a field past the fixed-point range: no text, and emit_rows
+        # formats the scan a row at a time
+        check(h[0] == h[1] == 0, ("track_rows", "flagged with text", h[:4]))
+        log(f"[track_rows] a main-path scan at {rows_key('', *args)} "
+            f"flagged: formatted a row at a time")
+        return
+    want, lines, any_row, final = rows_rowwise(*args)
+    got = bytes(text[:int(h[0])].cpu().numpy())
+    check(got == want, ("track_rows", "text differs from the row-by-row "
+                        "path", len(got), len(want)))
+    check(h[1] == lines and bool(h[2]) == any_row
+          and h[4:].reshape(-1, 3).tolist() == final,
+          ("track_rows", "head differs from the row-by-row path",
+           h[:4].tolist(), lines, any_row))
+
+
 @contextlib.contextmanager
 def recording():
     """Yields a list that collects (kernel, shape_key) for every surface,
-    per-step correlator and K2 wrapper call made inside.  The engines call
-    the wrappers through their ops module, so wrapping the module
-    attribute sees every call; the launch counters are the wrappers' own
-    and count as before."""
+    per-step correlator, K2 and rows-kernel wrapper call made inside.  The
+    engines call the wrappers through their ops module, so wrapping the
+    module attribute sees every call; the launch counters are the
+    wrappers' own and count as before.  Each rows_text call is held
+    against the row-by-row path as it returns (hold_rows)."""
     calls, saved = [], []
-    spies = [(name, mod, fn, shape_key)
+    spies = [(name, mod, fn, shape_key, None)
              for name, (mod, fn) in SURFACE_WRAPPERS.items()]
-    spies += [(name, "track_step", fn, step_key)
+    spies += [(name, "track_step", fn, step_key, None)
               for name, fn in STEP_WRAPPERS.items()]
-    spies += [("track_fused", "track_fused", "track_scan_fused", fused_key)]
-    for name, mod, fn, key in spies:
+    spies += [("track_fused", "track_fused", "track_scan_fused", fused_key,
+               None),
+              ("track_rows", "track_rows", "rows_text", rows_key,
+               hold_rows)]
+    for name, mod, fn, key, hold in spies:
         m = importlib.import_module(f"gnss_dsp_tpu_torch.ops.{mod}")
         orig = getattr(m, fn)
 
-        def spy(*a, _name=name, _orig=orig, _key=key, **kw):
+        def spy(*a, _name=name, _orig=orig, _key=key, _hold=hold, **kw):
             check(not kw, (_name, "called with keywords", sorted(kw)))
             calls.append((_name, _key(_name, *a)))
-            return _orig(*a)
+            out = _orig(*a)
+            if _hold is not None:
+                _hold(a, out)
+            return out
 
         saved.append((m, fn, orig))
         setattr(m, fn, spy)
@@ -604,14 +682,18 @@ def check_covered(tag, calls):
     """Every surface-kernel, per-step correlator and K2 call of the main
     path was held against its plain version at its shape.  A launch may cover fewer dopplers than
     the checked case (the grid's last chunk): the doppler count only
-    sizes the launch grid, one CTA per (PRN, doppler, alignment)."""
+    sizes the launch grid, one CTA per (PRN, doppler, alignment).  The
+    rows kernel's calls were each held as they returned (hold_rows)."""
     for name, (dc, key) in sorted(set(calls)):
-        check(any(key == k and dc <= d for d, k in CHECKED[name]),
-              (tag, name, "main-path shape not checked", dc, key,
-               CHECKED[name]))
+        if name == "track_rows":
+            how = "each held byte for byte against the row-by-row path"
+        else:
+            check(any(key == k and dc <= d for d, k in CHECKED[name]),
+                  (tag, name, "main-path shape not checked", dc, key,
+                   CHECKED[name]))
+            how = "shape checked against the plain version"
         log(f"[{tag}] {name} launched at DC={dc} {key}: "
-            f"{sum(c == (name, (dc, key)) for c in calls)} call(s), shape "
-            f"checked against the plain version")
+            f"{sum(c == (name, (dc, key)) for c in calls)} call(s), {how}")
 
 
 # ---------------------------------------------------------------- phase k1
@@ -2064,6 +2146,129 @@ def phase_k4(dev, card, results):
     results["track_step_v1"].update(_step_results(cases))
 
 
+# -------------------------------------------------------- phase track_rows
+
+def _median_ms(fn, n):
+    """The median host-clock time of n calls of fn, each started on an
+    idle card."""
+    import torch
+
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def phase_track_rows(dev, card, results, C=10, seconds=2.0, nb=2000,
+                     reps=20):
+    """The rows kernel at gps-l1.track's scan (the cell's 10 GPS L1
+    channels at 69.984 MHz, its 2000 ms chunk): the rows of one K2 scan
+    written by emit_rows with a RowText on the card equal byte for byte
+    to the row-by-row path's (format_row_14 a row), with its counters and
+    return value; rows_text's head and text equal to rows_rowwise's.
+    Times: the kernel (its four launches, device time), the bulk path a
+    scan and the row-by-row path (host clock, text to a StringIO); the
+    bound: the rows read and the text written once."""
+    import torch
+
+    from gnss_dsp_tpu_torch.ops import track_rows
+    from gnss_dsp_tpu_torch.tools.track_all import scan_inputs
+    from gnss_dsp_tpu_torch.track import driver
+    from gnss_dsp_tpu_torch.track.engine import track_scan
+    from gnss_dsp_tpu_torch.track.rows import RowText, format_row_14
+
+    fs = 69.984e6
+    d = scan_inputs("gps-l1", C, fs, seconds, 71, dev, dwells=(500, 500))
+    _st, rf, ri = track_scan(d["x"], d["n"], d["tab"], d["st"], d["params"],
+                             nb, ratios=d["ratios"], coffset_df=d["cdf"],
+                             sigp=d["sigp"], overlay=d["overlay"])
+    prefixes = [f"ch{p} " for p in d["truth"]["prns"]]
+    del d
+    torch.cuda.synchronize()
+    check(rf.device.type == "cuda", rf.device)
+    # the counters of a later chunk of the 7.9 min recording: samp past
+    # 2^31
+    start = [[30_000_000_000 + 7 * k, 29_000_000 + k, 46_000_000_000 + k]
+             for k in range(C)]
+
+    def channels():
+        chans = [driver.TrackChannel(prn=0, doppler=0.0, code_offset=0.0)
+                 for _ in range(C)]
+        for ch, (samp, code_cyc, carrier_cyc) in zip(chans, start):
+            ch.samp, ch.code_cyc, ch.carrier_cyc = samp, code_cyc, carrier_cyc
+        return chans
+
+    def counters(chans):
+        return [[c.samp, c.code_cyc, c.carrier_cyc] for c in chans]
+
+    def rowwise():
+        chans, lines = channels(), []
+        any_row = driver.emit_rows(
+            chans, C, lambda k, row: lines.append(
+                prefixes[k] + format_row_14(row) + "\n"), rf, ri, nb)
+        return any_row, counters(chans), "".join(lines)
+
+    writer = RowText(prefixes, [14] * C, dev)
+
+    def bulk():
+        chans, buf = channels(), io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            any_row = driver.emit_rows(chans, C, writer, rf, ri, nb)
+        return any_row, counters(chans), buf.getvalue()
+
+    want = rowwise()
+    lines = want[2].count("\n")
+    idle = int((ri[:nb, :, 0] == 0).sum())
+    check(lines + idle == nb * C and lines >= 0.99 * nb * C,
+          ("track_rows", "rows", lines, idle))
+    track_rows.LAUNCHES = 0
+    got = bulk()
+    check(got[2] == want[2], ("track_rows", "text differs from the "
+                              "row-by-row path", len(got[2]), len(want[2])))
+    check(got[:2] == want[:2], ("track_rows", "return value or counters "
+                                "differ", got[:2], want[:2]))
+    check(track_rows.LAUNCHES == 1, ("track_rows", "launches",
+                                     track_rows.LAUNCHES))
+    pre = torch.tensor(list("".join(prefixes).encode()), dtype=torch.uint8)
+    off = torch.tensor(np.cumsum([0] + [len(p) for p in prefixes]),
+                       dtype=torch.int32)
+    args_d = (rf, ri, nb, C, pre.to(dev), off.to(dev),
+              torch.ones(C, dtype=torch.int32, device=dev),
+              torch.tensor(start, dtype=torch.int64, device=dev))
+    hk, tk = track_rows.rows_text(*args_d)
+    hk = hk.cpu().numpy()
+    text = bytes(tk[:int(hk[0])].cpu().numpy())
+    r_text, r_lines, r_any, r_final = rows_rowwise(*args_d)
+    check(text == r_text == want[2].encode("ascii"),
+          ("track_rows", "rows_text's bytes differ"))
+    check(hk[:4].tolist() == [len(text), r_lines, int(r_any), 0]
+          and hk[4:].reshape(C, 3).tolist() == r_final,
+          ("track_rows", "head differs from the row-by-row path's",
+           hk[:4].tolist(), r_lines))
+    CHECKED["track_rows"].append(rows_key("track_rows", *args_d))
+    ms = device_ms(lambda: track_rows.rows_text(*args_d), reps)
+    bulk_ms = _median_ms(bulk, reps)
+    rowwise_ms = _median_ms(rowwise, 3)
+    bms, by = bound(rf[:nb].numel() * 4 + ri[:nb].numel() * 4 + len(text)
+                    + C * 3 * 8 * 2, 0)
+    log(f"[track_rows] gps-l1.track's scan, {C} ch x {nb} blocks at "
+        f"{fs:g} Hz: {lines} rows ({idle} idle), {len(text)} bytes; the "
+        f"card's text byte-equal to the row-by-row path's, counters, return "
+        f"value and head equal")
+    log(f"[track_rows] kernel {ms:.4f} ms (four launches), bound {bms:.5f} "
+        f"ms by {by}; a scan on the host clock: bulk path on the card "
+        f"{bulk_ms:.3f} ms, the row-by-row path {rowwise_ms:.3f} ms (text "
+        f"to a StringIO)  [{card}]")
+    results["track_rows"].update(
+        max_abs_err=0.0, ms=ms, plain_ms=rowwise_ms, bound_ms=bms,
+        bound_by=by, bulk_ms=bulk_ms,
+        shape=dict(name="gps-l1.track scan", channels=C, fs=fs, blocks=nb,
+                   rows=lines, text_bytes=len(text)))
+
+
 # --------------------------------------------------------------- phase e2e
 
 def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
@@ -2072,7 +2277,7 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
     import gnss_dsp_tpu_torch.cli.cn0 as cn0
     from gnss_dsp_tpu_torch.cli import acquire as acq_cli
     from gnss_dsp_tpu_torch.cli import track as trk_cli
-    from gnss_dsp_tpu_torch.ops import acquire2, track_fused
+    from gnss_dsp_tpu_torch.ops import acquire2, track_fused, track_rows
     from gnss_dsp_tpu_torch.tools.main_path import (
         parse_hits, run_cli, synth_capture)
 
@@ -2086,6 +2291,7 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
 
     acquire2.LAUNCHES = 0
     track_fused.LAUNCHES = 0
+    track_rows.LAUNCHES = 0
     t0 = time.perf_counter()
     with recording() as calls:
         out = run_cli(acq_cli.main, "gps-l1",
@@ -2144,12 +2350,16 @@ def phase_e2e(dev, card, results, work, seconds=2.2, nblocks=2150):
         check(41.0 <= c <= 47.0, (prn, c))
         log(f"[e2e] track prn {prn:2d}: last-200 |carrier_f - truth| <= "
             f"{np.abs(cf - dop).max():.3f} Hz, C/N0 {c:.2f} dB-Hz")
-    la, lt = acquire2.LAUNCHES, track_fused.LAUNCHES
-    log(f"[e2e] launches on the main path: acquire2 {la}, track_fused {lt}")
+    la, lt, lr = acquire2.LAUNCHES, track_fused.LAUNCHES, track_rows.LAUNCHES
+    log(f"[e2e] launches on the main path: acquire2 {la}, track_fused {lt}, "
+        f"track_rows {lr}")
     check(la > 0 and lt > 0, (la, lt))
     check(lt >= 2, "tracking never crossed a chunk refill")
+    # a scan's rows, a K2 launch's, go through the rows kernel at once
+    check(lr == lt, ("track_rows launches", lr, lt))
     results["acquire2"]["launches"] = la
     results["track_fused"]["launches"] = lt
+    results["track_rows"]["launches"] = lr
     log(f"[e2e] wall: synth {t_synth:.2f} s, acquire {t_acq:.2f} s, "
         f"track {nblocks} blocks x 8 ch {t_trk:.2f} s, cn0 {t_cn0:.2f} s  "
         f"[{card}]")
@@ -4332,6 +4542,7 @@ def main(argv=None) -> int:
     phase_k2_main_path(dev, results, args.out)
     phase_k3(dev, card, results)
     phase_k4(dev, card, results)
+    phase_track_rows(dev, card, results)
     phase_k2_slice(dev, card, results)
     e2e = phase_e2e(dev, card, results, args.out)
     phase_gps_l1_routes(dev, card, results, e2e)

@@ -13,7 +13,9 @@ Counterpart: gnss_dsp_tpu/cli/track.py (`_preload_chunk` :25-55, `main`
 
 Prints one row per tracked block in the reference's 9- or 14-column text
 format (track-gps-l1.py:176-177); with several channels each row starts
-"ch<prn> ", under `multi` "SIG:prn " in each signal's own format.  Adds
+"ch<prn> ", under `multi` "SIG:prn " in each signal's own format.  A
+scan's rows are written at once, formatted on the device
+(track/rows.RowText).  Adds
 --device (default cuda, or cpu while GNSS_DSP_CPU is set, as the
 reference pins itself; the switch is named on stderr).  Every signal
 with a code table tracks, with its subcarrier, sub-blocks and long
@@ -59,9 +61,8 @@ from gnss_dsp_tpu_torch.device import (
     default_device, pop_device_arg, resolve_device)
 from gnss_dsp_tpu_torch.ops import cplx
 from gnss_dsp_tpu_torch.parallel.mesh import cli_devices, make_mesh
-from gnss_dsp_tpu_torch.track.driver import (
-    TrackChannel, format_row_9, format_row_14, track_file,
-)
+from gnss_dsp_tpu_torch.track.driver import TrackChannel, track_file
+from gnss_dsp_tpu_torch.track.rows import RowText
 from gnss_dsp_tpu_torch.utils import profiling
 
 
@@ -166,12 +167,8 @@ def main_multi(argv=None, x_cache: dict | None = None) -> int:
     dwells = tuple(int(v) for v in options.loop_dwells.split(","))
     dev = resolve_device(device)
     mesh = _mesh(options, dev)
-    fmts = [format_row_14 if s.row_format == 14 else format_row_9
-            for s in sigs]
-
-    def emit(k, row):
-        print(f"{sigs[k].name}:{channels[k].prn} " + fmts[k](row))
-
+    emit = RowText([f"{s.name}:{ch.prn} " for s, ch in zip(sigs, channels)],
+                   [s.row_format for s in sigs], dev)
     preloaded = None
     if x_cache is not None and filename != "-" and mesh is None:
         preloaded = _preload_chunk(filename, fs, options.chunk_ms, x_cache,
@@ -271,13 +268,9 @@ def main(signal: str, argv=None, x_cache: dict | None = None) -> int:
     dev = resolve_device(device)
     mesh = _mesh(options, dev)
 
-    fmt = format_row_14 if sig.row_format == 14 else format_row_9
     multi = len(channels) > 1
-
-    def emit(k, row):
-        prefix = f"ch{channels[k].prn} " if multi else ""
-        print(prefix + fmt(row))
-
+    emit = RowText([f"ch{ch.prn} " if multi else "" for ch in channels],
+                   [sig.row_format] * len(channels), dev)
     preloaded = None
     if (x_cache is not None and filename != "-" and mesh is None
             and options.checkpoint is None and options.resume is None):

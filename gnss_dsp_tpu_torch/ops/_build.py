@@ -78,6 +78,8 @@ SIGNATURES = {
                       _I, _I, _I, _I, _P],
     "track_step_floor": [_I, _I, _P],
     "track_step_info": [_I, _I, _I, _I, _P],
+    "track_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   ctypes.c_longlong, _P],
 }
 
 

@@ -4,10 +4,11 @@ batching, row accumulation and reference-format output.
 Counterpart: gnss_dsp_tpu/track/driver.py (`TrackChannel`, `make_params`
 :117-191, `track_file` :221-701 with the host int64 counters and
 `emit_rows` :505-536, the streaming chunk loop with refill and pointer
-rebase :580-701, `format_row_14` :704-711).  N channels share one
-device-resident chunk, each with its own pointer; the unbounded counters
-(samp, code_cyc, carrier_cyc) accumulate on the host in python ints from
-per-block deltas.
+rebase :580-701; `format_row_14` :704-711 lives in track/rows).  N
+channels share one device-resident chunk, each with its own pointer; the
+unbounded counters (samp, code_cyc, carrier_cyc) accumulate on the host
+in python ints from per-block deltas (a RowText emit's bulk path sums a
+scan's deltas in int64 where it formats them, track/rows).
 
 make_params records the route on the card as the reference's router
 chooses it (:178-183): the whole-loop kernel K2 (fused_scan) for every
@@ -100,6 +101,9 @@ from gnss_dsp_tpu_torch.track.engine import (
     SIGP_COH, SIGP_NOV, TrackParams, init_state, sigp_row, track_scan,
 )
 from gnss_dsp_tpu_torch.ops.track_step import subc_kind
+from gnss_dsp_tpu_torch.track.rows import (  # noqa: F401 (the row formats)
+    RowText, format_row_9, format_row_14,
+)
 from gnss_dsp_tpu_torch.utils import profiling
 from gnss_dsp_tpu_torch.utils.twofloat import tf_from_f64
 
@@ -461,11 +465,23 @@ def emit_rows(channels, n_emit, emit, rows_f, rows_i, nb) -> bool:
     """Accumulate the host counters and emit (or keep) each channel's
     rows of a scan, block by block (:505-536); channels from n_emit on
     are clones, computed but never emitted.  True if any channel ran.
-    The span `track.rows`, the rows' read-back `track.readback`."""
+
+    A RowText emit on a card (track/rows) writes the scan's rows as text
+    in one go (RowText.scan, formatted there); any other emit, or None,
+    takes them one at a time, a dict a row, as does a RowText elsewhere
+    or a scan with a field past the fixed-point range.  The span `track.rows`, the rows'
+    read-back (and the bulk path's formatting) `track.readback`;
+    counters `track.rows.bulk` and `track.rows.each`, the rows each way,
+    once a call."""
+    if isinstance(emit, RowText):
+        got = emit.scan(channels, n_emit, rows_f, rows_i, nb)
+        if got is not None:
+            return got
     with profiling.span("track.readback"):
         rows_f = rows_f.cpu().numpy()
         rows_i = rows_i.cpu().numpy()
     any_row = False
+    each = 0
     for b in range(nb):
         for k, ch in enumerate(channels):
             nn = int(rows_i[b, k, 0])
@@ -474,6 +490,7 @@ def emit_rows(channels, n_emit, emit, rows_f, rows_i, nb) -> bool:
             any_row = True
             if k >= n_emit:
                 continue
+            each += 1
             ch.samp += nn
             ch.carrier_cyc += int(rows_i[b, k, 1])
             ch.code_cyc += int(rows_i[b, k, 2])
@@ -493,6 +510,7 @@ def emit_rows(channels, n_emit, emit, rows_f, rows_i, nb) -> bool:
                 emit(k, row)
             else:
                 ch.rows.append(row)
+    profiling.count("track.rows.each", each)
     return any_row
 
 
@@ -528,8 +546,9 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
     unread, unless the gate sends the run to the streaming reader.
 
     emit(channel_index, row_dict) is called once per completed block, in
-    block order per chunk.  Returns the channels (rows accumulated when
-    emit is None)."""
+    block order per chunk; a track/rows.RowText emit writes each scan's
+    rows as text in one go instead (emit_rows).  Returns the channels
+    (rows accumulated when emit is None)."""
     mixed = sigs is not None and len({s.name for s in sigs}) > 1
     sigs = [sig] * len(channels) if sigs is None else list(sigs)
     if len(sigs) != len(channels):
@@ -724,22 +743,3 @@ def _recovered(channels, n_emit, state, recover_after):
         for k, ch in enumerate(channels[:n_emit]):
             ch.recovered = acc_re[k] + 1j * acc_im[k]
     return channels[:n_emit]
-
-
-def format_row_14(row: dict) -> str:
-    """The reference 14-column text row (track-gps-l1.py:176-177)."""
-    return "%d %f %f %f %f %f %f %f %f %d %f %d %f %d" % (
-        row["block"], row["p_re"], row["p_im"], row["carrier_f"],
-        row["code_f_offset"], row["phase_deg"], row["early"], row["prompt"],
-        row["late"], row["code_cyc"], row["code_p"], row["carrier_cyc"],
-        row["carrier_p"], row["samp"],
-    )
-
-
-def format_row_9(row: dict) -> str:
-    """The reference 9-column row (e.g. track-galileo-e1b.py:166-167)."""
-    return "%d %f %f %f %f %f %f %f %f" % (
-        row["block"], row["p_re"], row["p_im"], row["carrier_f"],
-        row["code_f_offset"], row["phase_deg"], row["early"], row["prompt"],
-        row["late"],
-    )

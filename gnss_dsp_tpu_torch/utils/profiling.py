@@ -79,8 +79,15 @@ The program's spans and counters:
                               on the device
   track.scan                  track/engine.track_scan: host set-up and
                               launches
-  track.rows                  track/driver.emit_rows
-    track.readback            its rows read back from the device
+  track.rows                  track/driver.emit_rows; counters
+                              track.rows.bulk, .each: the rows written
+                              a scan at a time (a track/rows.RowText
+                              emit) and one at a time (any other emit,
+                              kept rows, a scan past the fixed-point
+                              range), counted once a call
+    track.readback            its rows read back from the device (the
+                              bulk path: formatted there, the text and
+                              the counters read back)
 """
 
 from __future__ import annotations

@@ -33,7 +33,9 @@ ingest (pinned staging slots, chunks built on the card): every chunk
 track_file and track_receiver hand the scan bit-equal to the CPU run's,
 the rows equal to one chunk over the whole capture on the card, and a
 second call in the process allocating no pinned memory and uploading
-every byte from it.
+every byte from it.  The rows' text (csrc/track_rows.cu) byte for byte
+the row-by-row path's, head and all, on seed-drawn rows and on a K2 scan
+of GPS L1.
 """
 
 import numpy as np
@@ -1564,3 +1566,97 @@ def test_streaming_receiver_on_the_card_builds_the_cpus_chunks(
     for x, y in zip(card, whole):
         assert len(x) >= 25
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["one-channel", "channels",
+                                  "multi-9-and-14", "clones-and-short-nb",
+                                  "all-idle", "past-the-bound"])
+def test_rows_text_kernel_matches_rows(dev, case):
+    """csrc/track_rows.cu on seed-drawn rows (tests/test_torch_track_rows:
+    %f ties, -0.0, tiny negatives, NaN of both signs, +-inf, the largest
+    float32 below the bound, clones, nb short of the rows, samp past
+    2^31): head and text bytes equal to the row-by-row path's
+    (rows_text_by_row, format_row_14/9 a row, and emit_rows with a plain
+    emit); a field past the bound flags the scan on both."""
+    from test_torch_track_rows import CASES, _channels, _counters, \
+        row_by_row, rows_text_by_row, scan_rows
+
+    from gnss_dsp_tpu_torch.ops import track_rows
+
+    seed, B, nb, C, n_emit, prefixes, formats = CASES[
+        "channels" if case == "past-the-bound" else case]
+    rf, ri = scan_rows(seed, B, C,
+                       zero_share=1.0 if case == "all-idle" else 0.2)
+    if case == "past-the-bound":
+        rf[3, 2, 5] = float(np.float32(track_rows.FIXED_MAX))
+    pre = torch.tensor(list("".join(prefixes).encode()), dtype=torch.uint8)
+    off = torch.tensor(np.cumsum([0] + [len(p) for p in prefixes]),
+                       dtype=torch.int32)
+    wide = torch.tensor([f == 14 for f in formats], dtype=torch.int32)
+    c0 = torch.tensor(_counters(_channels(C, seed)[:n_emit]),
+                      dtype=torch.int64).reshape(n_emit, 3)
+    args = (nb, n_emit, pre, off, wide, c0)
+    n0 = track_rows.LAUNCHES
+    hk, tk = track_rows.rows_text(rf.to(dev), ri.to(dev), nb, n_emit,
+                                  *(t.to(dev) for t in args[2:]))
+    torch.cuda.synchronize(dev)
+    assert track_rows.LAUNCHES == n0 + 1
+    hp, tp = rows_text_by_row(rf, ri, *args)
+    hk = hk.cpu().numpy()
+    np.testing.assert_array_equal(hk, hp.numpy())
+    if case == "past-the-bound":
+        assert hk[3] == 1
+        return
+    text = bytes(tk[:int(hk[0])].cpu().numpy())
+    assert text == bytes(tp.numpy())
+    want, ref_ch, ref_any = row_by_row(rf, ri, nb, n_emit, prefixes,
+                                       formats, seed)
+    assert text == want.encode() and bool(hk[2]) == ref_any
+    assert hk[4:].reshape(n_emit, 3).tolist() == \
+        [list(c) for c in _counters(ref_ch[:n_emit])]
+
+
+def test_rows_text_on_a_gps_l1_scan(dev):
+    """One K2 scan of 6 GPS L1 channels: emit_rows with a RowText on the
+    card writes the bytes of the row-by-row path, as a RowText on the CPU
+    (a row at a time) does, and leaves the same counters."""
+    import contextlib
+    import io
+
+    from gnss_dsp_tpu_torch.ops import track_rows
+    from gnss_dsp_tpu_torch.tools.track_all import scan_inputs
+    from gnss_dsp_tpu_torch.track import driver
+    from gnss_dsp_tpu_torch.track.engine import track_scan
+    from gnss_dsp_tpu_torch.track.rows import RowText, format_row_14
+
+    C, fs = 6, 4.096e6
+    d = scan_inputs("gps-l1", C, fs, 0.08, 5, dev)
+    _st, rf, ri = track_scan(d["x"], d["n"], d["tab"], d["st"], d["params"],
+                             70, ratios=d["ratios"], coffset_df=d["cdf"],
+                             sigp=d["sigp"], overlay=d["overlay"])
+    assert rf.device.type == "cuda"
+    prefixes = [f"ch{k} " for k in range(C)]
+
+    def channels():
+        return [driver.TrackChannel(prn=k, doppler=0.0, code_offset=0.0,
+                                    samp=3_000_000_000 + k) for k in range(C)]
+    ref, out = channels(), []
+    want_any = driver.emit_rows(
+        ref, C, lambda k, row: out.append(prefixes[k] + format_row_14(row)
+                                          + "\n"), rf, ri, 70)
+    texts = {}
+    for where in ("cuda", "cpu"):
+        chans, buf = channels(), io.StringIO()
+        n0 = track_rows.LAUNCHES
+        with contextlib.redirect_stdout(buf):
+            got_any = driver.emit_rows(
+                chans, C, RowText(prefixes, [14] * C,
+                                  dev if where == "cuda" else "cpu"),
+                rf, ri, 70)
+        assert track_rows.LAUNCHES == n0 + (where == "cuda")
+        assert got_any == want_any
+        assert [(c.samp, c.code_cyc, c.carrier_cyc) for c in chans] == \
+            [(c.samp, c.code_cyc, c.carrier_cyc) for c in ref]
+        texts[where] = buf.getvalue()
+    assert texts["cuda"] == texts["cpu"] == "".join(out)
+    assert len(out) >= 6 * 60

@@ -331,19 +331,20 @@ def test_build_hash_follows_the_sources():
     assert srcs == ["acq_cluster.cuh", "acquire.cu", "acquire2.cu",
                     "acquire_coh.cu", "acquire_coh_spec.cu",
                     "cluster_launch.cuh",
-                    "track_corr.cuh", "track_fused.cu", "track_step.cu"]
+                    "track_corr.cuh", "track_fused.cu", "track_rows.cu",
+                    "track_step.cu"]
     path = _build.lib_path()
     assert path.startswith(os.path.join(ROOT, "gnss_dsp_tpu_torch", "_build"))
     assert path == _build.lib_path()
 
 
 def test_build_flags_per_source():
-    """The tracking kernels keep --fmad=false; the cluster surface
-    kernels K1, K5, K6 and K7 build with contraction; the flags are the
-    same but for that one."""
+    """The tracking kernels and the rows' text keep --fmad=false; the
+    cluster surface kernels K1, K5, K6 and K7 build with contraction; the
+    flags are the same but for that one."""
     from gnss_dsp_tpu_torch.ops import _build
 
-    pinned = ["track_fused.cu", "track_step.cu"]
+    pinned = ["track_fused.cu", "track_rows.cu", "track_step.cu"]
     for src in pinned:
         assert "--fmad=false" in _build.flags(src), src
     for src in ("acquire.cu", "acquire2.cu", "acquire_coh.cu",
@@ -362,7 +363,7 @@ def test_build_compiles_every_source_once():
     cus = sorted(os.path.basename(c[-1]) for c in compiles)
     assert cus == sorted(os.path.basename(p) for p in _build._sources()
                          if p.endswith(".cu"))
-    assert len(set(cus)) == len(cus) == 6
+    assert len(set(cus)) == len(cus) == 7
     for cmd in compiles:
         assert cmd[1:-4] == _build.flags(cmd[-1])
         assert cmd[-4:-2] == ["-c", "-o"] and cmd[-2] in objs
