@@ -31,7 +31,7 @@
 //    per (128 lags, 112 alignments, d, g) that stages F tiles of kBK
 //    blocks by cp.async and splits each operand once into shared memory.
 //    On an H100 at X1P's shape it took 1.15 ms where a float32 register
-//    tile took 1.55 (PERF.md section 6; tools/k6_variants.py `fp32`).
+//    tile took 1.55 (PERF.md section 6, the `fp32` variant).
 // 2. surface: K5's own launch (acquire_coh_spec.cu, acq_coh_spec) over C,
 //    its alignment loop on acq_cluster.cuh's register core: one cluster
 //    per (p, d) and alignment chunk walks the G rows of each of its

@@ -99,11 +99,6 @@ constexpr int kMaxCluster = 16;
 constexpr int kTile = 128;            // samples a bulk copy (1 KiB)
 constexpr int kFixedBytes = 32768;    // shared memory before the stages
 
-// Hooks of tools/k2_variants' stamps variant (empty here)
-#define K2_MARK_INIT
-#define K2_MARK(k)
-#define K2_MARK_END(rank0, c, blocks)
-
 // int32 state lanes (ops/track_fused.py I_*)
 enum { I_PTR, I_BLOCK, I_COFF_P, I_COFF_DF, I_STALLED, I_CHUNKLEN, I_NFULL,
        I_SUBJ, NI };
@@ -425,7 +420,6 @@ track_fused_kernel(const __grid_constant__ Args a) {
   clusterk::cluster_wait();
   if (producer && fx.geo[0].ok)
     issue_batch(a, rank, 0, fx.geo[0].start, buffer(0), full(0), lane);
-  K2_MARK_INIT
 
   for (int b = 0; b < a.B; ++b) {
     // warp 0 rewrites geo[b & 1] for block b + 2, after every thread has
@@ -454,7 +448,6 @@ track_fused_kernel(const __grid_constant__ Args a) {
         } else {
           mbar_wait(full(i), (uint32_t)((i >> 1) & 1));
         }
-        K2_MARK(1);
         const float2* buf = buffer(i);
         const int e0 = producer ? pl.stage : tid;   // workers only
         const int e1 = min(pl.stage, max(0, (mine - q * pl.k) * kTile));
@@ -475,7 +468,6 @@ track_fused_kernel(const __grid_constant__ Args a) {
         };
         if (gb.cmp) correlate(std::true_type{});
         else correlate(std::false_type{});
-        K2_MARK(2);
         if (q + 1 < pl.m) __syncthreads();
       }
 #pragma unroll
@@ -485,17 +477,14 @@ track_fused_kernel(const __grid_constant__ Args a) {
         for (int j = 0; j < 6; ++j) fx.red[warp][j] = acc[j];
       }
       __syncthreads();
-      K2_MARK(3);
       if (tid < 6 * S) {
         const int j = tid % 6;
         double v = 0.0;
         for (int k = 0; k < kThreads / 32; ++k) v += fx.red[k][j];
         *cluster.map_shared_rank(&fx.part[b & 1][rank][j], tid / 6) = v;
       }
-      K2_MARK(4);
       clusterk::cluster_arrive();
       clusterk::cluster_wait();
-      K2_MARK(5);
       if (warp == 0) {
         double v = 0.0;
         if (lane < 6)
@@ -503,7 +492,6 @@ track_fused_kernel(const __grid_constant__ Args a) {
 #pragma unroll
         for (int j = 0; j < 6; ++j) w[j] = (float)__shfl_sync(~0u, v, j);
       }
-      K2_MARK(6);
     } else if (G.drain) {
       // the chunk ran dry: drain the window issued for this block
       mbar_wait(full(G.waited), (uint32_t)((G.waited >> 1) & 1));
@@ -635,9 +623,7 @@ track_fused_kernel(const __grid_constant__ Args a) {
       }
     }
     __syncthreads();
-    K2_MARK(0);
   }
-  K2_MARK_END(rank == 0, c, block - si[I_BLOCK]);
 
   if (writer) {
     int* so = a.sti_out + (size_t)c * NI;

@@ -20,9 +20,9 @@
 // What bounds it on the card: one step moves C n 8 bytes of samples
 // (n ~ 4100 at GPS L1 4.096 MHz) and does ~20 operations a sample; at 32
 // channels that is ~1 MB, well under a microsecond at 3.35 TB/s.  So the
-// launch and the latency chain inside it set the time (tools/k3_variants
-// stamps: the first read of the lanes, the sample loop of ~120 instructions
-// a sample, the reductions), and the design cuts each link:
+// launch and the latency chain inside it set the time (clock stamps inside
+// the kernel: the first read of the lanes, the sample loop of ~120
+// instructions a sample, the reductions), and the design cuts each link:
 //   - one launch a step: each channel runs on a thread-block cluster of S
 //     CTAs (S a power of two up to 16, ops/track_step.cluster_size: the
 //     largest with C x S <= 132 SMs), grid C x S.  Each rank stores its six
@@ -41,9 +41,9 @@
 //     GLONASS P's, are read with __ldg from device memory) into shared
 //     memory on an mbarrier, landing while the geometry (Block,
 //     compare_wrap_ok) is computed; the sample loop reads the samples with
-//     __ldg.  Staging them by bulk copies as well (tools/k3_variants'
-//     `stage` run) measured slower: the copies can only be issued once si
-//     has arrived, a second latency in the chain.
+//     __ldg.  Staging them by bulk copies as well (a `stage` variant)
+//     measured slower: the copies can only be issued once si has arrived,
+//     a second latency in the chain.
 //
 // Determinism in a fixed order that is a function of (n, ptr, S) only:
 // thread j of a rank adds the samples of its slots j, j + 256, ... (slot
@@ -70,11 +70,6 @@ constexpr int kThreads = 256;
 constexpr int kTile = 128;          // samples a tile
 constexpr int kMaxCluster = 16;
 constexpr int kMaxCode = 10230;     // longest code staged in shared memory
-
-// Hooks of tools/k3_variants' stamps variant (empty here)
-#define K34_MARK_INIT
-#define K34_MARK(k)
-#define K34_MARK_END
 
 // si lanes (the JAX kernels' layout, ops/track_step.py SI_*)
 enum { SI_VINT_E, SI_VINT_P, SI_VINT_L, SI_COFF_DF, SI_N, SI_COFF_P,
@@ -126,7 +121,6 @@ step_kernel(const __grid_constant__ Args a) {
   const int warp = tid >> 5, lane = tid & 31;
   const int L = a.lens ? a.lens[c] : a.L;
   const int8_t* row = a.code + (size_t)c * a.L;
-  K34_MARK_INIT
   // the lanes, every load issued before any wait
   const int* s = a.si + (size_t)c * NSI;
   const float* f = a.sf + (size_t)c * a.sf_stride;
@@ -169,18 +163,14 @@ step_kernel(const __grid_constant__ Args a) {
   // position i + off from w0, tile t = position / kTile on rank t % S
   const int off = start & 1;
   const int w0 = start - off;
-  K34_MARK(1);
   __syncthreads();   // this CTA's mbarriers are initialised
-  K34_MARK(2);
 
   // the geometry, while the LUT and the code row are in flight
   g.cmp = compare_wrap_ok(g, nloop, L);
   const int shift = (int)((uintptr_t)row - r0);
   const float2* xw = a.x + w0;
   double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  K34_MARK(3);
   clusterk::mbar_wait(&fx.bar[0], 0);
-  K34_MARK(4);
   // thread tid's slots e = tid, tid + kThreads, ... hold the samples at
   // window positions pos0, pos0 + stride, ...: slot e is sample e % kTile
   // of the rank's tile e / kTile = tid / kTile + k kThreads / kTile
@@ -201,7 +191,6 @@ step_kernel(const __grid_constant__ Args a) {
   };
   if (g.cmp) correlate(std::true_type{});
   else correlate(std::false_type{});
-  K34_MARK(5);
 
 #pragma unroll
   for (int j = 0; j < 6; ++j) acc[j] = warp_sum(acc[j]);
@@ -210,9 +199,7 @@ step_kernel(const __grid_constant__ Args a) {
     for (int j = 0; j < 6; ++j) fx.red[warp][j] = acc[j];
   }
   __syncthreads();
-  K34_MARK(6);
   clusterk::cluster_wait();
-  K34_MARK(7);
   if (tid < 6) {
     double v = 0.0;
     for (int w = 0; w < kThreads / 32; ++w) v += fx.red[w][tid];
@@ -228,8 +215,6 @@ step_kernel(const __grid_constant__ Args a) {
       a.out[(size_t)c * 6 + tid] = (float)t;
     }
   }
-  K34_MARK(8);
-  K34_MARK_END
 }
 
 // An empty kernel on the same grid, cluster and shared memory: the launch

@@ -8,18 +8,18 @@ complex64 tensors and the rest of that module has no counterpart.
 
 The raw interleaved int8 bytes travel to the device as they are (2 bytes
 per sample) and are converted there; int8 -> float32 is exact.  The
-opt-in 4-bit front end (GNSS_DSP_UPLOAD_INT4 in track/driver.track_file
-and track/receiver.track_receiver) packs each sample into one byte on
+opt-in 4-bit front end (GNSS_DSP_UPLOAD_INT4 in the tracking loops'
+chunks, track/driver._Chunks) packs each sample into one byte on
 the host and unpacks it on the device with elementwise torch operations,
 as the reference does with XLA's (not a Pallas kernel there, so no CUDA
 kernel here).
 
 Each upload is the span `upload` (on the device's stream too) and counts
 its bytes under `h2d.bytes` (utils/profiling).  The streaming tracking
-loops upload each chunk's new parts with from_iq(..., into=slice):
-straight from the prefetch reader's staging slots, with no host copy, an
-asynchronous copy where a slot is pinned (counter `h2d.pinned_bytes`),
-converted into the given slice of the chunk on the device.
+loops upload each chunk's new parts with from_iq: straight from the
+prefetch reader's staging slots into a slice of the chunk, with no host
+copy, an asynchronous copy where a slot is pinned (counter
+`h2d.pinned_bytes`), converted in place on the device.
 """
 
 from __future__ import annotations
@@ -95,12 +95,14 @@ def _deint4(u: torch.Tensor, scale: float = 8.0) -> torch.Tensor:
                         q4.to(torch.float32) * sc], dim=1)
 
 
-def _upload_into(parts, into: torch.Tensor, int4: bool) -> int:
-    """Write the int8 I/Q parts, in order, into the complex64 slice `into`
-    on its device; the bytes uploaded.  On a card the parts (packed to 4
-    bits with int4) go up into one staging buffer by non_blocking copies,
-    asynchronous from pinned memory, and are converted into place there;
-    on the CPU each part is converted into place from where it lies."""
+def from_iq(parts, *, into: torch.Tensor, int4: bool = False) -> int:
+    """Write the int8 I/Q parts (numpy views, such as the prefetch
+    reader's slot views), in order, into the complex64 slice `into` on
+    its device; the bytes uploaded.  On a card the parts (packed to 4
+    bits with int4, part by part) go up into one staging buffer by
+    non_blocking copies, asynchronous from pinned memory, and are
+    converted into place there; on the CPU each part is converted into
+    place from where it lies."""
     dev = into.device
     with profiling.span("upload", device=dev):
         if int4:
@@ -127,21 +129,3 @@ def _upload_into(parts, into: torch.Tensor, int4: bool) -> int:
             raise ValueError(f"{o} samples uploaded into a slice of "
                              f"{into.shape[0]}")
     return nbytes
-
-
-def from_iq(raw, pad: int = 0, *, device, int4: bool = False, into=None):
-    """(complex64 chunk on `device`, bytes uploaded): the int8 I/Q bytes
-    `raw` through from_int8_iq, or with int4 packed on the host and
-    through from_int4_iq (the host pack inside the same `upload` span).
-
-    into: a complex64 slice on `device` to write instead of a new chunk
-    (no pad): `raw` is then a list of int8 I/Q parts (numpy views, such
-    as the prefetch reader's slot views) that fill it in order; each
-    goes up as it lies, packed part by part with int4."""
-    if into is not None:
-        return into, _upload_into(raw, into, int4)
-    if int4:
-        with profiling.span("upload", device=device):
-            packed = pack_int4_host(np.asarray(raw, np.int8))
-            return from_int4_iq(packed, pad=pad, device=device), packed.nbytes
-    return from_int8_iq(raw, pad=pad, device=device), len(raw)

@@ -53,20 +53,21 @@ signal recovers by default, the BeiDou B2b ones, else off) leaves each
 channel's complex bins on TrackChannel.recovered.  GNSS_DSP_TIMING prints
 the streaming loop's wall split (read-wait, upload+convert, scan+rows;
 :585-694) to stderr once at the end, the preloaded chunk nothing, as in
-the reference: the loop's spans `track.refill`, `upload` (its device
-synchronised then) and `track.scan` with `track.rows` (utils/profiling;
-the call is the span `track.file`).  GNSS_DSP_UPLOAD_INT4 uploads each
-chunk's new bytes as packed 4-bit I/Q (ops/cplx, :623-630).
+the reference: the loop's spans `track.refill`, `track.assemble` with
+`upload` (its device synchronised then) and `track.scan` with
+`track.rows` (utils/profiling; the call is the span `track.file`).
+GNSS_DSP_UPLOAD_INT4 uploads each chunk's new bytes as packed 4-bit I/Q
+(ops/cplx, :623-630).
 
 The chunk refill copies no sample on the host (the reference joins the
-carried bytes to each read, :74 and :603): the prefetch reader's thread
-reads the stream straight into staging slots, pinned on a card (torch's
-caching host allocator keeps them for the next call), and each chunk is
-built on the device, the samples the last scan left moved over from the
-other of two device buffers, the new slot views uploaded after them
-(cplx.from_iq with into), the zero tail pad written there.  The rows
-are the same bits: int8 samples are exact in complex64 wherever they
-are moved.
+carried bytes to each read, :74 and :603): the streaming chunk is the
+one-band case of the receiver's segmented chunk (_Chunks).  The prefetch
+reader's thread reads the stream straight into staging slots, pinned on
+a card (torch's caching host allocator keeps them for the next call);
+the chunk is built on the device, the samples the last scan left moved
+over from the other of two device buffers, zeros and the new slot views
+uploaded (cplx.from_iq) written after them.  The rows are the same
+bits: int8 samples are exact in complex64 wherever they are moved.
 
 Single-chunk mode (`preloaded`, :536-575): the batched workload runner
 (cli/workload) uploads each band once and hands every script on it the
@@ -142,8 +143,8 @@ class _PrefetchReader:
     each read straight into a staging slot (SLOTS of them, each
     `ahead_samples` samples) with fp.readinto, while the device works on
     the current chunk.  take hands out views of the slots: raw
-    interleaved int8 I/Q bytes, converted on the device (cplx.from_iq
-    with into).  uploaded(), once they are uploaded, records a CUDA event
+    interleaved int8 I/Q bytes, converted on the device
+    (cplx.from_iq).  uploaded(), once they are uploaded, records a CUDA event
     after the copies and gives the slots wholly taken back to the worker,
     which waits on that event before it reads into one again.
 
@@ -273,6 +274,114 @@ class _PrefetchReader:
         self._free.put(None)
         for slot in self._slots:
             slot.wait()
+
+
+def segment_capacity(fs: float, chunk_ms: float, nmax: int) -> int:
+    """Samples a band's segment holds (the reference's receiver.py:
+    196-200): the buffered data (chunk + nmax) and a tail margin of nmax,
+    rounded up to 1024."""
+    cap = int(fs * chunk_ms / 1000.0) + 2 * int(nmax)
+    return cap + (-cap) % 1024
+
+
+class _Chunks:
+    """The device chunk x of B band streams, band b's n[b] samples at the
+    start of its segment [b * cap, (b + 1) * cap), each band read by its
+    own _PrefetchReader.  x is one of two device buffers in turn: refill
+    moves the samples each band's channels (band_of) have not passed over
+    from the other, upload writes zeros to each segment's end and the new
+    bytes after the carried samples, rebase drops what they passed."""
+
+    def __init__(self, fps, band_of, fs: float, chunk_ms: float, nmax: int,
+                 dev):
+        B = len(fps)
+        self.cap = segment_capacity(fs, chunk_ms, nmax)
+        self._ahead = int(fs * chunk_ms / 1000.0) + int(nmax)
+        self._int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
+        self._band_of = np.asarray(band_of, np.int64)
+        self._members = [np.flatnonzero(self._band_of == b) for b in range(B)]
+        self._bufs = [torch.empty(B * self.cap, dtype=torch.complex64,
+                                  device=dev) for _ in range(2)]
+        self.x, self._turn = None, 0
+        self.n = [0] * B              # each band's samples in x
+        self._keep = [0] * B          # of them carried over
+        self._used = [0] * B          # the last chunk's passed by all
+        self._parts = [None] * B      # the last take's slot views
+        self._readers = []
+        try:
+            for fp in fps:
+                self._readers.append(_PrefetchReader(fp, self._ahead, dev))
+        except BaseException:
+            self.close()
+            raise
+
+    @property
+    def done(self) -> bool:
+        """Every band's stream is drained."""
+        return all(r.done for r in self._readers)
+
+    def refill(self) -> bool:
+        """Take each band's next bytes and move its carried samples over
+        into the next buffer; False when no band has a sample left."""
+        with profiling.span("track.refill"):
+            prev, self.x = self.x, self._bufs[self._turn % 2]
+            self._turn += 1
+            for b, r in enumerate(self._readers):
+                keep = max(self.n[b] - self._used[b], 0)
+                self._parts[b] = r.take(self._ahead - keep)
+                self.n[b] = keep + sum(
+                    len(p) for p in self._parts[b] or ()) // 2
+                self._keep[b] = keep
+                if keep:
+                    o, u = b * self.cap, self._used[b]
+                    self.x[o:o + keep].copy_(prev[o + u:o + u + keep])
+        return any(self.n)
+
+    def upload(self) -> int:
+        """Zeros after each band's samples, then its new bytes uploaded
+        after its carried samples; the bytes uploaded."""
+        with profiling.span("track.assemble"):
+            for b, n in enumerate(self.n):
+                self.x[b * self.cap + n:(b + 1) * self.cap].zero_()
+        nbytes = 0
+        for b, r in enumerate(self._readers):
+            if self._parts[b]:
+                o = b * self.cap
+                nbytes += cplx.from_iq(
+                    self._parts[b], int4=self._int4,
+                    into=self.x[o + self._keep[b]:o + self.n[b]])
+                r.uploaded()
+        return nbytes
+
+    def rebase(self, state):
+        """(state, used): each band drops the samples all of its channels
+        have passed, used[b] of them, and its channels' pointers move
+        back by as many."""
+        ptr = state.ptr.cpu().numpy()
+        self._used = [max(int(ptr[m].min()) - b * self.cap, 0)
+                      for b, m in enumerate(self._members)]
+        shift = torch.from_numpy(np.asarray(self._used, np.int32)
+                                 [self._band_of])
+        return (state._replace(ptr=state.ptr - shift.to(state.ptr.device)),
+                self._used)
+
+    def close(self):
+        for r in self._readers:
+            r.close()
+
+
+def print_walls(label: str, timed) -> dict:
+    """A tracking loop's wall split from its spans (t_read: the refills;
+    t_upload: the zeros and the uploads; t_scan: the scans and the rows),
+    printed to stderr when GNSS_DSP_TIMING asks for it."""
+    walls = dict(t_read=timed.seconds("track.refill"),
+                 t_upload=timed.seconds("track.assemble", "upload"),
+                 t_scan=timed.seconds("track.scan", "track.rows"))
+    if timed.printing:
+        print(f"[{label} timing] read-wait {walls['t_read']:.2f} s  "
+              f"upload+convert {walls['t_upload']:.2f} s  scan+rows "
+              f"{walls['t_scan']:.2f} s", file=sys.stderr)
+    return walls
 
 
 @dataclass
@@ -616,13 +725,11 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
     scan = dict(ratios=setup.ratios, coffset_df=setup.coffset_df,
                 sigp=setup.sigp, overlay=setup.overlay)
 
-    chunk_samples = int(fs * chunk_ms / 1000.0)
-    pad_extra = params.nmax
     if preloaded is not None:
         x_dev, n_file = preloaded
         if (resume_from is not None or checkpoint_path is not None
                 or mesh is not None or x_dev.shape[0] % 1024
-                or x_dev.shape[0] < n_file + pad_extra):
+                or x_dev.shape[0] < n_file + params.nmax):
             preloaded = None
     if preloaded is not None:
         sub_ms = min(s.code_period_ms / s.sub_blocks for s in sigs)
@@ -643,69 +750,36 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
                 break
         return _recovered(channels, n_emit, state, recover_after)
 
-    int4 = bool(os.environ.get("GNSS_DSP_UPLOAD_INT4"))
-    # each chunk is built on the device in one of two buffers in turn: the
-    # samples the last scan left (moved over from the other buffer), the
-    # new parts uploaded after them, then the zero tail pad (>= nmax, so
-    # every block a channel can start fits, up to a multiple of 1024)
-    room = chunk_samples + params.nmax + pad_extra
-    xbufs = [torch.empty(room + (-room) % 1024, dtype=torch.complex64,
-                         device=dev) for _ in range(2)]
-    x_dev, nbuf, consumed, turn = None, 0, 0, 0
-    reader = _PrefetchReader(fp, chunk_samples + pad_extra, dev)
-    # GNSS_DSP_TIMING: the reference's wall split of the streaming loop
-    # (read wait, upload and conversion, scan and rows), read from its
-    # spans, one stderr line at the end; the upload synchronised only then
+    chunks = _Chunks([fp], [0] * C, fs, chunk_ms, params.nmax, dev)
+    # GNSS_DSP_TIMING: the reference's wall split of the streaming loop,
+    # from its spans at the end (print_walls); the upload synchronised then
     try:
         with profiling.Timing("upload") as timed:
-            while True:
-                # refill the chunk (the next read already ran on the
-                # prefetch thread while the previous scan ran)
-                with profiling.span("track.refill"):
-                    keep = max(nbuf - consumed, 0)
-                    want = chunk_samples + params.nmax - keep
-                    parts = reader.take(want) if want > 0 else None
-                    nbuf = keep + sum(len(p) for p in parts or ()) // 2
-                    if nbuf:
-                        prev, buf = x_dev, xbufs[turn % 2]
-                        if keep:
-                            buf[:keep].copy_(prev[consumed:consumed + keep])
-                        tail = pad_extra + (-(nbuf + pad_extra)) % 1024
-                        buf[nbuf:nbuf + tail].zero_()
-                        x_dev = buf[:nbuf + tail]
-                        turn += 1
-                if nbuf == 0:
-                    break
+            while chunks.refill():
                 nb = setup.blocks_per_scan
                 if max_blocks is not None:
                     nb = min(nb, max_blocks - total_blocks)
                     if nb <= 0:
                         break
-                if parts:
-                    cplx.from_iq(parts, device=dev, int4=int4,
-                                 into=x_dev[keep:nbuf])
-                    reader.uploaded()
+                chunks.upload()
                 state = state._replace(
                     stalled=torch.zeros_like(state.stalled))
                 if mesh is not None:
                     state, rows_f, rows_i = track_scan_sharded(
-                        mesh, x_dev, nbuf, setup.code_tab, state, params,
-                        nb, **scan)
+                        mesh, chunks.x, chunks.n[0], setup.code_tab, state,
+                        params, nb, **scan)
                 else:
                     state, rows_f, rows_i = track_scan(
-                        x_dev, nbuf, setup.code_tab, state, params, nb,
-                        **scan)
+                        chunks.x, chunks.n[0], setup.code_tab, state,
+                        params, nb, **scan)
                 emitted_any = emit_rows(channels, n_emit, emit, rows_f,
                                         rows_i, nb)
                 total_blocks += nb
                 if max_blocks is not None and total_blocks >= max_blocks:
                     break
 
-                # the samples every channel has passed are dropped (the
-                # next chunk keeps the rest); rebase the pointers
-                consumed = int(state.ptr.min())
-                state = state._replace(ptr=state.ptr - consumed)
-                abs_buf0 += consumed
+                state, used = chunks.rebase(state)
+                abs_buf0 += used[0]
                 if checkpoint_path is not None:
                     # the pointers are relative to the stream sample
                     # abs_buf0, so a resume needs only a seek: no sample
@@ -717,20 +791,14 @@ def track_file(sig, fp, fs: float, coffset: float, channels,
                                               "total_blocks": total_blocks})
                     os.replace(tmp, checkpoint_path)
 
-                if reader.done and not emitted_any:
-                    break
-                if reader.done and bool(state.stalled.all()):
-                    # every channel is frozen at the data end and no
-                    # samples can arrive: rebasing cannot unstall them
+                # once drained: no channel ran, or every channel is frozen
+                # at the data end (rebasing cannot unstall them)
+                if chunks.done and (not emitted_any
+                                    or bool(state.stalled.all())):
                     break
     finally:
-        reader.close()
-    if timed.printing:
-        print(f"[track_file timing] read-wait "
-              f"{timed.seconds('track.refill'):.2f} s  upload+convert "
-              f"{timed.seconds('upload'):.2f} s  scan+rows "
-              f"{timed.seconds('track.scan', 'track.rows'):.2f} s",
-              file=sys.stderr)
+        chunks.close()
+    print_walls("track_file", timed)
     return _recovered(channels, n_emit, state, recover_after)
 
 

@@ -75,8 +75,8 @@ The program's spans and counters:
   track.refill                a chunk's refill: the takes and the
                               carried samples moved on the device
     track.read_wait           the wait for the prefetch reader's bytes
-  track.assemble              the receiver's segments' zeros, written
-                              on the device
+  track.assemble              a chunk's zeros to its segments' ends,
+                              written on the device (track/driver._Chunks)
   track.scan                  track/engine.track_scan: host set-up and
                               launches
   track.rows                  track/driver.emit_rows; counters

@@ -42,8 +42,8 @@ ACQ = ["--prn", "3,9", "--doppler-search", "-1500,1500,500", "--time", "8"]
 TRACK = ["--blocks", "12", "--chunk-ms", "5"]
 SPEC = "3:1000.0:211.6,9:-500.0:803.3"
 TRACK_SPANS = {"cli.track", "track.file", "track.setup", "track.refill",
-               "track.read_wait", "upload", "track.scan", "track.rows",
-               "track.readback"}
+               "track.read_wait", "track.assemble", "upload", "track.scan",
+               "track.rows", "track.readback"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,7 +166,7 @@ def test_cli_spans_under_trace(env, capture, tmp_path):
     (tf,) = by["track.file"]
     assert tf.parent is trk
     assert all(s.parent is tf for s in by["track.refill"] + by["track.scan"]
-               + by["track.rows"] + by["upload"][1:])
+               + by["track.assemble"] + by["track.rows"] + by["upload"][1:])
     assert all(s.parent.name == "track.refill" for s in by["track.read_wait"])
     assert all(s.parent.name == "track.rows" for s in by["track.readback"])
     assert len(by["track.scan"]) == len(by["track.rows"]) >= 2
@@ -194,7 +194,7 @@ def test_cli_spans_under_trace(env, capture, tmp_path):
 def test_lru_counters_and_uploaded_bytes(env, capture, tmp_path):
     """A first search misses the code-spectra LRU and a second hits it;
     h2d.bytes is the bytes the uploads handed over (int8, and int4 packed
-    under one upload span)."""
+    on the host first)."""
     env.setattr(engine, "_CODE_FFTS_DEV", {})
     with profiling.trace(str(tmp_path / "a")):
         _acquire(capture)
@@ -207,9 +207,10 @@ def test_lru_counters_and_uploaded_bytes(env, capture, tmp_path):
     raw = np.arange(-50, 50, dtype=np.int8)
     with profiling.trace(str(tmp_path / "b")):
         cplx.from_int8_iq(raw.tobytes(), pad=8, device="cpu")
-        _x, n4 = cplx.from_iq(raw, device="cpu", int4=True)
+        packed = cplx.pack_int4_host(raw)
+        cplx.from_int4_iq(packed, device="cpu")
         cplx.from_int4_iq(bytes(6), device="cpu")
-    assert n4 == 50
+    assert packed.nbytes == 50
     assert profiling.counts() == {"h2d.bytes": 100 + 50 + 6}
     assert profiling.totals()["upload"].calls == 3
 
@@ -297,7 +298,7 @@ def test_timing_lines_are_the_span_totals(env, capture, tmp_path):
     t = profiling.totals()
     rw, up, sr = _line(err, "[track_file timing]")
     assert rw == round(t["track.refill"].host_s, 2)
-    assert up == round(t["upload"].host_s, 2)
+    assert up == round(t["track.assemble"].host_s + t["upload"].host_s, 2)
     assert sr == round(t["track.scan"].host_s + t["track.rows"].host_s, 2)
 
 

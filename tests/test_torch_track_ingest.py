@@ -12,9 +12,15 @@ chunk refill, ops/cplx.from_iq with into) on the CPU:
     than asked, and give a slot back to the worker only once its bytes
     are uploaded; a read error reaches the caller;
   * neither the reader's close nor a track_file stopped by max_blocks
-    waits for a read the stream holds (a stalled pipe).
+    waits for a read the stream holds (a stalled pipe);
+  * the chunk builder both loops share (driver._Chunks), at one band and
+    three, int8 and int4: every chunk is the bytes from each band's
+    stream position assembled on the host (from_int8_iq, zeros to each
+    segment's end), the carried samples moved across the two buffers,
+    and each band's rebase is the least pointer of its channels.
 """
 
+import collections
 import io
 import threading
 import time
@@ -304,3 +310,75 @@ def test_max_blocks_returns_on_a_stalled_stream(env, capture):
     for g, w in zip(got, want):
         assert len(g) >= 10
         np.testing.assert_array_equal(g, w[:len(g)])
+
+
+_Ptr = collections.namedtuple("_Ptr", "ptr")
+
+
+def _host_segment(raw, pos, n, cap, int4):
+    """Band samples [pos, pos + n) from the capture bytes, zeros to cap."""
+    part = raw[2 * pos:2 * (pos + n)]
+    if int4:
+        return cplx.from_int4_iq(cplx.pack_int4_host(part), pad=cap - n,
+                                 device="cpu")
+    return cplx.from_int8_iq(part, pad=cap - n, device="cpu")
+
+
+@pytest.mark.parametrize("lens,int4", [
+    ((2500,), False),                   # one band: track_file's chunk
+    ((2500,), True),
+    ((2500, 2310, 2710), False),        # three bands, short last chunks
+    ((2500, 900, 2710), True),          # band 1 ends chunks before the rest
+])
+def test_chunks_are_the_host_assembled_bytes(env, lens, int4):
+    """500-sample chunks (nmax 37) over bands of `lens` samples, 2, 1 and
+    3 channels a band, their pointers moved on by seed-drawn amounts
+    after each chunk: each chunk is each band's next bytes from its
+    stream position, assembled on the host, the carried samples moved
+    over from the other buffer; rebase drops each band's least pointer
+    and moves its channels back by as many."""
+    if int4:
+        env.setenv("GNSS_DSP_UPLOAD_INT4", "1")
+    rng = np.random.default_rng(sum(lens) + int4)
+    raws = [rng.integers(-128, 128, 2 * n).astype(np.int8) for n in lens]
+    band_of = [b for b, k in enumerate((2, 1, 3)[:len(lens)])
+               for _ in range(k)]
+    fs, chunk_ms, nmax = 100_000.0, 5.0, 37
+    chunks = driver._Chunks([io.BytesIO(r.tobytes()) for r in raws], band_of,
+                            fs, chunk_ms, nmax, torch.device("cpu"))
+    cap = driver.segment_capacity(fs, chunk_ms, nmax)
+    pos, n_was, used = [0] * len(lens), [0] * len(lens), [0] * len(lens)
+    buffers, carried, n_chunks = set(), 0, 0
+    try:
+        while chunks.refill():
+            n_chunks += 1
+            assert n_chunks < 40
+            want = [min(500 + nmax, L - p) for L, p in zip(lens, pos)]
+            assert chunks.n == want
+            new = [n - max(w - u, 0) for n, w, u in zip(want, n_was, used)]
+            carried += sum(n - k for n, k in zip(want, new))
+            nbytes = chunks.upload()
+            assert nbytes == sum(new) * (1 if int4 else 2)
+            x = chunks.x
+            assert x.shape[0] == len(lens) * cap
+            buffers.add(x.data_ptr())
+            host = torch.cat([_host_segment(r, p, n, cap, int4)
+                              for r, p, n in zip(raws, pos, want)])
+            assert torch.equal(torch.view_as_real(x), torch.view_as_real(host))
+            # each channel moves on to within the band's samples
+            ptr = np.array([b * cap + int(rng.integers(-(-want[b] // 2),
+                                                       want[b] + 1))
+                            for b in band_of], np.int32)
+            state, used = chunks.rebase(_Ptr(torch.from_numpy(ptr.copy())))
+            for b in range(len(lens)):
+                least = min(int(ptr[k]) for k in range(len(ptr))
+                            if band_of[k] == b)
+                assert used[b] == least - b * cap
+            np.testing.assert_array_equal(
+                state.ptr.numpy(), ptr - np.array(used)[band_of])
+            n_was = want
+            pos = [p + u for p, u in zip(pos, used)]
+        assert pos == list(lens) and chunks.done
+    finally:
+        chunks.close()
+    assert n_chunks >= 5 and carried > 0 and len(buffers) == 2
