@@ -52,15 +52,16 @@ def b1i_table(prns) -> np.ndarray:
     seed = [0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0]
     g1 = lfsr.lfsr_seq(11, (0, 6, 7, 8, 9, 10), seed, B1I_CODE_LENGTH,
                        out_taps=(10,))
+    # one G2 register for every PRN; a PRN's phase selector XORs 2 or 3
+    # of its stages
+    stages = lfsr.lfsr_stages(11, (0, 1, 2, 3, 4, 7, 8, 10), seed,
+                              B1I_CODE_LENGTH)
     rows = []
     for p in prns:
         t = taps[p]
         t = (t,) if isinstance(t, int) else t
-        g2 = lfsr.lfsr_seq(11, (0, 1, 2, 3, 4, 7, 8, 10), seed,
-                           B1I_CODE_LENGTH,
-                           out_taps=tuple(x - 1 for x in t))
-        rows.append(g1 ^ g2)
-    return lfsr.to_pm1(np.stack(rows))
+        rows.append(np.bitwise_xor.reduce(stages[[x - 1 for x in t]]))
+    return lfsr.to_pm1(g1[None, :] ^ np.stack(rows))
 
 
 def b1i_prns() -> tuple:

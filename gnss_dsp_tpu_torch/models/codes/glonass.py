@@ -5,8 +5,8 @@ C/A: one 511-chip m-sequence shared by all satellites (FDMA, no PRN) —
 10-22).
 
 P: 25-bit m-sequence truncated to 5.11e6 chips (1 s), output x[9]
-(glonass/p.py:10-20).  Built once on first use (~5 s pure-python; the
-result is memoized packed).
+(glonass/p.py:10-20).  Built once on first use (milliseconds: lfsr's
+recurrence writes up to 393,216 chips an operation) and memoized.
 
 L3OCd/L3OCp: 10230 chips, XOR of a 14-bit register (fixed seed) and a
 7-bit register seeded with the channel number n (data) or n+64 (pilot),

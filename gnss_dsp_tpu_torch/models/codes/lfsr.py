@@ -5,14 +5,25 @@ the reference's list representation, e.g. gps/ca.py:76-80): the state is
 bits x[0..nbits-1]; each step outputs x[nbits-1], computes the new bit as
 XOR of the tap positions, and shifts it in at x[0].
 
-The state is packed into a Python int (bit i == x[i]) so a step is two
-shifts and a popcount — fast enough to build every table at import time
-except the 5.11M-chip GLONASS P code, which callers should disk-cache.
+`lfsr_seq_batch` (and `lfsr_seq`, its one-register case) steps only the
+first nbits chips, one numpy operation a chip.  The output of a Fibonacci
+register is a linear function of its state, so it obeys the register's
+characteristic recurrence o[m] = XOR_{t in taps} o[m-1-t] for m >= nbits,
+whatever the output taps; and since p(x)^(2^k) = p(x^(2^k)) over GF(2),
+o[m] = XOR_t o[m - 2^k (1+t)] for m >= nbits 2^k.  The rest is written
+2^k (1 + min(taps)) chips of every row an operation, k rising by one
+each time the written prefix doubles: at most nbits log2(n / nbits)
+blocks in all, so a 10230-chip table of 64 rows, or the 5.11M-chip
+GLONASS P code, builds in milliseconds.  Counters `codes.lfsr.chips`
+and `codes.lfsr.chips_stepped` (utils/profiling) count the chips built
+and those the per-chip loop wrote, inside span `codes.lfsr`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 def bits_to_int(bits) -> int:
@@ -37,22 +48,19 @@ def lfsr_seq(nbits: int, taps, init, n: int, out_taps=None) -> np.ndarray:
     Returns uint8 [n] in {0,1}.
     """
     state = init if isinstance(init, int) else bits_to_int(init)
-    mask = (1 << nbits) - 1
-    tapmask = 0
-    for t in taps:
-        tapmask |= 1 << t
-    if out_taps is None:
-        out_taps = (nbits - 1,)
-    outmask = 0
-    for t in out_taps:
-        outmask |= 1 << t
+    return lfsr_seq_batch(nbits, taps, [state], n, out_taps=out_taps)[0]
 
-    out = np.empty(n, dtype=np.uint8)
-    for i in range(n):
-        out[i] = (state & outmask).bit_count() & 1
-        new = (state & tapmask).bit_count() & 1
-        state = ((state << 1) | new) & mask
-    return out
+
+def lfsr_stages(nbits: int, taps, init, n: int) -> np.ndarray:
+    """Every stage of one register over n steps: uint8 [nbits, n], row j
+    the bit x[j] before each step, so the output of any output taps is
+    the XOR of their rows.  A shift moves x[j-1] to x[j], so row j is
+    row 0 delayed j steps, preceded by the seed's x[j..1]."""
+    bits = int_to_bits(init, nbits) if isinstance(init, int) else list(init)
+    x0 = lfsr_seq(nbits, taps, bits, n, out_taps=(0,))
+    ext = np.concatenate([np.array(bits[:0:-1], np.uint8), x0])
+    idx = np.arange(nbits - 1, -1, -1)[:, None] + np.arange(n)[None, :]
+    return ext[idx]
 
 
 def lfsr_end_state(nbits: int, taps, init, n: int) -> int:
@@ -86,23 +94,56 @@ def lfsr_seq_batch(nbits: int, taps, inits, n: int, out_taps=None,
     reset_at  : if >= 0, at step i == reset_at the register reloads
                 `reset_state` INSTEAD of shifting (the BeiDou B2a/B2b
                 G1 restart at chip 8189, b2ad.py:55-58)
-    Returns uint8 [R, n] in {0,1}.  ~n numpy ops regardless of R — this is
-    what makes the 10230-chip x 63-PRN families build in milliseconds.
+    Returns uint8 [R, n] in {0,1}.  A reset splits the run in two: chips
+    0..reset_at from `inits`, the rest from `reset_state`, the same for
+    every row; each part follows its own recurrence.
     """
-    states = np.array(inits, dtype=np.uint64).copy()
+    out_taps = out_taps or (nbits - 1,)
+    with profiling.span("codes.lfsr"):
+        states = np.array(inits, dtype=np.uint64)
+        out = np.empty((len(states), n), dtype=np.uint8)
+        if 0 <= reset_at < n - 1:
+            head, tail = out[:, :reset_at + 1], out[:, reset_at + 1:]
+            stepped = _generate(nbits, taps, states, head, out_taps)
+            stepped += _generate(nbits, taps,
+                                 np.array([reset_state], np.uint64),
+                                 tail[:1], out_taps)
+            tail[1:] = tail[:1]
+        else:
+            stepped = _generate(nbits, taps, states, out, out_taps)
+        profiling.count("codes.lfsr.chips", out.size)
+        profiling.count("codes.lfsr.chips_stepped", stepped)
+    return out
+
+
+def _generate(nbits: int, taps, states, out, out_taps) -> int:
+    """Write out[R, n] from the packed states [R]: the first nbits chips
+    stepped a chip at a time, the rest by the doubling recurrence of the
+    module docstring.  Returns the chips the per-chip loop wrote."""
+    n = out.shape[1]
     mask = np.uint64((1 << nbits) - 1)
     tapmask = np.uint64(sum(1 << t for t in taps))
-    outmask = np.uint64(sum(1 << t for t in (out_taps or (nbits - 1,))))
+    outmask = np.uint64(sum(1 << t for t in out_taps))
     one = np.uint64(1)
-    out = np.empty((len(states), n), dtype=np.uint8)
-    for i in range(n):
+    prefix = min(n, nbits)
+    for i in range(prefix):
         out[:, i] = np.bitwise_count(states & outmask).astype(np.uint8) & 1
-        if i == reset_at:
-            states[:] = np.uint64(reset_state)
-        else:
-            new = (np.bitwise_count(states & tapmask) & one).astype(np.uint64)
-            states = ((states << one) | new) & mask
-    return out
+        new = (np.bitwise_count(states & tapmask) & one).astype(np.uint64)
+        states = ((states << one) | new) & mask
+    lags = [1 + t for t in taps]
+    m, stride = prefix, 1
+    while m < n:
+        if m >= 2 * stride * nbits:
+            stride *= 2
+        # every source lies at least stride * min(lags) chips back
+        w = min(stride * min(lags), n - m)
+        first, *rest = (m - stride * lag for lag in lags)
+        dst = out[:, m:m + w]
+        dst[...] = out[:, first:first + w]
+        for a in rest:
+            dst ^= out[:, a:a + w]
+        m += w
+    return out.shape[0] * prefix
 
 
 def galois_seq_batch(nbits: int, poly: int, inits, n: int) -> np.ndarray:

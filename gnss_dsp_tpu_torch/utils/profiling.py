@@ -58,6 +58,11 @@ The program's spans and counters:
                               h2d.pinned_bytes from pinned memory (the
                               tracking loops' uploads into place)
   frontend (device)           ops/frontend.prepare_baseband
+  codes.lfsr                  models/codes/lfsr's register runs (the code
+                              tables' LFSR families); counters
+                              codes.lfsr.chips: the chips built, of them
+                              codes.lfsr.chips_stepped by the per-chip
+                              loop, counted once a call
   acq.code_ffts.hit, .miss    counters: acquire/engine's code-spectra LRU
   acq.code_spectra            a miss's host build of the code spectra
                               and their upload (acquire/engine)

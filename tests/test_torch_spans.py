@@ -418,3 +418,20 @@ def test_spans_of_their_own_thread(env, tmp_path):
                    and s.request == s.parent.request for s in leaves)
         assert len({s.request for s in timed.spans}) == n
     assert len(kept) == n_threads
+
+
+def test_code_generator_counters_and_span(env, tmp_path):
+    """One E5aI code row under the profiler: its two registers' chips
+    counted, all but each register's stepped prefix written by the
+    recurrence, inside spans `codes.lfsr`."""
+    sig = get_signal("galileo-e5ai")
+    with profiling.trace(str(tmp_path / "c")):
+        row = sig.code_table((24,))
+    c = profiling.counts()
+    assert row.shape == (1, 10230)
+    assert c["codes.lfsr.chips"] == 2 * row.size
+    assert c["codes.lfsr.chips_stepped"] == 2 * 14
+    assert c["codes.lfsr.chips_stepped"] < 0.1 * c["codes.lfsr.chips"]
+    spans = [s for s in profiling.spans() if s.name == "codes.lfsr"]
+    assert len(spans) == 2 and all(s.parent is None for s in spans)
+    assert profiling.totals()["codes.lfsr"].calls == 2
