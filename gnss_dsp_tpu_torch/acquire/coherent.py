@@ -35,6 +35,12 @@ one channel a call, its band offset folded into the oscillators
 (acquire_signal_coherent's chan, engine.doppler_grid); on the card the
 spec route at 16384 (K5 with one code row and one alignment).  The
 assisted serial searches have no coherent form (serial.py).
+
+Spans and counters (utils/profiling), on this path only: each search
+counts its route (acq.route.coh_spec, .coh_blk, .coh_xla); on the spec
+route the span acq.coh.combine (with its stream seconds) holds each
+doppler chunk's combine, the fft_combine precompute included, and the
+counter acq.coh.rows the combined rows (dc x G x A) handed to K5.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from gnss_dsp_tpu_torch.ops import acquire_coh
 from gnss_dsp_tpu_torch.ops.acquire2 import check_w
 from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
 from gnss_dsp_tpu_torch.ops.nco import MASK32
+from gnss_dsp_tpu_torch.utils import profiling
 
 
 def _rotation(df: torch.Tensor, n: int, blocks: int):
@@ -122,22 +129,27 @@ def grid_search_coherent_fast(x, code_f, dopp_fixed, sec_mat, n: int,
         if mode == "spec":
             Fg = F.reshape(dc, G, m_coh, window)
             if fft_combine:
-                rot = torch.complex(cosang, -sinang).reshape(dc, G, m_coh)
-                Yc = torch.fft.ifft(Fg * rot[..., None], dim=2) * A
+                with profiling.span("acq.coh.combine", device=dev):
+                    rot = torch.complex(cosang, -sinang).reshape(dc, G, m_coh)
+                    Yc = torch.fft.ifft(Fg * rot[..., None], dim=2) * A
 
             def combine(k):
                 """F2 [dc, G*A, W]: row g*A + a = sum_m conj(w[a, m])
                 F[d, g*M + m], w = overlay sign x residual rotation."""
-                if fft_combine:
-                    S = torch.fft.fft(sec_mat[k, :, 0].to(torch.complex64))
-                    Fa = torch.fft.ifft(Yc * S[None, None, :, None], dim=2)
-                else:
-                    sm = sec_mat[k][None]                      # [1, A, B]
-                    wc = torch.complex(sm * cosang[:, None, :],
-                                       -sm * sinang[:, None, :])
-                    Fa = torch.einsum("dagm,dgmw->dgaw",
-                                      wc.reshape(dc, A, G, m_coh), Fg)
-                return Fa.reshape(dc, G * A, window)
+                profiling.count("acq.coh.rows", dc * G * A)
+                with profiling.span("acq.coh.combine", device=dev):
+                    if fft_combine:
+                        S = torch.fft.fft(
+                            sec_mat[k, :, 0].to(torch.complex64))
+                        Fa = torch.fft.ifft(Yc * S[None, None, :, None],
+                                            dim=2)
+                    else:
+                        sm = sec_mat[k][None]                  # [1, A, B]
+                        wc = torch.complex(sm * cosang[:, None, :],
+                                           -sm * sinang[:, None, :])
+                        Fa = torch.einsum("dagm,dgmw->dgaw",
+                                          wc.reshape(dc, A, G, m_coh), Fg)
+                    return Fa.reshape(dc, G * A, window)
 
             if NS == 1:
                 peak, code_idx, al = acquire_coh.corr_surface_coh_spec(
@@ -321,6 +333,7 @@ def acquire_signal_coherent(sig, x_int: torch.Tensor, prns, doppler_search,
         dop_chunk = coh_dop_chunk(fast, len(prns), blocks, m_coh, N, window,
                                   len(dops))
     fixed_t = torch.from_numpy(fixed.astype(np.int64))
+    profiling.count(f"acq.route.coh_{fast[0] if fast else 'xla'}")
 
     if fast:
         mode, window_t, dw, n_valid = fast

@@ -70,6 +70,12 @@ The program's spans and counters:
                               and forward FFT of the block windows
   acq.route.v2, .v2p, .v1,    counters: the route of each non-coherent
   .xla                        search (acquire/plan.acq_plan)
+  acq.route.coh_spec,         counters: the route of each coherent
+  .coh_blk, .coh_xla          search (acquire/coherent, plan.coh_plan)
+  acq.coh.combine (device)    acquire/coherent's spec combine of a
+                              doppler chunk (the fft_combine precompute
+                              included); counter acq.coh.rows: the
+                              combined rows (dc x G x A) handed to K5
   track.file, track.receiver  track/driver.track_file,
                               track/receiver.track_receiver
   track.setup                 the channels' set-up, first boundaries,

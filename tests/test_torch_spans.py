@@ -435,3 +435,37 @@ def test_code_generator_counters_and_span(env, tmp_path):
     spans = [s for s in profiling.spans() if s.name == "codes.lfsr"]
     assert len(spans) == 2 and all(s.parent is None for s in spans)
     assert profiling.totals()["codes.lfsr"].calls == 2
+
+
+def _coherent_names(counts, totals):
+    return sorted(k for k in list(counts) + list(totals)
+                  if k.startswith(("acq.coh.", "acq.route.coh_")))
+
+
+def test_coherent_search_spans_and_counters(env, capture, tmp_path):
+    """A small B1I --coherent 20 search (the spec route, one doppler
+    chunk of 2, one group of 20 alignments) records the span
+    acq.coh.combine inside cli.acquire, acq.coh.rows = dc x G x A and
+    exactly one acq.route.coh_spec; a non-coherent search records none of
+    them."""
+    env.setattr(engine, "_CODE_FFTS_DEV", {})
+    path = tmp_path / "b1i.iq"
+    rng = np.random.default_rng(5)
+    path.write_bytes(rng.integers(-20, 21, size=2 * 204800,
+                                  dtype=np.int8).tobytes())
+    with profiling.trace(str(tmp_path / "coh")):
+        _run(acq_cli.main, "beidou-b1i",
+             ["--coherent", "20", "--time", "20", "--prn", "7",
+              "--doppler-search", "0,50,25", str(path), "8192000", "0",
+              "--device", "cpu"])
+    c, tot = profiling.counts(), profiling.totals()
+    assert _coherent_names(c, tot) == ["acq.coh.combine", "acq.coh.rows",
+                                       "acq.route.coh_spec"]
+    assert c["acq.route.coh_spec"] == 1
+    assert c["acq.coh.rows"] == 2 * 1 * 20
+    (comb,) = [s for s in profiling.spans() if s.name == "acq.coh.combine"]
+    assert comb.parent.name == "cli.acquire"
+    assert tot["acq.coh.combine"].stream_s is None          # the CPU
+    with profiling.trace(str(tmp_path / "plain")):
+        _acquire(capture)
+    assert _coherent_names(profiling.counts(), profiling.totals()) == []
