@@ -54,10 +54,11 @@ Runs every phase, in this order:
           planted cell per PRN (and on the padded
           windows a stronger one below the searched lags, which must not
           win), with timings, the library ifft, the bound, the kernel's
-          plan and the times at the other cluster sizes built; then a
-          planted exact tie across cluster ranks and two alignments at each
-          new window, which must report the lower lag, then the lower
-          alignment
+          plan and the times at the other cluster sizes built and, at
+          16384, of surface_rows' build beside the batched core (the
+          ablation, bit-equal to it); then a planted exact tie across
+          cluster ranks and two alignments at each new window, which must
+          report the lower lag, then the lower alignment
   k6      per-block coherent kernel (the combine, then the surface on
           the cluster core) vs its plain version at the GPS L1
           --coherent 8 shape (32 PRN x 102 doppler x 80 blocks in groups
@@ -360,7 +361,7 @@ E2E_WIDE = ("xona-x5d", "gps-l5i", "galileo-e6b", "galileo-e1b", "gps-l1cp",
 # the other sizes of their register core's builds, and at 81920 the
 # run-time core on 8 CTAs, its core before the 320-point register
 # transform)
-K5_CLUSTERS = {16384: (4,), 32768: (8,), 65536: (16,), 81920: (8,)}
+K5_CLUSTERS = {32768: (8,), 65536: (16,), 81920: (8,)}
 # K7's cluster sizes up to 8 that hold the row (the ablation runs those
 # the kernel does not choose)
 K7_CLUSTERS = {30690: (4, 5, 6, 7, 8), 61380: (7, 8)}
@@ -1300,6 +1301,14 @@ def _k5_case(dev, card, tag, P, DC, G, A, W, n_valid, seed, reps=3):
         f"plain {plain_ms:.3f} ms, library ifft {library_text(lib, ms)}, "
         f"bound {bms:.3f} ms by {by}  [{card}]")
     log(f"[k5] {tag}: plan: {plan_text(info, sms)}")
+    if W == acquire_coh.BATCHED_W:
+        got_s = acquire_coh.corr_surface_coh_spec(*args, surface_rows=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, got_s)),
+              (tag, "surface_rows' build differs from the batched core"))
+        ms_s = cuda_ms(lambda: acquire_coh.corr_surface_coh_spec(
+            *args, surface_rows=True), reps)
+        log(f"[k5] {tag}: ablation, surface_rows' build: {ms_s:.3f} ms "
+            f"against {ms:.3f}; bit-equal  [{card}]")
     for c in K5_CLUSTERS.get(W, ()):
         other = acquire_coh.spec_launch_info(W, dev.index or 0, c)
         got_c = acquire_coh.corr_surface_coh_spec(*args, cluster=c)
@@ -1378,7 +1387,7 @@ def phase_k5(dev, card, results):
     shapes.append(w["shape"])
     results["acquire_coh_spec"]["max_abs_err"] = max(errs)
     results["acquire_coh_spec"]["shapes"] = shapes
-    for W in sorted({launch[4] for launch in seen}):
+    for W in sorted({launch[4] for launch in seen} | {16384}):
         _k5_tie(dev, card, W)
 
 

@@ -69,6 +69,8 @@ SIGNATURES = {
     "track_fused_info": [_I, _I, _I, _I, _P],
     "acq_coh_spec": [_P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "acq_coh_spec_surface": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "acq_coh_spec_info": [_I, _I, _P],
     "acq_coh_blk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _P],

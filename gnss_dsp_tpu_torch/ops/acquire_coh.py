@@ -27,14 +27,15 @@ converts the TPU kernels' permuted split planes).
 Kernels: K5 csrc/acquire_coh_spec.cu, one thread-block cluster per
 (PRN, doppler) walking all its rows, each transformed across the
 cluster (csrc/acq_cluster.cuh) on K1's cores (spec_core_plan: the
-register core at the windows of SPEC_CLUSTERS, the run-time core at
-163840 and any other window wide_split factors), the max over alignments
-in the kernel; K6 csrc/acquire_coh.cu at power-of-two W <= 16384, in two
-stages: the combine (combine_blk_plain's rows F2 [DC, G*A, W], once per
-doppler and group, never per PRN), then K5's alignment loop on the
-register core over F2 (K5's own launch and builds), one cluster per
-(PRN, doppler) and alignment chunk (blk_plan), the chunks merged in the
-kernel.
+register core at the windows of SPEC_CLUSTERS, at 16384 (BATCHED_W) the
+batched register core with two rows of a cluster in flight and one
+cluster barrier a row; the run-time core at 163840 and any other window
+wide_split factors), the max over alignments in the kernel; K6
+csrc/acquire_coh.cu at power-of-two W <= 16384, in two stages: the
+combine (combine_blk_plain's rows F2 [DC, G*A, W], once per doppler and
+group, never per PRN), then K5's alignment loop on the register core
+over F2 (K5's own launch and builds), one cluster per (PRN, doppler) and
+alignment chunk (blk_plan), the chunks merged in the kernel.
 
 The wrappers launch the CUDA kernel for CUDA tensors and take the plain
 version only for CPU tensors.  Each kernel has its own launch counter.
@@ -49,6 +50,7 @@ import torch
 from gnss_dsp_tpu_torch.ops import _build
 from gnss_dsp_tpu_torch.ops.acquire2 import (
     check_w, cluster_core_plan, cluster_twiddles, read_launch_info)
+from gnss_dsp_tpu_torch.utils import profiling
 
 LAUNCHES_SPEC = 0      # K5
 LAUNCHES_BLK = 0       # K6
@@ -60,8 +62,12 @@ _PLAIN_CHUNK_BYTES = 1 << 28   # bound on the plain versions' temporaries
 # thread keeps its code values in registers there).  Any other
 # (W, cluster) takes the run-time core.
 SPEC_CLUSTERS = {**{1 << L: (min(8, 1 << (L // 2)),) for L in range(1, 14)},
-                 4096: (2,), 16384: (8, 4), 32768: (16, 8), 65536: (8, 16),
+                 4096: (2,), 16384: (8,), 32768: (16, 8), 65536: (8, 16),
                  81920: (16,)}
+# The window of K5's batched register core (csrc/acquire_coh_spec.cu,
+# coh_spec_kernel_batch, on 8 CTAs); surface_rows is the register core at
+# every other window of SPEC_CLUSTERS
+BATCHED_W = 16384
 # K6's alignment split (blk_plan): the CTAs of work an SM it aims for, and
 # the fewest rows a cluster walks
 FILL_CTAS = 8
@@ -159,7 +165,7 @@ def spec_launch_info(W: int, device_index: int, cluster: int = 0) -> dict:
     (acq_coh_spec_info), as ops/acquire2.launch_info: cluster size,
     dynamic shared memory bytes a CTA, registers and spilled bytes a
     thread, clusters the card holds at once, threads a CTA, n1, n2 and
-    the core ("split" or "wide")."""
+    the core ("split" or "wide"; the batched core is "split")."""
     return read_launch_info(_build.load().acq_coh_spec_info, W,
                             device_index, cluster,
                             spec_core_plan(W, cluster), "K5")
@@ -205,11 +211,14 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
-                          cluster: int = 0):
+                          cluster: int = 0, surface_rows: bool = False):
     """K5: (peak, idx, align) [P, DC] for pre-combined spectra f2
     complex64 [DC, G*A, W] (row g*A + a) and code_f complex64 [P, W];
     on the card `cluster` CTAs a cluster as spec_core_plan (0: the
-    kernel's choice)."""
+    kernel's choice).  `surface_rows` runs surface_rows' build where the
+    batched core would (BATCHED_W on 8 CTAs; acq_coh_spec_surface): the
+    ablation, bit-equal.  Each launch counts acq.k5.core.batched (on the
+    batched core) or acq.k5.core.other (any other core)."""
     global LAUNCHES_SPEC
     _check(f2, code_f)
     DC, GA, W = f2.shape
@@ -235,13 +244,18 @@ def corr_surface_coh_spec(f2, code_f, A: int, n_valid: int = 0, *,
                for _ in range(2))
     with torch.cuda.device(f2.device):
         stream = torch.cuda.current_stream(f2.device).cuda_stream
-        err = lib.acq_coh_spec(f2.data_ptr(), code_f.data_ptr(),
-                               None if tw is None else tw.data_ptr(),
-                               peak.data_ptr(), idx.data_ptr(),
-                               al.data_ptr(), None, None, P, DC, GA, A, W,
-                               n_valid, cluster, A, stream)
+        launch = (lib.acq_coh_spec_surface if surface_rows
+                  else lib.acq_coh_spec)
+        err = launch(f2.data_ptr(), code_f.data_ptr(),
+                     None if tw is None else tw.data_ptr(), peak.data_ptr(),
+                     idx.data_ptr(), al.data_ptr(), None, None, P, DC, GA, A,
+                     W, n_valid, cluster, A, stream)
     _build.check(err, "acq_coh_spec launch")
     LAUNCHES_SPEC += 1
+    batched = (W == BATCHED_W and info["core"] == "split"
+               and not surface_rows)
+    profiling.count("acq.k5.core.batched" if batched
+                    else "acq.k5.core.other")
     return peak, idx, al
 
 

@@ -76,6 +76,10 @@ The program's spans and counters:
                               doppler chunk (the fft_combine precompute
                               included); counter acq.coh.rows: the
                               combined rows (dc x G x A) handed to K5
+  acq.k5.core.batched,        counters: K5's launches on the card
+  .other                      (ops/acquire_coh.corr_surface_coh_spec) on
+                              the batched core (W = 16384) and on any
+                              other core
   track.file, track.receiver  track/driver.track_file,
                               track/receiver.track_receiver
   track.setup                 the channels' set-up, first boundaries,

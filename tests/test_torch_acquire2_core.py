@@ -22,7 +22,11 @@ the CPU, index for index, at every window the acquisition plan sends it.
   * K5's reduction on the same cores (csrc/acquire_coh_spec.cu at every
     window the coherent route sends it): the per-lag fold over the
     alignments, then a tie across ranks and alignments to the lowest lag,
-    then the lowest alignment.
+    then the lowest alignment;
+  * K5's batched core at 16384 (coh_spec_kernel_batch): its plan, the
+    walk of a cluster's rows with the fold at each alignment's last group
+    and the alignment chunks' merge key, and the order of the cluster
+    barriers that lets two yb buffers take one barrier a row.
 """
 
 import numpy as np
@@ -271,13 +275,21 @@ def _reduce_k5(q, W, lo):
     walked in ascending order (a strict >: the lowest alignment on ties),
     then (peak, lowest lag >= lo reaching it, its alignment) over each
     thread's lags, the shuffle tree of each warp, the warps, the ranks."""
-    from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
-
     A = q.shape[0]
     best, besta = q[0].copy(), np.zeros(W, int)
     for a in range(1, A):
         up = q[a] > best
         best[up], besta[up] = q[a][up], a
+    return _reduce_best(best, besta, W, lo)
+
+
+def _reduce_best(best, besta, W, lo):
+    """K5's reduction of the per-lag (best, alignment) as the kernel
+    orders it: (peak, lowest lag >= lo reaching it, its alignment) over
+    each thread's lags, the shuffle tree of each warp, the warps, the
+    ranks."""
+    from gnss_dsp_tpu_torch.ops.acquire_coh import spec_core_plan
+
     threads, T = _threads(W, plan=spec_core_plan)
 
     def take(c, o):
@@ -333,3 +345,152 @@ def test_k5_reduction_takes_the_lowest_lag_then_alignment(W):
         q[2, W - 5] = 3.0
         q[0, 7] = 4.0
         assert _reduce_k5(q, W, 8) == [3.0, W - 5, 2]
+
+
+# ---- K5's batched core at 16384 ----------------------------------------
+
+def test_k5_batched_core_plan():
+    """The batched core takes K5 at BATCHED_W = 16384 on 8 CTAs, the split
+    core's 128 x 128 layout (its threads and lags are surface_rows' there);
+    4 CTAs take the run-time core."""
+    from gnss_dsp_tpu_torch.ops.acquire_coh import (
+        BATCHED_W, SPEC_CLUSTERS, spec_core_plan)
+
+    assert BATCHED_W == 16384 and SPEC_CLUSTERS[BATCHED_W] == (8,)
+    assert spec_core_plan(BATCHED_W) == ("split", 128, 128, 8)
+    assert spec_core_plan(BATCHED_W, 8) == ("split", 128, 128, 8)
+    assert spec_core_plan(BATCHED_W, 4)[0] == "wide"
+
+
+def _walk_k5(rows, G, A, a0, a1):
+    """The batched core's walk of one cluster over the per-row |x|
+    surfaces rows [G*A, W] (float32, row g*A + a): alignments [a0, a1),
+    their G groups in order; acc sums each row as it comes and folds at an
+    alignment's last group into the per-lag (best, lowest alignment), the
+    alignments ascending.  Returns (best, besta)."""
+    W = rows.shape[1]
+    acc = np.zeros(W, np.float32)
+    best, besta = np.full(W, -np.inf, np.float32), np.zeros(W, int)
+    for a in range(a0, a1):
+        for g in range(G):
+            acc = (acc + rows[g * A + a]).astype(np.float32)
+        up = acc > best
+        best[up], besta[up] = acc[up], a
+        acc = np.zeros(W, np.float32)
+    return best, besta
+
+
+def _key(v, j, a, lo):
+    """merge_chunk's 64-bit key of one chunk's (peak, lag, alignment)."""
+    return (int(np.float32(v).view(np.uint32)) << 32
+            | (16383 - (j - lo)) << 16 | (65535 - a))
+
+
+@pytest.mark.parametrize("G,A,a_chunk", [
+    (2, 20, 20), (1, 3, 3), (3, 3, 3), (10, 1, 1), (2, 3, 2), (3, 5, 2),
+    (1, 5, 1)])
+def test_k5_batched_walk_folds_each_alignment(G, A, a_chunk):
+    """The batched core's walk gives the per-lag (best, alignment) of the
+    alignment surfaces summed over the groups, and K5's reduction of it
+    (on the batched core's threads) the plain finalize_max's (peak, lag,
+    alignment); split into alignment chunks of a_chunk, the highest merge
+    key decodes to the same cell.  The rows hold ties: alignments 1 and 2
+    equal, so the walk must keep alignment 1."""
+    W, lo = 16384, 0
+    rng = np.random.default_rng(G * 100 + A * 10 + a_chunk)
+    rows = rng.random((G * A, W)).astype(np.float32)
+    if A >= 3:
+        rows[2::A] = rows[1::A]
+    q = np.zeros((A, W), np.float32)
+    for a in range(A):
+        for g in range(G):
+            q[a] = (q[a] + rows[g * A + a]).astype(np.float32)
+    best, al = _walk_k5(rows, G, A, 0, A)
+    assert np.array_equal(best, q.max(0)) and np.array_equal(al, q.argmax(0))
+    got = _reduce_k5(q, W, lo)
+    assert _reduce_best(best, al, W, lo) == got
+    j = int(np.argmax(q.max(0)))
+    assert got == [q.max(), j, int(q.argmax(0)[j])]
+    if A >= 3:
+        assert not (al == 2).any()
+    keys = []
+    for c0 in range(0, A, a_chunk):
+        b, ba = _walk_k5(rows, G, A, c0, min(A, c0 + a_chunk))
+        jj = int(np.argmax(b))
+        keys.append(_key(b[jj], jj, int(ba[jj]), lo))
+    w = max(keys)
+    assert ((w >> 32), 16383 - ((w >> 16) & 0xffff), 65535 - (w & 0xffff)) \
+        == (int(np.float32(got[0]).view(np.uint32)), got[1], got[2])
+
+
+def test_k5_batched_reduction_takes_the_lowest_lag_then_alignment():
+    """The planted ties of test_k5_reduction_takes_the_lowest_lag_then_
+    alignment walked by the batched core at 16384 (G = 1, A = 3), then
+    reduced on its threads: the lower lag across ranks, then alignment
+    1."""
+    from gnss_dsp_tpu_torch.ops.acquire_coh import BATCHED_W, spec_core_plan
+
+    W = BATCHED_W
+    _, n1, n2, C = spec_core_plan(W)
+    nr = -(-n1 // C)
+    last = (C - 1) * nr
+    for a_lag, b_lag in ((1, last + n1), (last, n1 + 1)):
+        per_row = np.full((3, W), 0.25, np.float32)
+        per_row[1:, [a_lag, b_lag]] = 2.0
+        per_row[0, [a_lag, b_lag]] = 1.0
+        best, al = _walk_k5(per_row, 1, 3, 0, 3)
+        for lo in (0, min(a_lag, b_lag) - 1):
+            assert _reduce_best(best, al, W, lo) == \
+                [2.0, min(a_lag, b_lag), 1]
+
+
+def _barrier_hazards(n_ctas, n_rows, bufs, barriers, seed):
+    """The yb protocol of a cluster of n_ctas CTAs under a random
+    schedule: row i writes each CTA's yb buffer i mod bufs, arrives at the
+    cluster barrier, waits for every CTA's arrival there, then reads every
+    CTA's buffer i mod bufs; with two barriers a row (surface_rows' order)
+    a CTA also arrives after its reads and waits for that arrival of every
+    CTA before its next write.  A wait passes once every CTA has made as
+    many arrivals.  Returns the writes that found a reader of the buffer's
+    last row not yet done: (writer, row, reader)."""
+    rng = np.random.default_rng(seed)
+    prog = []
+    for i in range(n_rows):
+        if barriers == 2 and i:
+            prog.append(("wait",))
+        prog += [("write", i), ("arrive",), ("wait",), ("read", i)]
+        if barriers == 2:
+            prog.append(("arrive",))
+    pc, arrived, waited = [0] * n_ctas, [0] * n_ctas, [0] * n_ctas
+    read = [[-1] * n_ctas for _ in range(n_ctas)]   # [reader][owner]
+    hazards = []
+    while min(pc) < len(prog):
+        ready = [c for c in range(n_ctas) if pc[c] < len(prog) and not (
+            prog[pc[c]][0] == "wait" and min(arrived) <= waited[c])]
+        c = int(rng.choice(ready))
+        op = prog[pc[c]]
+        if op[0] == "write":
+            hazards += [(c, op[1], q) for q in range(n_ctas)
+                        if op[1] >= bufs and read[q][c] < op[1] - bufs]
+        elif op[0] == "arrive":
+            arrived[c] += 1
+        elif op[0] == "wait":
+            waited[c] += 1
+        else:
+            for r in range(n_ctas):
+                read[c][r] = op[1]
+        pc[c] += 1
+    return hazards
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_k5_two_yb_buffers_need_one_barrier_a_row(seed):
+    """Under random schedules of 8 CTAs over 12 rows no CTA writes a yb
+    buffer before every reader of its last row there is done: two buffers
+    and one cluster barrier a row (the batched core), one buffer and two
+    (surface_rows, the ablation).  One buffer with one barrier a row loses
+    reads, and the check sees it."""
+    assert _barrier_hazards(8, 12, 2, 1, seed) == []
+    assert _barrier_hazards(8, 12, 1, 2, seed) == []
+    assert any(_barrier_hazards(8, 12, 1, 1, seed * 20 + s)
+               for s in range(20))

@@ -18,7 +18,9 @@ sums each group's blocks before the IDFT, its plain version after), K5
 at every window the coherent route sends it, two launches bit-equal, and
 an exact tie across ranks and alignments to the lowest lag, then the
 lowest alignment (K6 also across alignment chunks, whose merge is
-bit-equal to one cluster walking every alignment); K3
+bit-equal to one cluster walking every alignment; K5's batched core at
+16384 also across its two yb buffers, bit-equal to surface_rows' build
+there, each launch counted by core); K3
 and K4 equal to their plain version to one float32 ulp of the channel's
 largest sum (both sum exact float64 products and round once; a sum within
 2^-29 of a rounding tie may round the other way), two launches bit-equal,
@@ -519,7 +521,8 @@ def test_k5_cluster_keeps_the_lowest_alignment_on_a_tie(dev):
     the same rows, so their surfaces are equal at every lag and the
     kernel must report alignment 0, as _finalize_max does; the other
     cells as the plain version (idx and align exact on the plants, peak
-    rtol 1e-4), and the same at 4 CTAs a cluster."""
+    rtol 1e-4), and the same at 4 CTAs a cluster (the run-time core: 4
+    CTAs have no register build at 16384)."""
     from gnss_dsp_tpu_torch.ops import acquire_coh
 
     W, P, DC, A, G = 16384, 2, 3, 3, 2
@@ -548,6 +551,106 @@ def test_k5_cluster_keeps_the_lowest_alignment_on_a_tie(dev):
     got4 = acquire_coh.corr_surface_coh_spec(F2, code, A, cluster=4)
     for a, b in zip(got, got4):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+
+def _combined_rows(dev, code, F, c, s, sec_mat, G, A):
+    """K5's rows F2 [DC, G*A, W] combined from F as K6's combine does
+    (row g*A + a = sum_m conj(w[a, m]) F_m over the group's A blocks)."""
+    DC, B, W = F.shape
+    wc = sec_mat[None] * torch.complex(c, -s)[:, None, :]      # [DC, A, B]
+    return torch.einsum("dagm,dgmw->dgaw", wc.reshape(DC, A, G, A),
+                        F.reshape(DC, G, A, W)).reshape(DC, G * A, W)
+
+
+# K5's batched core at 16384: the b1i-weak cell's launch (63 PRNs x 51
+# dopplers x 2 groups of 20 alignments), GLONASS --coherent 8's (1 x 16 x
+# 10 groups, one alignment), 2 x 3 x 6 rows (A = 3, G = 2), nine rows (an
+# odd count: the last row in the first yb buffer) and n_valid
+K5_BATCHED = [(63, 51, 20, 2, 0), (1, 16, 1, 10, 0), (2, 3, 3, 2, 0),
+              (3, 4, 3, 3, 0), (4, 5, 3, 2, 9000)]
+
+
+@pytest.mark.parametrize("P,DC,A,G,n_valid", K5_BATCHED)
+def test_k5_batched_core_matches_plain(dev, P, DC, A, G, n_valid):
+    """The batched core (the card's plan: 8 CTAs) against the plain
+    version: idx and align exact on the plants, peak rtol 1e-4;
+    surface_rows' build at 16384 (the ablation, the other windows' core)
+    and a second launch bit-equal to it."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    W = acquire_coh.BATCHED_W
+    info = acquire_coh.spec_launch_info(W, dev.index or 0)
+    assert (info["core"], info["n1"], info["n2"], info["cluster"]) \
+        == ("split", 128, 128, 8)
+    # at A = 3 an overlay whose cyclic shifts differ (a constant one
+    # would tie every alignment)
+    code, F, c, s, sec_mat, plants = _coh_inputs(
+        dev, P, DC, G * A, W, A, n_valid, W + 7 * A + G,
+        sec=[1.0, 1.0, -1.0] if A == 3 else None)
+    F2 = _combined_rows(dev, code, F, c, s, sec_mat, G, A)
+    del F
+    got = acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid)
+    plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A, n_valid)
+    _check_planted(got, plain, plants, W, n_valid)
+    for other in (acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid,
+                                                    surface_rows=True),
+                  acquire_coh.corr_surface_coh_spec(F2, code, A, n_valid)):
+        for a, b in zip(got, other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("surface_rows", [False, True])
+@pytest.mark.parametrize("G,A", [(1, 3), (3, 3)])
+def test_k5_batched_tie_across_yb_buffers(dev, surface_rows, G, A):
+    """Alignments 1 and 2 hold the same rows, so their surfaces tie at
+    every lag, with a strong cell at lag 777: the batched core reports
+    alignment 1, as _finalize_max does, where the tied alignments' rows
+    pass through different yb buffers (at G = 1 alignment 1's row is in
+    the second buffer and 2's in the first; at G = 3 each one's groups
+    use both), and so does surface_rows' build (the ablation)."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+
+    W = acquire_coh.BATCHED_W
+    g = torch.Generator(device=dev).manual_seed(surface_rows * 10 + G)
+    code = torch.exp(2j * np.pi * torch.rand((2, W), generator=g, device=dev)
+                     ).to(torch.complex64)
+    F2 = torch.complex(torch.randn((2, G * A, W), generator=g, device=dev),
+                       torch.randn((2, G * A, W), generator=g, device=dev))
+    k = torch.arange(W, device=dev, dtype=torch.float64)
+    F2[1, 1::A] += (3.0 * code[0].to(torch.complex128)
+                    * torch.exp(2j * np.pi * k * 777 / W)).to(torch.complex64)
+    F2[:, 2::A] = F2[:, 1::A]
+    got = acquire_coh.corr_surface_coh_spec(F2, code, A,
+                                            surface_rows=surface_rows)
+    plain = acquire_coh.corr_surface_coh_spec_plain(F2, code, A)
+    assert (int(got[1][0, 1]), int(got[2][0, 1])) == (777, 1)
+    assert (int(plain[1][0, 1]), int(plain[2][0, 1])) == (777, 1)
+    assert not (got[2] == 2).any() and not (plain[2] == 2).any()
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=0)
+
+
+def test_k5_counts_each_launch_by_core(dev, tmp_path):
+    """Under a trace each K5 launch counts acq.k5.core.batched (the
+    batched core at 16384) or acq.k5.core.other (16384 on surface_rows'
+    build, the ablation, and on 4 CTAs, the run-time core; 8192 on
+    surface_rows)."""
+    from gnss_dsp_tpu_torch.ops import acquire_coh
+    from gnss_dsp_tpu_torch.utils import profiling
+
+    def rows(W):
+        return (torch.ones((1, W), dtype=torch.complex64, device=dev),
+                torch.ones((1, 2, W), dtype=torch.complex64, device=dev))
+
+    with profiling.trace(str(tmp_path)):
+        code, F2 = rows(16384)
+        acquire_coh.corr_surface_coh_spec(F2, code, 1)
+        acquire_coh.corr_surface_coh_spec(F2, code, 1, surface_rows=True)
+        acquire_coh.corr_surface_coh_spec(F2, code, 1, cluster=4)
+        code, F2 = rows(8192)
+        acquire_coh.corr_surface_coh_spec(F2, code, 2)
+    got = profiling.counts()
+    assert (got.get("acq.k5.core.batched"), got.get("acq.k5.core.other")) \
+        == (1, 3)
 
 
 # K5 at the windows the coherent route sends it past 16384, with and
